@@ -1,0 +1,426 @@
+"""ClusterSnapshot — dense-array encoding of one scheduling wave.
+
+Port of ``kubernetes_tpu/models/snapshot.py`` (the analog of the
+reference's per-cycle ``MapPodsToMachines`` pivot, pkg/scheduler/
+predicates.go:354-375): one host-side numpy pass encodes nodes, existing
+pods and the pending batch into fixed-shape arrays the batch solver
+consumes. Label selectors, host ports and GCE PD names are interned into
+small per-wave vocabularies, so every check is exact.
+
+Resource state mirrors predicates.go: a greedy-fitting usage plus an
+exceeded flag per node (CheckPodsExceedingCapacity :104-124) for the
+Filter, and the sum over ALL pods for LeastRequested scoring
+(priorities.go:41-75). Service spreading: per (namespace, first matching
+service) group counts by host, plus one overflow slot for unassigned or
+unknown hosts (spreading.go:62-68); the group axis pads to a power of two.
+
+This slice encodes the default provider policy. The policy extensions
+(label presence and preference, service affinity and anti-affinity) are
+ROADMAP work and are refused here; gang run ids and the preemption bands
+are still encoded, so the solver can recognise and refuse those waves.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from kubernetes_tpu_torch.api import types as api
+from kubernetes_tpu_torch.models import gang
+from kubernetes_tpu_torch.models import preempt as _preempt
+from kubernetes_tpu_torch.models.policy import (BatchPolicy,
+                                                DEFAULT_BATCH_POLICY)
+from kubernetes_tpu_torch.scheduler import predicates as _preds
+from kubernetes_tpu_torch.scheduler.generic import (
+    FNV64_OFFSET,
+    FNV64_PRIME,
+    pod_tie_break_key,
+)
+
+__all__ = ["ClusterSnapshot", "encode_snapshot", "greedy_fit_accumulators"]
+
+
+def _fnv1a64_batch(keys: List[str]) -> np.ndarray:
+    """Vectorized FNV-1a-64 over a batch of strings (same results as
+    scheduler.generic.fnv1a64): the per-byte chain runs over the longest
+    key, a dozen numpy passes over [P] instead of P Python loops."""
+    if not keys:
+        return np.zeros(0, np.uint64)
+    bs = [k.encode("utf-8") for k in keys]
+    maxlen = max(len(b) for b in bs)
+    if maxlen == 0:
+        return np.full(len(bs), FNV64_OFFSET, np.uint64)
+    buf = np.frombuffer(b"".join(b.ljust(maxlen, b"\0") for b in bs),
+                        np.uint8).reshape(len(bs), maxlen)
+    lens = np.array([len(b) for b in bs])
+    h = np.full(len(bs), FNV64_OFFSET, np.uint64)
+    prime = np.uint64(FNV64_PRIME)
+    for c in range(maxlen):
+        nh = (h ^ buf[:, c].astype(np.uint64)) * prime  # wraps mod 2^64
+        h = np.where(c < lens, nh, h)
+    return h
+
+
+def greedy_fit_accumulators(cap: np.ndarray, score_used: np.ndarray,
+                            pods_in_order) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy Filter accumulators (CheckPodsExceedingCapacity :104-124):
+    when a node's total existing usage fits its capacity every prefix fit
+    too, so only the overflowing nodes walk ``pods_in_order`` — an
+    iterable of (host_idx, req_vec[R]) in existing-list order. cpu and
+    memory are unconstrained at zero capacity; other dims are strict."""
+    N, R = cap.shape
+    fit_used = score_used.copy()
+    fit_exceeded = np.zeros(N, bool)
+    is_core = np.arange(R) < 2
+    unconstrained = (cap == 0) & is_core[None, :]
+    all_fit = (unconstrained | (score_used <= cap)).all(axis=1)
+    if not all_fit.all():
+        slow = set(np.nonzero(~all_fit)[0].tolist())
+        per_host: Dict[int, np.ndarray] = {
+            i: np.zeros(R, np.int64) for i in slow}
+        for i, e_req in pods_in_order:
+            i = int(i)
+            if i not in per_host:
+                continue
+            used = per_host[i]
+            if bool((unconstrained[i] | (cap[i] - used >= e_req)).all()):
+                per_host[i] = used + e_req
+            else:
+                fit_exceeded[i] = True
+        for i, used in per_host.items():
+            fit_used[i] = used
+    return fit_used, fit_exceeded
+
+
+def _pow2_pad(n: int, minimum: int = 8) -> int:
+    """Next power of two >= max(n, minimum)."""
+    out = minimum
+    while out < n:
+        out *= 2
+    return out
+
+
+@dataclass
+class ClusterSnapshot:
+    """All arrays are numpy; the solver moves them to the device."""
+
+    node_names: List[str]
+    # [N, R] planes; resource_names[0:2] is [cpu, memory], then the
+    # node-advertised extras, then request-only dims. ``advertised`` is
+    # capacity-key PRESENCE (a zero-quantity advertisement still widens
+    # the LeastRequested divisor).
+    resource_names: List[str]
+    cap: np.ndarray              # [N, R] i64 (cpu in milli-units)
+    advertised: np.ndarray       # [N, R] bool
+    fit_used: np.ndarray         # [N, R] i64 greedy-fitting usage (Filter)
+    fit_exceeded: np.ndarray     # [N] bool — an existing pod didn't fit
+    score_used: np.ndarray       # [N, R] i64 all-pods usage (Score)
+    node_ports: np.ndarray       # [N, K] bool
+    node_sel: np.ndarray         # [N, K2] bool — node has (key,value) label
+    node_pds: np.ndarray         # [N, K3] bool
+    node_extra_ok: np.ndarray    # [N] bool — cordon + caller mask
+    pod_names: List[str]
+    req: np.ndarray              # [P, R] i64
+    pod_ports: np.ndarray        # [P, K] bool
+    pod_sel: np.ndarray          # [P, K2] bool — required (key,value) pairs
+    pod_pds: np.ndarray          # [P, K3] bool
+    pod_host_idx: np.ndarray     # [P] i32: -1 unset, -2 host not in list
+    tie_hi: np.ndarray           # [P] i64 — fnv1a64(pod key) >> 32
+    tie_lo: np.ndarray           # [P] i64 — fnv1a64(pod key) & 0xffffffff
+    pod_gid: np.ndarray          # [P] i32, -1 = no service
+    pod_group_member: np.ndarray  # [P, G] bool
+    group_counts: np.ndarray     # [G, N+1] i32 (slot N: unassigned hosts)
+    pod_rid: np.ndarray = None        # [P] i32 gang run id, -1 singleton
+    pod_run_start: np.ndarray = None  # [P] bool
+    pod_prio: np.ndarray = None       # [P] i32 resolved priorities
+    pod_can_preempt: np.ndarray = None  # [P] bool
+    band_prio: np.ndarray = None      # [B] i32, BAND_EMPTY padded
+    evict_cap: np.ndarray = None      # [N, B, R] i64
+    evict_cnt: np.ndarray = None      # [N, B] i32
+    policy: BatchPolicy = field(default_factory=lambda: DEFAULT_BATCH_POLICY)
+
+    @property
+    def has_gangs(self) -> bool:
+        return self.pod_rid is not None and bool((self.pod_rid >= 0).any())
+
+
+def encode_snapshot(nodes: Sequence[api.Node],
+                    existing_pods: Sequence[api.Pod],
+                    pending_pods: Sequence[api.Pod],
+                    services: Sequence[api.Service] = (),
+                    node_extra_ok: Optional[np.ndarray] = None,
+                    policy: Optional[BatchPolicy] = None) -> ClusterSnapshot:
+    """Encode one scheduling wave. Node order defines the tie-break order
+    and must match what the serial oracle sees."""
+    policy = policy or DEFAULT_BATCH_POLICY
+    if policy.extensions:
+        raise NotImplementedError(
+            f"policy plugins {list(policy.extensions)} are not ported yet "
+            f"(ROADMAP Queue 1: policy breadth)")
+    N, P, E = len(nodes), len(pending_pods), len(existing_pods)
+    node_index = {n.metadata.name: i for i, n in enumerate(nodes)}
+
+    # -- capacities: R-dimensional planes -----------------------------------
+    # scored dims (cpu, memory, node-advertised extras) first; dims only
+    # requested by pods are appended: they constrain but never score
+    scored = _preds.resource_universe(nodes)
+    seen = set(scored)
+    request_only: List[str] = []
+    CPU = api.ResourceCPU
+
+    def container_rows(pods):
+        # one traversal extracts each pod's (resource, value) rows and
+        # host ports, and collects the request-only dims
+        limits, ports = [], []
+        for p in pods:
+            lr, pr = [], []
+            for c in p.spec.containers:
+                for name, q in c.resources.limits.items():
+                    lr.append((name, q.milli_value() if name == CPU
+                               else q.int_value()))
+                    if name not in seen:
+                        seen.add(name)
+                        request_only.append(name)
+                for cp in c.ports:
+                    if cp.host_port:
+                        pr.append(cp.host_port)
+            limits.append(lr)
+            ports.append(pr)
+        return limits, ports
+
+    pend_limits, pend_ports = container_rows(pending_pods)
+    exist_limits, exist_ports = container_rows(existing_pods)
+    resource_names = scored + sorted(request_only)
+    R = len(resource_names)
+    rindex = {name: r for r, name in enumerate(resource_names)}
+    cap = np.zeros((N, R), np.int64)
+    advertised = np.zeros((N, R), bool)
+    for i, n in enumerate(nodes):
+        for name, q in (n.spec.capacity or {}).items():
+            r = rindex.get(name)
+            if r is not None:
+                cap[i, r] = _preds.resource_value(name, q)
+                advertised[i, r] = True
+
+    # -- service selector vocabulary ----------------------------------------
+    services = list(services)
+    S = len(services)
+    svc_vocab: Dict[Tuple[str, str], int] = {}
+    ns_codes: Dict[str, int] = {}
+
+    def intern(vocab, key):
+        if key not in vocab:
+            vocab[key] = len(vocab)
+        return vocab[key]
+
+    sv_ij: List[Tuple[int, int]] = []
+    for si, s in enumerate(services):
+        for kv in (s.spec.selector or {}).items():
+            sv_ij.append((si, intern(svc_vocab, kv)))
+
+    # -- pending pods: one Python pass pulls every field --------------------
+    port_vocab: Dict[int, int] = {}
+    sel_vocab: Dict[Tuple[str, str], int] = {}
+    pd_vocab: Dict[str, int] = {}
+
+    req = np.zeros((P, R), np.int64)
+    pod_host_idx = np.full(P, -1, np.int32)
+    pod_prio = np.zeros(P, np.int32)
+    pod_can_preempt = np.ones(P, bool)
+    pod_names: List[str] = []
+    pp_ij: List[Tuple[int, int]] = []   # (pod, port-vocab)
+    ps_ij: List[Tuple[int, int]] = []   # (pod, selector-vocab)
+    pg_ij: List[Tuple[int, int]] = []   # (pod, pd-vocab)
+    pf_ij: List[Tuple[int, int]] = []   # (pod, service-selector-vocab)
+    pod_ns = np.zeros(P, np.int32)
+    for j, p in enumerate(pending_pods):
+        meta, spec = p.metadata, p.spec
+        pod_names.append(f"{meta.namespace}/{meta.name}")
+        pod_ns[j] = intern(ns_codes, meta.namespace)
+        for kv in (meta.labels or {}).items():
+            t = svc_vocab.get(kv)
+            if t is not None:
+                pf_ij.append((j, t))
+        for name, val in pend_limits[j]:
+            req[j, rindex[name]] += val
+        for hp in pend_ports[j]:
+            pp_ij.append((j, intern(port_vocab, hp)))
+        for kv in (spec.node_selector or {}).items():
+            ps_ij.append((j, intern(sel_vocab, kv)))
+        for v in spec.volumes:
+            if v.source.gce_persistent_disk is not None:
+                pg_ij.append((j, intern(pd_vocab,
+                                        v.source.gce_persistent_disk.pd_name)))
+        if spec.host:
+            pod_host_idx[j] = node_index.get(spec.host, -2)
+        pod_prio[j] = api.pod_priority(p)
+        pod_can_preempt[j] = api.pod_can_preempt(p)
+    pod_rid, pod_run_start = gang.pod_run_ids(pending_pods)
+    tie = _fnv1a64_batch([pod_tie_break_key(p) for p in pending_pods])
+    tie_hi = (tie >> np.uint64(32)).astype(np.int64)
+    tie_lo = (tie & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+    # pow-2 buckets on every vocabulary axis
+    K = _pow2_pad(len(port_vocab))
+    K2 = _pow2_pad(len(sel_vocab))
+    K3 = _pow2_pad(len(pd_vocab))
+
+    def scatter_true(pairs, rows, cols) -> np.ndarray:
+        out = np.zeros((rows, cols), bool)
+        if pairs:
+            idx = np.asarray(pairs, np.int64)
+            out[idx[:, 0], idx[:, 1]] = True
+        return out
+
+    pod_ports = scatter_true(pp_ij, P, K)
+    pod_sel = scatter_true(ps_ij, P, K2)
+    pod_pds = scatter_true(pg_ij, P, K3)
+
+    node_sel = np.zeros((N, K2), bool)
+    for i, n in enumerate(nodes):
+        for kv in (n.metadata.labels or {}).items():
+            k = sel_vocab.get(kv)
+            if k is not None:
+                node_sel[i, k] = True
+
+    # -- existing pods: one Python pass, then bulk accumulation -------------
+    e_host = np.full(E, N, np.int64)      # N = unknown/unassigned slot
+    e_req = np.zeros((E, R), np.int64)
+    e_prio = np.zeros(E, np.int32)
+    np_ij: List[Tuple[int, int]] = []     # (node, port-vocab)
+    nd_ij: List[Tuple[int, int]] = []     # (node, pd-vocab)
+    ef_ij: List[Tuple[int, int]] = []     # (pod, service-selector-vocab)
+    e_ns = np.full(E, -9, np.int32)       # unseen namespaces can't match
+    for e, p in enumerate(existing_pods):
+        meta = p.metadata
+        code = ns_codes.get(meta.namespace)
+        if code is not None:
+            e_ns[e] = code
+        for kv in (meta.labels or {}).items():
+            t = svc_vocab.get(kv)
+            if t is not None:
+                ef_ij.append((e, t))
+        i = node_index.get(p.status.host, -1)
+        e_prio[e] = api.pod_priority(p)
+        for name, val in exist_limits[e]:
+            e_req[e, rindex[name]] += val
+        if i < 0:
+            continue
+        for hp in exist_ports[e]:
+            k = port_vocab.get(hp)
+            if k is not None:
+                np_ij.append((i, k))
+        e_host[e] = i
+        for v in p.spec.volumes:
+            if v.source.gce_persistent_disk is not None:
+                k = pd_vocab.get(v.source.gce_persistent_disk.pd_name)
+                if k is not None:
+                    nd_ij.append((i, k))
+
+    node_ports = scatter_true(np_ij, N, K)
+    node_pds = scatter_true(nd_ij, N, K3)
+
+    on_node = e_host < N
+    score_used = np.zeros((N, R), np.int64)
+    np.add.at(score_used, e_host[on_node], e_req[on_node])
+
+    fit_used, fit_exceeded = greedy_fit_accumulators(
+        cap, score_used, zip(e_host.tolist(), e_req))
+
+    # -- preemption emit gate: bands ship only when some pending pod sits
+    # strictly above some resident priority
+    band_vals = sorted({int(v) for v, on in zip(e_prio, on_node) if on})
+    if band_vals and P and \
+            int(pod_prio.max(initial=-(2**31))) > band_vals[0]:
+        B = _pow2_pad(len(band_vals), minimum=2)
+        band_prio = np.full(B, _preempt.BAND_EMPTY, np.int32)
+        band_prio[:len(band_vals)] = band_vals
+        evict_cap, evict_cnt = _preempt.derive_evict_planes(
+            e_host, e_prio, e_req, band_prio, N)
+    else:
+        band_prio = np.zeros(0, np.int32)
+        evict_cap = np.zeros((N, 0, R), np.int64)
+        evict_cnt = np.zeros((N, 0), np.int32)
+
+    # -- service groups ----------------------------------------------------
+    # group = (namespace, FIRST service whose selector matches the pod),
+    # ServiceSpread's "just use the first service" (spreading.go:44);
+    # membership of any pod is same namespace + selector match
+    T = max(1, len(svc_vocab))
+    svc_req = (scatter_true(sv_ij, max(1, S), T)[:S] if S
+               else np.zeros((0, T), bool))
+    req_cnt = svc_req.sum(axis=1).astype(np.int32)            # [S]
+    svc_ns = np.array([(intern(ns_codes, s.metadata.namespace)
+                        if s.metadata.namespace else -1) for s in services],
+                      np.int32) if S else np.zeros(0, np.int32)
+
+    def feat_matrix(pairs, rows) -> np.ndarray:
+        out = np.zeros((max(1, rows), T), np.float32)
+        if pairs:
+            idx = np.asarray(pairs, np.int64)
+            out[idx[:, 0], idx[:, 1]] = 1.0
+        return out[:rows]
+
+    group_ids: Dict[Tuple[int, int], int] = {}   # (ns_code, svc_idx) -> gid
+    pod_gid = np.full(P, -1, np.int32)
+    if S and P:
+        hits = feat_matrix(pf_ij, P) @ svc_req.astype(np.float32).T  # [P, S]
+        subset_pending = hits == req_cnt[None, :]
+        eligible = subset_pending & (req_cnt[None, :] > 0) & \
+            ((svc_ns[None, :] == -1) | (svc_ns[None, :] == pod_ns[:, None]))
+        has_svc = eligible.any(axis=1)
+        first_svc = np.argmax(eligible, axis=1)
+        for j in np.nonzero(has_svc)[0]:
+            key = (int(pod_ns[j]), int(first_svc[j]))
+            if key not in group_ids:
+                group_ids[key] = len(group_ids)
+            pod_gid[j] = group_ids[key]
+
+    G_real = len(group_ids)
+    G = _pow2_pad(max(1, G_real))
+    group_counts = np.zeros((G, N + 1), np.int32)
+    pod_group_member = np.zeros((P, G), bool)
+    if group_ids:
+        g_ns = np.array([k[0] for k in group_ids], np.int32)     # [G_real]
+        g_si = np.array([k[1] for k in group_ids], np.int64)
+        pod_group_member[:, :G_real] = subset_pending[:, g_si] & \
+            (pod_ns[:, None] == g_ns[None, :])
+        if E:
+            e_hits = feat_matrix(ef_ij, E) @ svc_req.astype(np.float32).T
+            member_exist = (e_hits == req_cnt[None, :])[:, g_si] & \
+                (e_ns[:, None] == g_ns[None, :])                 # [E, G_real]
+            for g in range(G_real):
+                mask = member_exist[:, g]
+                if mask.any():
+                    group_counts[g, :] = np.bincount(
+                        e_host[mask], minlength=N + 1).astype(np.int32)
+
+    # cordon: spec.unschedulable is structural (the always-on Schedulable
+    # predicate), folded into the static node mask
+    extra_ok = (node_extra_ok.copy() if node_extra_ok is not None
+                else np.ones(N, bool))
+    for i, n in enumerate(nodes):
+        if n.spec.unschedulable:
+            extra_ok[i] = False
+
+    return ClusterSnapshot(
+        node_names=[n.metadata.name for n in nodes],
+        resource_names=resource_names,
+        cap=cap, advertised=advertised,
+        fit_used=fit_used, fit_exceeded=fit_exceeded,
+        score_used=score_used,
+        node_ports=node_ports, node_sel=node_sel, node_pds=node_pds,
+        node_extra_ok=extra_ok,
+        pod_names=pod_names,
+        req=req,
+        pod_ports=pod_ports, pod_sel=pod_sel, pod_pds=pod_pds,
+        pod_host_idx=pod_host_idx, tie_hi=tie_hi, tie_lo=tie_lo,
+        pod_gid=pod_gid, pod_group_member=pod_group_member,
+        group_counts=group_counts,
+        pod_rid=pod_rid, pod_run_start=pod_run_start,
+        pod_prio=pod_prio, pod_can_preempt=pod_can_preempt,
+        band_prio=band_prio, evict_cap=evict_cap, evict_cnt=evict_cnt,
+        policy=policy,
+    )

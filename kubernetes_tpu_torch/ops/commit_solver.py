@@ -1,0 +1,346 @@
+"""The sequential-commit wave solve: prolog, CUDA kernel wrapper, plain
+version.
+
+Counterpart of ``kubernetes_tpu/ops/pallas_solver.py`` (the JAX package's
+only Pallas kernel, ``_solve_pallas_x32`` at :772), at default-policy scope.
+
+- ``eligible`` is the kernel's domain, as the reference's (:90-157).
+- ``prepare`` is the prolog (:599-733): the static feasibility mask (node
+  selector, host pin, cordon) and the per-pod and per-node planes, as torch
+  ops on the wave's device. It is not a kernel: the selector-violation
+  product is a float32 ``torch.matmul``, as in the reference it was an XLA
+  matmul outside the Pallas kernel, and runs with TF32 off so every count
+  (a sum of 0/1 products, far below 2^24) is exact.
+- ``solve_commit`` is the wrapper of the CUDA kernel
+  (``csrc/commit_solve.cu``): on a CUDA tensor it launches the kernel or
+  raises; on a CPU tensor it runs ``solve_commit_reference``, the plain
+  version, a per-pod loop of torch ops built on ``ops/kernels``.
+  ``solve_commit.launches`` counts kernel launches.
+- ``spread_eval`` runs the kernel's spread-score device function over
+  arrays of (total, count), for checking it exhaustively on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from kubernetes_tpu_torch.models.policy import BatchPolicy
+from kubernetes_tpu_torch.ops import build
+from kubernetes_tpu_torch.ops.kernels import (
+    calculate_score,
+    masked_top_count,
+    select_kth_true,
+    spread_score,
+    u64_mod_small,
+)
+
+__all__ = ["CommitInputs", "eligible", "prepare", "solve_commit",
+           "solve_commit_reference", "spread_eval", "MAX_N"]
+
+NEG = -1
+MAX_R = 8
+MAX_W = 8
+MAX_G = 31           # member bitmask must fit a non-negative int32
+MAX_N = 32640        # the reference's domain (counts below 2^15); the
+                     # kernel itself takes N <= 1024 * 32
+MAX_COUNT = 1 << 15
+
+# the kernel's policy flags (csrc/commit_solve.cu kUse*)
+_USE_RESOURCES, _USE_PORTS, _USE_DISK = 1, 2, 4
+
+
+class CommitInputs(NamedTuple):
+    """One wave, laid out for the kernel. Node planes are [axis, N]; port
+    and PD words are uint32 carried as int32 bit patterns."""
+
+    smask: torch.Tensor       # [P, N] uint8 static feasibility
+    podrow: Optional[torch.Tensor]  # [P, R+Wp+Wd+5] int32; None if G > 31
+    cap: torch.Tensor         # [R, N] int32
+    fit0: torch.Tensor        # [R, N] int32 greedy-fitting usage
+    score0: torch.Tensor      # [R, N] int32 all-pods usage
+    advx: torch.Tensor        # [R, N] uint8 capacity key advertised
+    fitexc: torch.Tensor      # [N] uint8 pre-exceeded node
+    ports0: torch.Tensor      # [Wp, N] int32
+    pds0: torch.Tensor        # [Wd, N] int32
+    counts0: torch.Tensor     # [G, N] int32 service peers per node
+    offl: torch.Tensor        # [G] int32 peers on no listed node
+    req: torch.Tensor         # [P, R] int32
+    pod_ports: torch.Tensor   # [P, Wp] int32
+    pod_pds: torch.Tensor     # [P, Wd] int32
+    tie_hi: torch.Tensor      # [P] int64, 0 <= v < 2^32
+    tie_lo: torch.Tensor      # [P] int64
+    gid: torch.Tensor         # [P] int64, -1 = no service
+    member: torch.Tensor      # [P, G] bool
+    zreq: torch.Tensor        # [P] bool — requests zero of everything
+    flags: int                # _USE_* bits
+    w_lr: int
+    w_spread: int
+    w_equal: int
+
+
+def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
+    """True when the wave is in the kernel's domain — the reference's
+    (pallas_solver.eligible) at default-policy scope, minus its TPU memory
+    budget. ``inp`` is a SolverInputs of tensors; ``peer_bound`` the
+    largest initial per-group peer total (batch_solver.peer_bound_of)."""
+    if pol is None or pol.all_infeasible or pol.extensions:
+        return False
+    if inp.cap.dtype != torch.int32:
+        return False
+    N, R = inp.cap.shape
+    G = inp.group_counts.shape[0]
+    if not (R <= MAX_R and inp.node_ports.shape[1] <= MAX_W
+            and inp.node_pds.shape[1] <= MAX_W and G <= MAX_G
+            and N <= MAX_N):
+        return False
+    # spread totals stay below 2^15: initial peers plus every wave commit
+    return peer_bound + inp.req.shape[0] < MAX_COUNT
+
+
+def _u32_as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def prepare(inp, pol: BatchPolicy) -> CommitInputs:
+    """The prolog: SolverInputs (tensors on one device) -> CommitInputs on
+    the same device."""
+    N, R = inp.cap.shape
+    P = inp.req.shape[0]
+    dev = inp.cap.device
+    static = inp.node_extra_ok[None, :].expand(P, N)
+    if pol.use_selector:
+        # required (key, value) pairs the node lacks; exact in float32
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            violations = torch.matmul(inp.pod_sel.to(torch.float32),
+                                      (~inp.node_sel).to(torch.float32).T)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        static = static & (violations == 0)
+    if pol.use_host:
+        host = inp.pod_host_idx.to(torch.int64)[:, None]
+        static = static & ((host == -1) | (host == torch.arange(
+            N, device=dev)[None, :]))
+    G = inp.group_counts.shape[0]
+    req = inp.req.to(torch.int32)
+    tie_hi = inp.tie_hi.to(torch.int64)
+    tie_lo = inp.tie_lo.to(torch.int64)
+    gid = inp.pod_gid.to(torch.int64)
+    member = inp.pod_group_member.to(torch.bool)
+    zreq = (inp.req == 0).all(dim=1)
+    podrow = None
+    if G <= MAX_G:
+        bits = (member.to(torch.int64) << torch.arange(
+            G, device=dev)[None, :]).sum(dim=1)
+        podrow = torch.cat([
+            req, inp.pod_ports, inp.pod_pds,
+            _u32_as_i32(tie_hi)[:, None], _u32_as_i32(tie_lo)[:, None],
+            gid.to(torch.int32)[:, None], bits.to(torch.int32)[:, None],
+            zreq.to(torch.int32)[:, None]], dim=1).contiguous()
+    flags = ((_USE_RESOURCES if pol.use_resources else 0)
+             | (_USE_PORTS if pol.use_ports else 0)
+             | (_USE_DISK if pol.use_disk else 0))
+    return CommitInputs(
+        smask=static.to(torch.uint8).contiguous(),
+        podrow=podrow,
+        cap=inp.cap.T.to(torch.int32).contiguous(),
+        fit0=inp.fit_used.T.to(torch.int32).contiguous(),
+        score0=inp.score_used.T.to(torch.int32).contiguous(),
+        advx=inp.advertises.T.to(torch.uint8).contiguous(),
+        fitexc=inp.fit_exceeded.to(torch.uint8).contiguous(),
+        ports0=inp.node_ports.T.contiguous(),
+        pds0=inp.node_pds.T.contiguous(),
+        counts0=inp.group_counts[:, :N].to(torch.int32).contiguous(),
+        offl=inp.group_counts[:, N].to(torch.int32).contiguous(),
+        req=req.contiguous(),
+        pod_ports=inp.pod_ports.contiguous(),
+        pod_pds=inp.pod_pds.contiguous(),
+        tie_hi=tie_hi, tie_lo=tie_lo, gid=gid, member=member, zreq=zreq,
+        flags=flags, w_lr=int(pol.w_lr), w_spread=int(pol.w_spread),
+        w_equal=int(pol.w_equal))
+
+
+def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
+    """The plain version: the same (chosen[P], win[P]) int32 as the kernel,
+    one pod at a time in torch ops on the inputs' device, with no host
+    synchronisation inside the loop. ``stats``, when given, receives
+    ``feasible``: the number of feasible nodes per pod (int64 [P])."""
+    P, N = ci.smask.shape
+    R = ci.cap.shape[0]
+    dev = ci.cap.device
+    fit, score_used = ci.fit0.clone(), ci.score0.clone()
+    ports, pds, counts = ci.ports0.clone(), ci.pds0.clone(), ci.counts0.clone()
+    dims = torch.arange(R, device=dev)[:, None]
+    unconstrained = (ci.cap == 0) & (dims < 2)            # [R, N]
+    adv_extra = (ci.advx != 0) & (dims >= 2)              # [R, N]
+    fitexc = ci.fitexc != 0
+    chosen = torch.full((P,), NEG, dtype=torch.int32, device=dev)
+    win = torch.full((P,), NEG, dtype=torch.int32, device=dev)
+    feasible_count = torch.zeros(P, dtype=torch.int64, device=dev)
+    if stats is not None:
+        stats["feasible"] = feasible_count
+    if N == 0:
+        return chosen, win
+    ten = torch.full((N,), 10, dtype=torch.int32, device=dev)
+    for p in range(P):
+        req = ci.req[p]
+        feasible = ci.smask[p] != 0
+        if ci.flags & _USE_PORTS:
+            feasible = feasible & ~((ports & ci.pod_ports[p][:, None]) != 0
+                                    ).any(dim=0)
+        if ci.flags & _USE_DISK:
+            feasible = feasible & ~((pds & ci.pod_pds[p][:, None]) != 0
+                                    ).any(dim=0)
+        if ci.flags & _USE_RESOURCES:
+            res_ok = (unconstrained | (ci.cap - fit >= req[:, None])).all(0)
+            feasible = feasible & (ci.zreq[p] | (~fitexc & res_ok))
+        score = torch.zeros(N, dtype=torch.int32, device=dev)
+        if ci.w_lr:
+            n_dyn = 2 + (adv_extra & feasible[None, :]).any(dim=1).sum()
+            raw = calculate_score(score_used + req[:, None], ci.cap).sum(0)
+            lr = torch.div(raw, n_dyn, rounding_mode="floor")
+            score = score + (lr * ci.w_lr).to(torch.int32)
+        if ci.w_spread:
+            g = ci.gid[p]
+            safe_g = g.clamp_min(0)
+            row = counts[safe_g]
+            max_count = torch.maximum(row.max(), ci.offl[safe_g])
+            spread = torch.where(g >= 0, spread_score(max_count, row), ten)
+            score = score + spread * ci.w_spread
+        if ci.w_equal:
+            score = score + ci.w_equal
+        masked = torch.where(feasible, score, torch.full_like(score, NEG))
+        top, any_f, best, cnt = masked_top_count(masked, NEG)
+        best = best & feasible
+        k = u64_mod_small(ci.tie_hi[p], ci.tie_lo[p], cnt)
+        pick = select_kth_true(best, k)
+        chosen[p] = torch.where(any_f, pick, torch.full_like(pick, NEG))
+        win[p] = torch.where(any_f, top, torch.full_like(top, NEG))
+        if stats is not None:
+            feasible_count[p] = feasible.sum()
+        # commit the chosen row (an unplaced pod adds zeros at row 0)
+        at = pick.to(torch.int64).view(1)
+        placed = any_f.to(torch.int32)
+        delta = (req * placed)[:, None]
+        fit.index_add_(1, at, delta)
+        score_used.index_add_(1, at, delta)
+        ports.index_copy_(1, at, ports.index_select(1, at)
+                          | (ci.pod_ports[p] * placed)[:, None])
+        pds.index_copy_(1, at, pds.index_select(1, at)
+                        | (ci.pod_pds[p] * placed)[:, None])
+        counts.index_add_(1, at, (ci.member[p].to(torch.int32)
+                                  * placed)[:, None])
+    return chosen, win
+
+
+_SIGNATURES = {
+    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 18
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
+                         + [ctypes.c_longlong, ctypes.c_void_p]),
+    "kgpu_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("commit_solve", _SIGNATURES)
+
+
+def _check_launch(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} launch failed: {lib.kgpu_error_string(rc).decode()}")
+
+
+def _check(ci: CommitInputs) -> None:
+    P, N = ci.smask.shape
+    R = ci.cap.shape[0]
+    Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
+    dev = ci.smask.device
+    want = {
+        "smask": (torch.uint8, (P, N)), "cap": (torch.int32, (R, N)),
+        "fit0": (torch.int32, (R, N)), "score0": (torch.int32, (R, N)),
+        "advx": (torch.uint8, (R, N)), "fitexc": (torch.uint8, (N,)),
+        "ports0": (torch.int32, (Wp, N)), "pds0": (torch.int32, (Wd, N)),
+        "counts0": (torch.int32, (G, N)), "offl": (torch.int32, (G,)),
+        "req": (torch.int32, (P, R)), "pod_ports": (torch.int32, (P, Wp)),
+        "pod_pds": (torch.int32, (P, Wd)), "tie_hi": (torch.int64, (P,)),
+        "tie_lo": (torch.int64, (P,)), "gid": (torch.int64, (P,)),
+        "member": (torch.bool, (P, G)), "zreq": (torch.bool, (P,)),
+    }
+    if ci.podrow is not None:
+        want["podrow"] = (torch.int32, (P, R + Wp + Wd + 5))
+    for name, (dtype, shape) in want.items():
+        t = getattr(ci, name)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"CommitInputs.{name}: want {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"CommitInputs.{name} is on {t.device}, "
+                             f"the wave on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"CommitInputs.{name} is not contiguous")
+
+
+def solve_commit(ci: CommitInputs):
+    """Solve one wave -> (chosen[P], win[P]) int32: chosen node index or -1,
+    the winning score or -1. A CUDA wave launches the kernel (or raises); a
+    CPU wave runs the plain version."""
+    _check(ci)
+    dev = ci.smask.device
+    if dev.type == "cpu":
+        return solve_commit_reference(ci)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_commit runs on cuda or cpu, not {dev}")
+    P, N = ci.smask.shape
+    R = ci.cap.shape[0]
+    Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
+    if (ci.podrow is None or N > MAX_N or R > MAX_R or Wp > MAX_W
+            or Wd > MAX_W or G > MAX_G):
+        raise ValueError(
+            f"wave outside the kernel's domain (N={N} R={R} Wp={Wp} "
+            f"Wd={Wd} G={G}); dispatch it with eligible()")
+    lib = _lib()
+    fit, score_used = torch.empty_like(ci.fit0), torch.empty_like(ci.score0)
+    ports, pds = torch.empty_like(ci.ports0), torch.empty_like(ci.pds0)
+    counts = torch.empty_like(ci.counts0)
+    chosen = torch.empty(P, dtype=torch.int32, device=dev)
+    win = torch.empty(P, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (
+        ci.smask, ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc,
+        ci.ports0, ci.pds0, ci.counts0, ci.offl, fit, score_used, ports, pds,
+        counts, chosen, win)]
+    rc = lib.kgpu_commit_solve(*ptrs, P, N, R, Wp, Wd, G, R + Wp + Wd + 5,
+                               ci.flags, ci.w_lr, ci.w_spread, ci.w_equal,
+                               stream)
+    _check_launch(lib, rc, "commit_solve")
+    solve_commit.launches += 1
+    return chosen, win
+
+
+solve_commit.launches = 0
+
+
+def spread_eval(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The kernel's spread-score device function over int32 CUDA tensors
+    of (total, count) pairs -> int32 scores."""
+    if total.device.type != "cuda" or count.device != total.device:
+        raise ValueError("spread_eval runs on CUDA tensors only")
+    if total.dtype != torch.int32 or count.dtype != torch.int32 \
+            or total.shape != count.shape or not total.is_contiguous() \
+            or not count.is_contiguous():
+        raise ValueError("spread_eval takes contiguous int32 tensors of one "
+                         "shape")
+    lib = _lib()
+    out = torch.empty_like(total)
+    stream = torch.cuda.current_stream(total.device).cuda_stream
+    rc = lib.kgpu_spread_eval(total.data_ptr(), count.data_ptr(),
+                              out.data_ptr(), total.numel(), stream)
+    _check_launch(lib, rc, "spread_eval")
+    return out
