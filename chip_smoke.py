@@ -4,20 +4,33 @@
 Drives the port's main path — one scheduling wave: API objects ->
 encode_snapshot -> solve (the hand-written CUDA commit_solve kernel) ->
 decisions_to_names — on one NVIDIA GPU at the benchmark's north-star
-width (5,000 nodes x 10,000 pending pods, default provider policy), and
-holds the kernel against its plain PyTorch version. Phases:
+width (5,000 nodes x 10,000 pending pods, default provider policy), then
+the benchmark's ``affinity`` and ``gang`` waves at full width, and holds
+the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
-2. build the CUDA sources with nvcc;
+2. build the CUDA sources with nvcc, and report ptxas' registers, stack
+   and spills for each of the kernel's branch-set instances;
 3. the kernel's spread-score device function against the plain int64
    version over every 0 <= count <= total < 2^15;
 4. seeded small waves (ports, PDs, selectors, host pins, cordons,
    unschedulable pods, a third resource with a zero-quantity
    advertisement): kernel == plain version, bit for bit;
+4b. seeded waves with every policy extension — zone anti-affinity on one
+   and two labels with unlabeled nodes, service affinity on one and two
+   labels with and without existing peers and with an anchor on an
+   unknown host, label preferences, label presence, gangs that
+   oversubscribe on purpose, gangs with affinity and with anti-affinity,
+   and the kitchen sink: kernel == plain version, bit for bit; fails
+   unless some gang run was rolled back;
 5. north_star through ``solve``: exactly one kernel launch, decisions and
    scores bit-identical to the plain version, every pod bound; kernel
    time (median of CUDA-event timed runs), plain time, encode and wave
    seconds, pods/s;
+5b. affinity (5,000 x 5,000) with its Policy loaded from JSON through
+   ``load_policy`` -> ``batch_policy_from``, the same checks;
+5c. gang (1,000 PodGroups of 8 on 2,000 nodes), the same checks after
+   the all-or-nothing post-pass;
 6. binpack3 (three resources), the same checks, while time allows.
 
 Any mismatch or error exits non-zero. Run from the repository root:
@@ -32,8 +45,6 @@ from __future__ import annotations
 import json
 import os
 import random
-import statistics
-import subprocess
 import sys
 import time
 
@@ -47,14 +58,6 @@ _BUDGET_S = 600      # phase 6 runs only if the run is still inside this
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _fuzz_wave(rng: random.Random, n_nodes: int, n_pods: int,
@@ -132,45 +135,71 @@ def _inputs(snap, dev):
     inp = bs.ship_inputs(host, dev)
     if not commit_solver.eligible(inp, snap.policy, bs.peer_bound_of(snap)):
         raise AssertionError("wave outside the kernel's domain")
-    return commit_solver.prepare(inp, snap.policy)
-
-
-def _event_ms(fn, runs: int):
-    """Median and all times (ms) of ``runs`` CUDA-event timed calls."""
-    import torch
-
-    times = []
-    out = None
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times), times, out
+    return commit_solver.prepare(inp, snap.policy, snap.has_gangs)
 
 
 def _bound(ci, feasible_pairs: int):
-    """Least time (ms) the card could take for one wave's solve: the
-    larger of the bytes it must move (each input read once, each output
-    written once) over the HBM rate and its integer operations over the
-    non-tensor rate. Operations: every (pod, node) pair runs the filter
-    (1 + 3R + 2Wp + 2Wd ops); every feasible pair is scored
-    (6R + 45 ops: LeastRequested per dimension, the spread emulation,
-    the running max)."""
+    """Least time (ms) the card could take for the work one wave's solve
+    must do: the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its operations over the
+    non-tensor rate. Operations, counted as the reference states them
+    (not as this kernel computes them): every (pod, node) pair runs the
+    filter (1 + 3R + 2Wp + 2Wd ops); every feasible pair is scored: when
+    LeastRequested weighs in, 6 per dimension plus the divisor and the
+    weight (6R + 2); when ServiceSpreading does, its float32 spread
+    expression (two converts, subtract, divide, times 10, truncate,
+    weight, add: 8); per anti-affinity label, the zone accumulation and
+    the same spread expression (9); 2L compares for the affinity anchors;
+    one add each for the label-preference plane and the Equal priority;
+    and the running max (2)."""
     P, N = ci.smask.shape
     R, Wp, Wd = ci.cap.shape[0], ci.ports0.shape[0], ci.pds0.shape[0]
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
     inputs = (ci.smask, ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx,
-              ci.fitexc, ci.ports0, ci.pds0, ci.counts0, ci.offl)
+              ci.fitexc, ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat,
+              ci.affv, ci.anchor0, ci.has0, ci.zone)
     nbytes = sum(t.numel() * t.element_size() for t in inputs) + 2 * P * 4
-    ops = P * N * (1 + 3 * R + 2 * Wp + 2 * Wd) + feasible_pairs * (6 * R + 45)
+    per_feasible = ((6 * R + 2 if ci.w_lr else 0) + (8 if ci.w_spread else 0)
+                    + 9 * A + 2 * L + (1 if ci.sstat.numel() else 0)
+                    + (1 if ci.w_equal else 0) + 2)
+    ops = P * N * (1 + 3 * R + 2 * Wp + 2 * Wd) + feasible_pairs * per_feasible
     bytes_ms = nbytes / _HBM_BYTES_PER_S * 1e3
     ops_ms = ops / _OPS_PER_S * 1e3
     if ops_ms > bytes_ms:
         return ops_ms, "operations", nbytes, ops
     return bytes_ms, "bytes", nbytes, ops
+
+
+def _ptxas_report(log: str) -> dict:
+    """ptxas' registers, stack and spills for each kernel instance, keyed
+    by the instance's branch set (``commit_solve<aff,anti,gang,static>``
+    with 0/1 flags) or the kernel's name."""
+    import re
+
+    out: dict = {}
+    entry = props = None
+    frames: dict = {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        if "stack frame" in ln and props:
+            frames[props] = ln.strip()
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            flags = re.search(r"commit_solve_kernelILb([01])ELb([01])ELb([01])"
+                              r"ELb([01])E", entry)
+            name = (f"commit_solve<{','.join(flags.groups())}>" if flags
+                    else "spread_eval" if "spread_eval" in entry else entry)
+            out[name] = f"{m.group(1)} registers; {frames.get(entry, '')}"
+            entry = None
+    return out
 
 
 def _spread_exhaustive(dev) -> dict:
@@ -238,24 +267,208 @@ def _fuzz(dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _ext_wave(rng: random.Random, n_nodes: int, n_pods: int, anti=0,
+              aff=0, prefs=False, presence=False, gangs=False,
+              ghost=False):
+    """A seeded wave and the BatchPolicy that uses the named extensions:
+    ``anti`` zone anti-affinity labels (0-2), ``aff`` service-affinity
+    labels (0-2), label preferences, label presence, gangs (some sized
+    to oversubscribe the cluster), and an existing service peer on a host
+    that is not a node (``ghost``)."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.models import gang
+    from kubernetes_tpu_torch.models.policy import BatchPolicy
+
+    nodes = []
+    for i in range(n_nodes):
+        labels = {}
+        for key, values, p in (("zone", 6, 0.8), ("rack", 4, 0.6),
+                               ("region", 3, 0.8)):
+            if rng.random() < p:
+                labels[key] = f"{key[0]}{rng.randrange(values)}"
+        if rng.random() < 0.4:
+            labels["ssd"] = "true"
+        nodes.append(api.Node(
+            metadata=api.ObjectMeta(name=f"n{i}", labels=labels),
+            spec=api.NodeSpec(capacity={
+                "cpu": Quantity(f"{rng.choice([1000, 2000, 4000])}m"),
+                "memory": Quantity(rng.choice([2 << 30, 8 << 30]))},
+                unschedulable=rng.random() < 0.03)))
+    services = [api.Service(
+        metadata=api.ObjectMeta(name=f"svc-{s}", namespace="default"),
+        spec=api.ServiceSpec(port=80, selector={"app": f"a{s}"}))
+        for s in range(3)]
+
+    def pod(name, host="", cpu=None, group=None):
+        cpu = cpu if cpu is not None else rng.choice([0, 100, 250, 500, 900])
+        limits = {"memory": Quantity(rng.choice([64 << 20, 256 << 20]))}
+        if cpu:
+            limits["cpu"] = Quantity(f"{cpu}m")
+        selector = {}
+        if rng.random() < 0.2:
+            selector["region"] = f"r{rng.randrange(3)}"
+        if rng.random() < 0.1:
+            selector["zone"] = f"z{rng.randrange(6)}"
+        ports = ([api.ContainerPort(container_port=80,
+                                    host_port=rng.choice([8080, 9090]))]
+                 if rng.random() < 0.15 else [])
+        return api.Pod(
+            metadata=api.ObjectMeta(
+                name=name, namespace="default", uid=f"uid-{name}",
+                labels=({"app": f"a{rng.randrange(3)}"}
+                        if rng.random() < 0.8 else {}),
+                annotations=({gang.GANG_NAME_ANNOTATION: group}
+                             if group else {})),
+            spec=api.PodSpec(
+                host=host, node_selector=selector if not host else {},
+                containers=[api.Container(
+                    name="c", image="i", ports=ports,
+                    resources=api.ResourceRequirements(limits=limits))]),
+            status=api.PodStatus(host=host))
+
+    n_existing = 0 if rng.random() < 0.3 else n_nodes // 2 + 3
+    existing = [pod(f"e{i}", host=rng.choice(nodes).metadata.name)
+                for i in range(n_existing)]
+    if ghost:
+        existing.append(pod("ghost-peer", host="ghost"))
+        existing[-1].metadata.labels = {"app": "a0"}
+    pending = []
+    while len(pending) < n_pods:
+        if gangs and rng.random() < 0.6:
+            # some groups ask for more than the cluster has left
+            size = rng.randint(2, 5)
+            cpu = rng.choice([300, 900, 1900, 3900])
+            g = len(pending)
+            pending += [pod(f"g{g}-m{m}", cpu=cpu, group=f"grp-{g}")
+                        for m in range(size)]
+        else:
+            pending.append(pod(f"p{len(pending)}"))
+    policy = BatchPolicy(
+        w_lr=1, w_spread=rng.choice([0, 1]),
+        anti_affinity=(("zone", 2), ("rack", 1))[:anti],
+        affinity_labels=("region", "rack")[:aff],
+        label_prefs=(("ssd", True, 2), ("gpu", False, 1)) if prefs else (),
+        label_presence=((("zone",), True),) if presence else ())
+    return (nodes, existing, pending, services), policy
+
+
+# (seed, nodes, pods, _ext_wave keywords): each small case runs three
+# seeds; the last cases give each thread 2, 3 and 32 nodes
+_EXT_CASES = [
+    (200, 9, 30, dict(anti=1)),
+    (210, 14, 40, dict(anti=2)),
+    (220, 9, 30, dict(aff=1)),
+    (230, 12, 40, dict(aff=2)),
+    (240, 10, 30, dict(aff=1, ghost=True)),
+    (250, 10, 30, dict(prefs=True)),
+    (260, 10, 30, dict(presence=True)),
+    (270, 8, 40, dict(gangs=True)),
+    (280, 8, 40, dict(gangs=True, aff=1)),
+    (290, 8, 40, dict(gangs=True, anti=1)),
+    (300, 12, 50, dict(gangs=True, anti=2, aff=2, prefs=True,
+                       presence=True)),
+    (310, 14, 50, dict(anti=1, aff=1, prefs=True, ghost=True)),
+]
+_EXT_WIDE = [
+    (400, 1500, 120, dict(anti=2, aff=1, prefs=True)),
+    (401, 2100, 160, dict(gangs=True, anti=1, aff=2)),
+    (402, 32640, 40, dict(gangs=True, anti=1, aff=1, presence=True)),
+]
+
+
+def _rolled_back_runs(rid, chosen) -> int:
+    """Gang runs in which a member found no node after an earlier member
+    of the run had placed: the kernel rolled those back."""
+    import numpy as np
+
+    runs = 0
+    for r in np.unique(rid[rid >= 0]):
+        c = chosen[rid == r]
+        fail = np.nonzero(c < 0)[0]
+        if fail.size and (c[:fail[0]] >= 0).any():
+            runs += 1
+    return runs
+
+
+def _ext_fuzz(dev) -> dict:
+    import torch
+
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.tools.kernel_time import event_ms
+
+    cases = [(seed + k, n, p, kw) for seed, n, p, kw in _EXT_CASES
+             for k in range(3)] + _EXT_WIDE
+    t0 = time.perf_counter()
+    pods = rolled_back = gang_waves = 0
+    wide = []
+    for seed, n_nodes, n_pods, kw in cases:
+        wave, policy = _ext_wave(random.Random(seed), n_nodes, n_pods, **kw)
+        snap = encode_snapshot(*wave, policy=policy)
+        ci = _inputs(snap, dev)
+        if n_nodes < 1000:
+            got = commit_solver.solve_commit(ci)
+            want = commit_solver.solve_commit_reference(ci)
+        else:
+            # the wide waves also give the branches' times at these shapes
+            kernel_ms, _, got = event_ms(
+                lambda: commit_solver.solve_commit(ci), 3)
+            stats: dict = {}
+            plain_ms, _, want = event_ms(
+                lambda: commit_solver.solve_commit_reference(ci, stats), 1)
+            feasible_pairs = int(stats["feasible"].sum())
+            bound_ms, bound_by, nbytes, ops = _bound(ci, feasible_pairs)
+            wide.append({"seed": seed, "nodes": n_nodes,
+                         "pods": len(snap.pod_names), "extensions": kw,
+                         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_bytes": nbytes, "bound_ops": ops,
+                         "feasible_pairs": feasible_pairs})
+        for g, w, what in zip(got, want, ("chosen", "win")):
+            if not torch.equal(g, w):
+                i = int((g != w).nonzero()[0])
+                raise AssertionError(
+                    f"extension seed {seed} {kw}: {what} differs at pod "
+                    f"{i}: kernel {int(g[i])} vs plain {int(w[i])}")
+        if snap.has_gangs:
+            gang_waves += 1
+            rolled_back += _rolled_back_runs(snap.pod_rid,
+                                             want[0].cpu().numpy())
+        pods += len(snap.pod_names)
+    if not rolled_back:
+        raise AssertionError("no gang run was rolled back: the rollback "
+                             "path went unchecked")
+    return {"waves": len(cases), "pods": pods, "gang_waves": gang_waves,
+            "rolled_back_runs": rolled_back, "wide": wide,
+            "seconds": time.perf_counter() - t0}
+
+
 def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import gang
     from kubernetes_tpu_torch.models.fixtures import FULL_SHAPES, build_cluster
+    from kubernetes_tpu_torch.models.policy import batch_policy_from
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.scheduler.plugins import load_policy
+    from kubernetes_tpu_torch.tools.kernel_time import event_ms
 
-    n_nodes, n_pods, kw = FULL_SHAPES[name]
+    n_nodes, n_pods, kw, policy_json = FULL_SHAPES[name]
     t0 = time.perf_counter()
     cluster = build_cluster(n_nodes, n_pods, **kw)
     build_s = time.perf_counter() - t0
+    n_pods = len(cluster[2])
 
     # ---- the main path, through the entry points a user calls ----------
     commit_solver.solve_commit.launches = 0
     t0 = time.perf_counter()
-    snap = encode_snapshot(*cluster)
+    policy = (batch_policy_from(policy=load_policy(policy_json))
+              if policy_json else None)
+    snap = encode_snapshot(*cluster, policy=policy)
     t1 = time.perf_counter()
     chosen, scores = bs.solve(snap)
     names = bs.decisions_to_names(snap, chosen)
@@ -267,21 +480,24 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
 
     # ---- the kernel against its plain version on the same inputs -------
     ci = _inputs(snap, dev)
-    kernel_ms, kernel_all, (kc, kw_) = _event_ms(
+    kernel_ms, kernel_all, (kc, kw_) = event_ms(
         lambda: commit_solver.solve_commit(ci), kernel_runs)
     stats: dict = {}
-    plain_ms, _, (pc, pw) = _event_ms(
+    plain_ms, _, (pc, pw) = event_ms(
         lambda: commit_solver.solve_commit_reference(ci, stats), 1)
     for got, want, what in ((kc, pc, "chosen"), (kw_, pw, "win")):
         if not torch.equal(got, want):
             i = int((got != want).nonzero()[0])
             raise AssertionError(f"{name}: kernel {what} differs from the "
                                  f"plain version at pod {i}")
-    if not (np.array_equal(chosen, pc.cpu().numpy())
-            and np.array_equal(scores, pw.cpu().numpy())):
+    max_abs_err = int(max((kc - pc).abs().max(), (kw_ - pw).abs().max()))
+    want_c, want_s = pc.cpu().numpy(), pw.cpu().numpy()
+    if snap.has_gangs:
+        want_c = gang.apply_all_or_nothing(snap.pod_rid, want_c)
+        want_s = np.where(want_c < 0, -1, want_s)
+    if not (np.array_equal(chosen, want_c) and np.array_equal(scores, want_s)):
         raise AssertionError(f"{name}: solve() differs from the plain "
                              f"version")
-    max_abs_err = int(max((kc - pc).abs().max(), (kw_ - pw).abs().max()))
 
     # ---- what comes out is right: every pod fits this cluster ----------
     bound = sum(n is not None for n in names)
@@ -296,6 +512,8 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     wave_s = t2 - t0
     return {
         "shape": name, "nodes": n_nodes, "pods": n_pods,
+        "policy": policy_json or "default provider",
+        "gangs": snap.has_gangs,
         "build_cluster_s": build_s, "encode_s": t1 - t0,
         "solve_and_names_s": t2 - t1, "wave_s": wave_s,
         "pods_per_s": n_pods / wave_s, "bound_pods": bound,
@@ -307,6 +525,16 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     }
 
 
+def _log_wave(tag: str, w: dict) -> None:
+    _log(f"[{tag}] {w['shape']} {w['nodes']}x{w['pods']}: launches "
+         f"{w['launches']}, bound {w['bound_pods']}, encode "
+         f"{w['encode_s']:.3f}s, wave {w['wave_s']:.3f}s "
+         f"({w['pods_per_s']:.1f} pods/s), kernel {w['kernel_ms']:.3f} ms "
+         f"(runs {[round(t, 3) for t in w['kernel_ms_runs']]}), plain "
+         f"{w['plain_ms']:.1f} ms, bound {w['bound_ms']:.4f} ms "
+         f"({w['bound_by']})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -315,12 +543,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from kubernetes_tpu_torch.ops import build
+    from kubernetes_tpu_torch.tools.kernel_time import card_line
 
     dev = torch.device("cuda", 0)
     record: dict = {}
 
     # 1. versions and the card
-    card = _card_line()
+    card = card_line()
     _log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}; card: {card}")
     record["card"] = card
@@ -330,11 +559,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build("commit_solve")
     record["build_s"] = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.build_logs["commit_solve"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    record["ptxas"] = _ptxas_report(build.build_logs["commit_solve"])
     _log(f"[2] built commit_solve in {record['build_s']:.2f}s")
-    for ln in ptxas:
-        _log(f"    ptxas: {ln}")
+    for fn, use in record["ptxas"].items():
+        _log(f"    ptxas: {fn}: {use}")
 
     # 3. exhaustive spread check
     record["spread"] = _spread_exhaustive(dev)
@@ -348,25 +576,36 @@ def main() -> int:
          f"({record['fuzz']['pods']} pods): kernel == plain version "
          f"({record['fuzz']['seconds']:.2f}s)")
 
+    # 4b. seeded waves with every policy extension and gangs
+    record["extensions"] = _ext_fuzz(dev)
+    ex = record["extensions"]
+    _log(f"[4b] {ex['waves']} seeded extension waves ({ex['pods']} pods, "
+         f"{ex['gang_waves']} with gangs, {ex['rolled_back_runs']} gang "
+         f"runs rolled back): kernel == plain version "
+         f"({ex['seconds']:.2f}s)")
+    for w in ex["wide"]:
+        _log(f"     {w['nodes']}x{w['pods']} {w['extensions']}: kernel "
+             f"{w['kernel_ms']:.3f} ms, plain {w['plain_ms']:.1f} ms, bound "
+             f"{w['bound_ms']:.5f} ms ({w['bound_by']})")
+
     # 5. north_star, the main path
     ns = _wave_phase("north_star", dev, kernel_runs=7)
     record["north_star"] = ns
-    _log(f"[5] north_star {ns['nodes']}x{ns['pods']}: launches "
-         f"{ns['launches']}, bound {ns['bound_pods']}, encode "
-         f"{ns['encode_s']:.3f}s, wave {ns['wave_s']:.3f}s "
-         f"({ns['pods_per_s']:.1f} pods/s), kernel {ns['kernel_ms']:.3f} ms "
-         f"(runs {[round(t, 3) for t in ns['kernel_ms_runs']]}), plain "
-         f"{ns['plain_ms']:.1f} ms, bound {ns['bound_ms']:.4f} ms "
-         f"({ns['bound_by']})")
+    _log_wave("5", ns)
+
+    # 5b. affinity, its Policy read from a JSON file's text
+    record["affinity"] = _wave_phase("affinity", dev, kernel_runs=5)
+    _log_wave("5b", record["affinity"])
+
+    # 5c. gang: 1,000 PodGroups of 8
+    record["gang"] = _wave_phase("gang", dev, kernel_runs=5)
+    _log_wave("5c", record["gang"])
 
     # 6. binpack3, while time allows
     if time.perf_counter() - t_start < _BUDGET_S:
         bp = _wave_phase("binpack3", dev, kernel_runs=5)
         record["binpack3"] = bp
-        _log(f"[6] binpack3 {bp['nodes']}x{bp['pods']}: launches "
-             f"{bp['launches']}, bound {bp['bound_pods']}, wave "
-             f"{bp['wave_s']:.3f}s ({bp['pods_per_s']:.1f} pods/s), kernel "
-             f"{bp['kernel_ms']:.3f} ms, plain {bp['plain_ms']:.1f} ms")
+        _log_wave("6", bp)
     else:
         _log("[6] binpack3 skipped: time budget spent")
     record["total_s"] = time.perf_counter() - t_start

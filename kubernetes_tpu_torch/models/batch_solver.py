@@ -1,14 +1,20 @@
 """The batch scheduler's wave solve, in PyTorch.
 
-Port of ``kubernetes_tpu/models/batch_solver.py`` at default-policy scope.
-The reference's serial per-pod loop (pkg/scheduler/generic_scheduler.go:
-54-128 and plugin/pkg/scheduler/scheduler.go:90-119) becomes one call over
-a dense (pending pods x nodes) problem: a batched Filter pre-pass (node
-selector as an exact 0/1 matmul, host pins, cordon) and a sequential-commit
-loop over pods, in which each decision updates node state before the next.
-Decisions are bit-identical to the serial oracle: the same integer score
-truncation, the same float32 spread rounding, the same FNV-1a-mod-count
-tie-break over nodes in list order.
+Port of ``kubernetes_tpu/models/batch_solver.py``. The reference's serial
+per-pod loop (pkg/scheduler/generic_scheduler.go:54-128 and plugin/pkg/
+scheduler/scheduler.go:90-119) becomes one call over a dense (pending pods
+x nodes) problem: a batched Filter pre-pass (node selector as an exact 0/1
+matmul, host pins, cordon and label presence, selector-pinned service
+affinity) and a sequential-commit loop over pods, in which each decision
+updates node state before the next. Decisions are bit-identical to the
+serial oracle: the same integer score truncation, the same float32 spread
+rounding, the same FNV-1a-mod-count tie-break over nodes in list order.
+
+The whole policy vocabulary of models/policy is solved: service affinity
+anchors and zone anti-affinity ride the commit loop's state, label
+preferences are a static score plane, and gang (PodGroup) waves checkpoint
+that state at each scheduling unit and roll a failed run back; ``solve``
+then drops the failed runs' earlier members (gang.apply_all_or_nothing).
 
 Host side (numpy): ``snapshot_to_host_inputs`` scales every resource
 column by its gcd (floor division and comparison are invariant under a
@@ -18,9 +24,9 @@ to a torch device. ``solve_device`` runs the hand-written CUDA kernel
 (ops/commit_solver) for waves inside its domain and ``solve_scan`` for the
 rest, as the reference sends the latter to ``solve_jit``.
 
-Not in this slice (ROADMAP): the policy extensions, gang waves, preemption
-waves, int64 resource planes, the host-vs-device WaveRouter and the packed
-transfer. A wave that needs one raises NotImplementedError.
+Not ported yet (ROADMAP): preemption waves, int64 resource planes, the
+host-vs-device WaveRouter and the packed transfer. A wave that needs one
+of the first two raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,13 +36,14 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.models import gang
 from kubernetes_tpu_torch.models.policy import BatchPolicy
 from kubernetes_tpu_torch.models.snapshot import ClusterSnapshot
 from kubernetes_tpu_torch.ops import commit_solver
 
 __all__ = ["SolverInputs", "snapshot_to_host_inputs", "ship_inputs",
            "solve_scan", "solve_device", "solve", "peer_bound_of",
-           "decisions_to_names", "resolve_device"]
+           "decisions_to_names", "resolve_device", "derive_zone_counts"]
 
 NEG = -1
 _I32_HEADROOM = (2**31 - 1) // 10  # calculate_score multiplies by 10
@@ -67,6 +74,15 @@ class SolverInputs(NamedTuple):
     pod_gid: object              # [P] i32
     pod_group_member: object     # [P, G] bool
     group_counts: object         # [G, N+1] i32
+    gang_start: object           # [P] bool — rollback checkpoint markers
+    # policy extensions (zero-size planes when unused)
+    score_static: object         # [N] i32
+    node_aff_vals: object        # [N, L] i32
+    pod_aff_static: object       # [P, L] i32
+    anchor_vals0: object         # [G, L] i32
+    has_anchor0: object          # [G] bool
+    zone_idx: object             # [A, N] i32 zone codes, -1 unlabeled
+    zone_counts0: object         # [A, G, V] i32 initial per-group peers/zone
 
 
 def _pack_bits(a: np.ndarray) -> np.ndarray:
@@ -104,17 +120,26 @@ def _fits_i32(*arrays) -> bool:
     return total <= _I32_HEADROOM
 
 
+def derive_zone_counts(node_zone: np.ndarray, group_counts: np.ndarray,
+                       V: int) -> np.ndarray:
+    """[A, G, V] per-group per-zone peer totals: zone_counts[a, g, v] is
+    the sum of group_counts[g, n] over nodes n whose zone code for label
+    ``a`` is ``v``. Unlabeled nodes (code -1) and the off-list slot N
+    count toward no zone."""
+    A, N = node_zone.shape
+    G = group_counts.shape[0]
+    out = np.zeros((A, G, V), np.int32)
+    gc = np.asarray(group_counts[:, :N], np.int32)
+    for a in range(A):
+        zi = node_zone[a]
+        m = zi >= 0
+        if m.any():
+            np.add.at(out[a].T, zi[m].astype(np.int64), gc[:, m].T)
+    return out
+
+
 def _check_supported(snap: ClusterSnapshot) -> None:
-    """Refuse, by ROADMAP item, a wave this slice does not solve."""
-    pol = snap.policy
-    if pol.extensions:
-        raise NotImplementedError(
-            f"policy plugins {list(pol.extensions)} are not ported yet "
-            f"(ROADMAP Queue 1: policy breadth)")
-    if snap.has_gangs:
-        raise NotImplementedError(
-            "gang (PodGroup) waves are not ported yet (ROADMAP Queue 1: "
-            "policy breadth, gangs)")
+    """Refuse, by ROADMAP item, a wave the port does not solve yet."""
     if snap.band_prio is not None and snap.band_prio.size:
         raise NotImplementedError(
             "preemption waves are not ported yet (ROADMAP Queue 1: "
@@ -138,6 +163,17 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
             "waves whose resource planes need int64 are not ported yet "
             "(ROADMAP Queue 1: int64 resource planes)")
     i32 = np.int32
+    N, P, G = len(snap.node_names), req.shape[0], snap.group_counts.shape[0]
+
+    def plane(a, empty_shape, dtype=i32):
+        return np.ascontiguousarray(
+            np.zeros(empty_shape, dtype) if a is None else a, dtype)
+
+    node_zone = plane(snap.node_zone, (0, N))
+    V = max(1, int(node_zone.max(initial=-1)) + 1)
+    zone_counts0 = snap.zone_counts0
+    if zone_counts0 is None:
+        zone_counts0 = derive_zone_counts(node_zone, snap.group_counts, V)
     return SolverInputs(
         cap=cap.astype(i32),
         advertises=np.asarray(snap.advertised, bool),
@@ -158,6 +194,16 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
         pod_gid=np.ascontiguousarray(snap.pod_gid),
         pod_group_member=np.ascontiguousarray(snap.pod_group_member),
         group_counts=np.ascontiguousarray(snap.group_counts),
+        gang_start=np.ascontiguousarray(
+            np.ones(P, bool) if snap.pod_run_start is None
+            else snap.pod_run_start, bool),
+        score_static=plane(snap.score_static, N),
+        node_aff_vals=plane(snap.node_aff_vals, (N, 0)),
+        pod_aff_static=plane(snap.pod_aff_static, (P, 0)),
+        anchor_vals0=plane(snap.anchor_vals0, (G, 0)),
+        has_anchor0=plane(snap.has_anchor0, G, bool),
+        zone_idx=node_zone,
+        zone_counts0=np.ascontiguousarray(zone_counts0, i32),
     )
 
 
@@ -186,11 +232,12 @@ def ship_inputs(host: SolverInputs, device) -> SolverInputs:
     return SolverInputs(*out)
 
 
-def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None,
+               gangs: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain per-pod solve on any device and any wave size (the port
-    of ``solve_jit`` at default-policy scope): the prolog, then the
-    commit loop of ops/commit_solver.solve_commit_reference."""
+    of ``solve_jit``, every policy branch and the gang checkpoint and
+    rollback): the prolog, then the commit loop of
+    ops/commit_solver.solve_commit_reference."""
     pol = pol or BatchPolicy()
     if pol.all_infeasible:
         # no nonzero-weight priorities: every pod fails
@@ -200,19 +247,22 @@ def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None
                           device=inp.req.device)
         return full, full.clone()
     return commit_solver.solve_commit_reference(
-        commit_solver.prepare(inp, pol))
+        commit_solver.prepare(inp, pol, gangs))
 
 
 def solve_device(inp: SolverInputs, pol: Optional[BatchPolicy],
-                 peer_bound: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 gangs: bool, peer_bound: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compiled-solve dispatch: a wave inside the kernel's domain
     (commit_solver.eligible) runs the CUDA kernel — on a CPU tensor its
     plain version — and every other wave runs ``solve_scan`` on the same
-    device, as the reference sends it to ``solve_jit``."""
+    device, as the reference sends it to ``solve_jit``. ``gangs`` turns on
+    the checkpoint and rollback of PodGroup runs."""
     pol = pol or BatchPolicy()
     if commit_solver.eligible(inp, pol, peer_bound):
-        return commit_solver.solve_commit(commit_solver.prepare(inp, pol))
-    return solve_scan(inp, pol)
+        return commit_solver.solve_commit(
+            commit_solver.prepare(inp, pol, gangs))
+    return solve_scan(inp, pol, gangs)
 
 
 def peer_bound_of(source) -> int:
@@ -228,14 +278,22 @@ def peer_bound_of(source) -> int:
 def solve(snap: ClusterSnapshot, device=None
           ) -> Tuple[np.ndarray, np.ndarray]:
     """Host entry: encoded wave -> device -> solve -> host decisions
-    (chosen node index or -1, winning score or -1, int32 [P]). Runs on
+    (chosen node index or -1, winning score or -1, int32 [P]), with the
+    all-or-nothing post-pass when the wave has PodGroups. Runs on
     ``cuda`` unless ``device`` says otherwise."""
     dev = resolve_device(device)
     inp = ship_inputs(snapshot_to_host_inputs(snap), dev)
-    chosen, scores = solve_device(inp, snap.policy, peer_bound_of(snap))
+    has_gangs = snap.has_gangs
+    chosen, scores = solve_device(inp, snap.policy, has_gangs,
+                                  peer_bound_of(snap))
     # one device -> host readback
     both = torch.stack([chosen, scores]).cpu().numpy()
-    return both[0], both[1]
+    chosen, scores = both[0], both[1]
+    if has_gangs:
+        chosen = gang.apply_all_or_nothing(snap.pod_rid, chosen)
+        # a rolled-back member's tentative score is as stale as its host
+        scores = np.where(chosen < 0, np.int32(NEG), scores)
+    return chosen, scores
 
 
 def decisions_to_names(snap: ClusterSnapshot, chosen: np.ndarray):

@@ -1,31 +1,63 @@
 """Synthetic clusters at the benchmark's published shapes.
 
-Port of ``bench.py:build_cluster`` (:518-571): nodes with 16 cpu and 64Gi
-memory (plus 256Gi ephemeral storage for the three-resource shape),
-labelled by zone and disk; eight services; two existing pods per node; a
-pending batch whose requests, service labels and host ports cycle
-deterministically (the gang variant is left for the gang slice).
-``FULL_SHAPES`` mirrors ``bench.py:507-515`` for the
-shapes this slice solves.
+Port of ``bench.py:build_cluster`` (:518-571) and ``affinity_policy``
+(:489-502): nodes with 16 cpu and 64Gi memory (plus 256Gi ephemeral
+storage for the three-resource shape), labelled by zone and disk; eight
+services; two existing pods per node; a pending batch whose requests,
+service labels and host ports cycle deterministically, or gangs of
+``gang_size`` members. ``FULL_SHAPES`` mirrors ``bench.py:507-515`` for
+the shapes the port drives.
 """
 
 from __future__ import annotations
 
+import json
+
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.api.quantity import Quantity
+from kubernetes_tpu_torch.models import gang as gang_mod
+from kubernetes_tpu_torch.scheduler.plugins import (Policy, PolicyPredicate,
+                                                    PolicyPriority)
 
-__all__ = ["FULL_SHAPES", "build_cluster"]
+__all__ = ["AFFINITY_POLICY_JSON", "FULL_SHAPES", "affinity_policy",
+           "build_cluster"]
 
-# (nodes, pending pods, build_cluster kwargs)
+# affinity_policy() as the JSON Policy file a scheduler operator writes
+AFFINITY_POLICY_JSON = json.dumps({
+    "predicates": [{"name": n} for n in (
+        "PodFitsPorts", "PodFitsResources", "NoDiskConflict",
+        "MatchNodeSelector", "HostName")],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "zoneSpread", "weight": 2,
+         "argument": {"serviceAntiAffinity": {"label": "zone"}}}],
+})
+
+# (nodes, pending pods, build_cluster kwargs, the JSON Policy the wave runs
+# under or None for the default provider)
 FULL_SHAPES = {
-    "north_star": (5_000, 10_000, {}),
-    "basic": (500, 1_000, {}),
-    "binpack3": (5_000, 10_000, {"three_resources": True}),
+    "north_star": (5_000, 10_000, {}, None),
+    "basic": (500, 1_000, {}, None),
+    "affinity": (5_000, 5_000, {}, AFFINITY_POLICY_JSON),
+    "binpack3": (5_000, 10_000, {"three_resources": True}, None),
+    "gang": (2_000, 0, {"gang_groups": 1_000, "gang_size": 8}, None),
 }
+
+def affinity_policy() -> Policy:
+    """The anti-affinity benchmark policy: the full default predicate set
+    and LeastRequested plus ServiceAntiAffinity on ``zone`` (weight 2)."""
+    return Policy(
+        predicates=[PolicyPredicate(name=n) for n in
+                    ("PodFitsPorts", "PodFitsResources", "NoDiskConflict",
+                     "MatchNodeSelector", "HostName")],
+        priorities=[PolicyPriority(name="LeastRequestedPriority", weight=1),
+                    PolicyPriority(name="zoneSpread", weight=2,
+                                   service_anti_affinity_label="zone")])
 
 
 def build_cluster(n_nodes: int, n_pods: int, n_services: int = 8,
-                  existing_per_node: int = 2, three_resources: bool = False):
+                  existing_per_node: int = 2, three_resources: bool = False,
+                  gang_groups: int = 0, gang_size: int = 8):
     caps = {"cpu": Quantity("16"), "memory": Quantity("64Gi")}
     if three_resources:
         caps["ephemeral-storage"] = Quantity("256Gi")
@@ -40,15 +72,19 @@ def build_cluster(n_nodes: int, n_pods: int, n_services: int = 8,
         spec=api.ServiceSpec(port=80, selector={"app": f"app-{s}"}))
         for s in range(n_services)]
 
-    def pod(name, i, host=""):
+    def pod(name, i, host="", group=None):
         limits = {"cpu": Quantity(f"{100 + (i % 8) * 100}m"),
                   "memory": Quantity(f"{128 + (i % 6) * 256}Mi")}
         if three_resources:
             limits["ephemeral-storage"] = Quantity(f"{1 + (i % 4)}Gi")
+        ann = {}
+        if group is not None:
+            ann[gang_mod.GANG_NAME_ANNOTATION] = group
+            ann[gang_mod.GANG_MIN_MEMBERS_ANNOTATION] = str(gang_size)
         return api.Pod(
             metadata=api.ObjectMeta(
                 name=name, namespace="default", uid=f"uid-{name}",
-                labels={"app": f"app-{i % n_services}"}),
+                labels={"app": f"app-{i % n_services}"}, annotations=ann),
             spec=api.PodSpec(
                 host=host,
                 containers=[api.Container(
@@ -62,5 +98,10 @@ def build_cluster(n_nodes: int, n_pods: int, n_services: int = 8,
     existing = [pod(f"old-{n}-{j}", n * existing_per_node + j,
                     host=nodes[n].metadata.name)
                 for n in range(n_nodes) for j in range(existing_per_node)]
-    pending = [pod(f"new-{i:05d}", i) for i in range(n_pods)]
+    if gang_groups:
+        pending = [pod(f"g{g:04d}-m{m}", g * gang_size + m,
+                       group=f"group-{g:04d}")
+                   for g in range(gang_groups) for m in range(gang_size)]
+    else:
+        pending = [pod(f"new-{i:05d}", i) for i in range(n_pods)]
     return nodes, existing, pending, services

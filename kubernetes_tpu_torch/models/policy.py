@@ -1,9 +1,20 @@
 """BatchPolicy — the solver-ready form of a scheduler configuration.
 
-Port of ``kubernetes_tpu/models/policy.py``. The dataclass keeps every
-field of the reference, so a configuration the port does not solve yet is
-recognised and refused rather than misread; ``batch_policy_from`` ports
-the provider branch only (a JSON Policy file is ROADMAP work).
+Port of ``kubernetes_tpu/models/policy.py``. An algorithm provider names
+(predicate, priority) sets, and a JSON Policy can instantiate the
+argument-bearing plugins (ref: plugin/pkg/scheduler/factory/plugins.go:
+32-195, api/types.go:23-103). The batch solver cannot call opaque plugin
+functions, so the configuration is normalized into a hashable description
+of exactly the reference's plugin vocabulary:
+
+predicates — PodFitsPorts, PodFitsResources, NoDiskConflict,
+    MatchNodeSelector, HostName (ref: predicates.go), CheckNodeLabelPresence
+    (:194-229), CheckServiceAffinity (:238-324);
+priorities — LeastRequestedPriority, ServiceSpreadingPriority, EqualPriority
+    (ref: priorities.go, spreading.go:37-86), NodeLabelPriority
+    (priorities.go:98-134), ServiceAntiAffinity (spreading.go:104-168).
+
+Anything else raises :class:`UnsupportedPolicy`.
 """
 
 from __future__ import annotations
@@ -18,8 +29,8 @@ __all__ = ["BatchPolicy", "DEFAULT_BATCH_POLICY", "UnsupportedPolicy",
 
 
 class UnsupportedPolicy(Exception):
-    """The configured provider uses plugins the batch solver does not
-    model; callers must fall back to the serial scheduler."""
+    """The configured provider/policy uses plugins the batch solver does
+    not model; callers must fall back to the serial scheduler."""
 
 
 _KNOWN_PREDICATES = {"PodFitsPorts", "PodFitsResources", "NoDiskConflict",
@@ -40,9 +51,10 @@ class BatchPolicy:
     use_host: bool = True
     # CheckNodeLabelPresence instances: ((labels...), presence)
     label_presence: Tuple[Tuple[Tuple[str, ...], bool], ...] = ()
-    # CheckServiceAffinity labels
+    # union of every CheckServiceAffinity instance's label list (per-label
+    # constraints resolve independently, so the union is exact)
     affinity_labels: Tuple[str, ...] = ()
-    # Score phase (summed weights; 0 = absent)
+    # Score phase (summed weights of repeated entries; 0 = absent)
     w_lr: int = 1
     w_spread: int = 1
     w_equal: int = 0
@@ -54,33 +66,14 @@ class BatchPolicy:
     all_infeasible: bool = False
 
     @property
-    def extensions(self) -> Tuple[str, ...]:
-        """Names of the policy plugins set here that this slice of the
-        port does not solve (ROADMAP: policy breadth)."""
-        out = []
-        if self.label_presence:
-            out.append("CheckNodeLabelPresence")
-        if self.affinity_labels:
-            out.append("ServiceAffinity")
-        if self.label_prefs:
-            out.append("NodeLabelPriority")
-        if self.anti_affinity:
-            out.append("ServiceAntiAffinity")
-        return tuple(out)
+    def has_affinity(self) -> bool:
+        return len(self.affinity_labels) > 0
 
 
 DEFAULT_BATCH_POLICY = BatchPolicy()
 
 
-def batch_policy_from(provider: Optional[str] = None,
-                      policy=None) -> BatchPolicy:
-    """Normalize an algorithm provider name into a BatchPolicy, as the
-    serial factory assembles its plugin sets (CreateFromProvider,
-    factory.go:77-87)."""
-    if policy is not None:
-        raise NotImplementedError(
-            "a JSON scheduler Policy is not ported yet (ROADMAP Queue 1: "
-            "policy breadth); pass a provider name")
+def _from_provider(provider: Optional[str]) -> BatchPolicy:
     keys = schedplugins.get_algorithm_provider(
         provider or schedplugins.DEFAULT_PROVIDER)
     pred_names = list(keys["predicates"])
@@ -113,5 +106,87 @@ def batch_policy_from(provider: Optional[str] = None,
         use_selector="MatchNodeSelector" in pred_names,
         use_host="HostName" in pred_names,
         w_lr=w_lr, w_spread=w_spread, w_equal=w_equal,
+        all_infeasible=all_infeasible,
+    )
+
+
+def batch_policy_from(provider: Optional[str] = None,
+                      policy: Optional[schedplugins.Policy] = None
+                      ) -> BatchPolicy:
+    """Normalize an algorithm provider name or a Policy into a BatchPolicy,
+    as the serial factory assembles its plugin sets (CreateFromProvider /
+    CreateFromConfig, factory.go:77-104): a Policy, when given, replaces
+    the provider's sets entirely."""
+    if policy is None:
+        return _from_provider(provider)
+
+    # predicates: keyed by name, a later entry replaces an earlier one
+    by_name = {}
+    for p in policy.predicates:
+        by_name[p.name] = p
+    flags = dict(use_ports=False, use_resources=False, use_disk=False,
+                 use_selector=False, use_host=False)
+    flag_of = {"PodFitsPorts": "use_ports", "PodFitsResources":
+               "use_resources", "NoDiskConflict": "use_disk",
+               "MatchNodeSelector": "use_selector", "HostName": "use_host"}
+    label_presence = []
+    affinity_labels: list = []
+    for p in by_name.values():
+        if p.service_affinity_labels is not None:
+            for label in p.service_affinity_labels:
+                if label not in affinity_labels:
+                    affinity_labels.append(label)
+        elif p.label_presence is not None:
+            label_presence.append((tuple(p.label_presence["labels"]),
+                                   bool(p.label_presence["presence"])))
+        elif p.name in flag_of:
+            flags[flag_of[p.name]] = True
+        elif p.name != "Schedulable":
+            # (Schedulable is structural: cordon folds in unconditionally)
+            raise UnsupportedPolicy(
+                f"policy predicate {p.name!r} not modeled by the batch solver")
+
+    # priorities: every entry applies, so repeated weights sum
+    w = {"LeastRequestedPriority": 0, "ServiceSpreadingPriority": 0,
+         "EqualPriority": 0}
+    label_prefs = []
+    anti_affinity = []
+    any_nonzero = False
+    for p in policy.priorities:
+        if p.weight < 0:
+            # scores could go below the solver's masked-score sentinel
+            raise UnsupportedPolicy(
+                f"negative priority weight on {p.name!r}")
+        any_nonzero = any_nonzero or p.weight != 0
+        if p.service_anti_affinity_label is not None:
+            if p.weight:
+                anti_affinity.append((p.service_anti_affinity_label,
+                                      p.weight))
+        elif p.label_preference is not None:
+            if p.weight:
+                label_prefs.append((p.label_preference["label"],
+                                    bool(p.label_preference["presence"]),
+                                    p.weight))
+        elif p.name in w:
+            w[p.name] += p.weight
+        else:
+            raise UnsupportedPolicy(
+                f"policy priority {p.name!r} not modeled by the batch solver")
+
+    if not policy.priorities:
+        # empty prioritizer list -> raw EqualPriority scores, unweighted
+        # (generic_scheduler.go:116-117)
+        w["EqualPriority"], all_infeasible = 1, False
+    else:
+        all_infeasible = not any_nonzero
+    return BatchPolicy(
+        **flags,
+        label_presence=tuple(label_presence),
+        affinity_labels=tuple(affinity_labels),
+        w_lr=w["LeastRequestedPriority"],
+        w_spread=w["ServiceSpreadingPriority"],
+        w_equal=w["EqualPriority"],
+        label_prefs=tuple(label_prefs),
+        anti_affinity=tuple(anti_affinity),
         all_infeasible=all_infeasible,
     )

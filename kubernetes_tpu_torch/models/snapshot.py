@@ -14,10 +14,11 @@ Filter, and the sum over ALL pods for LeastRequested scoring
 service) group counts by host, plus one overflow slot for unassigned or
 unknown hosts (spreading.go:62-68); the group axis pads to a power of two.
 
-This slice encodes the default provider policy. The policy extensions
-(label presence and preference, service affinity and anti-affinity) are
-ROADMAP work and are refused here; gang run ids and the preemption bands
-are still encoded, so the solver can recognise and refuse those waves.
+The policy extensions are encoded too: CheckNodeLabelPresence folds into
+the static node mask, NodeLabelPriority is a static score plane,
+CheckServiceAffinity carries per-label value codes and per-group anchors,
+and ServiceAntiAffinity per-label zone codes. Gang run ids and the
+preemption bands are encoded for the solver.
 """
 
 from __future__ import annotations
@@ -133,7 +134,17 @@ class ClusterSnapshot:
     pod_group_member: np.ndarray  # [P, G] bool
     group_counts: np.ndarray     # [G, N+1] i32 (slot N: unassigned hosts)
     pod_rid: np.ndarray = None        # [P] i32 gang run id, -1 singleton
-    pod_run_start: np.ndarray = None  # [P] bool
+    pod_run_start: np.ndarray = None  # [P] bool — checkpoint marker
+    # policy extensions (minimal shapes when the policy does not use them)
+    score_static: np.ndarray = None    # [N] i32 NodeLabelPriority terms
+    node_aff_vals: np.ndarray = None   # [N, L] i32 value codes, -1 absent
+    pod_aff_static: np.ndarray = None  # [P, L] i32 codes, -2 unpinned
+    anchor_vals0: np.ndarray = None    # [G, L] i32 initial anchor values
+    has_anchor0: np.ndarray = None     # [G] bool
+    node_zone: np.ndarray = None       # [A, N] i32 zone codes, -1 unlabeled
+    # [A, G, V] per-group per-zone initial peers; None = derive from
+    # node_zone x group_counts (batch_solver.derive_zone_counts)
+    zone_counts0: np.ndarray = None
     pod_prio: np.ndarray = None       # [P] i32 resolved priorities
     pod_can_preempt: np.ndarray = None  # [P] bool
     band_prio: np.ndarray = None      # [B] i32, BAND_EMPTY padded
@@ -155,10 +166,6 @@ def encode_snapshot(nodes: Sequence[api.Node],
     """Encode one scheduling wave. Node order defines the tie-break order
     and must match what the serial oracle sees."""
     policy = policy or DEFAULT_BATCH_POLICY
-    if policy.extensions:
-        raise NotImplementedError(
-            f"policy plugins {list(policy.extensions)} are not ported yet "
-            f"(ROADMAP Queue 1: policy breadth)")
     N, P, E = len(nodes), len(pending_pods), len(existing_pods)
     node_index = {n.metadata.name: i for i, n in enumerate(nodes)}
 
@@ -382,6 +389,8 @@ def encode_snapshot(nodes: Sequence[api.Node],
     G = _pow2_pad(max(1, G_real))
     group_counts = np.zeros((G, N + 1), np.int32)
     pod_group_member = np.zeros((P, G), bool)
+    anchor_node = np.full(G, -1, np.int64)       # node of the initial anchor
+    anchor_unknown = np.zeros(G, bool)           # the anchor is off-list
     if group_ids:
         g_ns = np.array([k[0] for k in group_ids], np.int32)     # [G_real]
         g_si = np.array([k[1] for k in group_ids], np.int64)
@@ -396,14 +405,76 @@ def encode_snapshot(nodes: Sequence[api.Node],
                 if mask.any():
                     group_counts[g, :] = np.bincount(
                         e_host[mask], minlength=N + 1).astype(np.int32)
+                    # the anchor is the first existing peer in list order
+                    a = int(e_host[int(np.argmax(mask))])
+                    if a < N:
+                        anchor_node[g] = a
+                    else:
+                        anchor_unknown[g] = True
 
     # cordon: spec.unschedulable is structural (the always-on Schedulable
-    # predicate), folded into the static node mask
+    # predicate), folded into the static node mask before the policy's
+    # CheckNodeLabelPresence
     extra_ok = (node_extra_ok.copy() if node_extra_ok is not None
                 else np.ones(N, bool))
     for i, n in enumerate(nodes):
         if n.spec.unschedulable:
             extra_ok[i] = False
+    if policy.label_presence:
+        for i, n in enumerate(nodes):
+            lbls = n.metadata.labels or {}
+            for labels, presence in policy.label_presence:
+                if any((label in lbls) != presence for label in labels):
+                    extra_ok[i] = False
+                    break
+
+    # NodeLabelPriority: a static additive score per node
+    score_static = np.zeros(N, np.int32)
+    if policy.label_prefs:
+        for i, n in enumerate(nodes):
+            lbls = n.metadata.labels or {}
+            score_static[i] = sum(
+                10 * weight for label, presence, weight in policy.label_prefs
+                if (label in lbls) == presence)
+
+    # ServiceAffinity: per-label value codes and each group's anchor
+    L = len(policy.affinity_labels)
+    node_aff_vals = np.full((N, L), -1, np.int32)
+    pod_aff_static = np.full((P, L), -2, np.int32)
+    anchor_vals0 = np.full((G, L), -3, np.int32)
+    has_anchor0 = np.zeros(G, bool)
+    if L:
+        for li, label in enumerate(policy.affinity_labels):
+            vocab: Dict[str, int] = {}
+            for i, n in enumerate(nodes):
+                v = (n.metadata.labels or {}).get(label)
+                if v is not None:
+                    node_aff_vals[i, li] = intern(vocab, v)
+            for j, p in enumerate(pending_pods):
+                v = (p.spec.node_selector or {}).get(label)
+                if v is not None:
+                    pod_aff_static[j, li] = intern(vocab, v)
+        has_anchor0[:] = (anchor_node >= 0) | anchor_unknown
+        ok = anchor_node >= 0
+        anchor_vals0[ok] = node_aff_vals[anchor_node[ok]]
+        # a pod that consults an anchor on an unknown host fails its
+        # schedule() serially (predicates.go:238-324) and is requeued: an
+        # impossible pinned code makes exactly those pods infeasible
+        if anchor_unknown.any():
+            needs_anchor = (pod_gid >= 0) & (pod_aff_static == -2).any(axis=1)
+            for j in np.nonzero(needs_anchor)[0]:
+                if anchor_unknown[pod_gid[j]]:
+                    pod_aff_static[j, 0] = -100
+
+    # ServiceAntiAffinity: per-label zone codes
+    A = len(policy.anti_affinity)
+    node_zone = np.full((A, N), -1, np.int32)
+    for a, (label, _w) in enumerate(policy.anti_affinity):
+        vocab = {}
+        for i, n in enumerate(nodes):
+            v = (n.metadata.labels or {}).get(label)
+            if v is not None:
+                node_zone[a, i] = intern(vocab, v)
 
     return ClusterSnapshot(
         node_names=[n.metadata.name for n in nodes],
@@ -420,6 +491,10 @@ def encode_snapshot(nodes: Sequence[api.Node],
         pod_gid=pod_gid, pod_group_member=pod_group_member,
         group_counts=group_counts,
         pod_rid=pod_rid, pod_run_start=pod_run_start,
+        score_static=score_static,
+        node_aff_vals=node_aff_vals, pod_aff_static=pod_aff_static,
+        anchor_vals0=anchor_vals0, has_anchor0=has_anchor0,
+        node_zone=node_zone,
         pod_prio=pod_prio, pod_can_preempt=pod_can_preempt,
         band_prio=band_prio, evict_cap=evict_cap, evict_cnt=evict_cnt,
         policy=policy,

@@ -2,15 +2,19 @@
 version.
 
 Counterpart of ``kubernetes_tpu/ops/pallas_solver.py`` (the JAX package's
-only Pallas kernel, ``_solve_pallas_x32`` at :772), at default-policy scope.
+only Pallas kernel, ``_solve_pallas_x32`` at :772), with every branch of
+its body: the default filters and priorities, CheckNodeLabelPresence (in
+the static mask), CheckServiceAffinity anchors, NodeLabelPriority,
+ServiceAntiAffinity zones, and the gang checkpoint and rollback.
 
 - ``eligible`` is the kernel's domain, as the reference's (:90-157).
 - ``prepare`` is the prolog (:599-733): the static feasibility mask (node
-  selector, host pin, cordon) and the per-pod and per-node planes, as torch
-  ops on the wave's device. It is not a kernel: the selector-violation
-  product is a float32 ``torch.matmul``, as in the reference it was an XLA
-  matmul outside the Pallas kernel, and runs with TF32 off so every count
-  (a sum of 0/1 products, far below 2^24) is exact.
+  selector, host pin, cordon and label presence, selector-pinned service
+  affinity) and the per-pod and per-node planes, as torch ops on the
+  wave's device. It is not a kernel: the selector-violation product is a
+  float32 ``torch.matmul``, as in the reference it was an XLA matmul
+  outside the Pallas kernel, and runs with TF32 off so every count (a sum
+  of 0/1 products, far below 2^24) is exact.
 - ``solve_commit`` is the wrapper of the CUDA kernel
   (``csrc/commit_solve.cu``): on a CUDA tensor it launches the kernel or
   raises; on a CPU tensor it runs ``solve_commit_reference``, the plain
@@ -23,7 +27,7 @@ only Pallas kernel, ``_solve_pallas_x32`` at :772), at default-policy scope.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,17 +51,25 @@ MAX_G = 31           # member bitmask must fit a non-negative int32
 MAX_N = 32640        # the reference's domain (counts below 2^15); the
                      # kernel itself takes N <= 1024 * 32
 MAX_COUNT = 1 << 15
+MAX_A = 4            # anti-affinity labels
+MAX_V = 64           # zones per anti-affinity label
+MAX_L = 4            # service-affinity labels
 
-# the kernel's policy flags (csrc/commit_solve.cu kUse*)
-_USE_RESOURCES, _USE_PORTS, _USE_DISK = 1, 2, 4
+# the kernel's policy flags (csrc/commit_solve.cu kUse*, kGangs)
+_USE_RESOURCES, _USE_PORTS, _USE_DISK, _USE_STATIC, _GANGS = 1, 2, 4, 8, 16
+# the podrow's unit field (csrc/commit_solve.cu kStart, kCheckpoint): a
+# scheduling unit starts here; a gang run starts here (checkpoint)
+_START, _CHECKPOINT = 1, 2
+_ROW_FIXED = 6       # tie_hi, tie_lo, gid, member bits, zreq, unit
 
 
 class CommitInputs(NamedTuple):
     """One wave, laid out for the kernel. Node planes are [axis, N]; port
-    and PD words are uint32 carried as int32 bit patterns."""
+    and PD words are uint32 carried as int32 bit patterns. Extension
+    planes have a zero-size axis when the policy does not use them."""
 
     smask: torch.Tensor       # [P, N] uint8 static feasibility
-    podrow: Optional[torch.Tensor]  # [P, R+Wp+Wd+5] int32; None if G > 31
+    podrow: Optional[torch.Tensor]  # [P, R+Wp+Wd+6+L] int32; None if G > 31
     cap: torch.Tensor         # [R, N] int32
     fit0: torch.Tensor        # [R, N] int32 greedy-fitting usage
     score0: torch.Tensor      # [R, N] int32 all-pods usage
@@ -67,26 +79,41 @@ class CommitInputs(NamedTuple):
     pds0: torch.Tensor        # [Wd, N] int32
     counts0: torch.Tensor     # [G, N] int32 service peers per node
     offl: torch.Tensor        # [G] int32 peers on no listed node
+    sstat: torch.Tensor       # [N] int32 NodeLabelPriority plane, or [0]
+    affv: torch.Tensor        # [L, N] int32 affinity value codes, -1 absent
+    anchor0: torch.Tensor     # [G, L] int32 initial anchor values
+    has0: torch.Tensor        # [G] uint8 the group has an anchor
+    zone: torch.Tensor        # [A, N] int32 zone codes, -1 unlabeled
     req: torch.Tensor         # [P, R] int32
     pod_ports: torch.Tensor   # [P, Wp] int32
     pod_pds: torch.Tensor     # [P, Wd] int32
+    pins: torch.Tensor        # [P, L] int32 selector-pinned codes, -2 none
     tie_hi: torch.Tensor      # [P] int64, 0 <= v < 2^32
     tie_lo: torch.Tensor      # [P] int64
     gid: torch.Tensor         # [P] int64, -1 = no service
     member: torch.Tensor      # [P, G] bool
     zreq: torch.Tensor        # [P] bool — requests zero of everything
-    flags: int                # _USE_* bits
+    start: torch.Tensor       # [P] bool — a scheduling unit starts here
+    flags: int                # _USE_* and _GANGS bits
     w_lr: int
     w_spread: int
     w_equal: int
+    w_anti: Tuple[int, ...]   # weight per anti-affinity label (A of them)
+    V: int                    # zone codes are < V
 
 
 def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
     """True when the wave is in the kernel's domain — the reference's
-    (pallas_solver.eligible) at default-policy scope, minus its TPU memory
-    budget. ``inp`` is a SolverInputs of tensors; ``peer_bound`` the
-    largest initial per-group peer total (batch_solver.peer_bound_of)."""
-    if pol is None or pol.all_infeasible or pol.extensions:
+    (pallas_solver.eligible) whole domain: int32 planes, R and port/PD
+    words <= 8, G <= 31 groups, N <= 32,640 nodes, A <= 4 anti-affinity
+    labels of V <= 64 zones, L <= 4 service-affinity labels, the snapshot
+    encoded for this policy's labels, and spread counts below 2^15. Gang
+    waves are in the domain. The reference also refuses a wave whose
+    planes overflow its TPU core's memory; the kernel keeps its state in
+    global memory and has no such budget. ``inp`` is a SolverInputs of
+    tensors; ``peer_bound`` the largest initial per-group peer total
+    (batch_solver.peer_bound_of)."""
+    if pol is None or pol.all_infeasible:
         return False
     if inp.cap.dtype != torch.int32:
         return False
@@ -96,7 +123,17 @@ def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
             and inp.node_pds.shape[1] <= MAX_W and G <= MAX_G
             and N <= MAX_N):
         return False
-    # spread totals stay below 2^15: initial peers plus every wave commit
+    if pol.anti_affinity:
+        A, V = inp.zone_idx.shape[0], inp.zone_counts0.shape[2]
+        if not (0 < A <= MAX_A and V <= MAX_V
+                and A == len(pol.anti_affinity)):
+            return False
+    if pol.has_affinity:
+        L = inp.node_aff_vals.shape[1]
+        if not (0 < L <= MAX_L and L == len(pol.affinity_labels)):
+            return False
+    # spread and anti-affinity totals stay below 2^15: initial peers plus
+    # every wave commit
     return peer_bound + inp.req.shape[0] < MAX_COUNT
 
 
@@ -105,12 +142,16 @@ def _u32_as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def prepare(inp, pol: BatchPolicy) -> CommitInputs:
+def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
     """The prolog: SolverInputs (tensors on one device) -> CommitInputs on
-    the same device."""
+    the same device. ``gangs`` turns on the checkpoint and rollback of
+    PodGroup runs (``inp.gang_start`` marks each unit's first pod)."""
     N, R = inp.cap.shape
     P = inp.req.shape[0]
     dev = inp.cap.device
+    i32 = torch.int32
+    L = inp.node_aff_vals.shape[1] if pol.has_affinity else 0
+    A = len(pol.anti_affinity)
     static = inp.node_extra_ok[None, :].expand(P, N)
     if pol.use_selector:
         # required (key, value) pairs the node lacks; exact in float32
@@ -126,59 +167,93 @@ def prepare(inp, pol: BatchPolicy) -> CommitInputs:
         host = inp.pod_host_idx.to(torch.int64)[:, None]
         static = static & ((host == -1) | (host == torch.arange(
             N, device=dev)[None, :]))
+    affv = inp.node_aff_vals[:, :L].T.to(i32).contiguous()      # [L, N]
+    pins = inp.pod_aff_static[:, :L].to(i32).contiguous()       # [P, L]
+    for l in range(L):
+        # node-selector-pinned affinity labels are static per pod
+        # (predicates.go:247-254); -2 = the selector does not pin label l
+        pin = pins[:, l, None]
+        static = static & ((pin == -2) | (affv[None, l, :] == pin))
     G = inp.group_counts.shape[0]
-    req = inp.req.to(torch.int32)
+    req = inp.req.to(i32)
     tie_hi = inp.tie_hi.to(torch.int64)
     tie_lo = inp.tie_lo.to(torch.int64)
     gid = inp.pod_gid.to(torch.int64)
     member = inp.pod_group_member.to(torch.bool)
     zreq = (inp.req == 0).all(dim=1)
+    start = (inp.gang_start.to(torch.bool) if gangs
+             else torch.ones(P, dtype=torch.bool, device=dev))
     podrow = None
     if G <= MAX_G:
         bits = (member.to(torch.int64) << torch.arange(
             G, device=dev)[None, :]).sum(dim=1)
+        # a gang run starts where a unit start is followed by a member of
+        # the same run: only there does the kernel checkpoint its state
+        run_head = start & torch.cat([~start[1:], start.new_zeros(1)])
+        unit = start.to(i32) * _START + run_head.to(i32) * _CHECKPOINT
         podrow = torch.cat([
             req, inp.pod_ports, inp.pod_pds,
             _u32_as_i32(tie_hi)[:, None], _u32_as_i32(tie_lo)[:, None],
-            gid.to(torch.int32)[:, None], bits.to(torch.int32)[:, None],
-            zreq.to(torch.int32)[:, None]], dim=1).contiguous()
+            gid.to(i32)[:, None], bits.to(i32)[:, None],
+            zreq.to(i32)[:, None], unit[:, None], pins], dim=1).contiguous()
     flags = ((_USE_RESOURCES if pol.use_resources else 0)
              | (_USE_PORTS if pol.use_ports else 0)
-             | (_USE_DISK if pol.use_disk else 0))
+             | (_USE_DISK if pol.use_disk else 0)
+             | (_USE_STATIC if pol.label_prefs else 0)
+             | (_GANGS if gangs else 0))
     return CommitInputs(
         smask=static.to(torch.uint8).contiguous(),
         podrow=podrow,
-        cap=inp.cap.T.to(torch.int32).contiguous(),
-        fit0=inp.fit_used.T.to(torch.int32).contiguous(),
-        score0=inp.score_used.T.to(torch.int32).contiguous(),
+        cap=inp.cap.T.to(i32).contiguous(),
+        fit0=inp.fit_used.T.to(i32).contiguous(),
+        score0=inp.score_used.T.to(i32).contiguous(),
         advx=inp.advertises.T.to(torch.uint8).contiguous(),
         fitexc=inp.fit_exceeded.to(torch.uint8).contiguous(),
         ports0=inp.node_ports.T.contiguous(),
         pds0=inp.node_pds.T.contiguous(),
-        counts0=inp.group_counts[:, :N].to(torch.int32).contiguous(),
-        offl=inp.group_counts[:, N].to(torch.int32).contiguous(),
+        counts0=inp.group_counts[:, :N].to(i32).contiguous(),
+        offl=inp.group_counts[:, N].to(i32).contiguous(),
+        sstat=(inp.score_static.to(i32) if pol.label_prefs
+               else torch.zeros(0, dtype=i32, device=dev)).contiguous(),
+        affv=affv,
+        anchor0=inp.anchor_vals0[:, :L].to(i32).contiguous(),
+        has0=(inp.has_anchor0.to(torch.uint8) if L
+              else torch.zeros(G, dtype=torch.uint8, device=dev)
+              ).contiguous(),
+        zone=inp.zone_idx[:A].to(i32).contiguous(),
         req=req.contiguous(),
         pod_ports=inp.pod_ports.contiguous(),
         pod_pds=inp.pod_pds.contiguous(),
+        pins=pins,
         tie_hi=tie_hi, tie_lo=tie_lo, gid=gid, member=member, zreq=zreq,
+        start=start.contiguous(),
         flags=flags, w_lr=int(pol.w_lr), w_spread=int(pol.w_spread),
-        w_equal=int(pol.w_equal))
+        w_equal=int(pol.w_equal),
+        w_anti=tuple(int(w) for _label, w in pol.anti_affinity),
+        V=int(inp.zone_counts0.shape[2]) if A else 0)
 
 
 def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
     """The plain version: the same (chosen[P], win[P]) int32 as the kernel,
     one pod at a time in torch ops on the inputs' device, with no host
-    synchronisation inside the loop. ``stats``, when given, receives
-    ``feasible``: the number of feasible nodes per pod (int64 [P])."""
+    synchronisation inside the loop (the unit starts are read once before
+    it). ``stats``, when given, receives ``feasible``: the number of
+    feasible nodes per pod (int64 [P])."""
     P, N = ci.smask.shape
     R = ci.cap.shape[0]
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
     dev = ci.cap.device
-    fit, score_used = ci.fit0.clone(), ci.score0.clone()
-    ports, pds, counts = ci.ports0.clone(), ci.pds0.clone(), ci.counts0.clone()
+    gangs = bool(ci.flags & _GANGS)
+    # the mutable state, in the order the gang checkpoint copies it
+    state = [ci.fit0.clone(), ci.score0.clone(), ci.ports0.clone(),
+             ci.pds0.clone(), ci.counts0.clone(), ci.anchor0.clone(),
+             ci.has0 != 0]
     dims = torch.arange(R, device=dev)[:, None]
     unconstrained = (ci.cap == 0) & (dims < 2)            # [R, N]
     adv_extra = (ci.advx != 0) & (dims >= 2)              # [R, N]
     fitexc = ci.fitexc != 0
+    labeled = ci.zone >= 0                                # [A, N]
+    safe_zone = ci.zone.clamp_min(0).to(torch.int64)
     chosen = torch.full((P,), NEG, dtype=torch.int32, device=dev)
     win = torch.full((P,), NEG, dtype=torch.int32, device=dev)
     feasible_count = torch.zeros(P, dtype=torch.int64, device=dev)
@@ -187,15 +262,36 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
     if N == 0:
         return chosen, win
     ten = torch.full((N,), 10, dtype=torch.int32, device=dev)
+    starts = ci.start.tolist() if gangs else []
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    ckpt = state
     for p in range(P):
+        fit, score_used, ports, pds, counts, anchor, has_anchor = state
+        if gangs and starts[p]:
+            # a new scheduling unit: checkpoint the committed state
+            ckpt = [t.clone() for t in state]
+            failed = torch.zeros_like(failed)
         req = ci.req[p]
+        g = ci.gid[p]
+        safe_g = g.clamp_min(0)
+        in_group = g >= 0
         feasible = ci.smask[p] != 0
+        if gangs:
+            # the rest of an already-failed run places nowhere
+            feasible = feasible & ~failed
         if ci.flags & _USE_PORTS:
             feasible = feasible & ~((ports & ci.pod_ports[p][:, None]) != 0
                                     ).any(dim=0)
         if ci.flags & _USE_DISK:
             feasible = feasible & ~((pds & ci.pod_pds[p][:, None]) != 0
                                     ).any(dim=0)
+        if L:
+            # anchor-derived affinity (predicates.go:256-276): labels the
+            # selector did not pin must equal the group's anchor values
+            arow = anchor[safe_g]                              # [L]
+            need = (ci.pins[p] == -2) & (arow >= 0)            # [L]
+            dyn = (~need[:, None] | (ci.affv == arow[:, None])).all(dim=0)
+            feasible = feasible & (~(in_group & has_anchor[safe_g]) | dyn)
         if ci.flags & _USE_RESOURCES:
             res_ok = (unconstrained | (ci.cap - fit >= req[:, None])).all(0)
             feasible = feasible & (ci.zreq[p] | (~fitexc & res_ok))
@@ -206,12 +302,24 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
             lr = torch.div(raw, n_dyn, rounding_mode="floor")
             score = score + (lr * ci.w_lr).to(torch.int32)
         if ci.w_spread:
-            g = ci.gid[p]
-            safe_g = g.clamp_min(0)
             row = counts[safe_g]
             max_count = torch.maximum(row.max(), ci.offl[safe_g])
-            spread = torch.where(g >= 0, spread_score(max_count, row), ten)
+            spread = torch.where(in_group, spread_score(max_count, row), ten)
             score = score + spread * ci.w_spread
+        if A:
+            # ServiceAntiAffinity (spreading.go:104-168): per-zone peers
+            # over the FEASIBLE nodes; num counts every peer, off-list too;
+            # a serviceless pod has no peers (spread of total 0 is 10)
+            row = counts[safe_g] * in_group
+            num = row.sum() + ci.offl[safe_g] * in_group
+            on = row * feasible
+            for a in range(A):
+                per_zone = torch.zeros(ci.V, dtype=torch.int32, device=dev)
+                per_zone.index_add_(0, safe_zone[a], on * labeled[a])
+                s = spread_score(num, per_zone[safe_zone[a]])
+                score = score + s * labeled[a] * ci.w_anti[a]
+        if ci.flags & _USE_STATIC:
+            score = score + ci.sstat
         if ci.w_equal:
             score = score + ci.w_equal
         masked = torch.where(feasible, score, torch.full_like(score, NEG))
@@ -235,12 +343,23 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
                         | (ci.pod_pds[p] * placed)[:, None])
         counts.index_add_(1, at, (ci.member[p].to(torch.int32)
                                   * placed)[:, None])
+        if L:
+            # every group this commit gives its first peer is anchored at
+            # the chosen node's values
+            newly = ci.member[p] & ~has_anchor & any_f          # [G]
+            state[5] = torch.where(newly[:, None],
+                                   ci.affv[:, at].T, anchor)
+            state[6] = has_anchor | newly
+        if gangs:
+            # a failed member pins the state at the run's checkpoint
+            failed = failed | ~any_f
+            state = [torch.where(failed, c, t) for c, t in zip(ckpt, state)]
     return chosen, win
 
 
 _SIGNATURES = {
-    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 18
-                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 28
+                          + [ctypes.c_int] * 18 + [ctypes.c_void_p]),
     "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_longlong, ctypes.c_void_p]),
     "kgpu_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -261,6 +380,7 @@ def _check(ci: CommitInputs) -> None:
     P, N = ci.smask.shape
     R = ci.cap.shape[0]
     Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
     dev = ci.smask.device
     want = {
         "smask": (torch.uint8, (P, N)), "cap": (torch.int32, (R, N)),
@@ -268,13 +388,17 @@ def _check(ci: CommitInputs) -> None:
         "advx": (torch.uint8, (R, N)), "fitexc": (torch.uint8, (N,)),
         "ports0": (torch.int32, (Wp, N)), "pds0": (torch.int32, (Wd, N)),
         "counts0": (torch.int32, (G, N)), "offl": (torch.int32, (G,)),
+        "sstat": (torch.int32, (N if ci.flags & _USE_STATIC else 0,)),
+        "affv": (torch.int32, (L, N)), "anchor0": (torch.int32, (G, L)),
+        "has0": (torch.uint8, (G,)), "zone": (torch.int32, (A, N)),
         "req": (torch.int32, (P, R)), "pod_ports": (torch.int32, (P, Wp)),
-        "pod_pds": (torch.int32, (P, Wd)), "tie_hi": (torch.int64, (P,)),
-        "tie_lo": (torch.int64, (P,)), "gid": (torch.int64, (P,)),
-        "member": (torch.bool, (P, G)), "zreq": (torch.bool, (P,)),
+        "pod_pds": (torch.int32, (P, Wd)), "pins": (torch.int32, (P, L)),
+        "tie_hi": (torch.int64, (P,)), "tie_lo": (torch.int64, (P,)),
+        "gid": (torch.int64, (P,)), "member": (torch.bool, (P, G)),
+        "zreq": (torch.bool, (P,)), "start": (torch.bool, (P,)),
     }
     if ci.podrow is not None:
-        want["podrow"] = (torch.int32, (P, R + Wp + Wd + 5))
+        want["podrow"] = (torch.int32, (P, R + Wp + Wd + _ROW_FIXED + L))
     for name, (dtype, shape) in want.items():
         t = getattr(ci, name)
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -285,6 +409,9 @@ def _check(ci: CommitInputs) -> None:
                              f"the wave on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"CommitInputs.{name} is not contiguous")
+    if len(ci.w_anti) != A:
+        raise ValueError(f"CommitInputs.w_anti: want {A} weights, got "
+                         f"{len(ci.w_anti)}")
 
 
 def solve_commit(ci: CommitInputs):
@@ -300,25 +427,32 @@ def solve_commit(ci: CommitInputs):
     P, N = ci.smask.shape
     R = ci.cap.shape[0]
     Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
     if (ci.podrow is None or N > MAX_N or R > MAX_R or Wp > MAX_W
-            or Wd > MAX_W or G > MAX_G):
+            or Wd > MAX_W or G > MAX_G or L > MAX_L or A > MAX_A
+            or ci.V > MAX_V):
         raise ValueError(
             f"wave outside the kernel's domain (N={N} R={R} Wp={Wp} "
-            f"Wd={Wd} G={G}); dispatch it with eligible()")
+            f"Wd={Wd} G={G} L={L} A={A} V={ci.V}); dispatch it with "
+            f"eligible()")
     lib = _lib()
-    fit, score_used = torch.empty_like(ci.fit0), torch.empty_like(ci.score0)
-    ports, pds = torch.empty_like(ci.ports0), torch.empty_like(ci.pds0)
-    counts = torch.empty_like(ci.counts0)
+    state = [torch.empty_like(t) for t in (ci.fit0, ci.score0, ci.ports0,
+                                           ci.pds0, ci.counts0)]
+    # the gang checkpoint: one more copy of every per-node state plane
+    ckpt = ([torch.empty_like(t) for t in state] if ci.flags & _GANGS
+            else [None] * len(state))
     chosen = torch.empty(P, dtype=torch.int32, device=dev)
     win = torch.empty(P, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (
+    ptrs = [t.data_ptr() if t is not None else None for t in (
         ci.smask, ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc,
-        ci.ports0, ci.pds0, ci.counts0, ci.offl, fit, score_used, ports, pds,
-        counts, chosen, win)]
-    rc = lib.kgpu_commit_solve(*ptrs, P, N, R, Wp, Wd, G, R + Wp + Wd + 5,
-                               ci.flags, ci.w_lr, ci.w_spread, ci.w_equal,
-                               stream)
+        ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv,
+        ci.anchor0, ci.has0, ci.zone, *state, *ckpt, chosen, win)]
+    w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
+    rc = lib.kgpu_commit_solve(
+        *ptrs, P, N, R, Wp, Wd, G, L, A, ci.V,
+        R + Wp + Wd + _ROW_FIXED + L, ci.flags, ci.w_lr, ci.w_spread,
+        ci.w_equal, *w_anti, stream)
     _check_launch(lib, rc, "commit_solve")
     solve_commit.launches += 1
     return chosen, win

@@ -8,6 +8,7 @@ serial oracle ``oracle.solve_serial`` (tolerance 0: decisions are
 integers). The wave builders here are shared with test_torch_encode.py.
 """
 
+import dataclasses
 import random
 
 import jax
@@ -337,7 +338,7 @@ def test_slice_matches_solve_and_oracle(name):
 
 def test_basic_shape_matches_solve_and_oracle():
     # the benchmark's `basic` shape, 500 nodes x 1,000 pods
-    n_nodes, n_pods, kw = fixtures.FULL_SHAPES["basic"]
+    n_nodes, n_pods, kw, _policy = fixtures.FULL_SHAPES["basic"]
     ref_wave = bench.build_cluster(n_nodes, n_pods, **kw)
     jsnap = ref_encode(*ref_wave)
     psnap = encode_snapshot(*fixtures.build_cluster(n_nodes, n_pods, **kw))
@@ -399,7 +400,7 @@ def test_wide_wave_takes_the_scan_and_matches():
     assert np.array_equal(ps, np.asarray(js))
 
 
-# -- what the slice refuses ---------------------------------------------------
+# -- the device default, the policy and gang branches, what is refused -------
 
 def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
@@ -409,15 +410,29 @@ def test_default_device_without_cuda_raises():
         bs.solve(psnap)
 
 
+def _gang_wave(k):
+    from kubernetes_tpu.models import gang as ref_gang
+    ann = {ref_gang.GANG_NAME_ANNOTATION: "g"}
+    # the second gang cannot fit whole: it is rolled back, and the
+    # singleton after it takes the room its first members held
+    return ([k.node("n0", cpu_m=1000), k.node("n1", cpu_m=1000)], [],
+            [k.pod(f"a{i}", cpu_m=400, annotations=ann) for i in range(2)]
+            + [k.pod(f"b{i}", cpu_m=500, annotations={
+                ref_gang.GANG_NAME_ANNOTATION: "h"}) for i in range(3)]
+            + [k.pod("solo", cpu_m=600)], [])
+
+
 def test_gang_wave_is_refused():
-    from kubernetes_tpu_torch.models import gang
-    ann = {gang.GANG_NAME_ANNOTATION: "g"}
-    psnap = encode_snapshot(
-        [PORT.node("n0")], [],
-        [PORT.pod(f"m{i}", cpu_m=100, annotations=ann) for i in range(2)])
+    # a gang wave solves, all or nothing, as the reference and the oracle
+    psnap = encode_snapshot(*_gang_wave(PORT))
     assert psnap.has_gangs
-    with pytest.raises(NotImplementedError, match="gang"):
-        bs.solve(psnap, device="cpu")
+    pc, ps = bs.solve(psnap, device="cpu")
+    jc, js = ref_bs.solve(ref_encode(*_gang_wave(REF)))
+    assert np.array_equal(pc, np.asarray(jc))
+    assert np.array_equal(ps, np.asarray(js))
+    names = bs.decisions_to_names(psnap, pc)
+    assert names == solve_serial(*_gang_wave(REF), gangs=True)
+    assert names[2:5] == [None, None, None] and names[5] is not None
 
 
 def test_preemption_wave_is_refused():
@@ -431,9 +446,17 @@ def test_preemption_wave_is_refused():
 
 
 def test_policy_extension_is_refused():
-    pol = BatchPolicy(anti_affinity=(("zone", 2),))
-    with pytest.raises(NotImplementedError, match="ServiceAntiAffinity"):
-        encode_snapshot(*w_spreading(PORT), policy=pol)
+    # a wave under every policy extension solves as the reference does
+    from kubernetes_tpu.models.policy import BatchPolicy as RefPolicy
+    kw = dict(anti_affinity=(("zone", 2),), label_prefs=(("disk", True, 1),),
+              affinity_labels=("zone",),
+              label_presence=((("zone",), True),))
+    psnap = encode_snapshot(*w_fuzz(PORT, 7), policy=BatchPolicy(**kw))
+    jsnap = ref_encode(*w_fuzz(REF, 7), policy=RefPolicy(**kw))
+    pc, ps = bs.solve(psnap, device="cpu")
+    jc, js = ref_bs.solve(jsnap)
+    assert np.array_equal(pc, np.asarray(jc))
+    assert np.array_equal(ps, np.asarray(js))
 
 
 def test_int64_resource_planes_are_refused():
@@ -445,6 +468,15 @@ def test_int64_resource_planes_are_refused():
 
 
 def test_batch_policy_from_default_provider():
+    from kubernetes_tpu.models.policy import batch_policy_from as ref_from
+    from kubernetes_tpu.scheduler.plugins import Policy as RefPolicyFile
+    from kubernetes_tpu_torch.scheduler.plugins import Policy
     assert batch_policy_from() == BatchPolicy()
-    with pytest.raises(NotImplementedError, match="Policy"):
-        batch_policy_from(policy=object())
+    # the Policy branch: an empty Policy enables nothing and falls back to
+    # raw EqualPriority scores
+    bp = batch_policy_from(policy=Policy())
+    assert bp == BatchPolicy(use_ports=False, use_resources=False,
+                             use_disk=False, use_selector=False,
+                             use_host=False, w_lr=0, w_spread=0, w_equal=1)
+    assert dataclasses.asdict(bp) == dataclasses.asdict(
+        ref_from(policy=RefPolicyFile()))

@@ -5,7 +5,8 @@ Each wave is encoded once by the JAX package; ``inputs_from_reference``
 carries its host inputs into the port, so both packages solve the identical
 wave. Chosen nodes and winning scores must be equal exactly. The fixtures
 are the default-policy ones of test_pallas_solver.py and
-test_batch_solver.py.
+test_batch_solver.py; the extension and gang fixtures are in
+test_torch_policy.py.
 """
 
 import dataclasses
@@ -78,6 +79,26 @@ def test_fixture_matches_pallas_and_scan(name):
     _assert_all_equal(ref_encode(*WAVES[name](REF)))
 
 
+def _eligible_both(snap, gangs=False, peers=None):
+    """(port, reference) kernel-domain verdicts on one wave."""
+    inp = inputs_from_reference(
+        ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")
+    peers = ref_bs.peer_bound_of(snap) if peers is None else peers
+    return (commit_solver.eligible(
+                inp, BatchPolicy(**dataclasses.asdict(snap.policy)), peers),
+            pallas_solver.eligible(ref_bs.snapshot_to_inputs(snap),
+                                   snap.policy, gangs, peers))
+
+
+def _zoned_wave(n_zones, n_labels):
+    """fuzz_wave(1) with n_labels zone labels of n_zones values each."""
+    nodes, existing, pending, services = fuzz_wave(1, n_nodes=n_zones + 2)
+    for i, n in enumerate(nodes):
+        for a in range(n_labels):
+            n.metadata.labels[f"zone{a}"] = f"z{i % n_zones}"
+    return nodes, existing, pending, services
+
+
 def test_eligibility_agrees_with_reference():
     snap = ref_encode(*fuzz_wave(1))
     _, _, _, _, inp, rinp = _solve_all(snap)
@@ -88,10 +109,50 @@ def test_eligibility_agrees_with_reference():
     # the spread-count domain: peers plus commits must stay below 2^15
     assert not commit_solver.eligible(inp, pol, 1 << 15)
     assert not pallas_solver.eligible(rinp, snap.policy, False, 1 << 15)
+    # a policy whose planes the wave was not encoded with
     assert not commit_solver.eligible(inp, BatchPolicy(
         anti_affinity=(("zone", 1),)), peers)
     assert not commit_solver.eligible(inp, BatchPolicy(all_infeasible=True),
                                       peers)
+    # extension and gang waves are in both domains
+    kitchen = RefPolicy(affinity_labels=("zone",),
+                        anti_affinity=(("zone", 2),),
+                        label_prefs=(("zone", True, 1),),
+                        label_presence=((("zone",), False),))
+    assert _eligible_both(ref_encode(*fuzz_wave(2), policy=kitchen)) == \
+        (True, True)
+    wave = WAVES["host_ports"](REF)
+    gang_snap = ref_encode(*_gang(wave))
+    assert gang_snap.has_gangs
+    assert _eligible_both(gang_snap, gangs=True) == (True, True)
+
+
+def _gang(wave):
+    from kubernetes_tpu.models import gang
+    nodes, existing, pending, services = wave
+    for p in pending:
+        p.metadata.annotations = {gang.GANG_NAME_ANNOTATION: "g"}
+    return nodes, existing, pending, services
+
+
+@pytest.mark.parametrize("n_labels,n_zones,inside", [
+    (4, 64, True),     # A = 4 labels of V = 64 zones: the limits
+    (5, 3, False),     # A = 5 > 4
+    (1, 65, False),    # V = 65 > 64
+])
+def test_eligibility_at_the_anti_affinity_limits(n_labels, n_zones, inside):
+    pol = RefPolicy(anti_affinity=tuple((f"zone{a}", 1)
+                                        for a in range(n_labels)))
+    snap = ref_encode(*_zoned_wave(n_zones, n_labels), policy=pol)
+    assert _eligible_both(snap) == (inside, inside)
+
+
+@pytest.mark.parametrize("n_labels,inside", [(4, True), (5, False)])
+def test_eligibility_at_the_affinity_label_limit(n_labels, inside):
+    pol = RefPolicy(affinity_labels=tuple(f"zone{a}"
+                                          for a in range(n_labels)))
+    snap = ref_encode(*_zoned_wave(3, n_labels), policy=pol)
+    assert _eligible_both(snap) == (inside, inside)
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching():
@@ -114,8 +175,11 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_carry_refuses_waves_outside_the_slice():
-    snap = ref_encode(*fuzz_wave(6), policy=RefPolicy(
-        anti_affinity=(("zone", 2),)))
-    with pytest.raises(NotImplementedError, match="ServiceAntiAffinity"):
+    # preemption waves are the one part of the reference's wave the port
+    # does not carry yet
+    from test_torch_encode import _wave_priority_bands
+    snap = ref_encode(*_wave_priority_bands(REF))
+    assert snap.band_prio.size
+    with pytest.raises(NotImplementedError, match="preemption"):
         inputs_from_reference(
             ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")

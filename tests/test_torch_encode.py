@@ -14,8 +14,10 @@ import pytest
 from kubernetes_tpu.models import batch_solver as ref_bs
 from kubernetes_tpu.models.snapshot import encode_snapshot as ref_encode
 from kubernetes_tpu_torch.models import batch_solver as bs
+from kubernetes_tpu_torch.models.policy import BatchPolicy
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from test_torch_batch_solver import PORT, REF, WAVES
+from test_torch_policy import FIXTURES, to_port
 
 
 def _assert_same(port, ref, fields, what):
@@ -75,3 +77,27 @@ def test_node_extra_ok_mask_is_honoured():
     ref = ref_encode(*WAVES["host_ports"](REF), node_extra_ok=mask)
     _assert_same(port, ref, ["node_extra_ok"], "snapshot")
     assert not port.node_extra_ok[1]
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_extension_encode_matches_reference(name):
+    # the policy planes (label presence in node_extra_ok, score_static,
+    # the affinity value codes and anchors, zone codes) and the gang
+    # markers, field by field, in the snapshot and in the host inputs
+    wave, pol, _gangs = FIXTURES[name]()
+    port = encode_snapshot(*to_port(wave),
+                           policy=BatchPolicy(**dataclasses.asdict(pol)))
+    ref = ref_encode(*wave, policy=pol)
+    _assert_same(port, ref, _snapshot_fields(), "snapshot")
+    _assert_same(bs.snapshot_to_host_inputs(port),
+                 ref_bs.snapshot_to_host_inputs(ref),
+                 bs.SolverInputs._fields, "host inputs")
+
+
+def test_derive_zone_counts_matches_reference():
+    rng = np.random.RandomState(3)
+    node_zone = rng.randint(-1, 5, size=(3, 40)).astype(np.int32)
+    counts = rng.randint(0, 4, size=(8, 41)).astype(np.int32)
+    got = bs.derive_zone_counts(node_zone, counts, 5)
+    want = ref_bs.derive_zone_counts(node_zone, counts, 5)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
