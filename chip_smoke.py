@@ -9,8 +9,9 @@ the benchmark's ``affinity`` and ``gang`` waves at full width, and holds
 the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
-2. build the CUDA sources with nvcc, and report ptxas' registers, stack
-   and spills for each of the kernel's branch-set instances;
+2. build the CUDA sources with nvcc, and report ptxas' registers, static
+   shared memory, stack and spills for each of the kernel's branch-set
+   instances;
 3. the kernel's spread-score device function against the plain int64
    version over every 0 <= count <= total < 2^15;
 4. seeded small waves (ports, PDs, selectors, host pins, cordons,
@@ -22,7 +23,9 @@ the kernel against its plain PyTorch version. Phases:
    unknown host, label preferences, label presence, gangs that
    oversubscribe on purpose, gangs with affinity and with anti-affinity,
    and the kitchen sink: kernel == plain version, bit for bit; fails
-   unless some gang run was rolled back;
+   unless some gang run was rolled back, and unless the waves of phases 4
+   and 4b ran both state layouts (shared memory and global memory; the
+   32,640-node waves take the global one);
 5. north_star through ``solve``: exactly one kernel launch, decisions and
    scores bit-identical to the plain version, every pod bound; kernel
    time (median of CUDA-event timed runs), plain time, encode and wave
@@ -33,11 +36,12 @@ the kernel against its plain PyTorch version. Phases:
    the all-or-nothing post-pass;
 6. binpack3 (three resources), the same checks, while time allows.
 
-Any mismatch or error exits non-zero. Run from the repository root:
-``python3 chip_smoke.py``. It needs one CUDA device and nvcc, and exits
-non-zero without printing a result when either the device or the port's
-package is missing. A record of every number goes to
-``chiprun_out/chip_smoke.json``.
+Each full shape and each wide seeded wave logs the state layout it took
+and its dynamic shared memory. Any mismatch or error exits non-zero. Run
+from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+device and nvcc, and exits non-zero without printing a result when either
+the device or the port's package is missing. A record of every number
+goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -138,6 +142,15 @@ def _inputs(snap, dev):
     return commit_solver.prepare(inp, snap.policy, snap.has_gangs)
 
 
+def _layout(ci):
+    """-> ("shared" or "global", dynamic shared bytes): where the kernel
+    keeps this wave's node state."""
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    on_chip, nbytes = commit_solver.layout_of(ci)
+    return ("shared" if on_chip else "global"), nbytes
+
+
 def _bound(ci, feasible_pairs: int):
     """Least time (ms) the card could take for the work one wave's solve
     must do: the larger of its bytes (each input read once, each output
@@ -152,13 +165,16 @@ def _bound(ci, feasible_pairs: int):
     the same spread expression (9); 2L compares for the affinity anchors;
     one add each for the label-preference plane and the Equal priority;
     and the running max (2)."""
-    P, N = ci.smask.shape
-    R, Wp, Wd = ci.cap.shape[0], ci.ports0.shape[0], ci.pds0.shape[0]
+    P = ci.smask.shape[0]
+    R, N = ci.cap.shape
+    Wp, Wd = ci.ports0.shape[0], ci.pds0.shape[0]
     L, A = ci.affv.shape[0], ci.zone.shape[0]
-    inputs = (ci.smask, ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx,
+    # the mask counts its N columns, not the row padding
+    inputs = (ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx,
               ci.fitexc, ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat,
               ci.affv, ci.anchor0, ci.has0, ci.zone)
-    nbytes = sum(t.numel() * t.element_size() for t in inputs) + 2 * P * 4
+    nbytes = (P * N + sum(t.numel() * t.element_size() for t in inputs)
+              + 2 * P * 4)
     per_feasible = ((6 * R + 2 if ci.w_lr else 0) + (8 if ci.w_spread else 0)
                     + 9 * A + 2 * L + (1 if ci.sstat.numel() else 0)
                     + (1 if ci.w_equal else 0) + 2)
@@ -171,9 +187,10 @@ def _bound(ci, feasible_pairs: int):
 
 
 def _ptxas_report(log: str) -> dict:
-    """ptxas' registers, stack and spills for each kernel instance, keyed
-    by the instance's branch set (``commit_solve<aff,anti,gang,static>``
-    with 0/1 flags) or the kernel's name."""
+    """ptxas' registers, static shared memory, stack and spills for each
+    kernel instance, keyed by the instance's branch set and state layout
+    (``commit_solve<aff,anti,gang,static,shared>`` with 0/1 flags) or the
+    kernel's name."""
     import re
 
     out: dict = {}
@@ -191,13 +208,13 @@ def _ptxas_report(log: str) -> dict:
         if "stack frame" in ln and props:
             frames[props] = ln.strip()
             continue
-        m = re.search(r"Used (\d+) registers", ln)
+        m = re.search(r"Used \d+ registers.*", ln)
         if m and entry:
             flags = re.search(r"commit_solve_kernelILb([01])ELb([01])ELb([01])"
-                              r"ELb([01])E", entry)
+                              r"ELb([01])ELb([01])E", entry)
             name = (f"commit_solve<{','.join(flags.groups())}>" if flags
                     else "spread_eval" if "spread_eval" in entry else entry)
-            out[name] = f"{m.group(1)} registers; {frames.get(entry, '')}"
+            out[name] = f"{m.group(0)}; {frames.get(entry, '')}"
             entry = None
     return out
 
@@ -250,10 +267,13 @@ def _fuzz(dev) -> dict:
               (102, 32640, 40, True)]
     t0 = time.perf_counter()
     pods = 0
+    layouts: dict = {}
     for seed, n_nodes, n_pods, three in cases:
         rng = random.Random(seed)
         snap = encode_snapshot(*_fuzz_wave(rng, n_nodes, n_pods, three))
         ci = _inputs(snap, dev)
+        layout = _layout(ci)[0]
+        layouts[layout] = layouts.get(layout, 0) + 1
         got = commit_solver.solve_commit(ci)
         want = commit_solver.solve_commit_reference(ci)
         for g, w, what in zip(got, want, ("chosen", "win")):
@@ -263,7 +283,7 @@ def _fuzz(dev) -> dict:
                     f"fuzz seed {seed}: {what} differs at pod {i}: kernel "
                     f"{int(g[i])} vs plain {int(w[i])}")
         pods += n_pods
-    return {"waves": len(cases), "pods": pods,
+    return {"waves": len(cases), "pods": pods, "layouts": layouts,
             "seconds": time.perf_counter() - t0}
 
 
@@ -403,10 +423,13 @@ def _ext_fuzz(dev) -> dict:
     t0 = time.perf_counter()
     pods = rolled_back = gang_waves = 0
     wide = []
+    layouts: dict = {}
     for seed, n_nodes, n_pods, kw in cases:
         wave, policy = _ext_wave(random.Random(seed), n_nodes, n_pods, **kw)
         snap = encode_snapshot(*wave, policy=policy)
         ci = _inputs(snap, dev)
+        layout, dyn_bytes = _layout(ci)
+        layouts[layout] = layouts.get(layout, 0) + 1
         if n_nodes < 1000:
             got = commit_solver.solve_commit(ci)
             want = commit_solver.solve_commit_reference(ci)
@@ -421,6 +444,7 @@ def _ext_fuzz(dev) -> dict:
             bound_ms, bound_by, nbytes, ops = _bound(ci, feasible_pairs)
             wide.append({"seed": seed, "nodes": n_nodes,
                          "pods": len(snap.pod_names), "extensions": kw,
+                         "layout": layout, "dyn_shared_bytes": dyn_bytes,
                          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "bound_bytes": nbytes, "bound_ops": ops,
@@ -441,6 +465,7 @@ def _ext_fuzz(dev) -> dict:
                              "path went unchecked")
     return {"waves": len(cases), "pods": pods, "gang_waves": gang_waves,
             "rolled_back_runs": rolled_back, "wide": wide,
+            "layouts": layouts,
             "seconds": time.perf_counter() - t0}
 
 
@@ -480,6 +505,7 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
 
     # ---- the kernel against its plain version on the same inputs -------
     ci = _inputs(snap, dev)
+    layout, dyn_bytes = _layout(ci)
     kernel_ms, kernel_all, (kc, kw_) = event_ms(
         lambda: commit_solver.solve_commit(ci), kernel_runs)
     stats: dict = {}
@@ -517,7 +543,8 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
         "build_cluster_s": build_s, "encode_s": t1 - t0,
         "solve_and_names_s": t2 - t1, "wave_s": wave_s,
         "pods_per_s": n_pods / wave_s, "bound_pods": bound,
-        "launches": launches, "kernel_ms": kernel_ms,
+        "launches": launches, "layout": layout,
+        "dyn_shared_bytes": dyn_bytes, "kernel_ms": kernel_ms,
         "kernel_ms_runs": kernel_all, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
         "bound_ops": ops, "feasible_pairs": feasible_pairs,
@@ -527,7 +554,9 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
 
 def _log_wave(tag: str, w: dict) -> None:
     _log(f"[{tag}] {w['shape']} {w['nodes']}x{w['pods']}: launches "
-         f"{w['launches']}, bound {w['bound_pods']}, encode "
+         f"{w['launches']}, state in {w['layout']} memory "
+         f"({w['dyn_shared_bytes']} B dynamic shared), bound "
+         f"{w['bound_pods']}, encode "
          f"{w['encode_s']:.3f}s, wave {w['wave_s']:.3f}s "
          f"({w['pods_per_s']:.1f} pods/s), kernel {w['kernel_ms']:.3f} ms "
          f"(runs {[round(t, 3) for t in w['kernel_ms_runs']]}), plain "
@@ -573,7 +602,8 @@ def main() -> int:
     # 4. seeded waves
     record["fuzz"] = _fuzz(dev)
     _log(f"[4] {record['fuzz']['waves']} seeded waves "
-         f"({record['fuzz']['pods']} pods): kernel == plain version "
+         f"({record['fuzz']['pods']} pods, state layouts "
+         f"{record['fuzz']['layouts']}): kernel == plain version "
          f"({record['fuzz']['seconds']:.2f}s)")
 
     # 4b. seeded waves with every policy extension and gangs
@@ -581,12 +611,18 @@ def main() -> int:
     ex = record["extensions"]
     _log(f"[4b] {ex['waves']} seeded extension waves ({ex['pods']} pods, "
          f"{ex['gang_waves']} with gangs, {ex['rolled_back_runs']} gang "
-         f"runs rolled back): kernel == plain version "
-         f"({ex['seconds']:.2f}s)")
+         f"runs rolled back, state layouts {ex['layouts']}): kernel == "
+         f"plain version ({ex['seconds']:.2f}s)")
     for w in ex["wide"]:
-        _log(f"     {w['nodes']}x{w['pods']} {w['extensions']}: kernel "
-             f"{w['kernel_ms']:.3f} ms, plain {w['plain_ms']:.1f} ms, bound "
-             f"{w['bound_ms']:.5f} ms ({w['bound_by']})")
+        _log(f"     {w['nodes']}x{w['pods']} {w['extensions']}: state in "
+             f"{w['layout']} memory ({w['dyn_shared_bytes']} B dynamic "
+             f"shared), kernel {w['kernel_ms']:.3f} ms, plain "
+             f"{w['plain_ms']:.1f} ms, bound {w['bound_ms']:.5f} ms "
+             f"({w['bound_by']})")
+    seen = set(record["fuzz"]["layouts"]) | set(ex["layouts"])
+    if seen != {"shared", "global"}:
+        raise AssertionError(f"the seeded waves ran only the {seen} state "
+                             f"layout(s); both must be checked")
 
     # 5. north_star, the main path
     ns = _wave_phase("north_star", dev, kernel_runs=7)

@@ -20,6 +20,8 @@ ServiceAntiAffinity zones, and the gang checkpoint and rollback.
   raises; on a CPU tensor it runs ``solve_commit_reference``, the plain
   version, a per-pod loop of torch ops built on ``ops/kernels``.
   ``solve_commit.launches`` counts kernel launches.
+- ``shared_layout`` is where the kernel keeps a wave's node state: in the
+  block's shared memory when it fits, else in a global buffer.
 - ``spread_eval`` runs the kernel's spread-score device function over
   arrays of (total, count), for checking it exhaustively on the card.
 """
@@ -41,8 +43,9 @@ from kubernetes_tpu_torch.ops.kernels import (
     u64_mod_small,
 )
 
-__all__ = ["CommitInputs", "eligible", "prepare", "solve_commit",
-           "solve_commit_reference", "spread_eval", "MAX_N"]
+__all__ = ["CommitInputs", "eligible", "layout_of", "mask_pitch", "prepare",
+           "shared_layout", "solve_commit", "solve_commit_reference",
+           "spread_eval", "MAX_N"]
 
 NEG = -1
 MAX_R = 8
@@ -62,17 +65,52 @@ _USE_RESOURCES, _USE_PORTS, _USE_DISK, _USE_STATIC, _GANGS = 1, 2, 4, 8, 16
 _START, _CHECKPOINT = 1, 2
 _ROW_FIXED = 6       # tie_hi, tie_lo, gid, member bits, zreq, unit
 
+# Shared memory one block may use on an H100 (static + dynamic), and the
+# room kept for the kernel's static shared arrays (at most 3.3 KB in any
+# instance); the kernel checks the real figures before it launches.
+SMEM_PER_BLOCK = 232_448
+STATIC_SMEM = 4_096
+
+
+def mask_pitch(n_nodes: int) -> int:
+    """Bytes per static-mask row: N rounded up to 16, so the kernel can
+    fetch a row in 16-byte pieces."""
+    return -(-n_nodes // 16) * 16
+
+
+def shared_layout(N: int, R: int, Wp: int, Wd: int, G: int
+                  ) -> Tuple[bool, int]:
+    """Where the kernel keeps one wave's node state -> (on_chip, bytes of
+    dynamic shared memory). The kernel always takes a two-row ring for the
+    static mask; the state — [R+Wp+Wd, N] int32 planes (fit usage, port
+    and PD words) and the [G, N] int16 peer counts — joins it when both fit
+    a block's shared memory, and otherwise lives in a global buffer of the
+    same packed layout. Mirrors shared_bytes in csrc/commit_solve.cu."""
+    ring = 2 * mask_pitch(N)
+    state = 4 * (R + Wp + Wd) * N + 2 * G * N
+    on_chip = ring + state <= SMEM_PER_BLOCK - STATIC_SMEM
+    return on_chip, ring + (state if on_chip else 0)
+
+
+def layout_of(ci: "CommitInputs") -> Tuple[bool, int]:
+    """``shared_layout`` of one prepared wave."""
+    return shared_layout(ci.cap.shape[1], ci.cap.shape[0], ci.ports0.shape[0],
+                         ci.pds0.shape[0], ci.counts0.shape[0])
+
 
 class CommitInputs(NamedTuple):
     """One wave, laid out for the kernel. Node planes are [axis, N]; port
     and PD words are uint32 carried as int32 bit patterns. Extension
     planes have a zero-size axis when the policy does not use them."""
 
-    smask: torch.Tensor       # [P, N] uint8 static feasibility
+    smask: torch.Tensor       # [P, mask_pitch(N)] uint8 static
+                              # feasibility; columns N.. are 0
     podrow: Optional[torch.Tensor]  # [P, R+Wp+Wd+6+L] int32; None if G > 31
     cap: torch.Tensor         # [R, N] int32
     fit0: torch.Tensor        # [R, N] int32 greedy-fitting usage
     score0: torch.Tensor      # [R, N] int32 all-pods usage
+    off: torch.Tensor         # [R, N] int32 score0 - fit0: every commit
+                              # and rollback moves both usages alike
     advx: torch.Tensor        # [R, N] uint8 capacity key advertised
     fitexc: torch.Tensor      # [N] uint8 pre-exceeded node
     ports0: torch.Tensor      # [Wp, N] int32
@@ -110,7 +148,8 @@ def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
     encoded for this policy's labels, and spread counts below 2^15. Gang
     waves are in the domain. The reference also refuses a wave whose
     planes overflow its TPU core's memory; the kernel keeps its state in
-    global memory and has no such budget. ``inp`` is a SolverInputs of
+    global memory when shared memory is too small (``shared_layout``), so
+    it has no such budget. ``inp`` is a SolverInputs of
     tensors; ``peer_bound`` the largest initial per-group peer total
     (batch_solver.peer_bound_of)."""
     if pol is None or pol.all_infeasible:
@@ -201,12 +240,17 @@ def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
              | (_USE_DISK if pol.use_disk else 0)
              | (_USE_STATIC if pol.label_prefs else 0)
              | (_GANGS if gangs else 0))
+    smask = torch.zeros((P, mask_pitch(N)), dtype=torch.uint8, device=dev)
+    smask[:, :N] = static
+    fit0 = inp.fit_used.T.to(i32).contiguous()
+    score0 = inp.score_used.T.to(i32).contiguous()
     return CommitInputs(
-        smask=static.to(torch.uint8).contiguous(),
+        smask=smask,
         podrow=podrow,
         cap=inp.cap.T.to(i32).contiguous(),
-        fit0=inp.fit_used.T.to(i32).contiguous(),
-        score0=inp.score_used.T.to(i32).contiguous(),
+        fit0=fit0,
+        score0=score0,
+        off=score0 - fit0,
         advx=inp.advertises.T.to(torch.uint8).contiguous(),
         fitexc=inp.fit_exceeded.to(torch.uint8).contiguous(),
         ports0=inp.node_ports.T.contiguous(),
@@ -238,9 +282,10 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
     one pod at a time in torch ops on the inputs' device, with no host
     synchronisation inside the loop (the unit starts are read once before
     it). ``stats``, when given, receives ``feasible``: the number of
-    feasible nodes per pod (int64 [P])."""
-    P, N = ci.smask.shape
-    R = ci.cap.shape[0]
+    feasible nodes per pod (int64 [P]), and ``fit`` and ``score_used``:
+    the two usage planes after the wave."""
+    P = ci.smask.shape[0]
+    R, N = ci.cap.shape
     L, A = ci.affv.shape[0], ci.zone.shape[0]
     dev = ci.cap.device
     gangs = bool(ci.flags & _GANGS)
@@ -275,7 +320,7 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
         g = ci.gid[p]
         safe_g = g.clamp_min(0)
         in_group = g >= 0
-        feasible = ci.smask[p] != 0
+        feasible = ci.smask[p, :N] != 0
         if gangs:
             # the rest of an already-failed run places nowhere
             feasible = feasible & ~failed
@@ -354,12 +399,15 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
             # a failed member pins the state at the run's checkpoint
             failed = failed | ~any_f
             state = [torch.where(failed, c, t) for c, t in zip(ckpt, state)]
+    if stats is not None:
+        stats["fit"], stats["score_used"] = state[0], state[1]
     return chosen, win
 
 
 _SIGNATURES = {
-    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 28
-                          + [ctypes.c_int] * 18 + [ctypes.c_void_p]),
+    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 20
+                          + [ctypes.c_int] * 20
+                          + [ctypes.c_longlong, ctypes.c_void_p]),
     "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_longlong, ctypes.c_void_p]),
     "kgpu_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -377,14 +425,16 @@ def _check_launch(lib, rc: int, what: str) -> None:
 
 
 def _check(ci: CommitInputs) -> None:
-    P, N = ci.smask.shape
-    R = ci.cap.shape[0]
+    P = ci.smask.shape[0]
+    R, N = ci.cap.shape
     Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
     L, A = ci.affv.shape[0], ci.zone.shape[0]
     dev = ci.smask.device
     want = {
-        "smask": (torch.uint8, (P, N)), "cap": (torch.int32, (R, N)),
+        "smask": (torch.uint8, (P, mask_pitch(N))),
+        "cap": (torch.int32, (R, N)),
         "fit0": (torch.int32, (R, N)), "score0": (torch.int32, (R, N)),
+        "off": (torch.int32, (R, N)),
         "advx": (torch.uint8, (R, N)), "fitexc": (torch.uint8, (N,)),
         "ports0": (torch.int32, (Wp, N)), "pds0": (torch.int32, (Wd, N)),
         "counts0": (torch.int32, (G, N)), "offl": (torch.int32, (G,)),
@@ -424,8 +474,8 @@ def solve_commit(ci: CommitInputs):
         return solve_commit_reference(ci)
     if dev.type != "cuda":
         raise ValueError(f"solve_commit runs on cuda or cpu, not {dev}")
-    P, N = ci.smask.shape
-    R = ci.cap.shape[0]
+    P = ci.smask.shape[0]
+    R, N = ci.cap.shape
     Wp, Wd, G = ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0]
     L, A = ci.affv.shape[0], ci.zone.shape[0]
     if (ci.podrow is None or N > MAX_N or R > MAX_R or Wp > MAX_W
@@ -436,23 +486,26 @@ def solve_commit(ci: CommitInputs):
             f"Wd={Wd} G={G} L={L} A={A} V={ci.V}); dispatch it with "
             f"eligible()")
     lib = _lib()
-    state = [torch.empty_like(t) for t in (ci.fit0, ci.score0, ci.ports0,
-                                           ci.pds0, ci.counts0)]
-    # the gang checkpoint: one more copy of every per-node state plane
-    ckpt = ([torch.empty_like(t) for t in state] if ci.flags & _GANGS
-            else [None] * len(state))
+    on_chip, dyn_bytes = layout_of(ci)
+    # the packed state planes (the kernel's layout, used when they do not
+    # fit on chip) and the gang checkpoint, one more copy of them
+    state_bytes = 4 * (R + Wp + Wd) * N + 2 * G * N
+    gstate = (None if on_chip else
+              torch.empty(state_bytes, dtype=torch.uint8, device=dev))
+    ckpt = (torch.empty(state_bytes, dtype=torch.uint8, device=dev)
+            if ci.flags & _GANGS else None)
     chosen = torch.empty(P, dtype=torch.int32, device=dev)
     win = torch.empty(P, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() if t is not None else None for t in (
-        ci.smask, ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc,
+        ci.smask, ci.podrow, ci.cap, ci.fit0, ci.off, ci.advx, ci.fitexc,
         ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv,
-        ci.anchor0, ci.has0, ci.zone, *state, *ckpt, chosen, win)]
+        ci.anchor0, ci.has0, ci.zone, gstate, ckpt, chosen, win)]
     w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
     rc = lib.kgpu_commit_solve(
-        *ptrs, P, N, R, Wp, Wd, G, L, A, ci.V,
+        *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V,
         R + Wp + Wd + _ROW_FIXED + L, ci.flags, ci.w_lr, ci.w_spread,
-        ci.w_equal, *w_anti, stream)
+        ci.w_equal, *w_anti, int(on_chip), dyn_bytes, stream)
     _check_launch(lib, rc, "commit_solve")
     solve_commit.launches += 1
     return chosen, win

@@ -13,16 +13,36 @@
 // scores, selects the k-th best node by the pod's FNV-1a hash, and commits
 // one node row; later pods see every earlier commit.
 //
-// Design. One launch per wave, one block of 1024 threads; the pod loop runs
-// inside the kernel. Thread t owns a CONTIGUOUS chunk of ceil(N/1024) nodes
-// (at most 32, one bit each in a 32-bit mask), so the k-th best node in node
-// order is found by a block exclusive scan of per-thread best counts — this
-// replaces the TPU kernel's triangular-matmul prefix ranks. Only the owner
-// ever reads or writes a node's mutable state (usage planes, port/PD words,
-// peer counts), so the commit needs no barrier: a pod costs three block
-// barriers (filter reductions, score max, count scan). The state lives in
-// global memory (about 300 KB at 5,000 nodes, resident in the 50 MB L2);
-// the kernel copies it in from the inputs, so the inputs stay untouched.
+// Design. One launch per wave, one block of 1024 threads on one SM; the pod
+// loop runs inside the kernel. Thread t owns a CONTIGUOUS chunk of
+// ceil(N/1024) nodes (at most 32, one bit each in a 32-bit mask), so the
+// k-th best node in node order is found by a block exclusive scan of
+// per-thread best counts — this replaces the TPU kernel's triangular-matmul
+// prefix ranks. Only the owner ever reads or writes a node's mutable state
+// (fit usage, port/PD words, peer counts), so the commit needs no barrier:
+// a pod costs three block barriers (filter reductions, score max, count
+// scan).
+//
+// Where the state lives. As the TPU kernel kept its node state in VMEM,
+// this one keeps it in the block's dynamic shared memory whenever it fits
+// the 227 KB a block may have: [R+Wp+Wd, N] int32 planes and the [G, N]
+// peer counts as int16 (every count stays below 2^15, the kernel's domain).
+// The all-pods usage is not a plane of its own: every commit and every
+// rollback moves it with the fit usage, so it is fit + off, where off =
+// score0 - fit0 is a read-only input. A wave whose state does not fit
+// (e.g. 32,640 nodes) keeps the same planes, in the same packed layout, in
+// a global buffer the wrapper allocates. Both layouts run the same source;
+// the layout is a template flag, so the on-chip instance addresses the
+// state as shared memory (32-bit LDS/STS) instead of through a generic
+// pointer. The host picks the layout from the shapes
+// (commit_solver.shared_layout).
+//
+// The static mask row and the pod row of pod p+1 are fetched with cp.async
+// into rings in shared memory while pod p runs; each thread waits for its
+// copies before pod p's count-scan barrier, which then publishes the rows.
+// No thread waits on HBM or L2 at the start of a pod. The filter issues a
+// node's loads before it combines them, and skips the port and PD words
+// when the pod (uniformly across the block) has none.
 //
 // Each extension branch is a template flag of the kernel, and the host
 // launches the instance the wave's policy needs: a default-policy wave runs
@@ -45,19 +65,26 @@
 // Bound. Counting each input byte once, a 10,000-pod x 5,000-node wave moves
 // about 50 MB (the uint8 static mask dominates): ~15 us at 3.35 TB/s. The
 // kernel sits far above that: what bounds it is the serial chain of pods,
-// each paying three or four block-wide barriers and dependent L2 loads.
-// Later work attacks the barriers (fewer threads per pod step, state in
-// shared memory or registers, several blocks with a cluster barrier).
+// each paying three or four block-wide barriers and the per-node filter and
+// score arithmetic of one SM.
 //
-// Integer semantics. C's '/' and '%' truncate where Python and torch floor;
-// every division below has a non-negative numerator and a positive divisor,
-// so the two agree (each site says so). Shifts are taken in 64 bits.
+// Arithmetic. The pod loop computes in 32 bits: LeastRequested divides in
+// int32 (batch_solver refuses a wave whose capacities or running sums could
+// reach 2^31/10), and the spread score is the reference's own float32
+// expression with IEEE round-to-nearest-even steps. The only 64-bit
+// operation left is the tie-break's modulo of the 64-bit FNV hash. C's '/'
+// truncates where Python and torch floor; every division below has a
+// non-negative numerator and a positive divisor, so the two agree.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math). Bound with ctypes by
-//        kubernetes_tpu_torch/ops/build.py.
+//        -Xcompiler -fPIC (no --use_fast_math: the spread score needs IEEE
+//        division). Bound with ctypes by kubernetes_tpu_torch/ops/build.py.
 
+#include <array>
 #include <cstdint>
+#include <type_traits>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,6 +98,11 @@ constexpr int kMaxG = 31;
 constexpr int kMaxA = 4;   // anti-affinity labels
 constexpr int kMaxV = 64;  // zones per anti-affinity label
 constexpr int kMaxL = 4;   // service-affinity labels
+constexpr int kMaxRow = kMaxR + 2 * kMaxW + 6 + kMaxL;  // longest pod row
+// Resource dimensions the filter and the score unroll; the rest run in a
+// loop. Unrolling all eight holds more loads in flight than 64 registers
+// take, and every wave has cpu and memory, most at most two more.
+constexpr int kUnrollR = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 // policy flags (the Filter predicates and optional planes the kernel uses)
@@ -86,76 +118,58 @@ constexpr int kCheckpoint = 2;  // a gang run starts here: checkpoint
 
 struct Shape {
   int P, N, R, Wp, Wd, G, L, A, V, row;
+  int pitch;  // bytes per static-mask row: N rounded up to 16
   int flags, w_lr, w_spread, w_equal;
   int w_anti[kMaxA];  // weight of each anti-affinity label
 };
 
-// The per-node mutable state: [R,N] fit, [R,N] score_used, [Wp,N] ports,
-// [Wd,N] pds, [G,N] counts.
-struct State {
-  int* plane[5];
-};
-
-struct ConstState {
-  const int* plane[5];
-};
-
-// Copy this thread's columns [n0, n0+own) of every state plane: the gang
-// checkpoint and rollback. Out of line, because inlined in the pod loop it
-// would hold registers across the loop.
-__device__ __noinline__ void copy_owned(const State dst, const ConstState src,
-                                        const Shape& s, int n0, int own) {
-  const int rows[5] = {s.R, s.R, s.Wp, s.Wd, s.G};
-#pragma unroll
-  for (int k = 0; k < 5; ++k)
-    for (int r = 0; r < rows[k]; ++r)
-      for (int j = 0; j < own; ++j) {
-        const size_t i = (size_t)r * s.N + n0 + j;
-        dst.plane[k][i] = src.plane[k][i];
-      }
+// The packed state layout (shared memory or a global buffer): the int32
+// planes [R,N] fit, [Wp,N] ports, [Wd,N] pds, then the int16 plane [G,N]
+// counts. Plane k of the int32 rows starts at word k * N.
+__device__ __forceinline__ short* counts_of(unsigned char* base,
+                                            const Shape& s) {
+  return reinterpret_cast<short*>(base) +
+         2 * (s.R + s.Wp + s.Wd) * s.N;
 }
 
-__device__ __forceinline__ int bit_length(unsigned long long x) {
-  // frexp exponent of x: 2^(e-1) <= x < 2^e; exact as float32 below 2^24
-  return x ? 64 - __clzll(x) : 0;
+// Copy this thread's columns [n0, n0+own) of every state plane between two
+// packed layouts: the gang checkpoint and rollback. Out of line, because
+// inlined in the pod loop it would hold registers across the loop.
+__device__ __noinline__ void copy_owned(unsigned char* dst,
+                                        unsigned char* src, const Shape& s,
+                                        int n0, int own) {
+  const int* si = reinterpret_cast<const int*>(src);
+  int* di = reinterpret_cast<int*>(dst);
+  const int rows = s.R + s.Wp + s.Wd;
+  for (int k = 0; k < rows; ++k)
+    for (int j = 0; j < own; ++j) di[k * s.N + n0 + j] = si[k * s.N + n0 + j];
+  const short* sc = counts_of(src, s);
+  short* dc = counts_of(dst, s);
+  for (int g = 0; g < s.G; ++g)
+    for (int j = 0; j < own; ++j) dc[g * s.N + n0 + j] = sc[g * s.N + n0 + j];
 }
 
-// ServiceSpreading: int(10 * (f32(total - count) / f32(total))) with IEEE
-// round-to-nearest-even at each float32 step, in exact 64-bit integer
-// arithmetic (the plain version is ops/kernels.spread_score; the TPU kernel
-// used 12-bit limbs only because its lanes lack 64 bits). ServiceAntiAffinity
-// scores a zone with the same function.
+// ServiceSpreading: int(10 * (f32(total - count) / f32(total))), the
+// reference's float32 expression (spreading.go:76-80; the plain version is
+// ops/kernels.spread_score). Both operands are below 2^24, so they convert
+// to float32 exactly; __fdiv_rn and __fmul_rn are IEEE round-to-nearest-
+// even and are never contracted into an FMA; the conversion truncates.
+// ServiceAntiAffinity scores a zone with the same function.
 // Domain: 0 <= count <= total < 2^24.
-__device__ int spread_score(long long total, long long count) {
+__device__ __forceinline__ int spread_score(int total, int count) {
   if (total <= 0) return 10;
-  const long long a = total > count ? total - count : 0;
-  const long long b = total;  // >= 1
-  // k so that m = (a << k) / b lands in [2^23, 2^24); a <= b so k >= 23,
-  // and a < 2^ea bounds a << k below 2^48
-  const int k0 = 23 + bit_length(b) - bit_length(a);
-  const long long m0 = (a << k0) / b;  // a >= 0, b > 0: truncation == floor
-  int k = k0 + (m0 < (1LL << 23)) - (m0 >= (1LL << 24));
-  const long long q_num = a << k;
-  const long long m1 = q_num / b;      // q_num >= 0, b > 0
-  const long long r = q_num - m1 * b;
-  long long m = m1 + ((2 * r > b) || (2 * r == b && (m1 & 1)));
-  if (m == (1LL << 24)) {
-    m = 1LL << 23;
-    k -= 1;
-  }
-  // q = m * 2^-k is RN_f32(a / b); now y = RN_f32(10 * q)
-  const long long z = 10 * m;          // < 2^28
-  int d = 3 + (z >= (1LL << 27));
-  const long long half = 1LL << (d - 1);
-  const long long rem = z & ((1LL << d) - 1);
-  long long zm = z >> d;
-  zm += (rem > half) || (rem == half && (zm & 1));
-  if (zm == (1LL << 24)) {
-    zm = 1LL << 23;
-    d += 1;
-  }
-  // y = zm * 2^(d - k) with k - d >= 18: truncation is a right shift
-  return static_cast<int>(zm >> (k - d));
+  const int a = total > count ? total - count : 0;
+  const float q = __fdiv_rn(__int2float_rn(a), __int2float_rn(total));
+  return __float2int_rz(__fmul_rn(10.f, q));
+}
+
+// LeastRequested's share of one dimension: (c - tot) * 10 / c, or 0 when
+// the node has no capacity or the pod would overfill it. int32: the
+// numerator lies in [0, 10c] and batch_solver refuses a wave whose
+// capacities could reach 2^31/10; the divisor is positive.
+__device__ __forceinline__ unsigned least_requested(int c, int tot) {
+  if (c == 0 || tot > c) return 0;
+  return (unsigned)((c - tot) * 10) / (unsigned)c;
 }
 
 __global__ void spread_eval_kernel(const int* __restrict__ total,
@@ -167,17 +181,59 @@ __global__ void spread_eval_kernel(const int* __restrict__ total,
   }
 }
 
+// cp.async of 16 bytes, global -> shared, bypassing L1
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+// cp.async of 4 bytes, global -> shared
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start fetching pod q's static-mask row into mask slot q & 1 and its pod
+// row into row slot q % 3; every thread copies its pieces (16 bytes of the
+// mask, or one word of the pod row) and later waits for them itself. The
+// pod row takes three slots because the committing thread still reads pod
+// q-2's row while the others start fetching pod q's.
+__device__ __forceinline__ void fetch_pod(unsigned char* ring, int* rows,
+                                          const uint8_t* smask,
+                                          const int* podrow, int q,
+                                          const Shape& s) {
+  // 64-bit row offsets: P x pitch may pass 2^31 bytes
+  const uint8_t* src = smask + (size_t)q * s.pitch;
+  unsigned char* dst = ring + (q & 1) * s.pitch;
+  for (int c = threadIdx.x * 16; c < s.pitch; c += kThreads * 16)
+    cp_async16(dst + c, src + c);
+  // the last threads of the block, which the mask leaves idle first
+  const int w = (int)threadIdx.x - (kThreads - s.row);
+  if (w >= 0)
+    cp_async4(rows + (q % 3) * kMaxRow + w, podrow + (size_t)q * s.row + w);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // The branch set is fixed at compile time, so a wave pays only for the
 // branches its policy uses: kAff = ServiceAffinity anchors (L > 0), kAnti =
 // ServiceAntiAffinity zones (A > 0), kGang = gang checkpoint and rollback,
-// kStatic = the NodeLabelPriority plane. The host picks the instance.
-template <bool kAff, bool kAnti, bool kGang, bool kStatic>
+// kStatic = the NodeLabelPriority plane; kShared = the state lives in
+// dynamic shared memory (else in gstate). The host picks the instance.
+template <bool kAff, bool kAnti, bool kGang, bool kStatic, bool kShared>
 __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
-    const uint8_t* __restrict__ smask,   // [P, N] static feasibility
+    const uint8_t* __restrict__ smask,   // [P, pitch] static feasibility
     const int* __restrict__ podrow,      // [P, row] packed pod rows
     const int* __restrict__ cap,         // [R, N]
     const int* __restrict__ fit0,        // [R, N] greedy-fitting usage
-    const int* __restrict__ score0,      // [R, N] all-pods usage
+    const int* __restrict__ off,         // [R, N] all-pods minus fit usage
     const uint8_t* __restrict__ advx,    // [R, N] capacity key advertised
     const uint8_t* __restrict__ fitexc,  // [N] pre-exceeded node
     const int* __restrict__ ports0,      // [Wp, N] port bitmask words
@@ -189,14 +245,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     const int* __restrict__ anchor0,     // [G, L] initial anchor values
     const uint8_t* __restrict__ has0,    // [G] the group has an anchor
     const int* __restrict__ zone,        // [A, N] zone codes, -1 unlabeled
-    int* __restrict__ fit, int* __restrict__ score_used,
-    int* __restrict__ ports, int* __restrict__ pds,
-    int* __restrict__ counts,            // mutable state, same layouts
-    const State ck,                      // gang checkpoint (kGang only)
+    unsigned char* __restrict__ gstate,  // packed state (global layout only)
+    unsigned char* __restrict__ ck,      // packed gang checkpoint (kGang)
     int* __restrict__ chosen, int* __restrict__ win, const Shape s) {
-  // the pod's request stays in registers unless a branch that holds more
-  // state across the loop runs; then it is read again from the pod row
-  constexpr bool kLean = !(kAff || kAnti || kGang);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -218,18 +269,24 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   __shared__ int sh_ck_anchor[kMaxG * kMaxL];
   __shared__ int sh_ck_has[kMaxG];
   __shared__ int sh_w_anti[kMaxA];
+  __shared__ int sh_rows[3 * kMaxRow];  // pod-row ring
+  // [2, pitch] mask ring, then the packed state when it lives on chip
+  extern __shared__ __align__(16) unsigned char dsm[];
+  unsigned char* const ring = dsm;
+  unsigned char* const base = kShared ? dsm + 2 * s.pitch : gstate;
+  int* const fit = reinterpret_cast<int*>(base);
+  int* const ports = fit + s.R * N;
+  int* const pds = ports + s.Wp * N;
+  short* const counts = counts_of(base, s);
 
   // copy the owned columns of the state in; only this thread touches them
   for (int j = 0; j < own; ++j) {
     const int n = n0 + j;
-    for (int r = 0; r < s.R; ++r) {
-      const size_t i = (size_t)r * N + n;
-      fit[i] = fit0[i];
-      score_used[i] = score0[i];
-    }
-    for (int w = 0; w < s.Wp; ++w) ports[(size_t)w * N + n] = ports0[(size_t)w * N + n];
-    for (int w = 0; w < s.Wd; ++w) pds[(size_t)w * N + n] = pds0[(size_t)w * N + n];
-    for (int g = 0; g < s.G; ++g) counts[(size_t)g * N + n] = counts0[(size_t)g * N + n];
+    for (int r = 0; r < s.R; ++r) fit[r * N + n] = fit0[r * N + n];
+    for (int w = 0; w < s.Wp; ++w) ports[w * N + n] = ports0[w * N + n];
+    for (int w = 0; w < s.Wd; ++w) pds[w * N + n] = pds0[w * N + n];
+    for (int g = 0; g < s.G; ++g)
+      counts[g * N + n] = (short)counts0[g * N + n];
   }
   const int GL = s.G * L;
   if constexpr (kAff) {
@@ -240,7 +297,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     for (int i = t; i < A * s.V; i += kThreads) sh_zone[i] = 0;
     if (t < kMaxA) sh_w_anti[t] = s.w_anti[t];
   }
-  if constexpr (kAff || kAnti) __syncthreads();
+  if (s.P > 0) fetch_pod(ring, sh_rows, smask, podrow, 0, s);
+  cp_async_wait_all();
+  __syncthreads();
 
   const bool use_res = s.flags & kUseResources;
   const bool use_ports = s.flags & kUsePorts;
@@ -258,30 +317,33 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
 
   bool failed = false;  // a member of the current gang run found no node
   for (int p = 0; p < s.P; ++p) {
-    const int* row = podrow + (size_t)p * s.row;
-    const uint8_t* srow = smask + (size_t)p * N;
-    const int gid = __ldg(row + o_gid);
-    const bool zreq = __ldg(row + o_zreq) != 0;
-    int req[kMaxR];
-    if constexpr (kLean) {
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) req[r] = r < s.R ? __ldg(row + r) : 0;
-    }
-    auto request = [&](int r) -> int {
-      if constexpr (kLean) return req[r];
-      else return __ldg(row + r);
-    };
+    // the next pod's mask row and pod row stream in while this pod runs
+    if (p + 1 < s.P) fetch_pod(ring, sh_rows, smask, podrow, p + 1, s);
+    const unsigned char* srow = ring + (p & 1) * s.pitch;
+    // req[R] at row[0..R). The on-chip anti-affinity instance reads the
+    // pod row again at each use: holding its words in registers across the
+    // zone pass spills there (64 registers a thread); the others keep them.
+    using RowPtr = std::conditional_t<kAnti && kShared, const volatile int*,
+                                      const int*>;
+    const RowPtr row = sh_rows + (p % 3) * kMaxRow;
+    const int gid = row[o_gid];
+    const bool zreq = row[o_zreq] != 0;
+    // block-uniform: does the pod hold a host port or a PD at all?
+    bool pod_ports = false, pod_pds = false;
+    if (use_ports)
+      for (int w = 0; w < s.Wp; ++w) pod_ports |= row[o_ports + w] != 0;
+    if (use_disk)
+      for (int w = 0; w < s.Wd; ++w) pod_pds |= row[o_pds + w] != 0;
 
     // ---- gang bookkeeping (solve_jit gang_step) -------------------------
     int unit = kStart;
     bool was_failed = false;
     if constexpr (kGang) {
-      unit = __ldg(row + o_unit);
+      unit = row[o_unit];
       if (unit & kStart) failed = false;
       was_failed = failed;
       if (unit & kCheckpoint) {
-        copy_owned(ck, ConstState{{fit, score_used, ports, pds, counts}}, s,
-                   n0, own);
+        copy_owned(ck, base, s, n0, own);
         // the same thread copies back on rollback: no barrier needed here
         if constexpr (kAff) {
           for (int i = t; i < GL; i += kThreads) sh_ck_anchor[i] = sh_anchor[i];
@@ -295,67 +357,69 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     if constexpr (kAff) {
       if (gid >= 0 && sh_has[gid]) {
         for (int l = 0; l < L; ++l)
-          if (__ldg(row + o_pins + l) == -2 && sh_anchor[gid * L + l] >= 0)
+          if (row[o_pins + l] == -2 && sh_anchor[gid * L + l] >= 0)
             need |= 1u << l;
       }
     }
 
     // ---- filter (and the per-pod reductions it feeds) -------------------
+    // Every word a node's verdict needs is loaded before any is tested, so
+    // the loads of one node overlap instead of forming a chain.
     unsigned feas = 0;  // bit j: node n0 + j is feasible
     unsigned adv = 0;   // bit r: a feasible node advertises extra dim r
     int cmax = 0;       // max peers of the pod's group over owned nodes
     int csum = 0;       // all peers of the pod's group over owned nodes
+    const bool check_res = use_res && !zreq;  // a zero-request pod skips
+                                              // the fit and fit_exceeded
     for (int j = 0; j < own; ++j) {
       const int n = n0 + j;
       bool ok = srow[n] != 0;
-      if constexpr (kGang) ok = ok && !failed;
+      if constexpr (kGang) ok &= !failed;
       if constexpr (kAff) {
-        for (int l = 0; ok && l < L; ++l)
-          if ((need >> l) & 1u)
-            ok = affv[(size_t)l * N + n] == sh_anchor[gid * L + l];
+        for (int l = 0; l < L; ++l)
+          if ((need >> l) & 1u) ok &= affv[l * N + n] == sh_anchor[gid * L + l];
       }
-      if (ok && use_res && !zreq) {
-        // a zero-request pod skips both the fit check and fit_exceeded
-        ok = fitexc[n] == 0;
+      if (check_res) {
+        bool fits = fitexc[n] == 0;
 #pragma unroll
-        for (int r = 0; r < kMaxR; ++r) {
+        for (int r = 0; r < kUnrollR; ++r) {
           if (r < s.R) {
-            const size_t i = (size_t)r * N + n;
-            const int c = cap[i];
+            const int c = cap[r * N + n];
             // cpu and memory (dims 0, 1) are unconstrained at zero capacity
-            ok = ok && (c - fit[i] >= request(r) || (r < 2 && c == 0));
+            fits &= (c - fit[r * N + n] >= row[r]) | (r < 2 && c == 0);
           }
         }
+        for (int r = kUnrollR; r < s.R; ++r)
+          fits &= cap[r * N + n] - fit[r * N + n] >= row[r];
+        ok &= fits;
       }
-      if (ok && use_ports) {
+      if (pod_ports) {
         for (int w = 0; w < s.Wp; ++w)
-          ok = ok && (ports[(size_t)w * N + n] & __ldg(row + o_ports + w)) == 0;
+          ok &= (ports[w * N + n] & row[o_ports + w]) == 0;
       }
-      if (ok && use_disk) {
+      if (pod_pds) {
         for (int w = 0; w < s.Wd; ++w)
-          ok = ok && (pds[(size_t)w * N + n] & __ldg(row + o_pds + w)) == 0;
+          ok &= (pds[w * N + n] & row[o_pds + w]) == 0;
       }
       if (ok) {
         feas |= 1u << j;
         for (int r = 2; r < s.R; ++r)
-          if (advx[(size_t)r * N + n]) adv |= 1u << r;
-      }
-      if constexpr (!kAnti) {
-        if (gid >= 0) cmax = max(cmax, counts[(size_t)gid * N + n]);
+          if (advx[r * N + n]) adv |= 1u << r;
       }
     }
-    if constexpr (kAnti) {
-      // the peers again, now that every owned node's feasibility is known
-      if (gid >= 0) {
-        const int* crow = counts + (size_t)gid * N;
-        for (int j = 0; j < own; ++j) {
-          const int c = crow[n0 + j];
-          cmax = max(cmax, c);
+    // the pod's peers over the owned nodes, in a pass of their own: the
+    // spread max, and for anti-affinity the total and the per-zone sums
+    // over the feasible nodes
+    if (gid >= 0) {
+      const short* crow = counts + gid * N;
+      for (int j = 0; j < own; ++j) {
+        const int c = crow[n0 + j];
+        cmax = max(cmax, c);
+        if constexpr (kAnti) {
           csum += c;
-          // ServiceAntiAffinity: the pod's peers per zone, feasible nodes
           if (!c || !((feas >> j) & 1u)) continue;
           for (int a = 0; a < A; ++a) {
-            const int z = zone[(size_t)a * N + n0 + j];
+            const int z = zone[a * N + n0 + j];
             if (z >= 0) atomicAdd(&sh_zone[a * s.V + z], c);
           }
         }
@@ -385,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     const int num = kAnti && gid >= 0 ? csum + offl[gid] : 0;
     // LeastRequested divisor: cpu + memory + every extra dimension some
     // FEASIBLE node advertises (by name presence, not capacity)
-    const int n_dyn = 2 + __popc(adv);
+    const unsigned n_dyn = 2 + __popc(adv);
 
     // ---- score: per-thread max and the owned nodes that reach it ------
     int lmax = -1;
@@ -395,24 +459,29 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       const int n = n0 + j;
       int sc = 0;
       if (s.w_lr) {
-        int raw = 0;
-        for (int r = 0; r < s.R; ++r) {
-          const size_t i = (size_t)r * N + n;
-          const long long c = cap[i];
-          const long long tot = (long long)score_used[i] + request(r);
-          // kept only when 0 <= tot <= c: numerator >= 0, divisor > 0
-          if (c != 0 && tot <= c) raw += (int)(((c - tot) * 10) / c);
+        // all-pods usage = fit + off
+        unsigned raw = 0;
+#pragma unroll
+        for (int r = 0; r < kUnrollR; ++r) {
+          if (r < s.R) {
+            const int i = r * N + n;
+            raw += least_requested(cap[i], fit[i] + off[i] + row[r]);
+          }
         }
-        sc += (raw / n_dyn) * s.w_lr;  // raw >= 0, n_dyn >= 2
+        for (int r = kUnrollR; r < s.R; ++r) {
+          const int i = r * N + n;
+          raw += least_requested(cap[i], fit[i] + off[i] + row[r]);
+        }
+        sc += (int)(raw / n_dyn) * s.w_lr;  // n_dyn >= 2
       }
       if (s.w_spread) {
-        const int peers = gid >= 0 ? counts[(size_t)gid * N + n] : 0;
+        const int peers = gid >= 0 ? counts[gid * N + n] : 0;
         sc += spread_score(max_count, peers) * s.w_spread;
       }
       if constexpr (kAnti) {
         for (int a = 0; a < A; ++a) {
           // an unlabeled node scores 0 on this term
-          const int z = zone[(size_t)a * N + n];
+          const int z = zone[a * N + n];
           if (z >= 0)
             sc += spread_score(num, sh_zone[a * s.V + z]) * sh_w_anti[a];
         }
@@ -445,6 +514,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       if (lane >= o) incl += v;
     }
     if (lane == 31) sh_cnt[warp] = incl;
+    // this thread's pieces of the next pod's rows have landed; the barrier
+    // publishes the whole rows
+    cp_async_wait_all();
     __syncthreads();
     int before = 0, total = 0;
     for (int i = 0; i < kWarps; ++i) {
@@ -456,9 +528,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       if constexpr (kGang) {
         if (!was_failed && !(unit & kStart)) {
           // ---- gang rollback: pin the state at the run's checkpoint ----
-          copy_owned(State{{fit, score_used, ports, pds, counts}},
-                     ConstState{{ck.plane[0], ck.plane[1], ck.plane[2],
-                                 ck.plane[3], ck.plane[4]}}, s, n0, own);
+          copy_owned(base, ck, s, n0, own);
           if constexpr (kAff) {
             for (int i = t; i < GL; i += kThreads) sh_anchor[i] = sh_ck_anchor[i];
             for (int i = t; i < s.G; i += kThreads) sh_has[i] = sh_ck_has[i];
@@ -470,34 +540,31 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
         chosen[p] = -1;
         win[p] = -1;
       }
-    } else {
+    } else if (mine) {
+      // The reference takes the 64-bit FNV-1a hash modulo the count of best
+      // nodes, so this modulo is 64-bit; it runs once per pod, and only in
+      // the threads that hold a best node.
       const unsigned long long h =
-          ((unsigned long long)(unsigned)__ldg(row + o_tie) << 32) |
-          (unsigned)__ldg(row + o_tie + 1);
-      const int k = (int)(h % (unsigned long long)total);  // unsigned modulo
+          ((unsigned long long)(unsigned)row[o_tie] << 32) |
+          (unsigned)row[o_tie + 1];
+      const int k = (int)(h % (unsigned long long)total);
       const int excl = before + incl - mine;
       if (k >= excl && k < excl + mine) {
         // ---- commit: the owner updates its node row --------------------
         unsigned m = lbest;
         for (int i = 0; i < k - excl; ++i) m &= m - 1;  // drop lower best bits
         const int n = n0 + __ffs(m) - 1;
-        for (int r = 0; r < s.R; ++r) {
-          const size_t i = (size_t)r * N + n;
-          const int q = request(r);
-          fit[i] += q;
-          score_used[i] += q;
-        }
-        for (int w = 0; w < s.Wp; ++w) ports[(size_t)w * N + n] |= __ldg(row + o_ports + w);
-        for (int w = 0; w < s.Wd; ++w) pds[(size_t)w * N + n] |= __ldg(row + o_pds + w);
-        const unsigned member = (unsigned)__ldg(row + o_member);
+        for (int r = 0; r < s.R; ++r) fit[r * N + n] += row[r];
+        for (int w = 0; w < s.Wp; ++w) ports[w * N + n] |= row[o_ports + w];
+        for (int w = 0; w < s.Wd; ++w) pds[w * N + n] |= row[o_pds + w];
+        const unsigned member = (unsigned)row[o_member];
         for (int g = 0; g < s.G; ++g) {
           if (!((member >> g) & 1u)) continue;
-          counts[(size_t)g * N + n] += 1;
+          counts[g * N + n] += 1;
           if constexpr (kAff) {
             // the group's first peer anchors it at this node's values
             if (!sh_has[g]) {
-              for (int l = 0; l < L; ++l)
-                sh_anchor[g * L + l] = affv[(size_t)l * N + n];
+              for (int l = 0; l < L; ++l) sh_anchor[g * L + l] = affv[l * N + n];
               sh_has[g] = 1;
             }
           }
@@ -512,61 +579,91 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   }
 }
 
-using CommitKernel = decltype(&commit_solve_kernel<false, false, false, false>);
+using CommitKernel =
+    decltype(&commit_solve_kernel<false, false, false, false, false>);
 
-// instance I: bit 0 kAff, bit 1 kAnti, bit 2 kGang, bit 3 kStatic
+// instance I: bit 0 kAff, bit 1 kAnti, bit 2 kGang, bit 3 kStatic,
+// bit 4 kShared
 template <int I>
 constexpr CommitKernel instance() {
   return &commit_solve_kernel<(I & 1) != 0, (I & 2) != 0, (I & 4) != 0,
-                              (I & 8) != 0>;
+                              (I & 8) != 0, (I & 16) != 0>;
+}
+
+template <int... I>
+constexpr std::array<CommitKernel, sizeof...(I)> instances(
+    std::integer_sequence<int, I...>) {
+  return {instance<I>()...};
+}
+
+// Bytes of dynamic shared memory a wave takes: the two-row mask ring, and
+// the packed state planes when they live on chip. Mirrors
+// commit_solver.shared_layout.
+long long shared_bytes(int N, int pitch, int R, int Wp, int Wd, int G,
+                       int on_chip) {
+  const long long state = on_chip ? 4LL * (R + Wp + Wd) * N + 2LL * G * N : 0;
+  return 2LL * pitch + state;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One wave. Pointers are device pointers; the wrapper allocates the state,
-// the gang checkpoint (gang waves only; null otherwise) and the outputs.
-// Returns the launch's cudaError_t (0 = launched).
+// One wave. Pointers are device pointers; the wrapper allocates the global
+// state (global layout only; null otherwise), the gang checkpoint (gang
+// waves only; null otherwise) and the outputs. ``dyn_bytes`` is the dynamic
+// shared memory the wrapper reckoned for the layout; it must agree.
+// Returns a cudaError_t (0 = launched).
 int kgpu_commit_solve(const void* smask, const void* podrow, const void* cap,
-                      const void* fit0, const void* score0, const void* advx,
+                      const void* fit0, const void* off, const void* advx,
                       const void* fitexc, const void* ports0, const void* pds0,
                       const void* counts0, const void* offl, const void* sstat,
                       const void* affv, const void* anchor0, const void* has0,
-                      const void* zone, void* fit, void* score_used,
-                      void* ports, void* pds, void* counts, void* ck_fit,
-                      void* ck_score_used, void* ck_ports, void* ck_pds,
-                      void* ck_counts, void* chosen, void* win, int P, int N,
-                      int R, int Wp, int Wd, int G, int L, int A, int V,
-                      int row, int flags, int w_lr, int w_spread, int w_equal,
-                      int w_anti0, int w_anti1, int w_anti2, int w_anti3,
-                      void* stream) {
+                      const void* zone, void* gstate, void* ck, void* chosen,
+                      void* win, int P, int N, int pitch, int R, int Wp,
+                      int Wd, int G, int L, int A, int V, int row, int flags,
+                      int w_lr, int w_spread, int w_equal, int w_anti0,
+                      int w_anti1, int w_anti2, int w_anti3, int on_chip,
+                      long long dyn_bytes, void* stream) {
   if (P < 0 || N < 0 || N > kThreads * kMaxChunk || R < 0 || R > kMaxR ||
       Wp < 0 || Wp > kMaxW || Wd < 0 || Wd > kMaxW || G < 0 || G > kMaxG ||
       L < 0 || L > kMaxL || A < 0 || A > kMaxA || V < 0 || V > kMaxV ||
-      row != R + Wp + Wd + 6 + L ||
-      ((flags & kGangs) && !(ck_fit && ck_score_used && ck_counts &&
-                             (Wp == 0 || ck_ports) && (Wd == 0 || ck_pds))))
+      row != R + Wp + Wd + 6 + L || pitch % 16 != 0 || pitch < N ||
+      pitch >= N + 16 || (!on_chip && !gstate) ||
+      ((flags & kGangs) && !ck) ||
+      dyn_bytes != shared_bytes(N, pitch, R, Wp, Wd, G, on_chip))
     return (int)cudaErrorInvalidValue;
-  static const CommitKernel kernels[16] = {
-      instance<0>(),  instance<1>(),  instance<2>(),  instance<3>(),
-      instance<4>(),  instance<5>(),  instance<6>(),  instance<7>(),
-      instance<8>(),  instance<9>(),  instance<10>(), instance<11>(),
-      instance<12>(), instance<13>(), instance<14>(), instance<15>()};
+  static const auto kernels =
+      instances(std::make_integer_sequence<int, 32>{});
   const int which = (L > 0) | (A > 0) << 1 | ((flags & kGangs) != 0) << 2 |
-                    ((flags & kUseStatic) != 0) << 3;
-  const Shape s{P, N, R, Wp, Wd, G, L, A, V, row, flags, w_lr, w_spread,
-                w_equal, {w_anti0, w_anti1, w_anti2, w_anti3}};
-  const State ck{{(int*)ck_fit, (int*)ck_score_used, (int*)ck_ports,
-                  (int*)ck_pds, (int*)ck_counts}};
-  kernels[which]<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+                    ((flags & kUseStatic) != 0) << 3 | (on_chip != 0) << 4;
+  const CommitKernel kernel = kernels[which];
+  // static + dynamic shared memory must fit what one block may opt in to
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)attr.sharedSizeBytes + dyn_bytes > optin)
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const Shape s{P, N, R, Wp, Wd, G, L, A, V, row, pitch, flags,
+                w_lr, w_spread, w_equal,
+                {w_anti0, w_anti1, w_anti2, w_anti3}};
+  kernel<<<1, kThreads, (size_t)dyn_bytes, (cudaStream_t)stream>>>(
       (const uint8_t*)smask, (const int*)podrow, (const int*)cap,
-      (const int*)fit0, (const int*)score0, (const uint8_t*)advx,
+      (const int*)fit0, (const int*)off, (const uint8_t*)advx,
       (const uint8_t*)fitexc, (const int*)ports0, (const int*)pds0,
       (const int*)counts0, (const int*)offl, (const int*)sstat,
       (const int*)affv, (const int*)anchor0, (const uint8_t*)has0,
-      (const int*)zone, (int*)fit, (int*)score_used, (int*)ports, (int*)pds,
-      (int*)counts, ck, (int*)chosen, (int*)win, s);
+      (const int*)zone, (unsigned char*)gstate, (unsigned char*)ck,
+      (int*)chosen, (int*)win, s);
   return (int)cudaGetLastError();
 }
 

@@ -96,15 +96,13 @@ def main() -> int:
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
 
-    entry = fixtures.FULL_SHAPES[args.shape]
-    n_nodes, n_pods, kw = entry[:3]
-    # a tree from before shape policies has three items per shape
+    n_nodes, n_pods, kw, policy_json = fixtures.FULL_SHAPES[args.shape]
     policy = None
-    if len(entry) > 3 and entry[3]:
+    if policy_json:
         from kubernetes_tpu_torch.models.policy import batch_policy_from
         from kubernetes_tpu_torch.scheduler.plugins import load_policy
 
-        policy = batch_policy_from(policy=load_policy(entry[3]))
+        policy = batch_policy_from(policy=load_policy(policy_json))
     cluster = fixtures.build_cluster(n_nodes, n_pods, **kw)
     out = {"shape": args.shape, "nodes": n_nodes, "pods": len(cluster[2])}
     if args.wave:
@@ -115,10 +113,7 @@ def main() -> int:
         if not commit_solver.eligible(inp, snap.policy,
                                       bs.peer_bound_of(snap)):
             raise AssertionError("wave outside the kernel's domain")
-        # gangs only where the wave has them: a tree from before gangs
-        # takes no third argument
-        ci = commit_solver.prepare(inp, snap.policy,
-                                   *((True,) if snap.has_gangs else ()))
+        ci = commit_solver.prepare(inp, snap.policy, snap.has_gangs)
         commit_solver.solve_commit(ci)                  # build and warm up
         ms, runs, _ = event_ms(lambda: commit_solver.solve_commit(ci),
                                args.runs)

@@ -422,7 +422,7 @@ def _gang_wave(k):
             + [k.pod("solo", cpu_m=600)], [])
 
 
-def test_gang_wave_is_refused():
+def test_gang_wave_matches_reference():
     # a gang wave solves, all or nothing, as the reference and the oracle
     psnap = encode_snapshot(*_gang_wave(PORT))
     assert psnap.has_gangs
@@ -445,7 +445,7 @@ def test_preemption_wave_is_refused():
         bs.solve(psnap, device="cpu")
 
 
-def test_policy_extension_is_refused():
+def test_policy_extensions_match_reference():
     # a wave under every policy extension solves as the reference does
     from kubernetes_tpu.models.policy import BatchPolicy as RefPolicy
     kw = dict(anti_affinity=(("zone", 2),), label_prefs=(("disk", True, 1),),

@@ -17,13 +17,16 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu.models import batch_solver as ref_bs
 from kubernetes_tpu.models.policy import BatchPolicy as RefPolicy
 from kubernetes_tpu.models.snapshot import encode_snapshot as ref_encode
 from kubernetes_tpu.ops import pallas_solver
+from kubernetes_tpu_torch.models import batch_solver as bs
 from kubernetes_tpu_torch.models.carry import inputs_from_reference
 from kubernetes_tpu_torch.models.policy import BatchPolicy
+from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from kubernetes_tpu_torch.ops import commit_solver
 from test_pallas_solver import fuzz_wave, mk_node, mk_pod
 from test_torch_batch_solver import REF, WAVES
@@ -183,3 +186,149 @@ def test_carry_refuses_waves_outside_the_slice():
     with pytest.raises(NotImplementedError, match="preemption"):
         inputs_from_reference(
             ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")
+
+
+# ---- the kernel's state layout and its arithmetic --------------------------
+
+def _shape_widths(name):
+    """(N, R, Wp, Wd, G) of a full shape. The widths do not depend on the
+    cluster's size (the fixture cycles 5 host ports, 8 services), so they
+    are read from a 64-node build of the same fixture."""
+    from kubernetes_tpu_torch.models import fixtures
+    from kubernetes_tpu_torch.models.policy import batch_policy_from
+    from kubernetes_tpu_torch.scheduler.plugins import load_policy
+    n_nodes, n_pods, kw, policy_json = fixtures.FULL_SHAPES[name]
+    if kw.get("gang_groups"):
+        kw = dict(kw, gang_groups=12)
+    cluster = fixtures.build_cluster(64, min(n_pods, 200), **kw)
+    policy = (batch_policy_from(policy=load_policy(policy_json))
+              if policy_json else None)
+    snap = encode_snapshot(*cluster, policy=policy)
+    inp = bs.ship_inputs(bs.snapshot_to_host_inputs(snap), "cpu")
+    ci = commit_solver.prepare(inp, snap.policy, snap.has_gangs)
+    return (n_nodes, ci.cap.shape[0], ci.ports0.shape[0], ci.pds0.shape[0],
+            ci.counts0.shape[0])
+
+
+@pytest.mark.parametrize("name", ["north_star", "affinity", "binpack3",
+                                  "gang"])
+def test_full_shapes_keep_their_state_on_chip(name):
+    N, R, Wp, Wd, G = _shape_widths(name)
+    on_chip, nbytes = commit_solver.shared_layout(N, R, Wp, Wd, G)
+    assert on_chip
+    # the mask ring plus the state planes, counts as int16, no score plane
+    assert nbytes == 2 * commit_solver.mask_pitch(N) + 4 * (R + Wp + Wd) * N \
+        + 2 * G * N
+    assert nbytes <= commit_solver.SMEM_PER_BLOCK - commit_solver.STATIC_SMEM
+
+
+@pytest.mark.parametrize("widths", [
+    (2, 0, 0, 0),      # the smallest state a wave has
+    (2, 1, 1, 8),      # north_star's widths
+    (3, 1, 1, 2),      # the seeded 32,640-node wave of chip_smoke phase 4
+])
+def test_widest_wave_keeps_its_state_in_global_memory(widths):
+    on_chip, nbytes = commit_solver.shared_layout(commit_solver.MAX_N,
+                                                  *widths)
+    assert not on_chip
+    # only the two-row mask ring is in shared memory
+    assert nbytes == 2 * commit_solver.MAX_N
+
+
+def test_prepare_pads_mask_rows_to_16_bytes():
+    snap = ref_encode(*fuzz_wave(3))
+    _, _, _, ci, inp, _ = _solve_all(snap)
+    P, N = inp.req.shape[0], inp.cap.shape[0]
+    assert N % 16
+    assert ci.smask.shape == (P, commit_solver.mask_pitch(N))
+    assert ci.smask.shape[1] % 16 == 0 and ci.smask.shape[1] - N < 16
+    assert not ci.smask[:, N:].any()
+    assert commit_solver.layout_of(ci) == commit_solver.shared_layout(
+        N, ci.cap.shape[0], ci.ports0.shape[0], ci.pds0.shape[0],
+        ci.counts0.shape[0])
+
+
+def _gang_inputs(wave):
+    snap = ref_encode(*wave)
+    assert snap.has_gangs
+    inp = inputs_from_reference(
+        ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")
+    return commit_solver.prepare(
+        inp, BatchPolicy(**dataclasses.asdict(snap.policy)), True)
+
+
+def _rolled_back_wave():
+    from test_torch_batch_solver import _gang_wave
+    return _gang_wave(REF)
+
+
+@pytest.mark.parametrize("wave", ["fuzz0", "fuzz7", "fuzz2_gang",
+                                  "rolled_back_gang"])
+def test_off_plus_fit_is_score_used(wave):
+    # the kernel keeps no all-pods usage plane: every commit and every
+    # rollback moves it with the fit usage, so fit + off stays equal to it
+    if wave == "fuzz2_gang":
+        ci = _gang_inputs(_gang(fuzz_wave(2)))
+    elif wave.startswith("fuzz"):
+        _, _, _, ci, _, _ = _solve_all(ref_encode(*fuzz_wave(int(wave[4:]))))
+    else:
+        ci = _gang_inputs(_rolled_back_wave())
+    assert torch.equal(ci.off, ci.score0 - ci.fit0)
+    stats = {}
+    chosen, _ = commit_solver.solve_commit_reference(ci, stats)
+    assert (chosen >= 0).any()
+    assert not torch.equal(stats["fit"], ci.fit0)      # something committed
+    assert torch.equal(stats["fit"] + ci.off, stats["score_used"])
+    if wave == "rolled_back_gang":
+        # the second gang's last member found no node after its first
+        # members placed: the state was rolled back to the checkpoint
+        assert chosen[2] >= 0 and chosen[4] == -1
+
+
+def test_float32_spread_expression_is_spread_score():
+    # The kernel's spread device function is the reference's float32
+    # expression: int(10 * (f32(total - count) / f32(total))) with IEEE
+    # round-to-nearest-even steps. numpy's float32 arithmetic is IEEE, so
+    # it must equal the plain version's exact int64 emulation on every
+    # pair; the chip smoke test checks the device function itself on all
+    # pairs below 2^15.
+    from kubernetes_tpu_torch.ops.kernels import spread_score
+    limit = 1 << 12
+    totals = np.arange(limit, dtype=np.int64)
+    total = np.repeat(totals, totals + 1)
+    count = np.arange(total.size) - np.repeat(np.cumsum(totals + 1)
+                                              - (totals + 1), totals + 1)
+    assert count.min() == 0 and (count <= total).all()
+    with np.errstate(invalid="ignore"):
+        q = np.float32(total - count) / np.float32(total)
+        got = np.where(total == 0, 10,
+                       (np.float32(10) * q).astype(np.int32))
+    want = np.concatenate([
+        spread_score(torch.from_numpy(t), torch.from_numpy(c)).numpy()
+        for t, c in zip(np.array_split(total, 8), np.array_split(count, 8))])
+    assert got.size == limit * (limit + 1) // 2
+    mismatch = np.nonzero(got != want)[0]
+    assert mismatch.size == 0, (total[mismatch[:5]], count[mismatch[:5]])
+
+
+def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():
+    # chip_smoke prints ptxas' registers and spills per kernel instance; two
+    # instances that differ only in the state layout keep an entry each
+    import chip_smoke
+    mangled = ("_ZN48_GLOBAL__N__81ea7146_15_commit_solve_cu_6a9be68d19commit_"
+               "solve_kernelILb0ELb1ELb0ELb0ELb{}EEEvPKhPKiNS_5ShapeE")
+    log = ["ptxas info    : 0 bytes gmem"]
+    for shared, spill in ((1, 8), (0, 0)):
+        name = mangled.format(shared)
+        log += [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    80 bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads",
+            "ptxas info    : Used 64 registers, used 1 barriers, 80 bytes "
+            "cumulative stack size, 2096 bytes smem"]
+    report = chip_smoke._ptxas_report("\n".join(log))
+    assert set(report) == {"commit_solve<0,1,0,0,1>", "commit_solve<0,1,0,0,0>"}
+    assert report["commit_solve<0,1,0,0,1>"].startswith("Used 64 registers")
+    assert "8 bytes spill stores" in report["commit_solve<0,1,0,0,1>"]
+    assert " 0 bytes spill stores" in report["commit_solve<0,1,0,0,0>"]
