@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (kubernetes_tpu_torch).
 
-Drives the port's main path — one scheduling wave: API objects ->
-encode_snapshot -> solve (the hand-written CUDA commit_solve kernel) ->
-decisions_to_names — on one NVIDIA GPU at the benchmark's north-star
-width (5,000 nodes x 10,000 pending pods, default provider policy), then
-the benchmark's ``affinity`` and ``gang`` waves at full width, and holds
-the kernel against its plain PyTorch version. Phases:
+Drives the port's main paths on one NVIDIA GPU — one scheduling wave
+(API objects -> encode_snapshot -> solve, the hand-written CUDA
+commit_solve kernel -> decisions_to_names) at the benchmark's north-star
+width (5,000 nodes x 10,000 pending pods, default provider policy), the
+benchmark's ``affinity`` and ``gang`` waves at full width, and the
+scheduler's wave loop (BatchScheduler) binding a north-star cluster wave
+by wave — and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
 2. build the CUDA sources with nvcc, and report ptxas' registers, static
@@ -34,7 +35,26 @@ the kernel against its plain PyTorch version. Phases:
    ``load_policy`` -> ``batch_policy_from``, the same checks;
 5c. gang (1,000 PodGroups of 8 on 2,000 nodes), the same checks after
    the all-or-nothing post-pass;
-6. binpack3 (three resources), the same checks, while time allows.
+6. binpack3 (three resources), the same checks, while time allows;
+7. the scheduler: BatchScheduler over the port's ConfigFactory and a
+   FakeClient (tools/fake_cluster.py) holding the north-star cluster —
+   5,000 nodes, 8 services, 10,000 bound pods that reach the assigned-pods
+   store through the reflector's list — binds 10,000 pending pods in
+   waves of 1,024 (the first a full-list encode, the rest
+   IncrementalEncoder deltas; the last wave's 784 pods pad to 1,024);
+   then churn (1,000 bound pods deleted, 2,000 pending added: two delta
+   waves) and a node added with 1,024 more pending (the node planes
+   rebuild: one full-list wave). ``schedule_wave()`` runs until the FIFO
+   is empty, with no sleeps. Fails unless every pending pod binds, every
+   wave launches commit_solve exactly once, the encode takes the path
+   above, no padding row places, each wave's bindings equal
+   solve(encode_snapshot(...)) of its state on the card, and one delta
+   wave's decisions equal the plain version on the CPU. Logs each wave's
+   encode path and encode, solve and commit seconds (the loop's own
+   ``scheduler_wave_*`` histograms), the garbage collector's pauses in it
+   (seconds and full collections, from ``gc.callbacks``) and the loop's
+   pods/s (pods bound over the time from the first drain to the last
+   commit).
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -564,6 +584,243 @@ def _log_wave(tag: str, w: dict) -> None:
          f"({w['bound_by']})")
 
 
+def _copy_snapshot(snap):
+    """A snapshot whose arrays no later wave can touch (the incremental
+    encoder hands out its resident planes, which it mutates in place)."""
+    import dataclasses
+
+    import numpy as np
+
+    return dataclasses.replace(snap, **{
+        f.name: getattr(snap, f.name).copy()
+        for f in dataclasses.fields(snap)
+        if isinstance(getattr(snap, f.name), np.ndarray)})
+
+
+def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
+                     n_deleted=1_000, n_last=1_024, wave_size=1_024,
+                     plain_wave=1, count_launches=True) -> dict:
+    """Phase 7: the scheduler's causal wave loop (BatchScheduler over the
+    port's ConfigFactory and FakeClient) binds a north_star cluster wave
+    by wave, then churn, then a node add. Each wave's bindings are held
+    against solve(encode_snapshot(...)) of the same state on ``dev``, one
+    delta wave also against the plain version on the CPU."""
+    import gc
+
+    import numpy as np
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.scheduler.driver import ConfigFactory
+    from kubernetes_tpu_torch.scheduler.tpu_batch import BatchScheduler
+    from kubernetes_tpu_torch.tools.fake_cluster import FakeCluster
+    from kubernetes_tpu_torch.util import metrics
+
+    # the cyclic garbage collector's pauses inside each wave: seconds, and
+    # how many of them were full (generation 2) collections
+    gc_acc = {"s": 0.0, "full": 0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_acc["t"] = time.perf_counter()
+        else:
+            gc_acc["s"] += time.perf_counter() - gc_acc["t"]
+            gc_acc["full"] += info["generation"] == 2
+
+    t0 = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(
+        n_nodes, n_pending + n_churn + n_last)
+    first, churn, last = (pending[:n_pending],
+                          pending[n_pending:n_pending + n_churn],
+                          pending[n_pending + n_churn:])
+    new_node = api.Node(
+        metadata=api.ObjectMeta(name=f"node-{n_nodes:05d}", labels={
+            "zone": f"z{n_nodes % 16}", "disk": "ssd"}),
+        spec=api.NodeSpec(capacity={"cpu": Quantity("16"),
+                                    "memory": Quantity("64Gi")}))
+    build_s = time.perf_counter() - t0
+
+    class Recorded(BatchScheduler):
+        """Keeps each wave's pod order, and one wave's snapshot and
+        decisions, for the checks after the loop."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.orders: list = []
+            self.kept: dict = {}
+
+        def _prepare_wave(self, pods):
+            prep = super()._prepare_wave(pods)
+            self.orders.append(None if prep is None else prep[0])
+            return prep
+
+        def _solve_snap(self, snap, n_pending):
+            d = super()._solve_snap(snap, n_pending)
+            self.kept[len(self.orders) - 1] = (
+                _copy_snapshot(snap) if len(self.orders) - 1 == plain_wave
+                else None, d.chosen, d.scores, len(snap.pod_names))
+            return d
+
+    fc = FakeCluster(nodes, existing, first, services)
+    factory = ConfigFactory(fc.client, node_poll_period=3600)
+    fc.attach(factory)
+    reg = metrics.default_registry()
+    hist = {k: reg.histogram(f"scheduler_wave_{k}_seconds")
+            for k in ("encode", "solve", "commit")}
+    resyncs = reg.counter("scheduler_wave_encode_resyncs_total")
+    replays = metrics.slipstream_metrics().resync_replay
+    waves: list = []
+    marks: list = []          # per wave: (bind-log length, nodes, deleted)
+    deleted: set = set()
+    try:
+        sched = Recorded(factory.create(), factory, fc.client,
+                         wave_size=wave_size, device=dev)
+        t0 = time.perf_counter()
+        fc.wait_synced()
+        sync_s = time.perf_counter() - t0
+
+        def drive(stage):
+            """schedule_wave() until the FIFO is empty -> (pods bound,
+            seconds from the first drain to the last commit)."""
+            t_first = t_end = time.perf_counter()
+            bound = 0
+            while True:
+                before = {k: h.sum() for k, h in hist.items()}
+                r0, p0 = resyncs.total(), replays.total()
+                gc0 = dict(gc_acc)
+                l0 = commit_solver.solve_commit.launches
+                marks.append((len(fc.bind_log), len(fc.nodes),
+                              frozenset(deleted)))
+                t_w = time.perf_counter()
+                try:
+                    n = sched.schedule_wave(timeout=0)
+                except TimeoutError:
+                    marks.pop()
+                    break
+                t_end = time.perf_counter()
+                bound += n
+                row = {"wave": len(waves), "stage": stage,
+                       "pods": len(sched.orders[-1]), "bound": n,
+                       "wave_s": t_end - t_w,
+                       "launches": commit_solver.solve_commit.launches - l0,
+                       "path": ("full" if resyncs.total() > r0 else
+                                "replay" if replays.total() > p0
+                                else "delta")}
+                for k, h in hist.items():
+                    row[f"{k}_s"] = h.sum() - before[k]
+                row["gc_s"] = gc_acc["s"] - gc0["s"]
+                row["gc_full"] = gc_acc["full"] - gc0["full"]
+                waves.append(row)
+            return bound, t_end - t_first
+
+        gc.callbacks.append(on_gc)
+        commit_solver.solve_commit.launches = 0
+        loop_bound, loop_s = drive("north_star")
+        fc.delete_bound(existing[:n_deleted])
+        deleted.update(f"default/{p.metadata.name}"
+                       for p in existing[:n_deleted])
+        fc.add_pending(churn)
+        churn_bound, churn_s = drive("churn")
+        fc.add_node(new_node)
+        fc.add_pending(last)
+        node_bound, node_s = drive("node added")
+        launches = commit_solver.solve_commit.launches
+    finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
+        if not factory.stop(join=True, timeout=5.0):
+            raise AssertionError("the factory's threads did not stop")
+
+    # ---- the checks, after the loop --------------------------------------
+    total = n_pending + n_churn + n_last
+    if len(fc.bind_log) != total or len(fc.bound()) != \
+            len(existing) - n_deleted + total:
+        raise AssertionError(f"scheduler: {len(fc.bind_log)} of {total} "
+                             f"pending pods bound")
+    if count_launches and any(w["launches"] != 1 for w in waves):
+        raise AssertionError(f"scheduler: commit_solve launches per wave "
+                             f"{[w['launches'] for w in waves]}, want 1 each")
+    # the first wave and the first after the node add sync the full list;
+    # every other wave takes the O(changed) delta
+    paths = [w["path"] for w in waves]
+    want = ["full" if k == 0 or (w["stage"] == "node added" and
+                                 waves[k - 1]["stage"] != "node added")
+            else "delta" for k, w in enumerate(waves)]
+    if paths != want:
+        raise AssertionError(f"scheduler: encode paths {paths}")
+    node_list = sorted(fc.nodes, key=lambda n: n.metadata.name)
+    t0 = time.perf_counter()
+    for k, (mark, n_nodes_k, gone) in enumerate(marks):
+        order = sched.orders[k]
+        state = [p for p in existing
+                 if f"default/{p.metadata.name}" not in gone]
+        state += fc.bind_log[:mark]
+        snap = encode_snapshot(node_list[:n_nodes_k], state, order, services)
+        chosen, _ = bs.solve(snap, device=dev)
+        want = {p.metadata.name: h for p, h in
+                zip(order, bs.decisions_to_names(snap, chosen)) if h}
+        nxt = marks[k + 1][0] if k + 1 < len(marks) else len(fc.bind_log)
+        got = {p.metadata.name: p.spec.host for p in fc.bind_log[mark:nxt]}
+        if got != want:
+            raise AssertionError(f"scheduler wave {k}: bindings differ from "
+                                 f"solve(encode_snapshot(...)) of its state")
+        _snap, w_chosen, _w_scores, n_real = sched.kept[k]
+        if (np.asarray(w_chosen)[n_real:] != -1).any():
+            raise AssertionError(f"scheduler wave {k}: a padding row placed")
+    full_check_s = time.perf_counter() - t0
+    snap, w_chosen, w_scores, n_real = sched.kept[plain_wave]
+    t0 = time.perf_counter()
+    p_chosen, p_scores = bs.solve(snap, device="cpu")
+    plain_s = time.perf_counter() - t0
+    if not (np.array_equal(p_chosen, w_chosen)
+            and np.array_equal(p_scores, w_scores)):
+        raise AssertionError(f"scheduler wave {plain_wave}: decisions differ "
+                             f"from the plain version")
+
+    def split(stage):
+        return [w for w in waves if w["stage"] == stage]
+
+    return {
+        "nodes": n_nodes, "existing": len(existing), "pending": n_pending,
+        "churn_pending": n_churn, "deleted": n_deleted,
+        "node_add_pending": n_last, "wave_size": wave_size,
+        "build_cluster_s": build_s, "reflector_sync_s": sync_s,
+        "waves": waves, "launches": launches,
+        "loop_pods_per_s": loop_bound / loop_s, "loop_s": loop_s,
+        "churn_pods_per_s": churn_bound / churn_s,
+        "node_add_pods_per_s": node_bound / node_s,
+        "full_encode_s": [w["encode_s"] for w in waves
+                          if w["path"] == "full"],
+        "delta_encode_s": [w["encode_s"] for w in split("north_star")[1:]
+                           + split("churn")],
+        "full_encode_check_s": full_check_s,
+        "plain_wave": plain_wave, "plain_cpu_s": plain_s,
+    }
+
+
+def _log_scheduler(sc: dict) -> None:
+    _log(f"[7] scheduler: {sc['nodes']} nodes, {sc['existing']} existing, "
+         f"{sc['pending']} + {sc['churn_pending']} + "
+         f"{sc['node_add_pending']} pending in waves of {sc['wave_size']}; "
+         f"{len(sc['waves'])} waves, {sc['launches']} commit_solve "
+         f"launches; loop {sc['loop_pods_per_s']:.1f} pods/s "
+         f"({sc['loop_s']:.3f} s), churn {sc['churn_pods_per_s']:.1f} "
+         f"pods/s, node add {sc['node_add_pods_per_s']:.1f} pods/s")
+    for w in sc["waves"]:
+        _log(f"     wave {w['wave']:2d} {w['stage']:10s} {w['path']:6s} "
+             f"{w['pods']:5d} pods: encode {w['encode_s']:.4f} s, solve "
+             f"{w['solve_s']:.4f} s, commit {w['commit_s']:.4f} s, wave "
+             f"{w['wave_s']:.4f} s; gc {w['gc_s']:.4f} s "
+             f"({w['gc_full']} full)")
+    _log(f"     every wave == solve(encode_snapshot) of its state "
+         f"({sc['full_encode_check_s']:.1f} s); wave {sc['plain_wave']} == "
+         f"plain version on the CPU ({sc['plain_cpu_s']:.1f} s)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -644,6 +901,11 @@ def main() -> int:
         _log_wave("6", bp)
     else:
         _log("[6] binpack3 skipped: time budget spent")
+
+    # 7. the scheduler's wave loop at north_star width
+    sc = _scheduler_phase(dev)
+    record["scheduler"] = sc
+    _log_scheduler(sc)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -654,7 +916,7 @@ def main() -> int:
         "name": "commit_solve", "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cu",
         "replaces": "kubernetes_tpu/ops/pallas_solver.py:772",
-        "launches": ns["launches"], "max_abs_err": ns["max_abs_err"],
+        "launches": sc["launches"], "max_abs_err": ns["max_abs_err"],
         "ms": ns["kernel_ms"], "plain_ms": ns["plain_ms"],
         "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
         "library_ms": None}]}

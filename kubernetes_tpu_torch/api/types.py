@@ -1,18 +1,36 @@
 """API objects the scheduler reads.
 
 Port of ``kubernetes_tpu/api/types.py`` (ref: pkg/api/types.go) trimmed to
-the fields the wave encoder touches: object metadata; Node/NodeSpec;
+the fields the wave scheduler touches: object and list metadata;
+Node/NodeSpec/NodeStatus (the conditions the node poller filters on);
 Pod/PodSpec/PodStatus with containers, host ports, resource limits and GCE
-PD volumes; Service/ServiceSpec. Field names match the reference, so one
-builder can construct a cluster through either package.
+PD volumes; Service/ServiceSpec; the typed lists; Binding and its batch
+form with per-pod results; Event and Status. Field names match the
+reference, so one fixture function can construct a cluster through either
+package.
 """
 
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from kubernetes_tpu_torch.api.quantity import Quantity
+
+NamespaceDefault = "default"
+NamespaceAll = ""
+
+ConditionTrue = "True"
+
+# NodeConditionType (ref: types.go NodeReady/NodeReachable/NodeSchedulable)
+NodeReady = "Ready"
+NodeReachable = "Reachable"
+NodeSchedulable = "Schedulable"
+
+StatusFailure = "Failure"
+ReasonNotFound = "NotFound"
+ReasonExpired = "Expired"
 
 ResourceCPU = "cpu"
 ResourceMemory = "memory"
@@ -30,10 +48,29 @@ class ObjectMeta:
     """ref: types.go ObjectMeta (:83-141)."""
 
     name: str = ""
+    generate_name: str = ""
     namespace: str = ""
     uid: str = ""
+    resource_version: str = ""
+    creation_timestamp: Optional[datetime.datetime] = None
     labels: Dict[str, str] = field(default_factory=dict)
     annotations: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class ListMeta:
+    resource_version: str = ""
+
+
+@dataclass
+class ObjectReference:
+    """ref: types.go ObjectReference (:1330-1360)."""
+
+    kind: str = ""
+    namespace: str = ""
+    name: str = ""
+    uid: str = ""
+    resource_version: str = ""
 
 
 @dataclass
@@ -99,6 +136,12 @@ class Pod:
 
 
 @dataclass
+class PodList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Pod] = field(default_factory=list)
+
+
+@dataclass
 class ServiceSpec:
     port: int = 0
     selector: Dict[str, str] = field(default_factory=dict)
@@ -111,15 +154,106 @@ class Service:
 
 
 @dataclass
+class ServiceList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Service] = field(default_factory=list)
+
+
+@dataclass
 class NodeSpec:
     capacity: ResourceList = field(default_factory=dict)
     unschedulable: bool = False
 
 
 @dataclass
+class NodeCondition:
+    type: str = ""
+    status: str = ""
+
+
+@dataclass
+class NodeStatus:
+    conditions: List[NodeCondition] = field(default_factory=list)
+
+
+@dataclass
 class Node:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: NodeSpec = field(default_factory=NodeSpec)
+    status: NodeStatus = field(default_factory=NodeStatus)
+
+
+@dataclass
+class NodeList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Node] = field(default_factory=list)
+
+
+@dataclass
+class Binding:
+    """ref: types.go Binding — POST pods/{name}/binding. ``victims`` is the
+    reference's atomic evict-with-bind list; the port's scheduler never
+    fills it (preemption is not ported)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    pod_name: str = ""
+    host: str = ""
+    victims: List[ObjectReference] = field(default_factory=list)
+
+
+@dataclass
+class BindingList:
+    """A wave's bindings, committed in one transactional store pass; each
+    item keeps the per-pod CAS semantics, results come back positionally."""
+
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Binding] = field(default_factory=list)
+
+
+@dataclass
+class BindingResult:
+    pod_name: str = ""
+    error: str = ""      # empty = bound; else the per-pod failure message
+    code: int = 0        # HTTP-ish status code for the failure
+
+
+@dataclass
+class BindingResultList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[BindingResult] = field(default_factory=list)
+
+
+@dataclass
+class StatusDetails:
+    name: str = ""
+    kind: str = ""
+
+
+@dataclass
+class Status:
+    status: str = ""
+    message: str = ""
+    reason: str = ""
+    details: Optional[StatusDetails] = None
+    code: int = 0
+
+
+@dataclass
+class EventSource:
+    component: str = ""
+    host: str = ""
+
+
+@dataclass
+class Event:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: ObjectReference = field(default_factory=ObjectReference)
+    reason: str = ""
+    message: str = ""
+    source: EventSource = field(default_factory=EventSource)
+    first_timestamp: Optional[datetime.datetime] = None
+    last_timestamp: Optional[datetime.datetime] = None
+    count: int = 0
 
 
 def pod_priority(pod: Pod) -> int:

@@ -1,20 +1,34 @@
 """Priority bands — the encoder's preemption emit gate.
 
-Port of the part of ``kubernetes_tpu/models/preempt.py`` the encoder calls:
-``BAND_EMPTY`` and ``derive_evict_planes``. A wave whose pending pods sit
+Port of the part of ``kubernetes_tpu/models/preempt.py`` the encoders
+call: ``BAND_EMPTY``, ``derive_evict_planes`` and the ``ResidentPod`` row
+of the incremental encoder's per-node registry. A wave whose pending pods sit
 strictly above some resident band carries these planes; solving such a
 wave (the preemption sub-program) is ROADMAP work and the port refuses it.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
-__all__ = ["BAND_EMPTY", "derive_evict_planes"]
+__all__ = ["BAND_EMPTY", "ResidentPod", "derive_evict_planes"]
 
 # Empty/padded band slots: above every legal pod priority, so a padded
 # slot is never "strictly lower" than any pod.
 BAND_EMPTY = np.int32(2**31 - 1)
+
+
+class ResidentPod(NamedTuple):
+    """A node-resident pod as the victim replay sees it, from the
+    IncrementalEncoder's registry."""
+
+    uid: str
+    name: str
+    namespace: str
+    host_idx: int
+    priority: int
 
 
 def derive_evict_planes(e_host: np.ndarray, e_prio: np.ndarray,

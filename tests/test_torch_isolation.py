@@ -35,6 +35,16 @@ def _modules():
     return mods + ["chip_smoke"]
 
 
+def test_walk_covers_the_scheduler_slice():
+    mods = set(_modules())
+    for m in ("api.labels", "api.errors", "api.meta", "runtime.clone",
+              "watch", "util.retry", "util.metrics", "client.cache",
+              "client.client", "client.record", "scheduler.driver",
+              "scheduler.tpu_batch", "models.incremental",
+              "tools.fake_cluster"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = (
         "import importlib, json, sys\n"
