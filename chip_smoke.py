@@ -5,14 +5,17 @@ Drives the port's main paths on one NVIDIA GPU — one scheduling wave
 (API objects -> encode_snapshot -> solve, the hand-written CUDA
 commit_solve kernel -> decisions_to_names) at the benchmark's north-star
 width (5,000 nodes x 10,000 pending pods, default provider policy), the
-benchmark's ``affinity`` and ``gang`` waves at full width, and the
+benchmark's ``affinity``, ``gang`` and ``priority`` (preemption) waves and
+north_star with decimal memory (int64 planes) at full width, and the
 scheduler's wave loop (BatchScheduler) binding a north-star cluster wave
-by wave — and holds the kernel against its plain PyTorch version. Phases:
+by wave and preempting on the priority cluster — and holds the kernel
+against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
-2. build the CUDA sources with nvcc, and report ptxas' registers, static
-   shared memory, stack and spills for each of the kernel's branch-set
-   instances;
+2. build the CUDA sources with nvcc (one process per source, in
+   parallel), and report each source's compile seconds and ptxas'
+   registers, static shared memory, stack and spills for each of the
+   kernel's instances;
 3. the kernel's spread-score device function against the plain int64
    version over every 0 <= count <= total < 2^15;
 4. seeded small waves (ports, PDs, selectors, host pins, cordons,
@@ -27,14 +30,26 @@ by wave — and holds the kernel against its plain PyTorch version. Phases:
    unless some gang run was rolled back, and unless the waves of phases 4
    and 4b ran both state layouts (shared memory and global memory; the
    32,640-node waves take the global one);
-5. north_star through ``solve``: exactly one kernel launch, decisions and
-   scores bit-identical to the plain version, every pod bound; kernel
-   time (median of CUDA-event timed runs), plain time, encode and wave
-   seconds, pods/s;
+4c. seeded int64 and preemption waves — a 1 TiB + 3 B node and decimal
+   memory, bands in arrival order (the incremental encoder's slots, or a
+   permuted full encoding), 32 bands (the kernel's cap), Never and
+   equal-priority pods, gangs, zone anti-affinity, service affinity, both
+   state layouts: kernel == plain version, bit for bit, and no victim at
+   equal or higher priority, no Never pod placed by eviction;
+5. north_star through ``solve``: exactly one kernel launch and no call of
+   the plain version, decisions and scores bit-identical to the plain
+   version, every pod bound; kernel time (median of CUDA-event timed
+   runs), plain time, encode and wave seconds, pods/s;
 5b. affinity (5,000 x 5,000) with its Policy loaded from JSON through
    ``load_policy`` -> ``batch_policy_from``, the same checks;
 5c. gang (1,000 PodGroups of 8 on 2,000 nodes), the same checks after
    the all-or-nothing post-pass;
+5d. north_star_dec (north_star, every pending pod's memory in ``M``: int64
+   planes), the same checks;
+5e. priority (2,000 nodes filled by 8,000 pods in two bands, 1,000 storm
+   pods), the same checks but for the pods that must stay pending, and
+   bench.py's preemption invariants; logs the placements by preemption
+   and the victims;
 6. binpack3 (three resources), the same checks, while time allows;
 7. the scheduler: BatchScheduler over the port's ConfigFactory and a
    FakeClient (tools/fake_cluster.py) holding the north-star cluster —
@@ -54,7 +69,14 @@ by wave — and holds the kernel against its plain PyTorch version. Phases:
    ``scheduler_wave_*`` histograms), the garbage collector's pauses in it
    (seconds and full collections, from ``gc.callbacks``) and the loop's
    pods/s (pods bound over the time from the first drain to the last
-   commit).
+   commit);
+8. the scheduler on the priority cluster, waves of 512 (two waves, the
+   second sees the first's evictions): each wave launches commit_solve
+   once and never the plain version, every preempting pod binds with its
+   victims through the FakeCluster's atomic evict+bind and the victims
+   leave the stores, each wave's bindings and victim sets equal the
+   replay of solve(encode_snapshot(...)) of its state, and the
+   scheduler_preemption_* counters agree.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -171,7 +193,7 @@ def _layout(ci):
     return ("shared" if on_chip else "global"), nbytes
 
 
-def _bound(ci, feasible_pairs: int):
+def _bound(ci, feasible_pairs: int, preempt_pairs: int = 0):
     """Least time (ms) the card could take for the work one wave's solve
     must do: the larger of its bytes (each input read once, each output
     written once) over the HBM rate and its operations over the
@@ -184,21 +206,27 @@ def _bound(ci, feasible_pairs: int):
     weight, add: 8); per anti-affinity label, the zone accumulation and
     the same spread expression (9); 2L compares for the affinity anchors;
     one add each for the label-preference plane and the Equal priority;
-    and the running max (2)."""
+    and the running max (2). Every (pod, node) pair the preemption branch
+    examines (``preempt_pairs``: a pod with no normal node that may
+    preempt, a node passing every other filter) adds B R adds and B R
+    compares of the freed capacity against the request. int64 planes
+    count at the same rate (the table has no integer rate)."""
     P = ci.smask.shape[0]
     R, N = ci.cap.shape
     Wp, Wd = ci.ports0.shape[0], ci.pds0.shape[0]
-    L, A = ci.affv.shape[0], ci.zone.shape[0]
+    L, A, B = ci.affv.shape[0], ci.zone.shape[0], ci.band.shape[0]
     # the mask counts its N columns, not the row padding
     inputs = (ci.podrow, ci.cap, ci.fit0, ci.score0, ci.advx,
               ci.fitexc, ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat,
-              ci.affv, ci.anchor0, ci.has0, ci.zone)
+              ci.affv, ci.anchor0, ci.has0, ci.zone, ci.ecap0, ci.ecnt0,
+              ci.band)
     nbytes = (P * N + sum(t.numel() * t.element_size() for t in inputs)
               + 2 * P * 4)
     per_feasible = ((6 * R + 2 if ci.w_lr else 0) + (8 if ci.w_spread else 0)
                     + 9 * A + 2 * L + (1 if ci.sstat.numel() else 0)
                     + (1 if ci.w_equal else 0) + 2)
-    ops = P * N * (1 + 3 * R + 2 * Wp + 2 * Wd) + feasible_pairs * per_feasible
+    ops = (P * N * (1 + 3 * R + 2 * Wp + 2 * Wd)
+           + feasible_pairs * per_feasible + preempt_pairs * 2 * B * R)
     bytes_ms = nbytes / _HBM_BYTES_PER_S * 1e3
     ops_ms = ops / _OPS_PER_S * 1e3
     if ops_ms > bytes_ms:
@@ -208,9 +236,9 @@ def _bound(ci, feasible_pairs: int):
 
 def _ptxas_report(log: str) -> dict:
     """ptxas' registers, static shared memory, stack and spills for each
-    kernel instance, keyed by the instance's branch set and state layout
-    (``commit_solve<aff,anti,gang,static,shared>`` with 0/1 flags) or the
-    kernel's name."""
+    kernel instance, keyed by the instance's resource type, branch set and
+    state layout (``commit_solve<int32,pre,aff,anti,gang,static,shared>``
+    with 0/1 flags) or the kernel's name."""
     import re
 
     out: dict = {}
@@ -230,10 +258,15 @@ def _ptxas_report(log: str) -> dict:
             continue
         m = re.search(r"Used \d+ registers.*", ln)
         if m and entry:
-            flags = re.search(r"commit_solve_kernelILb([01])ELb([01])ELb([01])"
-                              r"ELb([01])ELb([01])E", entry)
-            name = (f"commit_solve<{','.join(flags.groups())}>" if flags
-                    else "spread_eval" if "spread_eval" in entry else entry)
+            flags = re.search(r"commit_solve_kernelI([ix])Lb([01])ELb([01])"
+                              r"ELb([01])ELb([01])ELb([01])ELb([01])E", entry)
+            name = entry
+            if flags:
+                res = "int32" if flags.group(1) == "i" else "int64"
+                name = (f"commit_solve<{res},"
+                        f"{','.join(flags.groups()[1:])}>")
+            elif "spread_eval" in entry:
+                name = "spread_eval"
             out[name] = f"{m.group(0)}; {frames.get(entry, '')}"
             entry = None
     return out
@@ -489,13 +522,231 @@ def _ext_fuzz(dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _pre_wave(rng: random.Random, n_nodes: int, n_pods: int, n_bands: int,
+              wide=False, gangs=False, anti=0, aff=0):
+    """A seeded preemption wave and its BatchPolicy: nodes about full of
+    resident pods at ``n_bands`` distinct priorities, then pending pods
+    above every band, between bands, equal to one, below all, and some
+    with PreemptionPolicy=Never. ``wide``: memory in decimal units beside
+    binary ones, and one node of 1 TiB + 3 B, so the resource planes are
+    int64. ``gangs``: some pending PodGroups; ``anti``/``aff``: zone
+    anti-affinity and service-affinity labels."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.models import gang
+    from kubernetes_tpu_torch.models.policy import BatchPolicy
+
+    bands = rng.sample(range(0, 10_000, 10), n_bands)
+    nodes = []
+    for i in range(n_nodes):
+        mem = rng.choice([4 << 30, 8 << 30])
+        if wide and i == 0:
+            mem = (1 << 40) + 3
+        labels = {"zone": f"z{rng.randrange(4)}", "rack": f"r{rng.randrange(3)}"}
+        nodes.append(api.Node(
+            metadata=api.ObjectMeta(name=f"n{i}", labels=labels),
+            spec=api.NodeSpec(capacity={
+                "cpu": Quantity(f"{rng.choice([1000, 2000, 4000])}m"),
+                "memory": Quantity(mem)})))
+    services = [api.Service(
+        metadata=api.ObjectMeta(name=f"svc-{s}", namespace="default"),
+        spec=api.ServiceSpec(port=80, selector={"app": f"a{s}"}))
+        for s in range(2)]
+
+    def pod(name, prio, host="", cpu=None, never=False, group=None):
+        cpu = cpu if cpu is not None else rng.choice([100, 250, 500, 900])
+        mem = (Quantity(f"{rng.choice([100, 300, 500])}M") if wide
+               and rng.random() < 0.5 else
+               Quantity(rng.choice([64 << 20, 256 << 20])))
+        ports = ([api.ContainerPort(container_port=80, host_port=8080)]
+                 if rng.random() < 0.1 else [])
+        return api.Pod(
+            metadata=api.ObjectMeta(
+                name=name, namespace="default", uid=f"uid-{name}",
+                labels=({"app": f"a{rng.randrange(2)}"}
+                        if rng.random() < 0.7 else {}),
+                annotations=({gang.GANG_NAME_ANNOTATION: group}
+                             if group else {})),
+            spec=api.PodSpec(
+                host=host, priority=prio,
+                preemption_policy=api.PreemptNever if never else "",
+                containers=[api.Container(
+                    name="c", image="i", ports=ports,
+                    resources=api.ResourceRequirements(limits={
+                        "cpu": Quantity(f"{cpu}m"), "memory": mem}))]),
+            status=api.PodStatus(host=host))
+
+    existing = []
+    for i, node in enumerate(nodes):
+        for j in range(rng.randint(1, 4)):
+            existing.append(pod(f"e{i}-{j}", rng.choice(bands),
+                                host=node.metadata.name,
+                                cpu=rng.choice([200, 300, 500])))
+    rng.shuffle(existing)     # band slots in arrival order
+    top = max(bands)
+    pending = []
+    while len(pending) < n_pods:
+        kind = rng.random()
+        prio = (top + 1 if kind < 0.5 else rng.choice(bands) if kind < 0.65
+                else rng.randrange(top) if kind < 0.9 else -1)
+        never = rng.random() < 0.15
+        if gangs and rng.random() < 0.3:
+            g = len(pending)
+            cpu = rng.choice([300, 900, 1900])
+            pending += [pod(f"g{g}-m{m}", prio, cpu=cpu, never=never,
+                            group=f"grp-{g}")
+                        for m in range(rng.randint(2, 4))]
+        else:
+            pending.append(pod(f"p{len(pending)}", prio, never=never))
+    policy = BatchPolicy(
+        w_lr=1, w_spread=1,
+        anti_affinity=(("zone", 2), ("rack", 1))[:anti],
+        affinity_labels=("zone",)[:aff])
+    return (nodes, existing, pending, services), policy
+
+
+# (seed, nodes, pods, bands, _pre_wave keywords): int64 planes, bands in
+# arrival order, the band cap, Never and equal-priority pods, gangs,
+# zone anti-affinity, service affinity; the wide cases give each thread
+# several nodes and take the global state layout
+_PRE_CASES = [
+    (500, 6, 24, 2, {}),
+    (501, 9, 30, 3, {}),
+    (502, 12, 40, 5, dict(wide=True)),
+    (503, 8, 30, 4, dict(gangs=True)),
+    (504, 10, 36, 4, dict(anti=1)),
+    (505, 10, 36, 3, dict(anti=2, wide=True)),
+    (506, 8, 30, 3, dict(aff=1)),
+    (507, 12, 40, 6, dict(gangs=True, anti=1, wide=True)),
+    (508, 16, 60, 32, {}),
+    (509, 16, 60, 32, dict(wide=True, gangs=True)),
+]
+_PRE_WIDE = [
+    (600, 1500, 120, 32, dict(anti=1)),
+    (601, 2100, 160, 4, dict(wide=True, gangs=True)),
+    (602, 32640, 40, 3, dict(wide=True)),
+]
+
+
+def _pre_fuzz(dev) -> dict:
+    """Phase 4c: seeded int64 and preemption waves, kernel == plain."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.models import preempt
+    from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.tools.kernel_time import event_ms
+
+    cases = [(seed + k, n, p, b, kw) for seed, n, p, b, kw in _PRE_CASES
+             for k in range(2)] + _PRE_WIDE
+    t0 = time.perf_counter()
+    seen = {"layouts": {}, "int64": 0, "bands_at_cap": 0, "unsorted": 0,
+            "preempting": 0, "victims": 0, "never_pods": 0,
+            "gang_waves": 0, "waves": len(cases), "pods": 0}
+    wide = []
+    for seed, n_nodes, n_pods, n_bands, kw in cases:
+        wave, policy = _pre_wave(random.Random(seed), n_nodes, n_pods,
+                                 n_bands, **kw)
+        nodes, existing, pending, services = wave
+        if policy.affinity_labels:
+            snap = encode_snapshot(*wave, policy=policy)
+            # hand the kernel the bands in another slot order
+            perm = np.random.default_rng(seed).permutation(
+                snap.band_prio.shape[0])
+            snap.band_prio = snap.band_prio[perm]
+            snap.evict_cap = snap.evict_cap[:, perm]
+            snap.evict_cnt = snap.evict_cnt[:, perm]
+            index = {n.metadata.name: i for i, n in enumerate(nodes)}
+            lookup = dict(resident=preempt.resident_from_pods(existing,
+                                                              index))
+        else:
+            enc = IncrementalEncoder(policy)
+            snap = enc.encode(nodes, existing, pending, services)
+            lookup = dict(node_pods=enc.resident_on)
+        ci = _inputs(snap, dev)
+        B = ci.band.shape[0]
+        if B == 0:
+            raise AssertionError(f"preemption seed {seed}: no bands")
+        layout, dyn_bytes = _layout(ci)
+        seen["layouts"][layout] = seen["layouts"].get(layout, 0) + 1
+        seen["int64"] += ci.cap.dtype == torch.int64
+        seen["bands_at_cap"] += B == commit_solver.MAX_B
+        band = snap.band_prio
+        seen["unsorted"] += bool((np.diff(band[band != preempt.BAND_EMPTY])
+                                  < 0).any())
+        stats: dict = {}
+        if n_nodes < 1000:
+            got = commit_solver.solve_commit(ci)
+            want = commit_solver.solve_commit_reference(ci, stats)
+        else:
+            kernel_ms, _, got = event_ms(
+                lambda: commit_solver.solve_commit(ci), 3)
+            plain_ms, _, want = event_ms(
+                lambda: commit_solver.solve_commit_reference(ci, stats), 1)
+            bound_ms, bound_by, nbytes, ops = _bound(
+                ci, int(stats["feasible"].sum()),
+                int(stats["preempt_pairs"].sum()))
+            wide.append({"seed": seed, "nodes": n_nodes,
+                         "pods": len(snap.pod_names), "bands": B,
+                         "resource_type": str(ci.cap.dtype), "kw": kw,
+                         "layout": layout, "dyn_shared_bytes": dyn_bytes,
+                         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+        for g, w, what in zip(got, want, ("chosen", "win")):
+            if not torch.equal(g, w):
+                i = int((g != w).nonzero()[0])
+                raise AssertionError(
+                    f"preemption seed {seed} {kw}: {what} differs at pod "
+                    f"{i}: kernel {int(g[i])} vs plain {int(w[i])}")
+        chosen, win = (t.cpu().numpy() for t in want)
+        n = len(pending)
+        victims = preempt.assign_victims(chosen, win, snap.band_prio,
+                                         n_pods=n, **lookup)
+        prio_of = {p.metadata.uid: api.pod_priority(p) for p in existing}
+        order = {f"{p.metadata.namespace}/{p.metadata.name}": p
+                 for p in pending}
+        for name, v in zip(snap.pod_names[:n], victims):
+            if not v:
+                continue
+            p = order[name]
+            if not api.pod_can_preempt(p):
+                raise AssertionError(f"preemption seed {seed}: a Never pod "
+                                     f"placed by eviction")
+            if any(prio_of[x.uid] >= api.pod_priority(p) for x in v):
+                raise AssertionError(f"preemption seed {seed}: an equal-or-"
+                                     f"higher pod was evicted")
+            seen["preempting"] += 1
+            seen["victims"] += len(v)
+        seen["never_pods"] += sum(not api.pod_can_preempt(p)
+                                  for p in pending)
+        seen["gang_waves"] += snap.has_gangs
+        seen["pods"] += n
+    for key, what in (("preempting", "no pod placed by preemption"),
+                      ("int64", "no wave had int64 planes"),
+                      ("bands_at_cap", f"no wave had {commit_solver.MAX_B} "
+                                       f"bands"),
+                      ("unsorted", "no wave had its bands out of order"),
+                      ("gang_waves", "no preemption wave had gangs")):
+        if not seen[key]:
+            raise AssertionError(f"phase 4c: {what}")
+    if set(seen["layouts"]) != {"shared", "global"}:
+        raise AssertionError(f"phase 4c ran only the {set(seen['layouts'])} "
+                             f"state layout(s)")
+    seen["wide"] = wide
+    seen["seconds"] = time.perf_counter() - t0
+    return seen
+
+
 def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch.models import batch_solver as bs
     from kubernetes_tpu_torch.models import gang
-    from kubernetes_tpu_torch.models.fixtures import FULL_SHAPES, build_cluster
+    from kubernetes_tpu_torch.models.fixtures import FULL_SHAPES, build_shape
     from kubernetes_tpu_torch.models.policy import batch_policy_from
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
@@ -504,12 +755,13 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
 
     n_nodes, n_pods, kw, policy_json = FULL_SHAPES[name]
     t0 = time.perf_counter()
-    cluster = build_cluster(n_nodes, n_pods, **kw)
+    cluster = build_shape(name)
     build_s = time.perf_counter() - t0
     n_pods = len(cluster[2])
 
     # ---- the main path, through the entry points a user calls ----------
     commit_solver.solve_commit.launches = 0
+    commit_solver.solve_commit_reference.calls = 0
     t0 = time.perf_counter()
     policy = (batch_policy_from(policy=load_policy(policy_json))
               if policy_json else None)
@@ -522,6 +774,8 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     if launches != 1:
         raise AssertionError(f"{name}: the wave launched commit_solve "
                              f"{launches} times, want exactly 1")
+    if commit_solver.solve_commit_reference.calls:
+        raise AssertionError(f"{name}: the main path ran the plain version")
 
     # ---- the kernel against its plain version on the same inputs -------
     ci = _inputs(snap, dev)
@@ -545,18 +799,25 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
         raise AssertionError(f"{name}: solve() differs from the plain "
                              f"version")
 
-    # ---- what comes out is right: every pod fits this cluster ----------
+    # ---- what comes out is right -------------------------------------
     bound = sum(n is not None for n in names)
-    if len(names) != n_pods or bound != n_pods:
+    extra: dict = {}
+    if name == "priority":
+        extra = _priority_checks(cluster, snap, chosen, scores, names)
+    elif len(names) != n_pods or bound != n_pods:
         raise AssertionError(f"{name}: {bound} of {n_pods} pods bound; "
                              f"the cluster has room for all")
-    if not ((chosen >= 0) & (chosen < n_nodes) & (scores >= 0)).all():
+    elif not ((chosen >= 0) & (chosen < n_nodes) & (scores >= 0)).all():
         raise AssertionError(f"{name}: decision out of range")
 
     feasible_pairs = int(stats["feasible"].sum())
-    bound_ms, bound_by, nbytes, ops = _bound(ci, feasible_pairs)
+    preempt_pairs = int(stats["preempt_pairs"].sum())
+    bound_ms, bound_by, nbytes, ops = _bound(ci, feasible_pairs,
+                                             preempt_pairs)
     wave_s = t2 - t0
-    return {
+    return {**extra,
+        "resource_type": str(ci.cap.dtype).split(".")[-1],
+        "bands": ci.band.shape[0], "preempt_pairs": preempt_pairs,
         "shape": name, "nodes": n_nodes, "pods": n_pods,
         "policy": policy_json or "default provider",
         "gangs": snap.has_gangs,
@@ -572,8 +833,42 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     }
 
 
+def _priority_checks(cluster, snap, chosen, scores, names) -> dict:
+    """bench.py's preemption invariants on the priority wave (bench.py
+    :851-878): no victim at equal or higher priority than its preemptor,
+    no PreemptionPolicy=Never pod placed by eviction; and the storm must
+    really preempt."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.models import preempt
+
+    nodes, existing, pending, _services = cluster
+    index = {n.metadata.name: i for i, n in enumerate(nodes)}
+    victims = preempt.assign_victims(
+        chosen, scores, snap.band_prio,
+        preempt.resident_from_pods(existing, index), n_pods=len(pending))
+    prio_of = {p.metadata.uid: api.pod_priority(p) for p in existing}
+    for p, v in zip(pending, victims):
+        if not v:
+            continue
+        if any(prio_of[x.uid] >= api.pod_priority(p) for x in v):
+            raise AssertionError("priority: evicted an equal-or-higher-"
+                                 "priority pod")
+        if p.spec.preemption_policy == api.PreemptNever:
+            raise AssertionError("priority: a PreemptionPolicy=Never pod "
+                                 "placed by eviction")
+    n_preempted = sum(1 for v in victims if v)
+    if not n_preempted:
+        raise AssertionError("priority: no pod placed by preemption")
+    return {"preempted_pods": n_preempted,
+            "victims": sum(len(v) for v in victims if v),
+            "placed": sum(n is not None for n in names)}
+
+
 def _log_wave(tag: str, w: dict) -> None:
-    _log(f"[{tag}] {w['shape']} {w['nodes']}x{w['pods']}: launches "
+    pre = (f", {w['preempted_pods']} placed by preemption evicting "
+           f"{w['victims']}" if "preempted_pods" in w else "")
+    _log(f"[{tag}] {w['shape']} {w['nodes']}x{w['pods']} "
+         f"({w['resource_type']} planes, {w['bands']} bands{pre}): launches "
          f"{w['launches']}, state in {w['layout']} memory "
          f"({w['dyn_shared_bytes']} B dynamic shared), bound "
          f"{w['bound_pods']}, encode "
@@ -719,6 +1014,7 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
 
         gc.callbacks.append(on_gc)
         commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
         loop_bound, loop_s = drive("north_star")
         fc.delete_bound(existing[:n_deleted])
         deleted.update(f"default/{p.metadata.name}"
@@ -729,6 +1025,7 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
         fc.add_pending(last)
         node_bound, node_s = drive("node added")
         launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
     finally:
         if on_gc in gc.callbacks:
             gc.callbacks.remove(on_gc)
@@ -744,6 +1041,8 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
     if count_launches and any(w["launches"] != 1 for w in waves):
         raise AssertionError(f"scheduler: commit_solve launches per wave "
                              f"{[w['launches'] for w in waves]}, want 1 each")
+    if count_launches and plain_calls:
+        raise AssertionError("scheduler: the loop ran the plain version")
     # the first wave and the first after the node add sync the full list;
     # every other wave takes the O(changed) delta
     paths = [w["path"] for w in waves]
@@ -802,6 +1101,162 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
     }
 
 
+def _preempt_loop_phase(dev, n_nodes=2_000, n_pending=1_000, wave_size=512,
+                        count_launches=True) -> dict:
+    """Phase 8: BatchScheduler over a FakeClient holding the priority
+    cluster (2,000 full nodes, 8,000 resident pods in two bands, 1,000
+    storm pods) in waves of ``wave_size``: each wave launches commit_solve
+    once, every preempting placement binds with its victims through the
+    FakeCluster's atomic evict+bind and its victims leave the stores, and
+    each wave's bindings and victim sets equal the replay of
+    solve(encode_snapshot(...)) of its state on ``dev``."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import preempt
+    from kubernetes_tpu_torch.models.fixtures import build_priority_cluster
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.scheduler.driver import ConfigFactory
+    from kubernetes_tpu_torch.scheduler.tpu_batch import BatchScheduler
+    from kubernetes_tpu_torch.tools.fake_cluster import FakeCluster
+    from kubernetes_tpu_torch.util import metrics
+
+    def key(p):
+        return f"{p.metadata.namespace}/{p.metadata.name}"
+
+    nodes, existing, pending, services = build_priority_cluster(n_nodes,
+                                                                n_pending)
+
+    class Recorded(BatchScheduler):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.orders: list = []
+
+        def _prepare_wave(self, pods):
+            prep = super()._prepare_wave(pods)
+            self.orders.append(None if prep is None else prep[0])
+            return prep
+
+    fc = FakeCluster(nodes, existing, pending, services)
+    factory = ConfigFactory(fc.client, node_poll_period=3600)
+    # a failed pod stays out of the queue for this phase: the waves are
+    # the drained storm only
+    factory.backoff.initial = 3600.0
+    fc.attach(factory)
+    reg = metrics.default_registry()
+    hist = {k: reg.histogram(f"scheduler_wave_{k}_seconds")
+            for k in ("encode", "solve", "commit")}
+    pmx = metrics.preemption_metrics()
+    p0 = (pmx.attempts.total(), pmx.victims.total(),
+          pmx.higher_evictions.total(), pmx.conflicts.total())
+    waves: list = []
+    marks: list = []
+    try:
+        sched = Recorded(factory.create(), factory, fc.client,
+                         wave_size=wave_size, device=dev)
+        fc.wait_synced()
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t_first = time.perf_counter()
+        while True:
+            before = {k: h.sum() for k, h in hist.items()}
+            l0 = commit_solver.solve_commit.launches
+            marks.append((len(fc.bind_log), len(fc.evict_log)))
+            t_w = time.perf_counter()
+            try:
+                n = sched.schedule_wave(timeout=0)
+            except TimeoutError:
+                marks.pop()
+                break
+            row = {"wave": len(waves), "pods": len(sched.orders[-1]),
+                   "bound": n, "wave_s": time.perf_counter() - t_w,
+                   "launches": commit_solver.solve_commit.launches - l0}
+            for k, h in hist.items():
+                row[f"{k}_s"] = h.sum() - before[k]
+            waves.append(row)
+        loop_s = time.perf_counter() - t_first
+        plain_calls = commit_solver.solve_commit_reference.calls
+    finally:
+        if not factory.stop(join=True, timeout=5.0):
+            raise AssertionError("the factory's threads did not stop")
+
+    # ---- the checks, after the loop --------------------------------------
+    if len(waves) != -(-len(pending) // wave_size):
+        raise AssertionError(f"priority loop: {len(waves)} waves")
+    if count_launches and any(w["launches"] != 1 for w in waves):
+        raise AssertionError(f"priority loop: commit_solve launches per "
+                             f"wave {[w['launches'] for w in waves]}")
+    if count_launches and plain_calls:
+        raise AssertionError("priority loop: the plain version ran")
+    evicted = {key(p) for p in fc.evict_log}
+    if len(evicted) != len(fc.evict_log) or not evicted:
+        raise AssertionError("priority loop: no eviction, or one twice")
+    if evicted & {key(p) for p in fc.bound()} or any(
+            factory.scheduled_pods.get_by_key(k) is not None
+            for k in evicted):
+        raise AssertionError("priority loop: a victim stayed in the stores")
+    prio = {key(p): api.pod_priority(p) for p in existing + pending}
+    index = {n.metadata.name: i for i, n in enumerate(nodes)}
+    t0 = time.perf_counter()
+    for k, (n_bound, n_evicted) in enumerate(marks):
+        order = sched.orders[k]
+        gone = {key(p) for p in fc.evict_log[:n_evicted]}
+        state = [p for p in existing if key(p) not in gone]
+        state += fc.bind_log[:n_bound]
+        snap = encode_snapshot(nodes, state, order, services)
+        chosen, scores = bs.solve(snap, device=dev)
+        victims = preempt.assign_victims(
+            chosen, scores, snap.band_prio,
+            preempt.resident_from_pods(state, index), n_pods=len(order))
+        want = {key(p): (h, sorted(f"{v.namespace}/{v.name}"
+                                   for v in (vs or ())))
+                for p, h, vs in zip(order, bs.decisions_to_names(snap, chosen),
+                                    victims) if h}
+        nxt = marks[k + 1][0] if k + 1 < len(marks) else len(fc.bind_log)
+        got = {key(p): (p.spec.host, sorted(
+            key(v) for v in fc.victims_of.get(key(p), ())))
+            for p in fc.bind_log[n_bound:nxt]}
+        if got != want:
+            raise AssertionError(f"priority loop wave {k}: bindings or "
+                                 f"victims differ from solve(encode_snapshot"
+                                 f"(...)) of its state")
+        for pkey, (_h, vs) in got.items():
+            if any(prio[v] >= prio[pkey] for v in vs):
+                raise AssertionError("priority loop: an equal-or-higher "
+                                     "pod was evicted")
+    check_s = time.perf_counter() - t0
+    preempted = sum(1 for p in fc.bind_log if key(p) in fc.victims_of)
+    d = (pmx.attempts.total() - p0[0], pmx.victims.total() - p0[1],
+         pmx.higher_evictions.total() - p0[2], pmx.conflicts.total() - p0[3])
+    if d[:3] != (preempted, len(fc.evict_log), 0):
+        raise AssertionError(f"priority loop: scheduler_preemption_* "
+                             f"{d} vs {preempted} preemptors, "
+                             f"{len(fc.evict_log)} victims")
+    return {"nodes": len(nodes), "existing": len(existing),
+            "pending": len(pending), "wave_size": wave_size,
+            "waves": waves, "bound": len(fc.bind_log),
+            "preempted_pods": preempted, "victims": len(fc.evict_log),
+            "conflicts": d[3], "loop_s": loop_s,
+            "loop_pods_per_s": len(fc.bind_log) / loop_s,
+            "replay_check_s": check_s}
+
+
+def _log_preempt_loop(pl: dict) -> None:
+    _log(f"[8] priority loop: {pl['nodes']} nodes, {pl['existing']} "
+         f"resident, {pl['pending']} storm pods in waves of "
+         f"{pl['wave_size']}: {pl['bound']} bound, {pl['preempted_pods']} "
+         f"by preemption evicting {pl['victims']} ({pl['conflicts']} "
+         f"conflicts); {pl['loop_pods_per_s']:.1f} pods/s "
+         f"({pl['loop_s']:.3f} s)")
+    for w in pl["waves"]:
+        _log(f"     wave {w['wave']} {w['pods']:4d} pods, {w['bound']} bound:"
+             f" encode {w['encode_s']:.4f} s, solve {w['solve_s']:.4f} s, "
+             f"commit {w['commit_s']:.4f} s, wave {w['wave_s']:.4f} s, "
+             f"launches {w['launches']}")
+    _log(f"     every wave's bindings and victims == the replay of "
+         f"solve(encode_snapshot) of its state ({pl['replay_check_s']:.1f} s)")
+
+
 def _log_scheduler(sc: dict) -> None:
     _log(f"[7] scheduler: {sc['nodes']} nodes, {sc['existing']} existing, "
          f"{sc['pending']} + {sc['churn_pending']} + "
@@ -828,7 +1283,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from kubernetes_tpu_torch.ops import build
+    from kubernetes_tpu_torch.ops import build, commit_solver
     from kubernetes_tpu_torch.tools.kernel_time import card_line
 
     dev = torch.device("cuda", 0)
@@ -845,8 +1300,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build("commit_solve")
     record["build_s"] = time.perf_counter() - t0
+    record["build_sources_s"] = build.build_seconds["commit_solve"]
     record["ptxas"] = _ptxas_report(build.build_logs["commit_solve"])
-    _log(f"[2] built commit_solve in {record['build_s']:.2f}s")
+    _log(f"[2] built commit_solve in {record['build_s']:.2f}s (seconds per "
+         f"source, compiled in parallel: "
+         f"{ {k: round(v, 1) for k, v in record['build_sources_s'].items()} })")
     for fn, use in record["ptxas"].items():
         _log(f"    ptxas: {fn}: {use}")
 
@@ -881,6 +1339,23 @@ def main() -> int:
         raise AssertionError(f"the seeded waves ran only the {seen} state "
                              f"layout(s); both must be checked")
 
+    # 4c. seeded int64 and preemption waves
+    record["preemption"] = pr = _pre_fuzz(dev)
+    _log(f"[4c] {pr['waves']} seeded int64/preemption waves ({pr['pods']} "
+         f"pods; {pr['int64']} with int64 planes, {pr['bands_at_cap']} at "
+         f"the {commit_solver.MAX_B}-band cap, {pr['unsorted']} with bands "
+         f"out of order, {pr['gang_waves']} with gangs; "
+         f"{pr['preempting']} pods placed by preemption evicting "
+         f"{pr['victims']}; {pr['never_pods']} Never pods; state layouts "
+         f"{pr['layouts']}): kernel == plain version "
+         f"({pr['seconds']:.2f}s)")
+    for w in pr["wide"]:
+        _log(f"     {w['nodes']}x{w['pods']} {w['resource_type']} "
+             f"{w['bands']} bands {w['kw']}: state in {w['layout']} memory "
+             f"({w['dyn_shared_bytes']} B dynamic shared), kernel "
+             f"{w['kernel_ms']:.3f} ms, plain {w['plain_ms']:.1f} ms, bound "
+             f"{w['bound_ms']:.5f} ms ({w['bound_by']})")
+
     # 5. north_star, the main path
     ns = _wave_phase("north_star", dev, kernel_runs=7)
     record["north_star"] = ns
@@ -894,6 +1369,15 @@ def main() -> int:
     record["gang"] = _wave_phase("gang", dev, kernel_runs=5)
     _log_wave("5c", record["gang"])
 
+    # 5d. north_star with decimal memory: int64 resource planes
+    record["north_star_dec"] = _wave_phase("north_star_dec", dev,
+                                           kernel_runs=5)
+    _log_wave("5d", record["north_star_dec"])
+
+    # 5e. priority: 2,000 full nodes, a storm that places by preemption
+    record["priority"] = _wave_phase("priority", dev, kernel_runs=5)
+    _log_wave("5e", record["priority"])
+
     # 6. binpack3, while time allows
     if time.perf_counter() - t_start < _BUDGET_S:
         bp = _wave_phase("binpack3", dev, kernel_runs=5)
@@ -906,20 +1390,34 @@ def main() -> int:
     sc = _scheduler_phase(dev)
     record["scheduler"] = sc
     _log_scheduler(sc)
+
+    # 8. the loop on the priority cluster: preemption with evict+bind
+    record["priority_loop"] = pl = _preempt_loop_phase(dev)
+    _log_preempt_loop(pl)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(record, fh, indent=1)
 
+    # one entry per instance family the main paths run: the int32 default
+    # branch (north_star, launches over the scheduler loop), the int64
+    # instances (north_star_dec) and the preemption branch (priority,
+    # launches over the priority loop); no PyTorch call computes the
+    # sequential commit, so library_ms is null
+    entries = (("commit_solve", ns, sc["launches"]),
+               ("commit_solve[int64 planes]", record["north_star_dec"],
+                record["north_star_dec"]["launches"]),
+               ("commit_solve[preemption]", record["priority"],
+                sum(w["launches"] for w in pl["waves"])))
     kernels = {"kernels": [{
-        "name": "commit_solve", "route": "cuda",
-        "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cu",
+        "name": name, "route": "cuda",
+        "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cuh",
         "replaces": "kubernetes_tpu/ops/pallas_solver.py:772",
-        "launches": sc["launches"], "max_abs_err": ns["max_abs_err"],
-        "ms": ns["kernel_ms"], "plain_ms": ns["plain_ms"],
-        "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
-        "library_ms": None}]}
+        "launches": launches, "max_abs_err": w["max_abs_err"],
+        "ms": w["kernel_ms"], "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+        "library_ms": None} for name, w, launches in entries]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

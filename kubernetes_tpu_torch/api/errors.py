@@ -2,14 +2,15 @@
 
 Port of the part of ``kubernetes_tpu/api/errors.py`` the client cache and
 the scheduler's error handler read: ``StatusError`` carrying an
-``api.Status``, the 404 constructor and the 410 predicate.
+``api.Status``, the 404 and 409 constructors and the 410 predicate.
 """
 
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api import types as api
 
-__all__ = ["StatusError", "new_not_found", "is_resource_expired"]
+__all__ = ["StatusError", "new_not_found", "new_conflict",
+           "is_resource_expired"]
 
 
 class StatusError(Exception):
@@ -37,6 +38,12 @@ def _status(code: int, reason: str, message: str, details=None):
 def new_not_found(kind: str, name: str) -> StatusError:
     return _status(404, api.ReasonNotFound, f'{kind} "{name}" not found',
                    api.StatusDetails(name=name, kind=kind))
+
+
+def new_conflict(kind: str, name: str, message: str = "") -> StatusError:
+    return _status(409, api.ReasonConflict, message or (
+        f'{kind} "{name}" cannot be updated: the object has been modified'),
+        api.StatusDetails(name=name, kind=kind))
 
 
 def is_resource_expired(e: BaseException) -> bool:

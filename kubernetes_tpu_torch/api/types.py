@@ -31,6 +31,7 @@ NodeSchedulable = "Schedulable"
 StatusFailure = "Failure"
 ReasonNotFound = "NotFound"
 ReasonExpired = "Expired"
+ReasonConflict = "Conflict"
 
 ResourceCPU = "cpu"
 ResourceMemory = "memory"
@@ -191,9 +192,9 @@ class NodeList:
 
 @dataclass
 class Binding:
-    """ref: types.go Binding — POST pods/{name}/binding. ``victims`` is the
-    reference's atomic evict-with-bind list; the port's scheduler never
-    fills it (preemption is not ported)."""
+    """ref: types.go Binding — POST pods/{name}/binding. ``victims`` makes
+    it an atomic evict+bind: every victim is deleted and the pod bound in
+    one step, or nothing applies (a preempting placement fills it)."""
 
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     pod_name: str = ""

@@ -4,10 +4,11 @@ Port of ``kubernetes_tpu/client/client.py``: ``Client`` exposes
 per-resource interfaces (pods/services/nodes/events) over a transport —
 anything with ``request(verb, resource, **kw)`` — and hands the cache
 package its ListWatch sources; the pods client carries the batch
-``bind_many`` the wave scheduler commits through. ``FakeClient`` records
-every request and answers from per-(verb, resource) handlers (ref:
-pkg/client/fake.go). The in-process transport over the apiserver and the
-HTTP transport are not ported yet.
+``bind_many`` the wave scheduler commits through, and the one-pod ``bind``
+its per-pod fallback takes. ``FakeClient`` records every request and
+answers from per-(verb, resource) handlers (ref: pkg/client/fake.go). The
+in-process transport over the apiserver and the HTTP transport are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -70,9 +71,19 @@ class _ResourceClient:
 
 
 class _PodsClient(_ResourceClient):
+    def bind(self, binding: api.Binding):
+        """POST pods/{name}/binding (ref: factory.go binder:302-308); a
+        binding with victims evicts them and binds in one step."""
+        return self.t.request("create", self.resource,
+                              namespace=self.namespace,
+                              name=binding.pod_name, subresource="binding",
+                              body=binding)
+
     def bind_many(self, bindings: api.BindingList) -> api.BindingResultList:
         """POST /bindings with a BindingList — one transactional store pass
-        for a whole wave; per-item results."""
+        for a whole wave; per-item results. An item with victims evicts
+        them and binds in one step, or fails with 409 and applies
+        nothing."""
         return self.t.request("create", "bindings", namespace=self.namespace,
                               body=bindings)
 

@@ -16,17 +16,22 @@ preferences are a static score plane, and gang (PodGroup) waves checkpoint
 that state at each scheduling unit and roll a failed run back; ``solve``
 then drops the failed runs' earlier members (gang.apply_all_or_nothing).
 
+Preemption (models/preempt): a wave whose pending pods sit above some
+resident priority band carries the evictable planes; a pod that finds no
+node may evict the lowest sufficient prefix of bands on the node with the
+fewest victims, and reports that threshold through its score.
+
 Host side (numpy): ``snapshot_to_host_inputs`` scales every resource
 column by its gcd (floor division and comparison are invariant under a
-common scaling), narrows to int32 when every accumulator fits, and packs
-port and PD sets into uint32 bitmask words. ``ship_inputs`` moves the wave
-to a torch device. ``solve_device`` runs the hand-written CUDA kernel
-(ops/commit_solver) for waves inside its domain and ``solve_scan`` for the
+common scaling), narrows to int32 when every accumulator fits and keeps
+int64 otherwise, and packs port and PD sets into uint32 bitmask words.
+``ship_inputs`` moves the wave to a torch device. ``solve_device`` runs
+the hand-written CUDA kernel (ops/commit_solver) for waves inside its
+domain, int64 and preemption waves included, and ``solve_scan`` for the
 rest, as the reference sends the latter to ``solve_jit``.
 
-Not ported yet (ROADMAP): preemption waves, int64 resource planes, the
-host-vs-device WaveRouter and the packed transfer. A wave that needs one
-of the first two raises NotImplementedError.
+Not ported yet (ROADMAP): the host-vs-device WaveRouter and the packed
+transfer.
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ _I32_HEADROOM = (2**31 - 1) // 10  # calculate_score multiplies by 10
 class SolverInputs(NamedTuple):
     """One wave's arrays (see ClusterSnapshot for meaning): numpy on the
     host, torch tensors after ``ship_inputs``. Resource planes are [_, R],
-    int32 when the gcd-scaled wave fits; port/PD sets are packed uint32
-    words on the host and their int32 bit patterns on a device."""
+    int32 when the gcd-scaled wave fits, else int64; port/PD sets are
+    packed uint32 words on the host and their int32 bit patterns on a
+    device."""
 
     cap: object                  # [N, R]
     advertises: object           # [N, R] bool — capacity key present
@@ -83,6 +89,12 @@ class SolverInputs(NamedTuple):
     has_anchor0: object          # [G] bool
     zone_idx: object             # [A, N] i32 zone codes, -1 unlabeled
     zone_counts0: object         # [A, G, V] i32 initial per-group peers/zone
+    # preemption planes (models/preempt; B == 0 when the wave has none)
+    pod_prio: object             # [P] i32 resolved pod priorities
+    pod_can_preempt: object      # [P] bool — PreemptionPolicy != Never
+    band_prio: object            # [B] i32 band values, BAND_EMPTY padded
+    evict_cap: object            # [N, B, R] evictable capacity (res dtype)
+    evict_cnt: object            # [N, B] i32 evictable pod counts
 
 
 def _pack_bits(a: np.ndarray) -> np.ndarray:
@@ -99,9 +111,12 @@ def _pack_bits(a: np.ndarray) -> np.ndarray:
 def _resource_scales(snap: ClusterSnapshot) -> np.ndarray:
     """Per-dimension gcd of every value in that resource column: dividing
     a column by a common factor is exact for every comparison and floor
-    division the solver performs (memory reduces by Mi granularity)."""
-    cols = np.concatenate([snap.cap, snap.fit_used, snap.score_used,
-                           snap.req], axis=0)                # [*, R]
+    division the solver performs (memory reduces by Mi granularity). The
+    per-band evictable sums take part: each must divide exactly too."""
+    parts = [snap.cap, snap.fit_used, snap.score_used, snap.req]
+    if snap.evict_cap is not None and snap.evict_cap.size:
+        parts.append(snap.evict_cap.reshape(-1, snap.evict_cap.shape[2]))
+    cols = np.concatenate(parts, axis=0)                    # [*, R]
     R = cols.shape[1]
     scales = np.ones(R, np.int64)
     for r in range(R):
@@ -138,32 +153,30 @@ def derive_zone_counts(node_zone: np.ndarray, group_counts: np.ndarray,
     return out
 
 
-def _check_supported(snap: ClusterSnapshot) -> None:
-    """Refuse, by ROADMAP item, a wave the port does not solve yet."""
-    if snap.band_prio is not None and snap.band_prio.size:
-        raise NotImplementedError(
-            "preemption waves are not ported yet (ROADMAP Queue 1: "
-            "preemption)")
-
-
 def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
     """encode_snapshot output -> host (numpy) SolverInputs: scaling, dtype
     narrowing, bit-packing — everything up to the device transfer."""
-    _check_supported(snap)
     g = _resource_scales(snap)[None, :]                    # [1, R]
     cap = snap.cap // g
     fit_used = snap.fit_used // g
     score_used = snap.score_used // g
     req = snap.req // g
-    # int32 is safe when no running sum can reach 2^31/10: the largest
-    # initial value plus the whole batch's requests bounds every accumulator
-    req_total = req.sum(axis=0, keepdims=True)             # [1, R]
-    if not _fits_i32(cap, fit_used, score_used + req_total, cap + req_total):
-        raise NotImplementedError(
-            "waves whose resource planes need int64 are not ported yet "
-            "(ROADMAP Queue 1: int64 resource planes)")
-    i32 = np.int32
     N, P, G = len(snap.node_names), req.shape[0], snap.group_counts.shape[0]
+    R = snap.cap.shape[1]
+    evict_cap = (snap.evict_cap if snap.evict_cap is not None
+                 else np.zeros((N, 0, R), np.int64)) // g[None, :, :]
+    evict_cnt = (snap.evict_cnt if snap.evict_cnt is not None
+                 else np.zeros((N, 0), np.int32))
+    band_prio = (snap.band_prio if snap.band_prio is not None
+                 else np.zeros(0, np.int32))
+    # int32 is safe when no running sum can reach 2^31/10: the largest
+    # initial value plus the whole batch's requests bounds every
+    # accumulator; otherwise the planes stay int64
+    req_total = req.sum(axis=0, keepdims=True)             # [1, R]
+    use_i32 = _fits_i32(cap, fit_used, score_used + req_total,
+                        cap + req_total, evict_cap)
+    rdt = np.int32 if use_i32 else np.int64
+    i32 = np.int32
 
     def plane(a, empty_shape, dtype=i32):
         return np.ascontiguousarray(
@@ -175,16 +188,16 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
     if zone_counts0 is None:
         zone_counts0 = derive_zone_counts(node_zone, snap.group_counts, V)
     return SolverInputs(
-        cap=cap.astype(i32),
+        cap=cap.astype(rdt),
         advertises=np.asarray(snap.advertised, bool),
-        fit_used=fit_used.astype(i32),
+        fit_used=fit_used.astype(rdt),
         fit_exceeded=np.asarray(snap.fit_exceeded, bool),
-        score_used=score_used.astype(i32),
+        score_used=score_used.astype(rdt),
         node_ports=_pack_bits(snap.node_ports),
         node_sel=np.ascontiguousarray(snap.node_sel),
         node_pds=_pack_bits(snap.node_pds),
         node_extra_ok=np.asarray(snap.node_extra_ok, bool),
-        req=req.astype(i32),
+        req=req.astype(rdt),
         pod_ports=_pack_bits(snap.pod_ports),
         pod_sel=np.ascontiguousarray(snap.pod_sel),
         pod_pds=_pack_bits(snap.pod_pds),
@@ -204,6 +217,15 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
         has_anchor0=plane(snap.has_anchor0, G, bool),
         zone_idx=node_zone,
         zone_counts0=np.ascontiguousarray(zone_counts0, i32),
+        pod_prio=np.ascontiguousarray(
+            np.zeros(P, i32) if snap.pod_prio is None else snap.pod_prio,
+            i32),
+        pod_can_preempt=np.ascontiguousarray(
+            np.ones(P, bool) if snap.pod_can_preempt is None
+            else snap.pod_can_preempt, bool),
+        band_prio=np.ascontiguousarray(band_prio, i32),
+        evict_cap=np.ascontiguousarray(evict_cap.astype(rdt)),
+        evict_cnt=np.ascontiguousarray(evict_cnt, i32),
     )
 
 
@@ -235,8 +257,8 @@ def ship_inputs(host: SolverInputs, device) -> SolverInputs:
 def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None,
                gangs: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain per-pod solve on any device and any wave size (the port
-    of ``solve_jit``, every policy branch and the gang checkpoint and
-    rollback): the prolog, then the commit loop of
+    of ``solve_jit``, every policy branch, int64 planes, preemption and
+    the gang checkpoint and rollback): the prolog, then the commit loop of
     ops/commit_solver.solve_commit_reference."""
     pol = pol or BatchPolicy()
     if pol.all_infeasible:
@@ -256,8 +278,9 @@ def solve_device(inp: SolverInputs, pol: Optional[BatchPolicy],
     """Compiled-solve dispatch: a wave inside the kernel's domain
     (commit_solver.eligible) runs the CUDA kernel — on a CPU tensor its
     plain version — and every other wave runs ``solve_scan`` on the same
-    device, as the reference sends it to ``solve_jit``. ``gangs`` turns on
-    the checkpoint and rollback of PodGroup runs."""
+    device, as the reference sends it to ``solve_jit`` (a wave over
+    commit_solver.MAX_N nodes, MAX_G groups or MAX_B bands). ``gangs``
+    turns on the checkpoint and rollback of PodGroup runs."""
     pol = pol or BatchPolicy()
     if commit_solver.eligible(inp, pol, peer_bound):
         return commit_solver.solve_commit(
@@ -278,9 +301,10 @@ def peer_bound_of(source) -> int:
 def solve(snap: ClusterSnapshot, device=None
           ) -> Tuple[np.ndarray, np.ndarray]:
     """Host entry: encoded wave -> device -> solve -> host decisions
-    (chosen node index or -1, winning score or -1, int32 [P]), with the
-    all-or-nothing post-pass when the wave has PodGroups. Runs on
-    ``cuda`` unless ``device`` says otherwise."""
+    (chosen node index or -1, winning score or -1, int32 [P]; a score at
+    or below preempt.PREEMPT_SCORE_BASE placed by preemption and encodes
+    its band slot), with the all-or-nothing post-pass when the wave has
+    PodGroups. Runs on ``cuda`` unless ``device`` says otherwise."""
     dev = resolve_device(device)
     inp = ship_inputs(snapshot_to_host_inputs(snap), dev)
     has_gangs = snap.has_gangs

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA sources.
 
-Each ``ops/csrc/<name>.cu`` compiles with plain ``nvcc`` into a shared
-library with a C interface, loaded through ``ctypes`` (no PyTorch headers,
-so a build takes seconds). Libraries go to ``ops/_build/`` keyed by a hash
-of the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once. Nothing builds at import: the first call that needs a
-kernel builds it.
+A library ``<name>`` is every ``ops/csrc/<name>*.cu``: each source
+compiles with plain ``nvcc`` into an object, all of them at once in
+parallel processes, and the objects link into one shared library with a C
+interface, loaded through ``ctypes`` (no PyTorch headers, so a build takes
+seconds to a minute). Libraries go to ``ops/_build/`` keyed by a hash of
+the sources, the headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one loads at once. Nothing builds at
+import: the first call that needs a kernel builds it.
 """
 
 from __future__ import annotations
@@ -15,10 +17,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
-__all__ = ["NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "build", "build_seconds", "load", "nvcc_path",
+           "sources"]
 
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
@@ -27,12 +32,14 @@ BUILD_DIR = _HERE / "_build"
 # -Xptxas -v only reports registers, shared memory and spills; no
 # --use_fast_math: the spread score relies on exact integer arithmetic
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# the compiler's report of the last build of each source (empty when the
+# the compiler's report of the last build of each library (empty when the
 # library was already built)
 build_logs: Dict[str, str] = {}
+# seconds each source of the last build took to compile, and "link"
+build_seconds: Dict[str, Dict[str, float]] = {}
 
 
 def nvcc_path() -> str:
@@ -47,24 +54,62 @@ def nvcc_path() -> str:
         "CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def sources(name: str) -> List[Path]:
+    """The sources of library ``name``: ``csrc/<name>*.cu``, sorted."""
+    return sorted(SRC_DIR.glob(f"{name}*.cu"))
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of this exact source
-    and flags exists; return the library's path."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    """Compile and link library ``name`` unless one of these exact sources,
+    headers and flags exists; return the library's path."""
+    srcs = sources(name)
+    if not srcs:
+        raise RuntimeError(f"no sources for {name} in {SRC_DIR}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in srcs + sorted(SRC_DIR.glob("*.cuh")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         build_logs[name] = ""
+        build_seconds[name] = {}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_logs[name] = proc.stderr
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+
+    def compile_one(src: Path, obj: Path):
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
+
+    # one nvcc process per source, all started together
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        done = list(pool.map(compile_one, srcs, objs))
+    logs, seconds, failed = [], {}, []
+    for src, (proc, dt) in zip(srcs, done):
+        seconds[src.name] = dt
+        logs.append(proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{proc.stderr}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{tag}.tmp")
+        t1 = time.perf_counter()
+        proc = subprocess.run([nvcc, "-gencode", NVCC_FLAGS[1], "-shared",
+                               "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"linking {name} failed:\n{proc.stderr}")
+        seconds["link"] = time.perf_counter() - t1
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_logs[name] = "".join(logs)
+    build_seconds[name] = seconds
     return out
 
 

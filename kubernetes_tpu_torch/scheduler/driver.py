@@ -320,10 +320,15 @@ class ConfigFactory:
 
 
 class _Binder:
-    """ref: factory.go:297-308 binder — POST /bindings, batched."""
+    """ref: factory.go:297-308 binder — POST pods/{name}/binding, and POST
+    /bindings batched."""
 
     def __init__(self, client):
         self.client = client
+
+    def bind(self, binding: api.Binding) -> None:
+        """Bind one pod (with its victims, an atomic evict+bind)."""
+        self.client.pods(binding.metadata.namespace).bind(binding)
 
     def bind_many(self, namespace: str,
                   bindings: api.BindingList) -> api.BindingResultList:

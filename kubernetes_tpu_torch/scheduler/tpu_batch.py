@@ -7,8 +7,9 @@ with:
 
     drain a wave from the FIFO -> gang quorum gate -> encode the cluster
     (IncrementalEncoder: O(changed) deltas from the modeler's changelog)
-    -> ONE solve (the CUDA kernel commit_solve on the card) -> commit
-    bindings -> assume pods
+    -> ONE solve (the CUDA kernel commit_solve on the card) -> replay the
+    preempting placements into victim sets -> commit bindings (a
+    preemptor's as an atomic evict+bind) -> assume pods
 
 Decisions are bit-identical to running the serial scheduler over the same
 wave, because the solver reproduces the serial sequential-commit
@@ -20,13 +21,21 @@ handler requeues it and the next wave re-solves against fresh state.
 The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the plain version of the kernel); without a card the default raises.
 
+Preemption: a pod the solve placed by eviction gets its victims from the
+incremental encoder's per-node registry (models/preempt.assign_victims)
+and binds with them in one atomic evict+bind; the victims' deletes then
+reach the encoder like any other delete. The full-encoder path (policies
+with service affinity) has no registry to name victims from and requeues
+such pods, as the reference does. A binder without ``bind_many`` commits
+pod by pod (``scheduler_bind_fallback_total`` counts those waves).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
 ROADMAP item rather than replaced by a substitute: the pipelined loop
 (``pipeline=True``), the shared solver daemon (``solver_addr``), the
-device mesh (``mesh="on"``), the boot prewarm (``prewarm=True``) and
-preemption waves. A wave that raises ``NotImplementedError`` is handed to
-the error handler and the error propagates out of ``schedule_wave``, so
-the loop stops instead of requeueing it forever. Unschedulable pods get
+device mesh (``mesh="on"``) and the boot prewarm (``prewarm=True``). A
+wave that raises ``NotImplementedError`` is handed to the error handler
+and the error propagates out of ``schedule_wave``, so the loop stops
+instead of requeueing it forever. Unschedulable pods get
 the generic ``FitError`` line (the diagnosis layer, models/explain.py, is
 not ported), and the loop records no tracing spans.
 """
@@ -42,6 +51,7 @@ from typing import List, NamedTuple, Optional
 
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.models import gang
+from kubernetes_tpu_torch.models import preempt as preempt_mod
 from kubernetes_tpu_torch.models.batch_solver import (decisions_to_names,
                                                       resolve_device, solve)
 from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
@@ -84,6 +94,10 @@ class _WaveMetrics:
         self.resyncs = reg.counter(
             "scheduler_wave_encode_resyncs_total",
             "Full-list encoder syncs (vs O(changed) delta waves)")
+        self.bind_fallback = reg.counter(
+            "scheduler_bind_fallback_total",
+            "Waves committed through per-pod binder.bind because the "
+            "binder lacks the bind_many seam (one round trip per pod)")
         # a recompile/re-encode cliff is a few slow waves among fast ones:
         # quantiles average it away, the running max cannot
         self.stall_max = reg.gauge(
@@ -107,11 +121,15 @@ def _wave_metrics() -> _WaveMetrics:
 
 class _WaveDecisions(NamedTuple):
     """One wave's solve outcome: per-pod host names (None =
-    unschedulable) and the raw outputs over the padded pod axis."""
+    unschedulable), the victim sets of preempting placements, the solve's
+    start (the preempt-to-bind window opens there) and the raw outputs
+    over the padded pod axis."""
 
     hosts: list
+    victims: list           # aligned with hosts; None = normal placement
+    t0: float               # perf_counter at the solve's start
     chosen: object          # [P] node indices (-1 = unschedulable)
-    scores: object          # [P] winning scores
+    scores: object          # [P] winning scores (preempt score channel)
 
 
 class BatchScheduler:
@@ -310,15 +328,38 @@ class BatchScheduler:
     def _solve_snap(self, snap, n_pending: int) -> _WaveDecisions:
         """One wave's solve on ``self.device`` -> _WaveDecisions. Inside
         the kernel's domain this is one launch of commit_solve; the gang
-        all-or-nothing post-pass is part of ``solve``."""
+        all-or-nothing post-pass is part of ``solve``. A placed pod whose
+        score encodes a preemption threshold gets its victims from the
+        incremental encoder's per-node registry: the deterministic replay
+        of models/preempt.assign_victims (the reference's
+        tpu_batch.py:477-499). The encoder changes only after this wave's
+        decisions are read."""
         t0 = time.perf_counter()
         chosen, scores = solve(snap, device=self.device)
         dt = time.perf_counter() - t0
         _wave_metrics().solve.observe(dt)
         _wave_metrics().note_stall(dt)
         _wave_metrics().pods.inc(by=n_pending)
-        return _WaveDecisions(decisions_to_names(snap, chosen), chosen,
-                              scores)
+        hosts = decisions_to_names(snap, chosen)
+        victims = [None] * len(hosts)
+        if any(preempt_mod.is_preempt_score(int(s))
+               for s in scores[:len(hosts)]):
+            if self._encoder is not None:
+                victims = preempt_mod.assign_victims(
+                    chosen, scores, snap.band_prio, n_pods=len(hosts),
+                    node_pods=self._encoder.resident_on)
+            else:
+                # the full-encoder path has no resident-pod registry to
+                # name victims from: those pods go back to the queue
+                if not getattr(self, "_warned_preempt_encoder", False):
+                    self._warned_preempt_encoder = True
+                    _log.warning(
+                        "preemption decisions need the incremental "
+                        "encoder's pod registry; requeueing preempting "
+                        "pods (the policy forces the full encoder)")
+                hosts = [None if preempt_mod.is_preempt_score(int(s))
+                         else h for h, s in zip(hosts, scores)]
+        return _WaveDecisions(hosts, victims, t0, chosen, scores)
 
     def _default_solve(self, nodes, get_existing, pending, services):
         snap = self._encode_wave(nodes, pending, services, get_existing)
@@ -401,58 +442,107 @@ class BatchScheduler:
 
     # -- commit -------------------------------------------------------------
     def _split_decisions(self, pending, decisions: _WaveDecisions):
-        """(pod, host) pairs for placed pods; unschedulable pods are
-        evented + handed to the error handler (backoff + requeue)."""
+        """(pod, host, victims) triples for placed pods (victims None for
+        a normal placement); unschedulable pods are evented + handed to
+        the error handler (backoff + requeue)."""
         c = self.config
         placed = []
-        for pod, host in zip(pending, decisions.hosts):
+        for pod, host, vict in zip(pending, decisions.hosts,
+                                   decisions.victims):
             if host is None:
                 err = FitError(pod, {})
                 self._record(pod, "FailedScheduling",
                              "Error scheduling: %s", err)
                 c.error(pod, err)
             else:
-                placed.append((pod, host))
+                placed.append((pod, host, vict))
         return placed
 
-    def _commit_wave(self, placed):
+    def _commit_wave(self, placed, preempt_t0: Optional[float] = None):
         """Bind the wave's placements, event every outcome, assume the
         winners. Returns (outcomes, bound): outcomes[i] is None on
-        success, else the bind error (aligned with ``placed``)."""
+        success, else the bind error (aligned with ``placed``). A
+        placement with victims commits as an atomic evict+bind
+        (Binding.victims): the server deletes every victim and binds the
+        pod in one step, or fails the item with 409; the victims' deletes
+        then reach the encoder like any other. ``preempt_t0`` opens the
+        preempt-to-bind window."""
         t_commit0 = time.perf_counter()
         c = self.config
 
-        def mk_binding(pod, host) -> api.Binding:
+        def mk_binding(pod, host, victims) -> api.Binding:
+            refs = [api.ObjectReference(kind="Pod", namespace=v.namespace,
+                                        name=v.name, uid=v.uid)
+                    for v in victims] if victims else []
             return api.Binding(
                 metadata=api.ObjectMeta(name=pod.metadata.name,
                                         namespace=pod.metadata.namespace),
-                pod_name=pod.metadata.name, host=host)
+                pod_name=pod.metadata.name, host=host, victims=refs)
 
-        # one transactional store pass per namespace for the wave's
-        # bindings; per-pod CAS semantics are preserved — a lost race
-        # invalidates only that pod, which requeues
         outcomes: List[Optional[Exception]] = [None] * len(placed)
-        by_ns: dict = {}
-        for idx, (pod, _host) in enumerate(placed):
-            by_ns.setdefault(pod.metadata.namespace, []).append(idx)
-        for ns, idxs in by_ns.items():
-            blist = api.BindingList(items=[
-                mk_binding(*placed[i]) for i in idxs])
-            try:
-                results = c.binder.bind_many(ns, blist)
-                for i, r in zip(idxs, results.items):
-                    if r.error:
-                        err = RuntimeError(r.error)
-                        err.code = r.code  # CAS-vs-other classification
-                        outcomes[i] = err
-            except Exception as e:
-                for i in idxs:
-                    outcomes[i] = e
+        bind_many = getattr(c.binder, "bind_many", None)
+        if bind_many is not None:
+            # one transactional store pass per namespace for the wave's
+            # bindings; per-pod CAS semantics are preserved — a lost race
+            # invalidates only that pod, which requeues
+            by_ns: dict = {}
+            for idx, (pod, _host, _vict) in enumerate(placed):
+                by_ns.setdefault(pod.metadata.namespace, []).append(idx)
+            for ns, idxs in by_ns.items():
+                blist = api.BindingList(items=[
+                    mk_binding(*placed[i]) for i in idxs])
+                try:
+                    results = bind_many(ns, blist)
+                    for i, r in zip(idxs, results.items):
+                        if r.error:
+                            err = RuntimeError(r.error)
+                            err.code = r.code  # CAS-vs-other classification
+                            outcomes[i] = err
+                except Exception as e:
+                    for i in idxs:
+                        outcomes[i] = e
+        else:
+            # a binder without the batch seam: one bind per pod, as the
+            # reference's fallback (tpu_batch.py:832-846)
+            _wave_metrics().bind_fallback.inc()
+            if not getattr(self, "_warned_bind_fallback", False):
+                self._warned_bind_fallback = True
+                _log.warning(
+                    "binder %s has no bind_many: committing waves one bind "
+                    "round trip per pod (scheduler_bind_fallback_total "
+                    "counts the waves)", type(c.binder).__name__)
+            for idx, triple in enumerate(placed):
+                try:
+                    c.binder.bind(mk_binding(*triple))
+                except Exception as e:
+                    outcomes[idx] = e
+
+        # preemption outcome accounting (the scheduler_preemption_* family)
+        pmx = None
+        now_p = time.perf_counter()
+        for (pod, _host, vict), err in zip(placed, outcomes):
+            if not vict:
+                continue
+            if pmx is None:
+                pmx = metrics.preemption_metrics()
+            if err is None:
+                pmx.attempts.inc()
+                pmx.victims.inc(by=len(vict))
+                p_prio = api.pod_priority(pod)
+                bad = sum(1 for v in vict if v.priority >= p_prio)
+                if bad:
+                    pmx.higher_evictions.inc(by=bad)
+                if preempt_t0 is not None:
+                    pmx.bind_seconds.observe(max(0.0, now_p - preempt_t0))
+            elif getattr(err, "code", None) == 409:
+                # only a lost compare-and-swap counts as a conflict; other
+                # failures stay visible as requeues
+                pmx.conflicts.inc()
 
         bound = 0
         now_m = time.monotonic()
         now_w = time.time()
-        for (pod, host), err in zip(placed, outcomes):
+        for (pod, host, _vict), err in zip(placed, outcomes):
             if err is not None:
                 # lost a CAS race: requeue; next wave sees fresh state
                 self._record(pod, "FailedScheduling",
@@ -518,7 +608,7 @@ class BatchScheduler:
         placed = self._split_decisions(pending, decisions)
         if not placed:
             return 0
-        _, bound = self._commit_wave(placed)
+        _, bound = self._commit_wave(placed, decisions.t0)
         return bound
 
     # -- the loop -----------------------------------------------------------

@@ -5,14 +5,21 @@ without an apiserver.
 answers the scheduler's requests through ``FakeClient`` handlers: ``list``
 of pods by the factory's field selectors (``spec.host=`` /
 ``spec.host!=``), of nodes and of services; ``get`` of one pod (the error
-handler's re-fetch); and the batch ``bind_many``, which marks each pod
-bound (a 409 result when it is bound already, a 404 when it is gone) and
-delivers the bound copy to the factory's assigned-pods store, as the
-assigned-pods reflector would; ``bind_log`` keeps every bound copy in
-bind order. Churn goes to the factory's stores the same
-way: ``add_pending`` to the FIFO, ``delete_bound`` out of the
-assigned-pods store, ``add_node`` into the node store. Every delivery is
-synchronous, so a run is deterministic.
+handler's re-fetch); the batch ``bind_many`` and the one-pod binding
+(``create`` of ``pods`` with ``subresource="binding"``), which mark each
+pod bound (409 when it is bound already, 404 when it is gone) and deliver
+the bound copy to the factory's assigned-pods store, as the assigned-pods
+reflector would. A binding with victims is an atomic evict+bind, with the
+reference apiserver's semantics (kubernetes_tpu/registry/resources.py
+:166-210): every victim is deleted and the pod bound in one step, or the
+item fails with 409 and nothing applies; a victim that is gone already
+counts as evicted, one whose uid changed is a 409. ``bind_log`` keeps
+every bound copy in bind order, ``evict_log`` every evicted pod, and
+``victims_of`` the pods each preemptor's binding evicted, by its key. Churn
+goes to the factory's stores the same way: ``add_pending`` to the FIFO,
+``delete_bound`` (and every eviction) out of the assigned-pods store,
+``add_node`` into the node store. Every delivery is synchronous, so a run
+is deterministic.
 
 The API types, the FakeClient class, the status-error module and the
 copy function are parameters, so the same cluster drives the JAX
@@ -48,6 +55,7 @@ class FakeCluster:
         self.pods = {_key(p): p for p in list(bound) + list(pending)}
         self.factory = None
         self.bind_log = []      # every bound copy, in bind order
+        self.victims_of = {}    # "ns/name" of a preemptor -> evicted pods
         c = self.client = client_cls()
         c.on("list", "pods", self._list_pods)
         c.on("list", "nodes",
@@ -56,6 +64,7 @@ class FakeCluster:
              lambda **kw: api.ServiceList(items=list(self.services)))
         c.on("get", "pods", self._get_pod)
         c.on("create", "bindings", self._bind_many)
+        c.on("create", "pods", self._bind_one)
 
     # -- handlers -----------------------------------------------------------
     def _list_pods(self, field_selector="", **kw):
@@ -74,35 +83,79 @@ class FakeCluster:
             raise self.errors.new_not_found("pods", name)
         return pod
 
+    def _bind_item(self, namespace, b, delivered, evicted):
+        """Apply one binding under the lock -> (code, error): 0 and "" when
+        it bound. A binding with victims evicts them in the same step."""
+        key = f"{namespace}/{b.pod_name}"
+        pod = self.pods.get(key)
+        if pod is None:
+            return 404, "not found"
+        if pod.spec.host:
+            return 409, f"pod {key} is already bound to {pod.spec.host}"
+        gone = []
+        for v in b.victims:
+            vkey = f"{v.namespace or namespace}/{v.name}"
+            cur = self.pods.get(vkey)
+            if cur is None:
+                continue            # already gone: the eviction's goal
+            if v.uid and cur.metadata.uid != v.uid:
+                return 409, (f"victim {vkey} uid changed (have "
+                             f"{cur.metadata.uid!r}, want {v.uid!r})")
+            gone.append(vkey)
+        if b.victims:
+            self.victims_of[key] = [self.pods.pop(vkey) for vkey in gone]
+            evicted += self.victims_of[key]
+        done = self.clone(pod)
+        done.spec.host = b.host
+        done.status.host = b.host
+        self.pods[key] = done
+        delivered.append(done)
+        return 0, ""
+
+    def _deliver(self, delivered, evicted) -> None:
+        """Hand evictions and binds to the factory's assigned-pods store,
+        as its reflector would deliver their watch events."""
+        if self.factory is None:
+            return
+        for pod in evicted:
+            self.factory.scheduled_pods.delete(pod)
+        for pod in delivered:
+            self.factory.scheduled_pods.add(pod)
+
     def _bind_many(self, namespace="", body=None, **kw):
         api = self.api
         results = []
-        delivered = []
+        delivered, evicted = [], []
         with self._lock:
             for b in body.items:
-                key = f"{namespace}/{b.pod_name}"
-                pod = self.pods.get(key)
-                if pod is None:
-                    results.append(api.BindingResult(
-                        pod_name=b.pod_name, error="not found", code=404))
-                    continue
-                if pod.spec.host:
-                    results.append(api.BindingResult(
-                        pod_name=b.pod_name, code=409,
-                        error=f"pod {key} is already bound to "
-                              f"{pod.spec.host}"))
-                    continue
-                done = self.clone(pod)
-                done.spec.host = b.host
-                done.status.host = b.host
-                self.pods[key] = done
-                delivered.append(done)
-                results.append(api.BindingResult(pod_name=b.pod_name))
+                code, err = self._bind_item(namespace, b, delivered, evicted)
+                results.append(api.BindingResult(pod_name=b.pod_name,
+                                                 code=code, error=err))
             self.bind_log += delivered
-        if self.factory is not None:
-            for pod in delivered:
-                self.factory.scheduled_pods.add(pod)
+        self._deliver(delivered, evicted)
         return api.BindingResultList(items=results)
+
+    def _bind_one(self, namespace="", name="", subresource="", body=None,
+                  **kw):
+        """POST pods/{name}/binding: one pod, raising the status error."""
+        if subresource != "binding":
+            raise ValueError(f"FakeCluster creates no pods ({subresource!r})")
+        delivered, evicted = [], []
+        with self._lock:
+            code, err = self._bind_item(namespace, body, delivered, evicted)
+            self.bind_log += delivered
+        if code == 404:
+            raise self.errors.new_not_found("pods", name)
+        if code:
+            raise self.errors.new_conflict("pods", name, err)
+        self._deliver(delivered, evicted)
+        return body
+
+    @property
+    def evict_log(self) -> list:
+        """Every evicted pod, in eviction order."""
+        with self._lock:
+            return [v for vs in self.victims_of.values() for v in vs]
 
     # -- wiring and churn ---------------------------------------------------
     def attach(self, factory) -> None:

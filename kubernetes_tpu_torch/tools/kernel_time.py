@@ -3,7 +3,8 @@
 alone, or the whole wave.
 
 Encodes the shape's wave (fixtures.FULL_SHAPES, under the shape's JSON
-Policy where it has one). By default it prepares the kernel's inputs on
+Policy where it has one; ``north_star_dec`` takes the int64 instances and
+``priority`` the preemption branch). By default it prepares the kernel's inputs on
 the card and times ``solve_commit`` with CUDA events: one warm-up launch,
 then the median of ``--runs`` launches. With ``--wave`` it times the whole
 wave as a user runs it, on the host clock: encode_snapshot, solve and
@@ -96,14 +97,14 @@ def main() -> int:
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
 
-    n_nodes, n_pods, kw, policy_json = fixtures.FULL_SHAPES[args.shape]
+    n_nodes, _n_pods, _kw, policy_json = fixtures.FULL_SHAPES[args.shape]
     policy = None
     if policy_json:
         from kubernetes_tpu_torch.models.policy import batch_policy_from
         from kubernetes_tpu_torch.scheduler.plugins import load_policy
 
         policy = batch_policy_from(policy=load_policy(policy_json))
-    cluster = fixtures.build_cluster(n_nodes, n_pods, **kw)
+    cluster = fixtures.build_shape(args.shape)
     out = {"shape": args.shape, "nodes": n_nodes, "pods": len(cluster[2])}
     if args.wave:
         out.update(_wave_times(cluster, policy, args.runs))
@@ -117,7 +118,11 @@ def main() -> int:
         commit_solver.solve_commit(ci)                  # build and warm up
         ms, runs, _ = event_ms(lambda: commit_solver.solve_commit(ci),
                                args.runs)
-        out.update({"kernel_ms": ms, "kernel_ms_runs": runs})
+        on_chip, _ = commit_solver.layout_of(ci)
+        out.update({"kernel_ms": ms, "kernel_ms_runs": runs,
+                    "resource_type": str(ci.cap.dtype).split(".")[-1],
+                    "bands": ci.band.shape[0],
+                    "layout": "shared" if on_chip else "global"})
     out["card"] = card_line()
     print(json.dumps(out))
     return 0

@@ -5,11 +5,11 @@ reference's Prometheus instrumentation seam, ref: pkg/apiserver/
 apiserver.go:40-87, pkg/kubelet/metrics/metrics.go:31-84) trimmed to what
 the wave loop writes: ``Counter``, ``Gauge``, ``Histogram``, the
 ``Registry``, the encoder-resync counters and checkpoint histogram of the
-journal-replay path (``SlipstreamMetrics``) and the two pod-latency
+journal-replay path (``SlipstreamMetrics``), the two pod-latency
 histograms the commit and the bound-pod observer write
-(``PodLatencyMetrics``). The text exposition comes with the
-scheduler binary's ``/metrics``; the preemption and prewarm families are
-not ported.
+(``PodLatencyMetrics``) and the preemption family of the commit
+(``PreemptionMetrics``). The text exposition comes with the scheduler
+binary's ``/metrics``; the prewarm family is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "DEFAULT_BUCKETS", "POD_E2E_BUCKETS", "SlipstreamMetrics",
-           "slipstream_metrics", "PodLatencyMetrics", "pod_latency_metrics"]
+           "slipstream_metrics", "PodLatencyMetrics", "pod_latency_metrics",
+           "PreemptionMetrics", "preemption_metrics"]
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                    10.0)
@@ -178,3 +179,41 @@ def pod_latency_metrics() -> PodLatencyMetrics:
     if PodLatencyMetrics._singleton is None:
         PodLatencyMetrics._singleton = PodLatencyMetrics()
     return PodLatencyMetrics._singleton
+
+
+class PreemptionMetrics:
+    """The preemption family of the wave scheduler's commit
+    (scheduler/tpu_batch.py). ``higher_evictions`` counts an invariant: a
+    victim is always below its preemptor's priority, so any value above 0
+    is a fault."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.attempts = reg.counter(
+            "scheduler_preemption_attempts_total",
+            "Pods the wave solver placed by preemption whose evict+bind "
+            "committed")
+        self.victims = reg.counter(
+            "scheduler_preemption_victims_total",
+            "Lower-priority pods evicted by committed preemptions")
+        self.conflicts = reg.counter(
+            "scheduler_preemption_conflicts_total",
+            "Evict+bind items that lost their compare-and-swap (a 409; the "
+            "pod requeues and the next wave sees the new state)")
+        self.higher_evictions = reg.counter(
+            "scheduler_preemption_higher_evictions_total",
+            "Victims at equal or higher priority than their preemptor "
+            "(must stay 0)")
+        self.bind_seconds = reg.histogram(
+            "scheduler_preemption_bind_seconds",
+            "Preempt-to-bind latency: the wave's solve start -> the "
+            "preempting pod's evict+bind committed",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0))
+
+
+def preemption_metrics() -> PreemptionMetrics:
+    if PreemptionMetrics._singleton is None:
+        PreemptionMetrics._singleton = PreemptionMetrics()
+    return PreemptionMetrics._singleton

@@ -436,13 +436,35 @@ def test_gang_wave_matches_reference():
 
 
 def test_preemption_wave_is_refused():
-    psnap = encode_snapshot(
-        [PORT.node("n0", cpu_m=1000)],
-        [PORT.pod("low", cpu_m=1000, host="n0", priority=0)],
-        [PORT.pod("high", cpu_m=1000, priority=100)])
+    # once refused, the preemption wave is now solved: the decision and
+    # its preemption score equal the JAX package's, the victims its
+    # serial preemption oracle's
+    from kubernetes_tpu.models import preempt as ref_preempt
+    from kubernetes_tpu.models.oracle import preempt_serial
+    from kubernetes_tpu_torch.models import preempt
+
+    def wave(k):
+        return ([k.node("n0", cpu_m=1000)],
+                [k.pod("low", cpu_m=1000, host="n0", priority=0)],
+                [k.pod("high", cpu_m=1000, priority=100)])
+
+    psnap = encode_snapshot(*wave(PORT))
+    jsnap = ref_encode(*wave(REF))
     assert psnap.band_prio.size
-    with pytest.raises(NotImplementedError, match="preemption"):
-        bs.solve(psnap, device="cpu")
+    pc, ps = bs.solve(psnap, device="cpu")
+    jc, js = ref_bs.solve(jsnap)
+    assert np.array_equal(pc, np.asarray(jc))
+    assert np.array_equal(ps, np.asarray(js))
+    assert preempt.is_preempt_score(int(ps[0]))
+    nodes, existing, pending = wave(PORT)
+    victims = preempt.assign_victims(
+        pc, ps, psnap.band_prio,
+        preempt.resident_from_pods(existing, {"n0": 0}), n_pods=1)
+    names, s_victims = preempt_serial(*wave(REF))
+    assert bs.decisions_to_names(psnap, pc) == names == ["n0"]
+    assert [[v.uid for v in victims[0]]] == \
+        [[v.uid for v in s_victims[0]]] == [["uid-default-low"]]
+    assert ref_preempt.PREEMPT_SCORE_BASE == preempt.PREEMPT_SCORE_BASE
 
 
 def test_policy_extensions_match_reference():
@@ -460,11 +482,20 @@ def test_policy_extensions_match_reference():
 
 
 def test_int64_resource_planes_are_refused():
-    # a 3-byte-granular memory capacity cannot be scaled under 2^31/10
-    nodes = [PORT.node("n0", mem=(1 << 40) + 3)]
-    psnap = encode_snapshot(nodes, [], [PORT.pod("p", mem=1)])
-    with pytest.raises(NotImplementedError, match="int64"):
-        bs.solve(psnap, device="cpu")
+    # once refused, a 3-byte-granular memory capacity that cannot be
+    # scaled under 2^31/10 now solves on int64 planes, as the reference's
+    def wave(k):
+        nodes = [k.node("n0", mem=(1 << 40) + 3), k.node("n1", mem=8 << 30)]
+        return nodes, [], [k.pod(f"p{i}", cpu_m=500, mem=1 + i * (1 << 30))
+                           for i in range(6)], []
+
+    psnap = encode_snapshot(*wave(PORT))
+    assert bs.snapshot_to_host_inputs(psnap).cap.dtype == np.int64
+    pc, ps = bs.solve(psnap, device="cpu")
+    jc, js = ref_bs.solve(ref_encode(*wave(REF)))
+    assert np.array_equal(pc, np.asarray(jc))
+    assert np.array_equal(ps, np.asarray(js))
+    assert bs.decisions_to_names(psnap, pc) == solve_serial(*wave(REF))
 
 
 def test_batch_policy_from_default_provider():

@@ -177,15 +177,35 @@ def test_wrapper_checks_its_inputs():
         commit_solver.solve_commit(ci._replace(cap=ci.cap.T.contiguous().T))
 
 
+def _port_and_scan(snap):
+    """(port plain, solve_jit) decisions of a wave outside the Pallas
+    kernel's domain, and the port's CommitInputs."""
+    inp = inputs_from_reference(
+        ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")
+    ci = commit_solver.prepare(
+        inp, BatchPolicy(**dataclasses.asdict(snap.policy)))
+    port = tuple(t.numpy() for t in commit_solver.solve_commit_reference(ci))
+    jit = tuple(np.asarray(t) for t in ref_bs.solve_jit(
+        ref_bs.snapshot_to_inputs(snap), pol=snap.policy))
+    return port, jit, ci, inp
+
+
 def test_carry_refuses_waves_outside_the_slice():
-    # preemption waves are the one part of the reference's wave the port
-    # does not carry yet
+    # the waves once refused at the carry — band planes, int64 planes —
+    # now carry across whole, and the plain version solves them as the
+    # reference's scan does
     from test_torch_encode import _wave_priority_bands
     snap = ref_encode(*_wave_priority_bands(REF))
     assert snap.band_prio.size
-    with pytest.raises(NotImplementedError, match="preemption"):
-        inputs_from_reference(
-            ref_bs.snapshot_to_host_inputs(snap)._asdict(), "cpu")
+    port, jit, ci, inp = _port_and_scan(snap)
+    assert inp.band_prio.shape[0] == ci.band.shape[0] > 0
+    assert np.array_equal(port[0], jit[0]) and np.array_equal(port[1], jit[1])
+    assert port[1][0] <= commit_solver.PREEMPT_SCORE_BASE
+    wide = ref_encode([mk_node("big", mem=(1 << 40) + 3), mk_node("n1")], [],
+                      [mk_pod(f"p{i}", mem=1 + i) for i in range(3)])
+    port, jit, ci, _ = _port_and_scan(wide)
+    assert ci.cap.dtype == torch.int64
+    assert np.array_equal(port[0], jit[0]) and np.array_equal(port[1], jit[1])
 
 
 # ---- the kernel's state layout and its arithmetic --------------------------
@@ -315,8 +335,9 @@ def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():
     # chip_smoke prints ptxas' registers and spills per kernel instance; two
     # instances that differ only in the state layout keep an entry each
     import chip_smoke
-    mangled = ("_ZN48_GLOBAL__N__81ea7146_15_commit_solve_cu_6a9be68d19commit_"
-               "solve_kernelILb0ELb1ELb0ELb0ELb{}EEEvPKhPKiNS_5ShapeE")
+    mangled = ("_ZN4kgpu19commit_solve_kernelIiLb0ELb0ELb1ELb0ELb0ELb{}EEEvPKhP"
+               "KiPKT_S7_S7_S2_S2_S4_S4_S4_S4_S4_S4_S4_S2_S4_S7_S4_S4_S4_PhS8_"
+               "PiS9_NS_5ShapeE")
     log = ["ptxas info    : 0 bytes gmem"]
     for shared, spill in ((1, 8), (0, 0)):
         name = mangled.format(shared)
@@ -328,7 +349,9 @@ def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():
             "ptxas info    : Used 64 registers, used 1 barriers, 80 bytes "
             "cumulative stack size, 2096 bytes smem"]
     report = chip_smoke._ptxas_report("\n".join(log))
-    assert set(report) == {"commit_solve<0,1,0,0,1>", "commit_solve<0,1,0,0,0>"}
-    assert report["commit_solve<0,1,0,0,1>"].startswith("Used 64 registers")
-    assert "8 bytes spill stores" in report["commit_solve<0,1,0,0,1>"]
-    assert " 0 bytes spill stores" in report["commit_solve<0,1,0,0,0>"]
+    on, off = ("commit_solve<int32,0,0,1,0,0,1>",
+               "commit_solve<int32,0,0,1,0,0,0>")
+    assert set(report) == {on, off}
+    assert report[on].startswith("Used 64 registers")
+    assert "8 bytes spill stores" in report[on]
+    assert " 0 bytes spill stores" in report[off]

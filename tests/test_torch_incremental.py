@@ -11,7 +11,7 @@ one wave, inert padding, binds and deletes, a node change, label and zone
 policies, fuzzed churn and fuzzed deltas, the overflow and node-change
 bail-outs of ``encode_delta``, the CheckServiceAffinity refusal,
 checkpoint/restore and the evictable planes against their from-scratch
-derivation.
+derivation and the preemption they drive.
 """
 
 import dataclasses
@@ -29,7 +29,7 @@ from kubernetes_tpu.models import batch_solver as ref_bs
 from kubernetes_tpu.models import gang as ref_gang
 from kubernetes_tpu.models.incremental import \
     IncrementalEncoder as RefEncoder
-from kubernetes_tpu.models.oracle import solve_serial
+from kubernetes_tpu.models.oracle import preempt_serial, solve_serial
 from kubernetes_tpu.models.policy import BatchPolicy as RefPolicy
 from kubernetes_tpu.models.snapshot import encode_snapshot as ref_encode
 from kubernetes_tpu.scheduler.plugins import load_policy as ref_load_policy
@@ -419,8 +419,9 @@ def test_evict_planes_equal_their_from_scratch_derivation():
     """Once a pending pod sits above the lowest resident priority the
     encoder emits band planes; the O(bands) maintained planes equal
     derive_evict_planes over the cached pods, and the JAX encoder's,
-    through binds and deletes — and the port's solve refuses the wave
-    (preemption is not ported)."""
+    through binds and deletes — and the port solves each wave as the JAX
+    package does, naming the serial preemption oracle's victims from its
+    registry."""
     enc = Pair()
     nodes = [mk_node(f"n{i}") for i in range(4)]
     existing = [mk_pod(f"e{i}", cpu_m=200 * (1 + i % 3), host=f"n{i % 4}",
@@ -436,8 +437,17 @@ def test_evict_planes_equal_their_from_scratch_derivation():
         assert enc.port.resident_on(0) and all(
             isinstance(x, preempt.ResidentPod) for x in
             enc.port.resident_on(0))
-        with pytest.raises(NotImplementedError, match="preemption"):
-            bs.solve(p, device="cpu")
+        pc, ps = bs.solve(p, device="cpu")
+        jc, js = ref_bs.solve(r)
+        assert np.array_equal(pc, np.asarray(jc))
+        assert np.array_equal(ps, np.asarray(js))
+        victims = preempt.assign_victims(pc, ps, p.band_prio,
+                                         n_pods=len(pending),
+                                         node_pods=enc.port.resident_on)
+        names, s_victims = preempt_serial(nodes, existing, pending)
+        assert bs.decisions_to_names(p, pc) == names
+        assert [sorted(v.uid for v in x or ()) for x in victims] == \
+            [sorted(v.uid for v in x or ()) for x in s_victims]
         existing.pop(0)
         existing.append(mk_pod(f"b{wave}", cpu_m=100, host="n2",
                                priority=5 * wave))

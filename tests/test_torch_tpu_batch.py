@@ -14,8 +14,10 @@ package's, on the CPU.
     converts objects between the two packages by field name.
 (c) What the port does not do yet raises NotImplementedError naming its
     ROADMAP item: the pipelined loop, the solver daemon, the device mesh,
-    the boot prewarm, a preemption wave; and the default device needs a
-    card.
+    the boot prewarm; and the default device needs a card.
+(d) Preemption: a preempting pod binds with its victims through the
+    FakeCluster's and the apiserver's atomic evict+bind; a binder without
+    ``bind_many`` commits pod by pod.
 """
 
 import dataclasses
@@ -447,30 +449,134 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
 
 
 def test_preemption_wave_raises_out_of_schedule_wave_and_stops_the_loop():
-    """A pending pod above a resident priority makes the encoder emit band
-    planes; the port's solve refuses the wave, schedule_wave hands it to
-    the error handler and re-raises, and the loop thread stops with the
-    fault recorded instead of requeueing forever."""
-    low = [REF.pod(f"low{i}", cpu_m=100, host="n0", priority=0)
-           for i in range(2)]
-    high = [REF.pod("high", cpu_m=100, priority=100)]
+    """Once refused, a preemption wave now binds: a pending pod above the
+    resident priority, in a full cluster, binds with its victims through
+    the FakeCluster's atomic evict+bind, the victims leave the cluster and
+    the scheduler's store, the scheduler_preemption_* counters move, and
+    the loop thread runs on with no fault. Then the same through the JAX
+    package's apiserver, whose evict+bind deletes the victims."""
+    from kubernetes_tpu.client.client import Client as RefClient
+    low = [REF.pod(f"low{i}", cpu_m=2000, host=f"n{i % 2}", priority=i // 2)
+           for i in range(4)]
+    high = [REF.pod("high", cpu_m=2000, priority=100)]
     cluster, factory = _small_factory(pending=high, bound=low)
     config = factory.create()
     sched = BatchScheduler(config, factory, cluster.client, wave_size=8,
                            wave_linger_s=0.01, device="cpu")
+    pmx = port_metrics.preemption_metrics()
+    before = (pmx.attempts.total(), pmx.victims.total())
     try:
         cluster.wait_synced()
-        with pytest.raises(NotImplementedError, match="preemption"):
-            sched.schedule_wave(timeout=1.0)
-        assert cluster.bind_log == []
-        # the error handler requeued the pod; the loop thread then stops
-        assert _wait(lambda: len(factory.pod_queue) == 1)
+        assert sched.schedule_wave(timeout=1.0) == 1
+        (bound,) = cluster.bind_log
+        assert bound.metadata.name == "high"
+        # the lowest sufficient band on the chosen node: its priority-0 pod
+        victims = cluster.victims_of["default/high"]
+        assert [v.metadata.name for v in victims] == \
+            [f"low{0 if bound.spec.host == 'n0' else 1}"]
+        assert cluster.evict_log == victims
+        gone = f"default/{victims[0].metadata.name}"
+        assert gone not in cluster.pods
+        assert factory.scheduled_pods.get_by_key(gone) is None
+        assert (pmx.attempts.total(), pmx.victims.total()) == \
+            (before[0] + 1, before[1] + 1)
         sched.run()
-        assert _wait(lambda: sched.fault is not None)
-        assert "ROADMAP" in str(sched.fault)
+        time.sleep(0.3)
+        assert sched.fault is None
         assert sched.stop(timeout=5.0)
     finally:
         sched.stop(timeout=5.0)
+        assert factory.stop(join=True)
+
+    master = Master()
+    ref = RefClient(InProcessTransport(master))
+    for i in range(2):
+        ref.nodes().create(ref_api.Node(
+            metadata=ref_api.ObjectMeta(name=f"n{i}"),
+            spec=ref_api.NodeSpec(capacity={
+                "cpu": RefQuantity("1"), "memory": RefQuantity("4Gi")})))
+    ref.resource("priorityclasses").create(ref_api.PriorityClass(
+        metadata=ref_api.ObjectMeta(name="high"), value=1000))
+
+    def pod(name, cls=""):
+        return ref_api.Pod(
+            metadata=ref_api.ObjectMeta(name=name, namespace="default"),
+            spec=ref_api.PodSpec(containers=[ref_api.Container(
+                name="c", image="i",
+                resources=ref_api.ResourceRequirements(limits={
+                    "cpu": RefQuantity("500m"),
+                    "memory": RefQuantity("128Mi")}))],
+                priority_class_name=cls))
+
+    client = PortClient(_BridgeTransport(master))
+    factory = port_driver.ConfigFactory(client, node_poll_period=0.1)
+    sched = BatchScheduler(factory.create(), factory, client, wave_size=64,
+                           wave_linger_s=0.01, device="cpu").run()
+    try:
+        for i in range(4):
+            ref.pods().create(pod(f"low-{i}"))
+        assert _wait(lambda: sum(1 for p in ref.pods().list().items
+                                 if p.spec.host) == 4, timeout=30.0)
+        ref.pods().create(pod("storm", cls="high"))
+        assert _wait(lambda: any(p.metadata.name == "storm" and p.spec.host
+                                 for p in ref.pods().list().items),
+                     timeout=30.0)
+        # 4 low + the storm - 2 victims (one node's two low pods)
+        left = ref.pods().list().items
+        assert len(left) == 3
+        storm = next(p for p in left if p.metadata.name == "storm")
+        assert sum(p.spec.host == storm.spec.host for p in left) == 1
+        assert sched.fault is None
+    finally:
+        assert sched.stop(timeout=5.0)
+        assert factory.stop(join=True)
+
+
+def test_binder_without_bind_many_binds_pod_by_pod():
+    """A binder with ``bind`` only (no batch seam) commits the wave one
+    binding per pod, a preemptor's with its victims, and the wave counts
+    in scheduler_bind_fallback_total, as the reference's fallback
+    (kubernetes_tpu/scheduler/tpu_batch.py:832-846)."""
+
+    class BindOnly:
+        def __init__(self, client):
+            self.client = client
+
+        def bind(self, binding):
+            self.client.pods(binding.metadata.namespace).bind(binding)
+
+    low = [REF.pod(f"low{i}", cpu_m=2000, host=f"n{i % 2}", priority=i // 2)
+           for i in range(4)]
+    pending = [REF.pod("high", cpu_m=2000, priority=100),
+               REF.pod("tiny", cpu_m=0, priority=100)]
+    cluster, factory = _small_factory(pending=pending, bound=low)
+    config = factory.create()
+    config.binder = BindOnly(cluster.client)
+    sched = BatchScheduler(config, factory, cluster.client, wave_size=8,
+                           wave_linger_s=0.01, device="cpu")
+    fallback = port_metrics.default_registry().counter(
+        "scheduler_bind_fallback_total")
+    before = fallback.total()
+    try:
+        cluster.wait_synced()
+        assert sched.schedule_wave(timeout=1.0) == 2
+        assert fallback.total() == before + 1
+        binds = cluster.client.actions_of("create", "pods")
+        assert [a.kw["name"] for a in binds] == ["high", "tiny"]
+        assert all(a.kw["subresource"] == "binding" for a in binds)
+        assert not cluster.client.actions_of("create", "bindings")
+        assert [v.name for v in binds[0].kw["body"].victims] == \
+            [v.metadata.name for v in cluster.evict_log]
+        assert len(cluster.evict_log) == 1
+        assert not binds[1].kw["body"].victims
+        # a binding that loses its race fails that pod alone, as a 409
+        with pytest.raises(port_errors.StatusError) as err:
+            config.binder.bind(port_api.Binding(
+                metadata=port_api.ObjectMeta(name="tiny",
+                                             namespace="default"),
+                pod_name="tiny", host="n0"))
+        assert err.value.code == 409
+    finally:
         assert factory.stop(join=True)
 
 
