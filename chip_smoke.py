@@ -8,8 +8,10 @@ width (5,000 nodes x 10,000 pending pods, default provider policy), the
 benchmark's ``affinity``, ``gang`` and ``priority`` (preemption) waves and
 north_star with decimal memory (int64 planes) at full width, and the
 scheduler's wave loop (BatchScheduler) binding a north-star cluster wave
-by wave and preempting on the priority cluster — and holds the kernel
-against its plain PyTorch version. Phases:
+by wave and preempting on the priority cluster, and the scheduler binary
+(cmd/scheduler.py) binding a north-star cluster through an apiserver
+process over HTTP — and holds the kernel against its plain PyTorch
+version. Phases:
 
 1. torch version, the card's name and power limit;
 2. build the CUDA sources with nvcc (one process per source, in
@@ -76,14 +78,39 @@ against its plain PyTorch version. Phases:
    victims through the FakeCluster's atomic evict+bind and the victims
    leave the stores, each wave's bindings and victim sets equal the
    replay of solve(encode_snapshot(...)) of its state, and the
-   scheduler_preemption_* counters agree.
+   scheduler_preemption_* counters agree;
+9. the scheduler binary: the JAX package's apiserver binary
+   (``kubernetes_tpu.cmd.apiserver``) runs as a separate OS process in
+   the cluster's place (the port has no apiserver yet; this script
+   imports nothing of it); the north-star cluster (5,000 nodes, 10,000
+   bound pods, 8 services) is seeded over HTTP with the port's client
+   from 8 threads; the port's ``scheduler_server`` (``--algorithm
+   tpu-batch --prewarm --metrics-port``) runs in a thread, lists and
+   watches over the v1 wire, builds the kernel and solves one exemplar
+   wave off its loop; once ``compile_prewarm_ready 1`` reads on
+   /metrics and its caches hold the cluster, 10,000 pending pods are
+   created from 4 threads. Fails unless every pod reads back bound from
+   the apiserver, no node is over capacity and no host port doubled,
+   each wave launched commit_solve once and the plain version never ran,
+   each wave's bindings equal solve(encode_snapshot(...)) of its state,
+   and /healthz answers healthy JSON. Logs the seeding seconds, the
+   prewarm's, the load window, pods/s from the first create to the last
+   bind seen through a watch, each wave's encode, solve and commit
+   seconds and the garbage collector's pauses;
+9b. the binary as its own process with ``--algorithm tpu-batch`` and a
+   Policy with a negative priority weight, against a fresh apiserver
+   process (50 nodes, 200 pending pods): it must log its fallback to
+   serial, bind every pod, and place each where the port's
+   ``GenericScheduler`` puts it one pod at a time. Every child process
+   is stopped on the way out, on failure too.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
 from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
-goes to ``chiprun_out/chip_smoke.json``.
+goes to ``chiprun_out/chip_smoke.json``, the apiservers' and phase 9b's
+binary's output to ``chiprun_out/phase9*.log``.
 """
 
 from __future__ import annotations
@@ -91,6 +118,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import statistics
 import sys
 import time
 
@@ -1241,6 +1269,613 @@ def _preempt_loop_phase(dev, n_nodes=2_000, n_pending=1_000, wave_size=512,
             "replay_check_s": check_s}
 
 
+# ---- phases 9 and 9b: the scheduler binary against an apiserver process ----
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http_get(url: str, timeout: float = 10.0):
+    """-> (status, body text); a refused connection raises OSError."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _wait_http(url: str, proc, what: str, deadline_s: float = 120.0) -> str:
+    """Poll ``url`` until it answers 200 -> the body; fails when ``proc``
+    exits or the deadline passes."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what} exited with {proc.returncode}")
+        try:
+            code, body = _http_get(url, timeout=2.0)
+            if code == 200:
+                return body
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} did not answer {url} within "
+                                 f"{deadline_s:.0f} s")
+        time.sleep(0.1)
+
+
+def _start_apiserver(tag: str):
+    """The JAX package's apiserver binary as a separate OS process (the
+    port has no apiserver yet), standing in the cluster's place; its
+    output goes to chiprun_out/<tag>_apiserver.log. -> (process, URL)."""
+    import subprocess
+
+    port = _free_port()
+    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    log = open(os.path.join(_ROOT, "chiprun_out", f"{tag}_apiserver.log"),
+               "w")
+    env = dict(os.environ)
+    env.setdefault("JAX_PLATFORMS", "cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu.cmd.apiserver", "--port",
+         str(port)], cwd=_ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        _wait_http(url + "/healthz", proc, f"{tag}: the apiserver", 120.0)
+    except BaseException:
+        _stop_process(proc)
+        raise
+    return proc, url
+
+
+def _stop_process(proc) -> None:
+    import subprocess
+
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _parallel(n_threads: int, items, fn) -> None:
+    """fn(item) over ``items`` from ``n_threads`` threads (round robin);
+    the first error is raised after every thread ended."""
+    import threading
+
+    errors: list = []
+
+    def run(chunk):
+        try:
+            for it in chunk:
+                fn(it)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(items[k::n_threads],),
+                                daemon=True) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def _check_placements(pods, nodes, tag: str) -> None:
+    """No node over capacity in any resource, no host port twice on a
+    node."""
+    from kubernetes_tpu_torch.scheduler.predicates import (
+        capacity_values, get_resource_request)
+
+    caps = {n.metadata.name: capacity_values(n.spec.capacity) for n in nodes}
+    used: dict = {}
+    ports: dict = {}
+    for p in pods:
+        host = p.spec.host
+        if not host:
+            continue
+        u = used.setdefault(host, {})
+        for k, v in get_resource_request(p).items():
+            u[k] = u.get(k, 0) + v
+        for c in p.spec.containers:
+            for cp in c.ports:
+                if cp.host_port:
+                    key = (host, cp.host_port)
+                    if key in ports:
+                        raise AssertionError(
+                            f"{tag}: host port {cp.host_port} twice on "
+                            f"{host} ({ports[key]}, {p.metadata.name})")
+                    ports[key] = p.metadata.name
+    for host, u in used.items():
+        for k, v in u.items():
+            if v > caps[host].get(k, 0):
+                raise AssertionError(f"{tag}: {host} over capacity in {k}")
+
+
+def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
+                  creators=4, count_launches=True) -> dict:
+    """Phase 9: the port's scheduler binary (cmd/scheduler.scheduler_server
+    with --algorithm tpu-batch --prewarm, in a thread of this process so
+    the kernel's launch counter can be read) against the JAX package's
+    apiserver in its own process, over HTTP and the v1 wire. The cluster
+    (north_star: ``n_nodes`` nodes, 2 bound pods each, 8 services) is
+    seeded through the port's client; once compile_prewarm_ready reads 1
+    on /metrics and the scheduler's caches hold the cluster, ``n_pending``
+    pods are created from ``creators`` threads. Fails unless every pod
+    reads back bound, no node is over capacity and no host port doubled,
+    each wave launched commit_solve once and the plain version never ran,
+    each wave's decisions equal the plain version's on the CPU over the
+    wave's own snapshot (bit for bit), each wave's bindings equal
+    solve(encode_snapshot(...)) of its state on ``dev``, and /healthz
+    answers healthy JSON. On the card the kernel alone is timed on each
+    wave's inputs."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.runtime.clone import deep_clone
+    from kubernetes_tpu_torch.util import metrics
+
+    t_phase = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    names = {p.metadata.name for p in pending}
+    reg = metrics.default_registry()
+    hist = {k: reg.histogram(f"scheduler_wave_{k}_seconds")
+            for k in ("encode", "solve", "commit")}
+    gc_acc = {"s": 0.0, "full": 0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_acc["t"] = time.perf_counter()
+        else:
+            gc_acc["s"] += time.perf_counter() - gc_acc["t"]
+            gc_acc["full"] += info["generation"] == 2
+
+    held: dict = {}
+
+    def record(sched):
+        """on_built: wraps the scheduler's wave steps on the instance to
+        keep each wave's pods, nodes, snapshot (copied: the incremental
+        encoder mutates its planes in place), decisions, commits and
+        seconds in ``held["rows"]``."""
+        rows: list = []
+        prepare, solve_snap, commit, wave = (
+            sched._prepare_wave, sched._solve_snap, sched._commit_wave,
+            sched.schedule_wave)
+
+        def _prepare_wave(pods):
+            prep = prepare(pods)
+            if prep is not None:
+                row["order"], row["nodes"] = prep[0], prep[1]
+            return prep
+
+        def _solve_snap(snap, n_pending):
+            # counted around the solve: the loop thread may enter a drain
+            # before the counter is set to 0 for the load window
+            l0 = commit_solver.solve_commit.launches
+            d = solve_snap(snap, n_pending)
+            row["launches"] = commit_solver.solve_commit.launches - l0
+            t0 = time.perf_counter()
+            row["snap"] = _copy_snapshot(snap)
+            row["copy_s"] = time.perf_counter() - t0
+            row["chosen"], row["scores"] = d.chosen, d.scores
+            return d
+
+        def _commit_wave(placed, preempt_t0=None):
+            outcomes, bound = commit(placed, preempt_t0)
+            row["placed"] = [(p.metadata.name, h) for p, h, _v in placed]
+            row["errors"] = [repr(e) for e in outcomes if e]
+            return outcomes, bound
+
+        def schedule_wave(timeout=None):
+            before = {k: h.sum() for k, h in hist.items()}
+            gc0 = dict(gc_acc)
+            row.clear()
+            row.update(order=[], nodes=[], placed=[], errors=[], launches=0,
+                       copy_s=0.0)
+            t_w = time.perf_counter()
+            n = wave(timeout)
+            r = dict(row, bound=n, wave_s=time.perf_counter() - t_w,
+                     gc_s=gc_acc["s"] - gc0["s"],
+                     gc_full=gc_acc["full"] - gc0["full"],
+                     t_end=time.perf_counter())
+            for k, h in hist.items():
+                r[f"{k}_s"] = h.sum() - before[k]
+            rows.append(r)
+            return n
+
+        row: dict = {}
+        sched._prepare_wave, sched._solve_snap = _prepare_wave, _solve_snap
+        sched._commit_wave, sched.schedule_wave = _commit_wave, schedule_wave
+        held["sched"], held["rows"] = sched, rows
+
+    proc, url = _start_apiserver("phase9")
+    client = Client(HTTPTransport(url))
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = None
+    watch = None
+    try:
+        # ---- seed the cluster over HTTP ----------------------------------
+        t0 = time.perf_counter()
+        _parallel(seeders, nodes, lambda n: client.nodes().create(n))
+        for svc in services:
+            client.services(svc.metadata.namespace).create(svc)
+        seed_nodes_s = time.perf_counter() - t0
+        unbound = []
+        for p in existing:
+            q = deep_clone(p)
+            q.spec.host = q.status.host = ""
+            unbound.append(q)
+        t0 = time.perf_counter()
+        _parallel(seeders, unbound, lambda p: client.pods().create(p))
+        seed_pods_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k in range(0, len(existing), 1_000):
+            res = client.pods().bind_many(api.BindingList(items=[
+                api.Binding(metadata=api.ObjectMeta(
+                    name=p.metadata.name, namespace=p.metadata.namespace),
+                    pod_name=p.metadata.name, host=p.spec.host)
+                for p in existing[k:k + 1_000]]))
+            bad = [r for r in res.items if r.error]
+            if bad:
+                raise AssertionError(f"phase 9: seeding bind failed: "
+                                     f"{bad[0]}")
+        seed_bind_s = time.perf_counter() - t0
+
+        # ---- the binary, its prewarm and its caches ----------------------
+        mport = _free_port()
+        argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
+                "--metrics-port", str(mport), "--device",
+                _device_type(dev)]
+        t_boot = time.perf_counter()
+        thread = threading.Thread(
+            target=lambda: result.update(rc=cmd.scheduler_server(
+                argv, ready, stop, on_built=record)), daemon=True,
+            name="phase9-binary")
+        thread.start()
+        murl = f"http://127.0.0.1:{mport}"
+        deadline = time.monotonic() + 600
+        while "compile_prewarm_ready 1" not in _wait_http(
+                murl + "/metrics", None,
+                "phase 9: the scheduler binary").splitlines():
+            if "rc" in result or time.monotonic() > deadline:
+                raise AssertionError(f"phase 9: no prewarm (binary "
+                                     f"returned {result.get('rc')})")
+            time.sleep(0.2)
+        prewarm_ready_s = time.perf_counter() - t_boot
+        sched, rows = held["sched"], held["rows"]
+        f = sched.factory
+        while not (len(f.node_store) == n_nodes
+                   and len(f.scheduled_pods) == len(existing)
+                   and len(f.service_store) == len(services)):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 9: the scheduler's caches never "
+                                     "held the cluster")
+            time.sleep(0.05)
+        synced_s = time.perf_counter() - t_boot
+
+        # ---- the load window ---------------------------------------------
+        seen: dict = {}
+        watch = Client(HTTPTransport(url)).pods("").watch(
+            field_selector="spec.host!=")
+
+        def watch_binds():
+            while len(seen) < len(names):
+                ev = watch.next_event()
+                if ev is None:
+                    return
+                n = ev.object.metadata.name
+                if n in names and ev.object.spec.host and n not in seen:
+                    seen[n] = time.perf_counter()
+
+        watcher = threading.Thread(target=watch_binds, daemon=True,
+                                   name="phase9-watch")
+        watcher.start()
+        gc.callbacks.append(on_gc)
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t_first = time.perf_counter()
+        _parallel(creators, pending, lambda p: client.pods().create(p))
+        create_s = time.perf_counter() - t_first
+        watcher.join(timeout=600)
+        if len(seen) != len(names):
+            raise AssertionError(f"phase 9: {len(seen)} of {len(names)} "
+                                 f"binds seen through the watch")
+        t_last = max(seen.values())
+        while sum(r["bound"] for r in rows) < len(names):
+            if time.monotonic() > deadline or "rc" in result:
+                raise AssertionError("phase 9: the loop did not record "
+                                     "every bind")
+            time.sleep(0.05)
+        launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
+        code, body = _http_get(murl + "/healthz")
+        health = json.loads(body)
+        if code != 200 or health.get("healthy") is not True:
+            raise AssertionError(f"phase 9: /healthz {code} {body}")
+        final = client.pods("").list().items
+        svcs = f.service_store.list()
+    finally:
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
+        if watch is not None:
+            watch.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        _stop_process(proc)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"phase 9: the binary returned "
+                             f"{result.get('rc')}")
+
+    # ---- the checks, after the run -----------------------------------------
+    rows = [r for r in rows if r["order"]]
+    by_name = {p.metadata.name: p for p in final}
+    unbound_left = [n for n in names if not by_name[n].spec.host]
+    if unbound_left:
+        raise AssertionError(f"phase 9: {len(unbound_left)} pods unbound")
+    _check_placements(final, nodes, "phase 9")
+    if any(r["errors"] for r in rows):
+        raise AssertionError("phase 9: a bind failed")
+    if count_launches and (any(r["launches"] != 1 for r in rows)
+                           or launches != len(rows)):
+        raise AssertionError(f"phase 9: commit_solve launches per wave "
+                             f"{[r['launches'] for r in rows]}, {launches} "
+                             f"in all")
+    if count_launches and plain_calls:
+        raise AssertionError("phase 9: the plain version ran")
+    # each wave's decisions on ``dev`` against the plain version on the CPU
+    # over the wave's own snapshot (bit-equal), and the kernel alone timed
+    # on those inputs
+    t0 = time.perf_counter()
+    max_abs_err = 0
+    for k, r in enumerate(rows):
+        p_chosen, p_scores = bs.solve(r["snap"], device="cpu")
+        if not (np.array_equal(p_chosen, r["chosen"])
+                and np.array_equal(p_scores, r["scores"])):
+            raise AssertionError(f"phase 9 wave {k}: decisions differ from "
+                                 f"the plain version")
+        max_abs_err = max(max_abs_err, *(
+            int(np.abs(np.asarray(a, np.int64) - b).max())
+            for a, b in ((p_chosen, r["chosen"]), (p_scores, r["scores"]))))
+    plain_check_s = time.perf_counter() - t0
+    if _device_type(dev) == "cuda":
+        from kubernetes_tpu_torch.tools.kernel_time import event_ms
+        for r in rows:
+            ci = _inputs(r["snap"], dev)
+            r["kernel_ms"] = event_ms(
+                lambda: commit_solver.solve_commit(ci), 3)[0]
+    residents = [p for p in final if p.metadata.name not in names]
+    t0 = time.perf_counter()
+    placed_before: list = []
+    for k, r in enumerate(rows):
+        state = residents + [by_name[n] for n in placed_before]
+        snap = encode_snapshot(r["nodes"], state, r["order"], svcs)
+        chosen, _ = bs.solve(snap, device=dev)
+        want = [(p.metadata.name, h) for p, h in
+                zip(r["order"], bs.decisions_to_names(snap, chosen)) if h]
+        if sorted(want) != sorted(r["placed"]):
+            raise AssertionError(f"phase 9 wave {k}: bindings differ from "
+                                 f"solve(encode_snapshot(...)) of its state")
+        placed_before += [n for n, _h in r["placed"]]
+    check_s = time.perf_counter() - t0
+    waves = [{k: r[k] for k in ("bound", "wave_s", "launches", "encode_s",
+                                "solve_s", "commit_s", "gc_s", "gc_full",
+                                "copy_s")}
+             | {"wave": i, "pods": len(r["order"]),
+                "kernel_ms": r.get("kernel_ms"),
+                "t_end_s": r["t_end"] - t_first}
+             for i, r in enumerate(rows)]
+    return {
+        "nodes": n_nodes, "existing": len(existing), "pending": n_pending,
+        "services": len(services), "seeders": seeders, "creators": creators,
+        "seed_nodes_s": seed_nodes_s, "seed_pods_s": seed_pods_s,
+        "seed_bind_s": seed_bind_s,
+        "prewarm_s": sched.prewarm_s, "prewarm_ready_s": prewarm_ready_s,
+        "caches_synced_s": synced_s,
+        "window_start_s": t_first - t_phase, "window_end_s": t_last - t_phase,
+        "create_s": create_s, "loop_s": t_last - t_first,
+        "pods_per_s": n_pending / (t_last - t_first),
+        "waves": waves, "launches": launches, "plain_calls": plain_calls,
+        "gc_s": gc_acc["s"], "gc_full": gc_acc["full"],
+        "health": health, "replay_check_s": check_s,
+        "plain_check_s": plain_check_s, "max_abs_err": max_abs_err,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def _device_type(dev) -> str:
+    """``cuda`` or ``cpu`` for a torch.device or a device string."""
+    return getattr(dev, "type", None) or str(dev).split(":")[0]
+
+
+_NEG_POLICY_JSON = json.dumps({
+    "predicates": [{"name": n} for n in (
+        "PodFitsPorts", "PodFitsResources", "NoDiskConflict",
+        "MatchNodeSelector", "HostName")],
+    "priorities": [{"name": "LeastRequestedPriority", "weight": -1},
+                   {"name": "ServiceSpreadingPriority", "weight": 1}]})
+
+
+def _serial_placements(nodes, pending, policy) -> dict:
+    """The port's GenericScheduler one pod at a time, each decision
+    committed before the next -> {pod name: host or None}."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.runtime.clone import deep_clone
+    from kubernetes_tpu_torch.scheduler import listers, plugins
+    from kubernetes_tpu_torch.scheduler.generic import (FitError,
+                                                        GenericScheduler)
+
+    committed: list = []
+    node_list = api.NodeList(items=list(nodes))
+    args = plugins.PluginFactoryArgs(
+        pod_lister=listers.FakePodLister(committed),
+        service_lister=listers.FakeServiceLister([]),
+        node_lister=listers.FakeMinionLister(node_list),
+        node_info=listers.FakeNodeInfo(node_list))
+    sched = GenericScheduler(plugins.predicates_from_policy(policy, args),
+                             plugins.priorities_from_policy(policy, args),
+                             args.pod_lister)
+    out = {}
+    for p in pending:
+        try:
+            host = sched.schedule(p, args.node_lister)
+        except FitError:
+            host = None
+        if host:
+            b = deep_clone(p)
+            b.spec.host = b.status.host = host
+            committed.append(b)
+        out[p.metadata.name] = host
+    return out
+
+
+def _fallback_phase(dev, n_nodes=50, n_pending=200) -> dict:
+    """Phase 9b: the binary as its own process, ``--algorithm tpu-batch``
+    with a Policy the batch solver cannot model (a negative priority
+    weight), against a fresh apiserver process: it must say it falls back
+    to serial, bind every pod, and place each where the port's
+    GenericScheduler puts it one pod at a time over the same objects."""
+    import subprocess
+
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.scheduler.plugins import load_policy
+
+    t_phase = time.perf_counter()
+    nodes, _existing, pending, _services = build_cluster(n_nodes, n_pending)
+    out_dir = os.path.join(_ROOT, "chiprun_out")
+    policy_path = os.path.join(out_dir, "phase9b_policy.json")
+    log_path = os.path.join(out_dir, "phase9b_scheduler.log")
+    proc, url = _start_apiserver("phase9b")
+    sched_proc = None
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(policy_path, "w") as fh:
+            fh.write(_NEG_POLICY_JSON)
+        client = Client(HTTPTransport(url))
+        for n in nodes:
+            client.nodes().create(n)
+        mport = _free_port()
+        log = open(log_path, "w")
+        sched_proc = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler",
+             "--master", url, "--algorithm", "tpu-batch",
+             "--policy-config-file", policy_path, "--metrics-port",
+             str(mport), "--device", _device_type(dev)],
+            cwd=_ROOT, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        health = json.loads(_wait_http(f"http://127.0.0.1:{mport}/healthz",
+                                       sched_proc, "phase 9b: the binary"))
+        # the node poller listed before the binary served: every pod
+        # arrives through the watch in creation order
+        t0 = time.perf_counter()
+        for p in pending:
+            client.pods().create(p)
+        deadline = time.monotonic() + 300
+        while True:
+            got = {p.metadata.name: p.spec.host
+                   for p in client.pods("").list().items}
+            if all(got.get(p.metadata.name) for p in pending):
+                break
+            if sched_proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"phase 9b: "
+                                     f"{sum(1 for h in got.values() if h)} "
+                                     f"of {n_pending} pods bound")
+            time.sleep(0.1)
+        bind_s = time.perf_counter() - t0
+        final = client.pods("").list().items
+    finally:
+        if sched_proc is not None:
+            _stop_process(sched_proc)
+        _stop_process(proc)
+    with open(log_path) as fh:
+        text = fh.read()
+    if "falling back to serial" not in text:
+        raise AssertionError(f"phase 9b: no fallback line in {text!r}")
+    _check_placements(final, nodes, "phase 9b")
+    want = _serial_placements(nodes, pending, load_policy(_NEG_POLICY_JSON))
+    if got != want:
+        diff = sorted(n for n in want if got.get(n) != want[n])
+        raise AssertionError(f"phase 9b: {len(diff)} placements differ from "
+                             f"the port's GenericScheduler, first {diff[0]}")
+    return {"nodes": n_nodes, "pending": n_pending, "bind_s": bind_s,
+            "pods_per_s": n_pending / bind_s,
+            "hosts_used": len(set(got.values())), "health": health,
+            "fallback_line": next(l for l in text.splitlines()
+                                  if "falling back" in l),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _log_binary(b: dict) -> None:
+    _log(f"[9] scheduler binary over HTTP: {b['nodes']} nodes, "
+         f"{b['existing']} resident, {b['services']} services seeded in "
+         f"{b['seed_nodes_s']:.2f} + {b['seed_pods_s']:.2f} + "
+         f"{b['seed_bind_s']:.2f} s ({b['seeders']} client threads: nodes "
+         f"and services, resident pods, their binds); prewarm "
+         f"{b['prewarm_s']:.3f} s, ready {b['prewarm_ready_s']:.2f} s after "
+         f"boot, caches synced {b['caches_synced_s']:.2f} s after boot")
+    _log(f"     load window {b['window_start_s']:.2f}-{b['window_end_s']:.2f}"
+         f" s into the phase: {b['pending']} pending created from "
+         f"{b['creators']} threads in {b['create_s']:.2f} s, last bind seen "
+         f"through a watch after {b['loop_s']:.3f} s: {b['pods_per_s']:.1f} "
+         f"pods/s; {len(b['waves'])} waves, {b['launches']} commit_solve "
+         f"launches, {b['plain_calls']} plain-version calls; gc "
+         f"{b['gc_s']:.4f} s ({b['gc_full']} full)")
+    for w in b["waves"]:
+        kernel = ("" if w["kernel_ms"] is None
+                  else f", kernel {w['kernel_ms']:.3f} ms")
+        _log(f"     wave {w['wave']:2d} {w['pods']:5d} pods: encode "
+             f"{w['encode_s']:.4f} s, solve {w['solve_s']:.4f} s{kernel}, "
+             f"commit {w['commit_s']:.4f} s, wave {w['wave_s']:.4f} s "
+             f"(snapshot copy {w['copy_s']:.4f} s), ended "
+             f"{w['t_end_s']:.3f} s into the window; gc {w['gc_s']:.4f} s "
+             f"({w['gc_full']} full); launches {w['launches']}")
+    kms = [w["kernel_ms"] for w in b["waves"] if w["kernel_ms"] is not None]
+    if kms:
+        _log(f"     kernel alone on each wave's inputs (CUDA events, median "
+             f"of 3): median {statistics.median(kms):.3f} ms, max "
+             f"{max(kms):.3f} ms, sum {sum(kms):.3f} ms")
+    _log(f"     every wave == the plain version on the CPU over its own "
+         f"snapshot ({b['plain_check_s']:.1f} s, max abs err "
+         f"{b['max_abs_err']}); every wave == solve(encode_snapshot) of its "
+         f"state ({b['replay_check_s']:.1f} s); /healthz {b['health']}")
+
+
+def _log_fallback(f: dict) -> None:
+    _log(f"[9b] fallback: {f['fallback_line']!r}; {f['pending']} pods on "
+         f"{f['nodes']} nodes bound in {f['bind_s']:.2f} s "
+         f"({f['pods_per_s']:.1f} pods/s, {f['hosts_used']} hosts used), "
+         f"each where the port's GenericScheduler puts it")
+
+
 def _log_preempt_loop(pl: dict) -> None:
     _log(f"[8] priority loop: {pl['nodes']} nodes, {pl['existing']} "
          f"resident, {pl['pending']} storm pods in waves of "
@@ -1394,6 +2029,14 @@ def main() -> int:
     # 8. the loop on the priority cluster: preemption with evict+bind
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
+
+    # 9. the scheduler binary against an apiserver process, over HTTP
+    record["binary"] = bp = _binary_phase(dev)
+    _log_binary(bp)
+
+    # 9b. the binary's fallback to the serial scheduler
+    record["fallback"] = _fallback_phase(dev)
+    _log_fallback(record["fallback"])
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -1401,11 +2044,13 @@ def main() -> int:
         json.dump(record, fh, indent=1)
 
     # one entry per instance family the main paths run: the int32 default
-    # branch (north_star, launches over the scheduler loop), the int64
-    # instances (north_star_dec) and the preemption branch (priority,
-    # launches over the priority loop); no PyTorch call computes the
-    # sequential commit, so library_ms is null
-    entries = (("commit_solve", ns, sc["launches"]),
+    # branch (times from north_star's wave; launches over the scheduler
+    # binary's load window, whose waves are held against the plain version
+    # too, so max_abs_err covers both), the int64 instances (north_star_dec) and the preemption
+    # branch (priority, launches over the priority loop); no PyTorch call
+    # computes the sequential commit, so library_ms is null
+    entries = (("commit_solve", dict(ns, max_abs_err=max(
+                    ns["max_abs_err"], bp["max_abs_err"])), bp["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

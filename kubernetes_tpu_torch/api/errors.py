@@ -1,8 +1,9 @@
 """API status errors (ref: pkg/api/errors/errors.go).
 
-Port of the part of ``kubernetes_tpu/api/errors.py`` the client cache and
-the scheduler's error handler read: ``StatusError`` carrying an
-``api.Status``, the 404 and 409 constructors and the 410 predicate.
+Port of the part of ``kubernetes_tpu/api/errors.py`` the client, the
+client cache and the scheduler's error handler read: ``StatusError``
+carrying an ``api.Status`` (``from_status`` for one decoded off the
+wire), the 404 and 409 constructors, and the 404 and 410 predicates.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 from kubernetes_tpu_torch.api import types as api
 
 __all__ = ["StatusError", "new_not_found", "new_conflict",
-           "is_resource_expired"]
+           "is_resource_expired", "from_status", "is_not_found"]
 
 
 class StatusError(Exception):
@@ -50,3 +51,13 @@ def is_resource_expired(e: BaseException) -> bool:
     """410 Gone — the requested resourceVersion fell out of the watch
     window (ref: errors.go NewResourceExpired); the reflector relists."""
     return isinstance(e, StatusError) and e.reason == api.ReasonExpired
+
+
+def from_status(status: api.Status) -> StatusError:
+    """The error a decoded failure Status stands for (ref: restclient.go
+    transformResponse)."""
+    return StatusError(status)
+
+
+def is_not_found(e: BaseException) -> bool:
+    return isinstance(e, StatusError) and e.reason == api.ReasonNotFound

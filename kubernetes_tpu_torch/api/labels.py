@@ -1,17 +1,18 @@
 """Label selectors — what the listers and the service lister match with.
 
 Port of the part of ``kubernetes_tpu/api/labels.py`` (ref: pkg/labels/
-labels.go, selector.go) that the client cache calls: equality
-``Requirement``s, their conjunction ``Selector`` and
-``selector_from_set``. The string parser is not ported: the port's
-callers build selectors from label sets.
+labels.go, selector.go) that the client cache and the serial scheduler's
+predicates and priorities call: equality ``Requirement``s, their
+conjunction ``Selector``, ``selector_from_set`` and ``everything``. The
+string parser is not ported: the port's callers build selectors from
+label sets.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-__all__ = ["Requirement", "Selector", "selector_from_set"]
+__all__ = ["Requirement", "Selector", "selector_from_set", "everything"]
 
 
 class Requirement:
@@ -38,6 +39,13 @@ class Selector:
     def matches(self, labels: Optional[Dict[str, str]]) -> bool:
         labels = labels or {}
         return all(r.matches(labels) for r in self.requirements)
+
+    def empty(self) -> bool:
+        return not self.requirements
+
+
+def everything() -> Selector:
+    return Selector()
 
 
 def selector_from_set(labels: Optional[Dict[str, str]]) -> Selector:

@@ -7,8 +7,8 @@ package its ListWatch sources; the pods client carries the batch
 ``bind_many`` the wave scheduler commits through, and the one-pod ``bind``
 its per-pod fallback takes. ``FakeClient`` records every request and
 answers from per-(verb, resource) handlers (ref: pkg/client/fake.go). The
-in-process transport over the apiserver and the HTTP transport are not
-ported yet.
+HTTP transport is ``client/http.HTTPTransport``; the in-process transport
+over the apiserver comes with the apiserver (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -231,15 +231,14 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
 
 def resolve_device(device=None) -> torch.device:
     """The device a wave runs on: ``cuda`` unless the caller names another.
-    Without a CUDA device the default raises; it never moves to the CPU
-    on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on cuda by default; pass "
-                "device='cpu' to run the plain version on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    Without a CUDA device the default, or a named cuda device, raises; it
+    never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on cuda by default; pass "
+            "device='cpu' to run the plain version on the CPU")
+    return dev
 
 
 def ship_inputs(host: SolverInputs, device) -> SolverInputs:

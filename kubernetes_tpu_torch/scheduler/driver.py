@@ -1,8 +1,11 @@
-"""The scheduler driver's plumbing: modeler, backoff, config and factory.
+"""The scheduler driver + factory.
 
 Port of ``kubernetes_tpu/scheduler/driver.py`` (ref: plugin/pkg/
-scheduler/), the harness the wave scheduler runs on:
+scheduler/), the harness around the pure algorithm:
 
+- ``Scheduler.schedule_one`` (scheduler.go:90-119): blocking FIFO pop ->
+  algorithm.schedule -> POST binding -> modeler.assume_pod, with events
+  on every outcome; ``run`` loops it on a thread.
 - ``SimpleModeler`` (modeler.go:56-155): the optimistic "assumed pods"
   cache bridging bind -> watch-confirmation latency, with the combined
   changelog (``token``/``delta``) the incremental encoder reads.
@@ -13,15 +16,15 @@ scheduler/), the harness the wave scheduler runs on:
   poller filtering Schedulable/Ready conditions (factory.go:203-238), and
   a services reflector.
 
-``ConfigFactory.create`` records ``algorithm=None``: the serial
-``GenericScheduler`` and its plugin predicates and priorities are not
-ported, and neither is the serial ``Scheduler`` loop. The batch loop
-(scheduler/tpu_batch.BatchScheduler) reads the recorded provider and
-policy instead.
+``ConfigFactory.create`` builds the serial algorithm — a
+``GenericScheduler`` over the provider's or the Policy's plugins — and
+records the provider and policy, which the wave loop
+(scheduler/tpu_batch.BatchScheduler) reads instead.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -36,13 +39,19 @@ from kubernetes_tpu_torch.client.cache import (
     Reflector,
     Store,
     StorePodLister,
+    StoreServiceLister,
     meta_namespace_key_func,
 )
 from kubernetes_tpu_torch.client.record import EventRecorder
+from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.scheduler import plugins as schedplugins
+from kubernetes_tpu_torch.scheduler.generic import GenericScheduler
+from kubernetes_tpu_torch.util import metrics
 
-__all__ = ["SchedulerConfig", "SimpleModeler", "PodBackoff", "ConfigFactory",
-           "filter_schedulable_nodes"]
+_log = logging.getLogger("kubernetes_tpu_torch.scheduler")
+
+__all__ = ["Scheduler", "SchedulerConfig", "SimpleModeler", "PodBackoff",
+           "ConfigFactory", "filter_schedulable_nodes"]
 
 
 class SimpleModeler:
@@ -108,6 +117,9 @@ class SimpleModeler:
                         removed.append(pod)
         return upserted, removed, (ds[1], da[1])
 
+    def pod_lister(self):
+        return self
+
 
 class PodBackoff:
     """ref: factory.go:245-268,320-369 — exponential 1s -> 60s + gc."""
@@ -141,13 +153,13 @@ class PodBackoff:
 
 @dataclass
 class SchedulerConfig:
-    """ref: scheduler.go:55-75 Config — the DI seam, with the fields the
-    batch loop reads."""
+    """ref: scheduler.go:55-75 Config — the DI seam for tests, with the
+    fields the batch loop reads."""
 
     modeler: SimpleModeler = None
     minion_lister: object = None
-    algorithm: object = None                       # None: no serial path
-    binder: object = None                          # .bind_many
+    algorithm: object = None                       # .schedule(pod, lister)
+    binder: object = None                          # .bind / .bind_many
     next_pod: Callable[[], api.Pod] = None
     error: Callable[[api.Pod, Exception], None] = None
     recorder: Optional[EventRecorder] = None
@@ -160,7 +172,77 @@ class SchedulerConfig:
     solver_addr: str = ""
     pipeline: bool = False
     mesh: str = "auto"
+    # build the solve kernel and run one exemplar wave at boot, off the
+    # wave loop (scheduler/tpu_batch.py _prewarm_boot)
     prewarm: bool = False
+
+
+class Scheduler:
+    """ref: scheduler.go:78-119 — the serial one-pod-at-a-time loop."""
+
+    def __init__(self, config: SchedulerConfig):
+        self.config = config
+        self._stop = threading.Event()
+
+    def run(self) -> "Scheduler":
+        t = threading.Thread(target=self._loop, daemon=True, name="scheduler")
+        t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _loop(self) -> None:
+        # per-pod failures are evented + requeued inside schedule_one
+        # (c.error); anything escaping to here is an infrastructure fault
+        # that must not spin silently (ref: util.HandleCrash, every
+        # reference loop logs its crashes, scheduler.go:90-119)
+        errs = metrics.default_registry().counter(
+            "scheduler_loop_errors_total",
+            "exceptions escaping the serial scheduling loop")
+        while not self._stop.is_set():
+            try:
+                self.schedule_one(timeout=0.2)
+            except TimeoutError:
+                continue
+            except Exception:
+                errs.inc()
+                _log.exception("scheduler loop error (backing off 10ms)")
+                time.sleep(0.01)
+
+    def _record(self, pod, reason, fmt, *args):
+        if self.config.recorder is not None:
+            self.config.recorder.eventf(pod, reason, fmt, *args)
+
+    def schedule_one(self, timeout: Optional[float] = None) -> Optional[str]:
+        """ref: scheduler.go:90-119 scheduleOne."""
+        c = self.config
+        pod = c.next_pod() if timeout is None else c.next_pod(timeout)
+        try:
+            dest = c.algorithm.schedule(pod, c.minion_lister)
+        except Exception as e:
+            self._record(pod, "FailedScheduling", "Error scheduling: %s", e)
+            c.error(pod, e)
+            return None
+        binding = api.Binding(
+            metadata=api.ObjectMeta(name=pod.metadata.name,
+                                    namespace=pod.metadata.namespace),
+            pod_name=pod.metadata.name, host=dest)
+        try:
+            c.binder.bind(binding)
+        except Exception as e:
+            self._record(pod, "FailedScheduling", "Binding rejected: %s", e)
+            c.error(pod, e)
+            return None
+        self._record(pod, "Scheduled", "Successfully assigned %s to %s",
+                     pod.metadata.name, dest)
+        # copy before mutating, like the reference's `assumed := *pod`
+        # (scheduler.go:114-117): the popped pod may be shared
+        assumed = deep_clone(pod)
+        assumed.spec.host = dest
+        assumed.status.host = dest
+        c.modeler.assume_pod(assumed)
+        return dest
 
 
 def filter_schedulable_nodes(nodes: api.NodeList) -> api.NodeList:
@@ -222,7 +304,8 @@ class ConfigFactory:
                recorder: Optional[EventRecorder] = None,
                solver_addr: str = "", pipeline: bool = False,
                mesh: str = "auto", prewarm: bool = False) -> SchedulerConfig:
-        """ref: factory.go:77-172 CreateFromProvider/CreateFromConfig."""
+        """ref: factory.go:77-172 CreateFromProvider/CreateFromConfig/
+        CreateFromKeys."""
         # reflector: unassigned pods -> FIFO (field selector spec.host=)
         self._runners.append(Reflector(
             self.client.pods(api.NamespaceAll).list_watch(
@@ -242,10 +325,30 @@ class ConfigFactory:
             self.client.services(api.NamespaceAll).list_watch(),
             self.service_store, name="services").run())
 
+        minion_lister = _StoreMinionLister(self.node_store)
+        pod_lister = self.modeler.pod_lister()
+        args = schedplugins.PluginFactoryArgs(
+            pod_lister=pod_lister,
+            service_lister=StoreServiceLister(self.service_store),
+            node_lister=minion_lister,
+            node_info=_NodeStoreInfo(self.node_store))
+
+        if policy is not None:
+            algorithm = GenericScheduler(
+                schedplugins.predicates_from_policy(policy, args),
+                schedplugins.priorities_from_policy(policy, args),
+                pod_lister)
+        else:
+            keys = schedplugins.get_algorithm_provider(provider)
+            algorithm = GenericScheduler(
+                schedplugins.get_predicates(keys["predicates"], args),
+                schedplugins.get_priorities(keys["priorities"], args),
+                pod_lister)
+
         return SchedulerConfig(
             modeler=self.modeler,
-            minion_lister=_StoreMinionLister(self.node_store),
-            algorithm=None,
+            minion_lister=minion_lister,
+            algorithm=algorithm,
             binder=_Binder(self.client),
             next_pod=self._next_pod,
             error=self._make_error_func(),
@@ -335,3 +438,16 @@ class _Binder:
         """Commit one namespace's wave bindings in one transactional store
         pass (per-pod CAS semantics kept)."""
         return self.client.pods(namespace).bind_many(bindings)
+
+
+class _NodeStoreInfo:
+    """NodeInfo over the scheduler's node store (GetNodeInfo by name)."""
+
+    def __init__(self, store: Store):
+        self.store = store
+
+    def get_node_info(self, name: str) -> api.Node:
+        node = self.store.get_by_key(name)
+        if node is None:
+            raise KeyError(f"unknown node {name!r}")
+        return node

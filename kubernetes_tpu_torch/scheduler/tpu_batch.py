@@ -29,11 +29,17 @@ with service affinity) has no registry to name victims from and requeues
 such pods, as the reference does. A binder without ``bind_many`` commits
 pod by pod (``scheduler_bind_fallback_total`` counts those waves).
 
+Boot prewarm (``config.prewarm``, the binary's ``--prewarm``): off the
+loop thread, once the node store fills, build and load the commit_solve
+kernel and solve one exemplar wave over the live cluster, then set the
+``compile_prewarm_ready`` gauge to 1, so the kernel never compiles inside
+a load window. On the CPU there is nothing to build; the exemplar wave
+runs the plain version.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
 ROADMAP item rather than replaced by a substitute: the pipelined loop
-(``pipeline=True``), the shared solver daemon (``solver_addr``), the
-device mesh (``mesh="on"``) and the boot prewarm (``prewarm=True``). A
-wave that raises ``NotImplementedError`` is handed to the error handler
+(``pipeline=True``), the shared solver daemon (``solver_addr``) and the
+device mesh (``mesh="on"``). A wave that raises ``NotImplementedError`` is handed to the error handler
 and the error propagates out of ``schedule_wave``, so the loop stops
 instead of requeueing it forever. Unschedulable pods get
 the generic ``FitError`` line (the diagnosis layer, models/explain.py, is
@@ -55,7 +61,7 @@ from kubernetes_tpu_torch.models import preempt as preempt_mod
 from kubernetes_tpu_torch.models.batch_solver import (decisions_to_names,
                                                       resolve_device, solve)
 from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
-from kubernetes_tpu_torch.models.policy import batch_policy_from
+from kubernetes_tpu_torch.models.policy import BatchPolicy, batch_policy_from
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.scheduler.driver import (ConfigFactory,
@@ -135,14 +141,16 @@ class _WaveDecisions(NamedTuple):
 class BatchScheduler:
     """Wave-based driver over SchedulerConfig plumbing.
 
-    ``batch_policy`` is the normalized form of the config's recorded
-    provider / policy file (models/policy.batch_policy_from), so
+    ``batch_policy`` is the normalized form of the configured provider /
+    policy file (models/policy.batch_policy_from). When not given it is
+    derived from the config's recorded provider and policy, so
     constructing this class for an unsupported configuration raises
     UnsupportedPolicy. ``device`` is where each wave solves: ``cuda``
     unless the caller names another; without a card the default raises."""
 
     def __init__(self, config: SchedulerConfig, factory: ConfigFactory,
                  client, wave_size: int = 1024, wave_linger_s: float = 0.02,
+                 batch_policy: Optional[BatchPolicy] = None,
                  pipeline: Optional[bool] = None, device=None):
         self.config = config
         self.factory = factory
@@ -150,7 +158,9 @@ class BatchScheduler:
         self.wave_size = wave_size
         self.wave_linger_s = wave_linger_s
         self.device = resolve_device(device)
-        self.batch_policy = batch_policy_from(config.provider, config.policy)
+        self.batch_policy = batch_policy or batch_policy_from(
+            config.provider, config.policy)
+        _wave_metrics()   # the scheduler_wave_* family scrapes from boot
         if config.solver_addr:
             raise NotImplementedError(
                 "the shared solver daemon is not ported yet (ROADMAP Queue "
@@ -163,10 +173,6 @@ class BatchScheduler:
             raise NotImplementedError(
                 "the device-mesh solve is not ported yet (ROADMAP Queue 1: "
                 "parallel/mesh.py + solver/mesh_exec.py)")
-        if config.prewarm:
-            raise NotImplementedError(
-                "the boot prewarm is not ported yet (ROADMAP Queue 1: "
-                "cmd/scheduler.py); the kernel builds at its first launch")
         try:
             # delta-maintained node planes + sticky vocabularies: per-wave
             # encode cost is O(changed pods)
@@ -188,8 +194,11 @@ class BatchScheduler:
         self.checkpoint_every = 4
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        # the NotImplementedError that stopped the loop thread, if any
+        # the error that stopped the loop thread (a NotImplementedError
+        # wave, a failed boot prewarm), if any
         self.fault: Optional[BaseException] = None
+        # seconds the boot prewarm took, once it finished
+        self.prewarm_s: Optional[float] = None
         # pod-lifecycle latency: bind instants by uid, consumed when the
         # assigned-pods store delivers the bound pod back. Bounded — a pod
         # whose confirm never arrives must not leak the map.
@@ -611,8 +620,50 @@ class BatchScheduler:
         _, bound = self._commit_wave(placed, decisions.t0)
         return bound
 
+    # -- boot prewarm ---------------------------------------------------------
+    def _prewarm_boot(self) -> None:
+        """Wait for the node store to fill, build and load commit_solve,
+        and solve one exemplar wave (the reference's ``_prewarm_boot``
+        pads empty pods to the pod-axis floor) over the live nodes,
+        services and bound pods on ``self.device``; then set
+        compile_prewarm_ready. A failure stops the loop with ``fault``
+        set: the kernel must not compile inside the load window instead."""
+        t0 = time.perf_counter()
+        nodes: list = []
+        while not self._stop.is_set():
+            nodes = self.config.minion_lister.list().items
+            if nodes:
+                break
+            self._stop.wait(0.05)
+        if not nodes:
+            return
+        try:
+            if self.device.type == "cuda":
+                from kubernetes_tpu_torch.ops import build, commit_solver
+                build.build("commit_solve")
+                commit_solver._lib()
+            pending = [api.Pod(metadata=api.ObjectMeta(
+                name=f"prewarm-{i}", namespace=api.NamespaceDefault))
+                for i in range(min(64, self.wave_size))]
+            snap = encode_snapshot(nodes, self.config.modeler.list(),
+                                   pending, self.factory.service_store.list(),
+                                   policy=self.batch_policy)
+            solve(snap, device=self.device)
+        except Exception as e:
+            _log.exception("boot prewarm failed; stopping the wave loop")
+            self.fault = e
+            self._stop.set()
+            return
+        self.prewarm_s = time.perf_counter() - t0
+        self._sx.prewarm_s.observe(self.prewarm_s)
+        self._sx.prewarm_ready.set(1)
+
     # -- the loop -----------------------------------------------------------
     def run(self) -> "BatchScheduler":
+        if self.config.prewarm:
+            self._sx.prewarm_ready.set(0)
+            threading.Thread(target=self._prewarm_boot, daemon=True,
+                             name="tpu-batch-prewarm-boot").start()
         self._thread = threading.Thread(target=self._loop_causal,
                                         daemon=True,
                                         name="tpu-batch-scheduler")

@@ -41,7 +41,11 @@ def test_walk_covers_the_scheduler_slice():
               "watch", "util.retry", "util.metrics", "client.cache",
               "client.client", "client.record", "scheduler.driver",
               "scheduler.tpu_batch", "models.incremental",
-              "tools.fake_cluster"):
+              "tools.fake_cluster", "runtime.serialize", "runtime.scheme",
+              "api.latest", "client.http", "scheduler.predicates",
+              "scheduler.priorities", "scheduler.listers",
+              "scheduler.generic", "scheduler.plugins", "util.pprof",
+              "probe", "cmd.scheduler"):
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 

@@ -433,7 +433,6 @@ def _small_factory(pending=(), bound=()):
     ({}, {"pipeline": True}, "the pipelined loop"),
     ({}, {"solver_addr": "localhost:1"}, "solverd"),
     ({}, {"mesh": "on"}, "parallel/mesh.py"),
-    ({}, {"prewarm": True}, "cmd/scheduler.py"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
                                                           item):
@@ -445,6 +444,30 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
                            **kw)
         assert item in str(err.value)
     finally:
+        assert factory.stop(join=True)
+
+
+def test_prewarm_solves_an_exemplar_wave_and_sets_the_ready_gauge():
+    """The boot prewarm, once ported: with ``prewarm=True`` the loop's
+    run() solves one exemplar wave over the live nodes off the loop
+    thread (on the CPU there is no kernel to build) and sets
+    compile_prewarm_ready to 1; the pending pods then bind as usual."""
+    sx = port_metrics.slipstream_metrics()
+    pending = [REF.pod(f"p{i}", cpu_m=100) for i in range(4)]
+    cluster, factory = _small_factory(pending=pending)
+    n0 = sx.prewarm_s.count()
+    sched = BatchScheduler(factory.create(prewarm=True), factory,
+                           cluster.client, wave_size=8, wave_linger_s=0.01,
+                           device="cpu")
+    try:
+        sched.run()
+        assert _wait(lambda: sched.prewarm_s is not None)
+        assert sx.prewarm_ready.value() == 1
+        assert sx.prewarm_s.count() == n0 + 1
+        assert _wait(lambda: len(cluster.bind_log) == 4)
+        assert sched.fault is None
+    finally:
+        assert sched.stop(timeout=5.0)
         assert factory.stop(join=True)
 
 
