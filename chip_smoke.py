@@ -8,10 +8,11 @@ width (5,000 nodes x 10,000 pending pods, default provider policy), the
 benchmark's ``affinity``, ``gang`` and ``priority`` (preemption) waves and
 north_star with decimal memory (int64 planes) at full width, and the
 scheduler's wave loop (BatchScheduler) binding a north-star cluster wave
-by wave and preempting on the priority cluster, and the scheduler binary
-(cmd/scheduler.py) binding a north-star cluster through an apiserver
-process over HTTP — and holds the kernel against its plain PyTorch
-version. Phases:
+by wave, causal and pipelined, and preempting on the priority cluster,
+and the scheduler binary (cmd/scheduler.py) binding a north-star cluster
+through an apiserver process over HTTP, causal and pipelined with wave
+tracing, the flight recorder and the unschedulability diagnosis — and
+holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
 2. build the CUDA sources with nvcc (one process per source, in
@@ -102,7 +103,34 @@ version. Phases:
    process (50 nodes, 200 pending pods): it must log its fallback to
    serial, bind every pod, and place each where the port's
    ``GenericScheduler`` puts it one pod at a time. Every child process
-   is stopped on the way out, on failure too.
+   is stopped on the way out, on failure too;
+7p. (run after 7) the pipelined loop: the causal and the pipelined
+   ``BatchScheduler`` each drive a fresh, identical phase 7 cluster
+   (5,000 nodes, 10,000 bound, 10,000 pending synced before ``run()``,
+   waves of 1,024), then both again with one foreign bind injected into
+   the scheduled store during the first solve. Fails unless each pair's
+   placements are equal pod for pod, the clean pipelined run hit a
+   speculation and the injected one invalidated on ``store_delta``,
+   every commit_solve launch is one solve (the committed waves plus the
+   discarded speculative solves) and the plain version never ran. Logs
+   both loops' pods/s, the overlapped seconds, hits, invalidations by
+   reason and the per-wave encode/solve/commit medians (from the waves'
+   tracing spans);
+7e. the diagnosis: north_star with 256 unschedulable pods appended
+   (oversized, selector-mismatched, port-clashing, pinned to a missing
+   node); ``explain_wave`` on the card and on the CPU must give equal
+   counts and messages, each with the constructed dominant reason;
+9c. the binary with ``--algorithm tpu-batch --pipeline --trace
+   --flightrec --prewarm`` against a fresh apiserver process seeded as in
+   phase 9; 5,000 pending, 100 oversized and 100 with a node selector no
+   node matches. Fails unless every other pod binds to a valid host, the
+   pipeline's waves counter equals its committed waves, a FailedScheduling
+   event of each kind carries the breakdown line (summing to 5,000, the
+   constructed dominant reason), the unschedulable families sum, the
+   span shard of /debug/trace holds the wave stages and a speculative
+   encode (written as a Chrome trace to
+   ``chiprun_out/phase9c_trace.json``), /debug/vars holds the pipeline
+   waves series and its rate, and the launches are accounted for.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -981,8 +1009,8 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
             self.orders.append(None if prep is None else prep[0])
             return prep
 
-        def _solve_snap(self, snap, n_pending):
-            d = super()._solve_snap(snap, n_pending)
+        def _solve_snap(self, snap, n_pending, tctx=None):
+            d = super()._solve_snap(snap, n_pending, tctx)
             self.kept[len(self.orders) - 1] = (
                 _copy_snapshot(snap) if len(self.orders) - 1 == plain_wave
                 else None, d.chosen, d.scores, len(snap.pod_names))
@@ -1269,6 +1297,137 @@ def _preempt_loop_phase(dev, n_nodes=2_000, n_pending=1_000, wave_size=512,
             "replay_check_s": check_s}
 
 
+# ---- phase 7p: the pipelined loop against the causal loop -----------------
+
+def _pipeline_phase(dev, n_nodes=5_000, n_pending=10_000, wave_size=1_024,
+                    count_launches=True) -> dict:
+    """Phase 7p: the causal and the pipelined loop each drive a fresh,
+    identical north_star cluster (phase 7's: ``n_nodes`` nodes, 2 bound
+    pods each, 8 services) behind a FakeClient through ``run()``, the
+    backlog of ``n_pending`` fully synced first; then both again with one
+    foreign bind injected during the first solve. Fails unless each pair
+    places every pod identically, the clean pipelined run hit at least one
+    speculation, the injected one invalidated at least one on
+    ``store_delta``, every launch is a solve (one each) — the loop's
+    committed waves plus the discarded speculative solves — and the plain
+    version never ran."""
+    from kubernetes_tpu_torch.tools.loop_time import drive
+
+    runs = {}
+    for inject in (False, True):
+        for pipeline in (False, True):
+            key = f"{'pipelined' if pipeline else 'causal'}" \
+                  f"{'_injected' if inject else ''}"
+            runs[key] = drive(dev, pipeline, inject, n_nodes, n_pending,
+                              wave_size)
+    for tag in ("", "_injected"):
+        c, p = runs[f"causal{tag}"], runs[f"pipelined{tag}"]
+        for r in (c, p):
+            if r["bound"] != n_pending:
+                raise AssertionError(f"phase 7p: {r['bound']} bound")
+        if c["placements"] != p["placements"]:
+            diff = sum(1 for k, v in c["placements"].items()
+                       if p["placements"].get(k) != v)
+            raise AssertionError(f"phase 7p{tag}: {diff} placements of the "
+                                 f"pipelined loop differ from the causal "
+                                 f"loop's")
+        if p["pipeline_waves"] != p["consumed"]:
+            raise AssertionError(f"phase 7p{tag}: {p['pipeline_waves']} "
+                                 f"pipeline waves, {p['consumed']} "
+                                 f"committed")
+    if runs["pipelined"]["hits"] < 1:
+        raise AssertionError("phase 7p: no speculation hit in the clean run")
+    if runs["pipelined_injected"]["invalidations"].get("store_delta", 0) < 1:
+        raise AssertionError(f"phase 7p: no store_delta invalidation: "
+                             f"{runs['pipelined_injected']['invalidations']}")
+    for key, r in runs.items():
+        if r["pipeline"] and r["consumed"] + r["discarded"] != r["solves"]:
+            raise AssertionError(f"phase 7p {key}: solves unaccounted")
+        if not r["pipeline"] and r["discarded"]:
+            raise AssertionError(f"phase 7p {key}: the causal loop dropped "
+                                 f"a solve")
+        if count_launches and (r["launches_per_solve"] != [1]
+                               or r["launches"] != r["solves"]):
+            raise AssertionError(
+                f"phase 7p {key}: {r['launches']} commit_solve launches for "
+                f"{r['solves']} solves ({r['consumed']} committed, "
+                f"{r['discarded']} discarded), per solve "
+                f"{r['launches_per_solve']}")
+        if count_launches and r["plain_calls"]:
+            raise AssertionError(f"phase 7p {key}: the plain version ran")
+        r.pop("placements")
+    return {"nodes": n_nodes, "pending": n_pending, "wave_size": wave_size,
+            "runs": runs}
+
+
+# ---- phase 7e: the diagnosis on the card against the CPU -------------------
+
+def _explain_phase(dev, n_nodes=5_000, n_pending=10_000) -> dict:
+    """Phase 7e: the north_star wave with 256 unschedulable pods appended —
+    64 oversized, 64 whose node selector no node matches, 64 oversized
+    with a host port the residents hold on some nodes, 64 pinned to a node
+    that is not in the cluster — solved on ``dev``, then ``explain_wave`` on
+    ``dev`` and on the CPU: the counts must be equal pod for pod, the
+    messages string for string, every count sum the node count, and each
+    constructed pod's dominant reason the one it was built for."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import explain
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+
+    def pod(k, cpu, sel=None, port=0, host=""):
+        return api.Pod(
+            metadata=api.ObjectMeta(name=f"x-{k:03d}", namespace="default",
+                                    uid=f"uid-x-{k:03d}"),
+            spec=api.PodSpec(host=host, node_selector=sel or {},
+                             containers=[api.Container(
+                name="c", image="img",
+                ports=[api.ContainerPort(container_port=80, host_port=port)]
+                if port else [],
+                resources=api.ResourceRequirements(limits={
+                    "cpu": Quantity(cpu), "memory": Quantity("64Mi")}))]))
+
+    kinds = ("Insufficient cpu", "Node selector mismatch", "Insufficient cpu",
+             "Host mismatch")
+    extra = [pod(k, ("32", "10m", "17", "10m")[k // 64],
+                 sel={"zone": "z99"} if k // 64 == 1 else None,
+                 port=7000 if k // 64 == 2 else 0,
+                 host="node-gone" if k // 64 == 3 else "")
+             for k in range(256)]
+    snap = encode_snapshot(nodes, existing, pending + extra, services)
+    chosen, scores = bs.solve(snap, device=dev)
+    t0 = time.perf_counter()
+    on_dev = explain.explain_wave(snap, chosen, scores, device=dev)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = explain.explain_wave(snap, chosen, scores, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if set(on_dev) != set(on_cpu) or any(
+            on_dev[j] != on_cpu[j] for j in on_dev):
+        raise AssertionError("phase 7e: counts on the card differ from the "
+                             "CPU's")
+    msgs = {j: explain.format_message(d) for j, d in on_dev.items()}
+    if msgs != {j: explain.format_message(d) for j, d in on_cpu.items()}:
+        raise AssertionError("phase 7e: messages differ")
+    base = len(pending)
+    for k in range(256):
+        d = on_dev.get(base + k)
+        if d is None or sum(d.counts.values()) != n_nodes or \
+                explain.dominant_reason(d) != kinds[k // 64]:
+            raise AssertionError(f"phase 7e: pod x-{k:03d}: {d}")
+    mixed = on_dev[base + 128].counts
+    if "Port conflict" not in mixed:
+        raise AssertionError(f"phase 7e: no port conflict in {mixed}")
+    return {"nodes": n_nodes, "pods": len(pending) + 256,
+            "diagnosed": len(on_dev), "explain_dev_s": dev_s,
+            "explain_cpu_s": cpu_s,
+            "examples": [msgs[base + 64 * i] for i in range(4)]}
+
+
 # ---- phases 9 and 9b: the scheduler binary against an apiserver process ----
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1408,6 +1567,40 @@ def _check_placements(pods, nodes, tag: str) -> None:
                 raise AssertionError(f"{tag}: {host} over capacity in {k}")
 
 
+def _seed_cluster(client, nodes, existing, services, seeders: int,
+                  tag: str):
+    """Create the nodes and services, then the resident pods unbound, from
+    ``seeders`` threads, and bind the residents in batches of 1,000 ->
+    seconds of (nodes and services, pods, binds)."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.runtime.clone import deep_clone
+
+    t0 = time.perf_counter()
+    _parallel(seeders, nodes, lambda n: client.nodes().create(n))
+    for svc in services:
+        client.services(svc.metadata.namespace).create(svc)
+    seed_nodes_s = time.perf_counter() - t0
+    unbound = []
+    for p in existing:
+        q = deep_clone(p)
+        q.spec.host = q.status.host = ""
+        unbound.append(q)
+    t0 = time.perf_counter()
+    _parallel(seeders, unbound, lambda p: client.pods().create(p))
+    seed_pods_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in range(0, len(existing), 1_000):
+        res = client.pods().bind_many(api.BindingList(items=[
+            api.Binding(metadata=api.ObjectMeta(
+                name=p.metadata.name, namespace=p.metadata.namespace),
+                pod_name=p.metadata.name, host=p.spec.host)
+            for p in existing[k:k + 1_000]]))
+        bad = [r for r in res.items if r.error]
+        if bad:
+            raise AssertionError(f"{tag}: seeding bind failed: {bad[0]}")
+    return seed_nodes_s, seed_pods_s, time.perf_counter() - t0
+
+
 def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
                   creators=4, count_launches=True) -> dict:
     """Phase 9: the port's scheduler binary (cmd/scheduler.scheduler_server
@@ -1430,7 +1623,6 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
 
     import numpy as np
 
-    from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.http import HTTPTransport
     from kubernetes_tpu_torch.cmd import scheduler as cmd
@@ -1438,7 +1630,6 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
     from kubernetes_tpu_torch.models.fixtures import build_cluster
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
-    from kubernetes_tpu_torch.runtime.clone import deep_clone
     from kubernetes_tpu_torch.util import metrics
 
     t_phase = time.perf_counter()
@@ -1474,11 +1665,11 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
                 row["order"], row["nodes"] = prep[0], prep[1]
             return prep
 
-        def _solve_snap(snap, n_pending):
+        def _solve_snap(snap, n_pending, tctx=None):
             # counted around the solve: the loop thread may enter a drain
             # before the counter is set to 0 for the load window
             l0 = commit_solver.solve_commit.launches
-            d = solve_snap(snap, n_pending)
+            d = solve_snap(snap, n_pending, tctx)
             row["launches"] = commit_solver.solve_commit.launches - l0
             t0 = time.perf_counter()
             row["snap"] = _copy_snapshot(snap)
@@ -1486,8 +1677,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
             row["chosen"], row["scores"] = d.chosen, d.scores
             return d
 
-        def _commit_wave(placed, preempt_t0=None):
-            outcomes, bound = commit(placed, preempt_t0)
+        def _commit_wave(placed, assumed=None, tctx=None, preempt_t0=None):
+            outcomes, bound = commit(placed, assumed, tctx, preempt_t0)
             row["placed"] = [(p.metadata.name, h) for p, h, _v in placed]
             row["errors"] = [repr(e) for e in outcomes if e]
             return outcomes, bound
@@ -1522,31 +1713,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
     watch = None
     try:
         # ---- seed the cluster over HTTP ----------------------------------
-        t0 = time.perf_counter()
-        _parallel(seeders, nodes, lambda n: client.nodes().create(n))
-        for svc in services:
-            client.services(svc.metadata.namespace).create(svc)
-        seed_nodes_s = time.perf_counter() - t0
-        unbound = []
-        for p in existing:
-            q = deep_clone(p)
-            q.spec.host = q.status.host = ""
-            unbound.append(q)
-        t0 = time.perf_counter()
-        _parallel(seeders, unbound, lambda p: client.pods().create(p))
-        seed_pods_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for k in range(0, len(existing), 1_000):
-            res = client.pods().bind_many(api.BindingList(items=[
-                api.Binding(metadata=api.ObjectMeta(
-                    name=p.metadata.name, namespace=p.metadata.namespace),
-                    pod_name=p.metadata.name, host=p.spec.host)
-                for p in existing[k:k + 1_000]]))
-            bad = [r for r in res.items if r.error]
-            if bad:
-                raise AssertionError(f"phase 9: seeding bind failed: "
-                                     f"{bad[0]}")
-        seed_bind_s = time.perf_counter() - t0
+        seed_nodes_s, seed_pods_s, seed_bind_s = _seed_cluster(
+            client, nodes, existing, services, seeders, "phase 9")
 
         # ---- the binary, its prewarm and its caches ----------------------
         mport = _free_port()
@@ -1706,6 +1874,286 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         "gc_s": gc_acc["s"], "gc_full": gc_acc["full"],
         "health": health, "replay_check_s": check_s,
         "plain_check_s": plain_check_s, "max_abs_err": max_abs_err,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def _parse_breakdown(msg: str) -> dict:
+    """'0/N nodes available: a R1, b R2' -> {"N": N, R1: a, R2: b}."""
+    head, _, tail = msg.partition(": ")
+    out = {"N": int(head.split("/")[1].split()[0])}
+    for part in tail.split(", ") if tail else ():
+        n, _, reason = part.partition(" ")
+        out[reason] = int(n)
+    return out
+
+
+def _pipeline_binary_phase(dev, n_nodes=5_000, n_pending=5_000, seeders=8,
+                           creators=4, count_launches=True) -> dict:
+    """Phase 9c: the binary with ``--algorithm tpu-batch --pipeline --trace
+    --flightrec --prewarm`` (``scheduler_server`` in a thread) against a
+    fresh JAX-package apiserver process seeded as in phase 9; once it is
+    ready, ``n_pending`` pods are created, of which every 50th asks for
+    more cpu than any node has and every 50th (offset 25) carries a node
+    selector no node matches and asks for almost nothing. Fails unless
+    every other pod binds to a valid host and those stay unbound, the loop
+    ran pipelined (its waves counter equals the waves it committed, plus
+    one left in flight at stop), a FailedScheduling event of each kind
+    read from the apiserver carries the breakdown line summing to the
+    node count with the constructed dominant reason,
+    ``scheduler_unschedulable_total`` sums to
+    ``scheduler_unschedulable_pods_total``, /debug/trace holds the wave
+    stages with a speculative encode, /debug/vars?since=0 holds
+    ``scheduler_pipeline_waves_total`` and its rate, and every
+    commit_solve launch is a solve (one each: the committed waves plus
+    the discarded speculative ones) with no call of the plain version."""
+    import threading
+
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.models import explain
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.scheduler import tpu_batch
+    from kubernetes_tpu_torch.tools.loop_time import stage_medians
+    from kubernetes_tpu_torch.util import metrics, tracing
+
+    t_phase = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    big, nosel = set(), set()
+    for i, p in enumerate(pending):
+        if i % 50 == 0:
+            p.spec.containers[0].resources.limits["cpu"] = Quantity("32")
+            big.add(p.metadata.name)
+        elif i % 50 == 25:
+            p.spec.containers[0].resources.limits = {
+                "cpu": Quantity("10m"), "memory": Quantity("16Mi")}
+            p.spec.node_selector = {"zone": "z99"}
+            nosel.add(p.metadata.name)
+    fits = {p.metadata.name for p in pending} - big - nosel
+    pm = tpu_batch._pipeline_metrics()
+    em = metrics.explain_metrics()
+    held: dict = {"solves": [], "consumed": 0, "last": None}
+
+    def record(sched):
+        """on_built: count each solve's launches, each committed wave,
+        and keep the wave left in flight by the last pipelined cycle."""
+        solve_snap, split, cycle = (sched._solve_snap, sched._split_decisions,
+                                    sched._pipelined_cycle)
+
+        def _solve_snap(snap, n, tctx=None):
+            l0 = commit_solver.solve_commit.launches
+            d = solve_snap(snap, n, tctx)
+            held["solves"].append(commit_solver.solve_commit.launches - l0)
+            return d
+
+        def _split_decisions(pending_, decisions):
+            held["consumed"] += 1
+            return split(pending_, decisions)
+
+        def _pipelined_cycle(*args):
+            held["last"] = out = cycle(*args)
+            return out
+
+        sched._solve_snap, sched._split_decisions = _solve_snap, \
+            _split_decisions
+        sched._pipelined_cycle = _pipelined_cycle
+        held["sched"] = sched
+
+    proc, url = _start_apiserver("phase9c")
+    client = Client(HTTPTransport(url))
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = watch = None
+    try:
+        seed_s = _seed_cluster(client, nodes, existing, services, seeders,
+                               "phase 9c")
+        mport = _free_port()
+        argv = ["--master", url, "--algorithm", "tpu-batch", "--pipeline",
+                "--trace", "--flightrec", "--prewarm", "--metrics-port",
+                str(mport), "--device", _device_type(dev)]
+        t_boot = time.perf_counter()
+        thread = threading.Thread(
+            target=lambda: result.update(rc=cmd.scheduler_server(
+                argv, ready, stop, on_built=record)), daemon=True,
+            name="phase9c-binary")
+        thread.start()
+        murl = f"http://127.0.0.1:{mport}"
+        deadline = time.monotonic() + 600
+        while "compile_prewarm_ready 1" not in _wait_http(
+                murl + "/metrics", None,
+                "phase 9c: the scheduler binary").splitlines():
+            if "rc" in result or time.monotonic() > deadline:
+                raise AssertionError(f"phase 9c: no prewarm (binary "
+                                     f"returned {result.get('rc')})")
+            time.sleep(0.2)
+        f = held["sched"].factory
+        while not (len(f.node_store) == n_nodes
+                   and len(f.scheduled_pods) == len(existing)
+                   and len(f.service_store) == len(services)):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 9c: the scheduler's caches "
+                                     "never held the cluster")
+            time.sleep(0.05)
+        synced_s = time.perf_counter() - t_boot
+
+        # ---- the load window ---------------------------------------------
+        seen: dict = {}
+        watch = Client(HTTPTransport(url)).pods("").watch(
+            field_selector="spec.host!=")
+
+        def watch_binds():
+            while len(seen) < len(fits):
+                ev = watch.next_event()
+                if ev is None:
+                    return
+                n = ev.object.metadata.name
+                if n in fits and ev.object.spec.host and n not in seen:
+                    seen[n] = time.perf_counter()
+
+        watcher = threading.Thread(target=watch_binds, daemon=True,
+                                   name="phase9c-watch")
+        watcher.start()
+        m0 = {"waves": pm.waves.value(), "hits": pm.hits.value(),
+              "inval": pm.invalidations.by_label(),
+              "overlap": pm.overlap.value(),
+              "unspec": pm.unspeculated.value(), "pods": em.pods.value(),
+              "reasons": em.reasons.by_label(),
+              "skipped": em.skipped.by_label(),
+              "invocations": em.invocations.value()}
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        held["solves"].clear()
+        held["consumed"] = 0
+        t_first = time.perf_counter()
+        _parallel(creators, pending, lambda p: client.pods().create(p))
+        create_s = time.perf_counter() - t_first
+        watcher.join(timeout=600)
+        if len(seen) != len(fits):
+            raise AssertionError(f"phase 9c: {len(seen)} of {len(fits)} "
+                                 f"binds seen through the watch")
+        t_last = max(seen.values())
+
+        # ---- the breakdown lines in the apiserver's events -----------------
+        lines: dict = {}
+        while len(lines) < 2:
+            for ev in client.events("default").list().items:
+                kind = ("big" if ev.involved_object.name in big else
+                        "nosel" if ev.involved_object.name in nosel
+                        else None)
+                if kind and ev.reason == "FailedScheduling" \
+                        and "nodes available" in ev.message:
+                    lines.setdefault(kind, ev.message)
+            if len(lines) < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 9c: breakdown events "
+                                         f"seen: {lines}")
+                time.sleep(0.5)
+        code, body = _http_get(murl + "/debug/trace")
+        shard = json.loads(body)
+        code_v, body_v = _http_get(murl + "/debug/vars?since=0")
+        fr = json.loads(body_v)
+        final = client.pods("").list().items
+    finally:
+        if watch is not None:
+            watch.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        _stop_process(proc)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"phase 9c: the binary returned "
+                             f"{result.get('rc')}")
+    in_flight = held["last"]
+    if in_flight is not None:
+        in_flight.fut.exception(timeout=120)   # its solve still launches
+    launches = commit_solver.solve_commit.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+
+    # ---- the checks, after the run -----------------------------------------
+    by_name = {p.metadata.name: p for p in final}
+    if any(not by_name[n].spec.host for n in fits) or \
+            any(by_name[n].spec.host for n in big | nosel):
+        raise AssertionError("phase 9c: bound set differs from the pods "
+                             "that fit")
+    _check_placements(final, nodes, "phase 9c")
+    waves = pm.waves.value() - m0["waves"]
+    consumed = held["consumed"]
+    if waves != consumed + (in_flight is not None):
+        raise AssertionError(f"phase 9c: {waves} pipeline waves, "
+                             f"{consumed} committed (in flight at stop: "
+                             f"{in_flight is not None})")
+    inval = {k[0]: v - m0["inval"].get(k, 0.0)
+             for k, v in pm.invalidations.by_label().items()
+             if v - m0["inval"].get(k, 0.0)}
+    solves = held["solves"]
+    discarded = len(solves) - consumed - (in_flight is not None)
+    if discarded < 0 or discarded > sum(inval.values()):
+        raise AssertionError(f"phase 9c: {len(solves)} solves, {consumed} "
+                             f"committed, invalidations {inval}")
+    if count_launches and (set(solves) != {1} or launches != len(solves)):
+        raise AssertionError(f"phase 9c: {launches} commit_solve launches "
+                             f"for {len(solves)} solves, per solve "
+                             f"{sorted(set(solves))}")
+    if count_launches and plain_calls:
+        raise AssertionError("phase 9c: the plain version ran")
+    want = {"big": "Insufficient cpu", "nosel": "Node selector mismatch"}
+    for kind, msg in lines.items():
+        parts = _parse_breakdown(msg)
+        total = parts.pop("N")
+        if total != n_nodes or sum(parts.values()) != n_nodes or \
+                max(parts, key=parts.get) != want[kind]:
+            raise AssertionError(f"phase 9c: {kind} event {msg!r}")
+    reasons = {k[0]: v - m0["reasons"].get(k, 0.0)
+               for k, v in em.reasons.by_label().items()
+               if v - m0["reasons"].get(k, 0.0)}
+    unsched = em.pods.value() - m0["pods"]
+    if sum(reasons.values()) != unsched or \
+            em.reasons.total() != em.pods.value():
+        raise AssertionError(f"phase 9c: unschedulable by reason {reasons} "
+                             f"vs {unsched} pods")
+    skipped = {k[0]: v - m0["skipped"].get(k, 0.0)
+               for k, v in em.skipped.by_label().items()
+               if v - m0["skipped"].get(k, 0.0)}
+    spans = shard["spans"]
+    names = {s["name"] for s in spans}
+    stages = stage_medians(spans)
+    if code != 200 or not {"wave.drain", "wave.prepare", "wave.encode",
+                           "wave.solve", "wave.commit"} <= names \
+            or stages["speculative_encodes"] < 1:
+        raise AssertionError(f"phase 9c: /debug/trace {code}: {names}, "
+                             f"{stages['speculative_encodes']} speculative "
+                             f"encodes")
+    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    tracing.dump_chrome([shard], os.path.join(_ROOT, "chiprun_out",
+                                              "phase9c_trace.json"))
+    series = fr.get("series", {})
+    if code_v != 200 or not fr.get("armed") or \
+            "scheduler_pipeline_waves_total" not in series or \
+            "scheduler_pipeline_waves_total:rate" not in series:
+        raise AssertionError(f"phase 9c: /debug/vars {code_v}: "
+                             f"{sorted(series)[:20]}")
+    return {
+        "nodes": n_nodes, "existing": len(existing), "pending": n_pending,
+        "oversized": len(big), "selector_mismatch": len(nosel),
+        "seed_s": list(seed_s), "caches_synced_s": synced_s,
+        "create_s": create_s, "loop_s": t_last - t_first,
+        "pods_per_s": len(fits) / (t_last - t_first),
+        "waves": waves, "solves": len(solves), "discarded": discarded,
+        "in_flight_at_stop": in_flight is not None,
+        "launches": launches, "plain_calls": plain_calls,
+        "hits": pm.hits.value() - m0["hits"], "invalidations": inval,
+        "unspeculated": pm.unspeculated.value() - m0["unspec"],
+        "overlap_s": pm.overlap.value() - m0["overlap"],
+        "stages": stages, "spans": len(spans),
+        "spans_dropped": shard["dropped"], "events": lines,
+        "unschedulable_pods": unsched, "unschedulable_by_reason": reasons,
+        "explain_invocations": em.invocations.value() - m0["invocations"],
+        "explain_skipped": skipped,
+        "vars_series": len(series),
+        "waves_series": series["scheduler_pipeline_waves_total"]["samples"],
         "phase_s": time.perf_counter() - t_phase,
     }
 
@@ -1911,6 +2359,61 @@ def _log_scheduler(sc: dict) -> None:
          f"plain version on the CPU ({sc['plain_cpu_s']:.1f} s)")
 
 
+def _log_pipeline(pp: dict) -> None:
+    _log(f"[7p] pipelined vs causal loop: {pp['nodes']} nodes, "
+         f"{pp['pending']} pending in waves of {pp['wave_size']}, each run "
+         f"on a fresh cluster through run(); placements equal pod for pod "
+         f"in both pairs")
+    for key, r in pp["runs"].items():
+        st = r["stages"]
+        med = ", ".join(
+            f"{k} {st[k]['median_s']:.4f} s x{st[k]['n']}"
+            for k in ("encode", "solve", "commit")
+            if st[k]["median_s"] is not None)
+        _log(f"     {key:18s} {r['pods_per_s']:8.1f} pods/s "
+             f"({r['loop_s']:.3f} s); solves {r['solves']} = "
+             f"{r['consumed']} committed + {r['discarded']} discarded, "
+             f"launches {r['launches']}, plain {r['plain_calls']}; pipeline "
+             f"waves {r['pipeline_waves']:.0f}, hits {r['hits']:.0f}, "
+             f"invalidations {r['invalidations']}, unspeculated "
+             f"{r['unspeculated']:.0f}, overlap {r['overlap_s']:.3f} s; "
+             f"medians {med} ({st['speculative_encodes']} speculative "
+             f"encodes)")
+
+
+def _log_explain(ex: dict) -> None:
+    _log(f"[7e] explain: {ex['diagnosed']} unschedulable of {ex['pods']} "
+         f"pods on {ex['nodes']} nodes, counts and messages on the card == "
+         f"on the CPU (card {ex['explain_dev_s']:.3f} s, CPU "
+         f"{ex['explain_cpu_s']:.3f} s); {ex['examples']}")
+
+
+def _log_pipeline_binary(b: dict) -> None:
+    st = b["stages"]
+    _log(f"[9c] binary --pipeline --trace --flightrec: {b['nodes']} nodes, "
+         f"{b['existing']} resident seeded in "
+         f"{sum(b['seed_s']):.2f} s; {b['pending']} pending "
+         f"({b['oversized']} oversized, {b['selector_mismatch']} selector "
+         f"mismatched) created in {b['create_s']:.2f} s; last bind seen "
+         f"{b['loop_s']:.3f} s after the first create: "
+         f"{b['pods_per_s']:.1f} pods/s")
+    _log(f"     pipeline waves {b['waves']:.0f}, solves {b['solves']} "
+         f"({b['discarded']} discarded, in flight at stop "
+         f"{b['in_flight_at_stop']}), launches {b['launches']}, plain "
+         f"{b['plain_calls']}; hits {b['hits']:.0f}, invalidations "
+         f"{b['invalidations']}, unspeculated {b['unspeculated']:.0f}, "
+         f"overlap {b['overlap_s']:.3f} s; medians encode "
+         f"{st['encode']['median_s']:.4f} s, solve "
+         f"{st['solve']['median_s']:.4f} s, commit "
+         f"{st['commit']['median_s']:.4f} s; {b['spans']} spans "
+         f"({st['speculative_encodes']} speculative encodes, "
+         f"{b['spans_dropped']} dropped) -> chiprun_out/phase9c_trace.json")
+    _log(f"     unschedulable {b['unschedulable_pods']:.0f} = "
+         f"{b['unschedulable_by_reason']}; explain invocations "
+         f"{b['explain_invocations']:.0f}, skipped {b['explain_skipped']}; "
+         f"events {b['events']}; /debug/vars {b['vars_series']} series")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2026,6 +2529,14 @@ def main() -> int:
     record["scheduler"] = sc
     _log_scheduler(sc)
 
+    # 7p. the pipelined loop against the causal loop at north_star width
+    record["pipeline"] = pp = _pipeline_phase(dev)
+    _log_pipeline(pp)
+
+    # 7e. the unschedulability diagnosis on the card against the CPU
+    record["explain"] = _explain_phase(dev)
+    _log_explain(record["explain"])
+
     # 8. the loop on the priority cluster: preemption with evict+bind
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
@@ -2037,6 +2548,10 @@ def main() -> int:
     # 9b. the binary's fallback to the serial scheduler
     record["fallback"] = _fallback_phase(dev)
     _log_fallback(record["fallback"])
+
+    # 9c. the binary with the pipelined loop, tracing and the recorder
+    record["pipeline_binary"] = _pipeline_binary_phase(dev)
+    _log_pipeline_binary(record["pipeline_binary"])
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)

@@ -8,8 +8,10 @@ connections per thread with stale-connection detection, failure bodies
 raised as ``errors.StatusError``, field and label selectors in the URL,
 the batch-bind POST (``bindings:batch``), the 429 retry window, and
 watches consumed as the chunked JSON frame stream (ref: pkg/apiserver/
-watch.go) by a pump thread feeding a ``watch.Watcher``. Trace-context
-headers come with ``util/tracing.py``, which is not ported.
+watch.go) by a pump thread feeding a ``watch.Watcher``. With tracing on
+(util/tracing.py) every request and watch carries the caller's ambient
+span as the ``X-KTPU-Trace`` header, so the apiserver's spans join the
+caller's trace.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.api.latest import require_version
 from kubernetes_tpu_torch.api.latest import scheme as default_scheme
 from kubernetes_tpu_torch.runtime.clone import deep_clone
+from kubernetes_tpu_torch.util import tracing
 from kubernetes_tpu_torch.util.retry import Backoff
 
 __all__ = ["HTTPTransport"]
@@ -229,6 +232,17 @@ class HTTPTransport:
             except Exception:
                 pass
 
+    @staticmethod
+    def _trace_headers(headers: Dict[str, str]) -> Dict[str, str]:
+        """Add the caller's ambient span (the wave's commit or list leg)
+        as X-KTPU-Trace, so the apiserver's handler span joins its
+        trace; unchanged when tracing is off or no span is open."""
+        if tracing.enabled():
+            w = tracing.wire()
+            if w:
+                headers[tracing.HEADER] = w
+        return headers
+
     def _open(self, url: str, method: str, body: Optional[bytes] = None):
         """-> (status, raw bytes); raises StatusError on HTTP errors. A dead
         kept-alive connection is retried once under Go http.Transport's rules
@@ -240,7 +254,7 @@ class HTTPTransport:
         parsed = urllib.parse.urlsplit(url)
         path = parsed.path + ("?" + parsed.query if parsed.query else "")
         idempotent = method in ("GET", "HEAD")
-        headers = dict(self._headers)
+        headers = self._trace_headers(dict(self._headers))
         throttle_deadline = None   # armed on the first 429
         throttle_backoff = None
         while True:
@@ -356,8 +370,9 @@ class HTTPTransport:
                     else http.client.HTTPConnection)
         conn = conn_cls(parsed.hostname, parsed.port, timeout=24 * 3600.0)
         path = parsed.path + ("?" + parsed.query if parsed.query else "")
-        headers = {k: v for k, v in self._headers.items()
-                   if k.lower() != "content-type"}
+        headers = self._trace_headers({
+            k: v for k, v in self._headers.items()
+            if k.lower() != "content-type"})
         conn.request("GET", path, headers=headers)
         resp = conn.getresponse()
         if resp.status >= 400:

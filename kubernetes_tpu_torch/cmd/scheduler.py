@@ -9,14 +9,19 @@ the wave loop (``BatchScheduler``), one ``commit_solve`` launch a wave on
 runs the kernel's plain version), and falls back to the serial loop when
 the configured policy is one the batch solver cannot model.
 
-Flags whose feature is not ported exit non-zero naming their ROADMAP
-item: ``--pipeline`` with tpu-batch, ``--solver-addr``, ``--mesh on``,
-``--trace`` and ``--flightrec``. The reference's ``warmstart.enable()``
-(JAX's compile cache) has no counterpart: the kernel build is cached in
-``ops/_build/`` by a hash of its sources.
+``--pipeline`` (with tpu-batch) runs the speculative double-buffered
+wave loop; ``--trace`` records each wave's spans and sends the trace
+context to the apiserver (drained at ``/debug/trace``); ``--flightrec``
+samples every metric series from boot (served at ``/debug/vars``, which
+also arms the recorder on its first pull). Flags whose feature is not
+ported exit non-zero naming their ROADMAP item: ``--solver-addr`` and
+``--mesh on``. The reference's ``warmstart.enable()`` (JAX's compile
+cache) has no counterpart: the kernel build is cached in ``ops/_build/``
+by a hash of its sources.
 
 Run: ``python -m kubernetes_tpu_torch.cmd.scheduler --master URL
---algorithm tpu-batch [--device cpu] [--metrics-port N]``.
+--algorithm tpu-batch [--pipeline] [--trace] [--flightrec] [--device cpu]
+[--metrics-port N]``.
 """
 
 from __future__ import annotations
@@ -28,10 +33,6 @@ import threading
 from typing import Callable, List, Optional
 
 __all__ = ["scheduler_server", "main"]
-
-# ROADMAP Queue 1 items of the features a flag would need
-_TRACING_ITEM = ("ROADMAP Queue 1 item 5 (util/tracing.py, the flight "
-                 "recorder)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,8 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "while the daemon is away (accepted for parity; "
                         "read by nothing until the daemon is ported)")
     p.add_argument("--pipeline", action="store_true",
-                   help="tpu-batch: speculative double-buffered waves (not "
-                        "ported: exits naming its ROADMAP item); ignored "
+                   help="tpu-batch: speculative double-buffered waves — "
+                        "encode and solve wave k+1 against the predicted "
+                        "post-commit state while wave k commits; every "
+                        "speculation is verified before wave k+1 commits, "
+                        "so decisions equal the causal loop's; ignored "
                         "with --algorithm serial")
     p.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
                    help="tpu-batch: device-mesh solve; 'on' is not ported "
@@ -73,15 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="client-side event rate limit (0 disables)")
     p.add_argument("--event-burst", "--event_burst", type=int, default=100)
     p.add_argument("--metrics-port", "--metrics_port", type=int, default=0,
-                   help="serve /metrics, /healthz and /debug/pprof on this "
-                        "port (0 disables)")
+                   help="serve /metrics, /healthz, /debug/pprof, "
+                        "/debug/trace and /debug/vars on this port (0 "
+                        "disables)")
     p.add_argument("--trace", action="store_true",
-                   help="record wave spans (not ported: exits naming its "
-                        "ROADMAP item)")
+                   help="record spans for every wave (drain/prepare/encode/"
+                        "solve/commit) into this process's ring and send "
+                        "the trace context to the apiserver; drained at "
+                        "GET /debug/trace on --metrics-port. Off by default "
+                        "(the disabled path is one branch per call site)")
     p.add_argument("--flightrec", action="store_true",
-                   help="sample every metric series into a ring served at "
-                        "/debug/vars (not ported: exits naming its ROADMAP "
-                        "item)")
+                   help="sample every metric series into a per-process "
+                        "(monotonic_ns, value) ring from boot, served "
+                        "incrementally at GET /debug/vars on --metrics-port "
+                        "(the first pull arms sampling anyway)")
     p.add_argument("--flightrec-period", "--flightrec_period", type=float,
                    default=1.0, help="flight recorder sample period, seconds")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -93,35 +102,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(opts) -> Optional[str]:
     """The message for the first flag whose feature is not ported."""
-    if opts.pipeline and opts.algorithm == "tpu-batch":
-        return ("--pipeline: the pipelined wave loop is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
     if opts.solver_addr:
         return ("--solver-addr: the shared solver daemon is not ported yet "
                 "(ROADMAP Queue 1 item 6)")
     if opts.mesh == "on":
         return ("--mesh on: the device-mesh solve is not ported yet "
                 "(ROADMAP Queue 1 item 7)")
-    if opts.trace:
-        return f"--trace: wave tracing is not ported yet ({_TRACING_ITEM})"
-    if opts.flightrec:
-        return (f"--flightrec: the flight recorder is not ported yet "
-                f"({_TRACING_ITEM})")
     return None
 
 
 def _serve_debug(port: int, service: str = "scheduler", health=None):
     """The binary's observability server: /metrics, deep /healthz (+
-    /healthz/ping liveness) and /debug/pprof. /debug/trace and
-    /debug/vars answer 501: tracing and the flight recorder are not
-    ported. ``health`` is a zero-arg callable returning
-    componentstatus-style ``(payload dict, ok bool)``; None keeps the bare
-    liveness 200. Returns the server (``shutdown()`` stops it)."""
+    /healthz/ping liveness), /debug/pprof, /debug/trace (this process's
+    span shard; ``?peek=1`` reads without resetting the cursor) and
+    /debug/vars (the flight recorder's series past ``?since=<ns>``; the
+    first pull arms the recorder). ``health`` is a zero-arg callable
+    returning componentstatus-style ``(payload dict, ok bool)``; None
+    keeps the bare liveness 200. Returns the server (``shutdown()`` stops it)."""
     import json
     import urllib.parse
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+    from kubernetes_tpu_torch.util import metrics as metrics_pkg
     from kubernetes_tpu_torch.util import pprof as pprof_util
+    from kubernetes_tpu_torch.util import tracing
     from kubernetes_tpu_torch.util.metrics import default_registry
 
     class H(BaseHTTPRequestHandler):
@@ -153,10 +157,30 @@ def _serve_debug(port: int, service: str = "scheduler", health=None):
                     body, ctype = json.dumps(payload), "application/json"
             elif self.path == "/metrics":
                 code, body = 200, default_registry().render_text()
-            elif self.path.startswith(("/debug/vars", "/debug/trace")):
-                code = 501
-                body = (f"{urllib.parse.urlsplit(self.path).path}: not "
-                        f"ported yet ({_TRACING_ITEM})")
+            elif self.path.startswith("/debug/vars"):
+                # the flight recorder's shard: series past the ?since=<ns>
+                # cursor; the first pull arms the sampler
+                q = dict(urllib.parse.parse_qsl(
+                    urllib.parse.urlsplit(self.path).query))
+                if not metrics_pkg.flightrec_armed():
+                    metrics_pkg.flightrec_arm(service)
+                try:
+                    since = int(q.get("since", "0") or "0")
+                except ValueError:
+                    since = 0
+                code = 200
+                body = json.dumps(metrics_pkg.flightrec_vars(since))
+                ctype = "application/json"
+            elif self.path.startswith("/debug/trace"):
+                # the span shard (?peek=1 reads without resetting the
+                # cursor); shards of several processes merge with
+                # tracing.chrome_trace
+                q = dict(urllib.parse.parse_qsl(
+                    urllib.parse.urlsplit(self.path).query))
+                code = 200
+                body = json.dumps(tracing.drain(
+                    reset=q.get("peek") not in ("1", "true")))
+                ctype = "application/json"
             else:
                 code, body = 404, "not found"
             raw = body.encode()
@@ -259,7 +283,9 @@ def scheduler_server(argv: List[str],
     wave loop stopped on a fault (a failed prewarm, an unported wave),
     2 on a bad flag. An embedding caller's ``on_built(scheduler)`` gets
     the scheduler (``Scheduler`` or ``BatchScheduler``) before its loop
-    starts."""
+    starts. On the way out it turns off the tracing it turned on and
+    disarms the flight recorder it (or a /debug/vars pull) armed, so an
+    embedding process is left as it was."""
     try:
         opts = build_parser().parse_args(argv)
     except argparse.ArgumentError as e:
@@ -269,6 +295,13 @@ def scheduler_server(argv: List[str],
     if refused:
         print(f"kube-scheduler: {refused}", file=sys.stderr)
         return 1
+    from kubernetes_tpu_torch.util import metrics, tracing
+
+    was_armed = metrics.flightrec_armed()
+    if opts.trace:
+        tracing.enable("scheduler")
+    if opts.flightrec:
+        metrics.flightrec_arm("scheduler", period_s=opts.flightrec_period)
     factory, sched = build_scheduler(opts)
     if on_built is not None:
         on_built(sched)
@@ -298,6 +331,10 @@ def scheduler_server(argv: List[str],
     if srv is not None:
         srv.shutdown()
         srv.server_close()
+    if opts.trace:
+        tracing.disable()
+    if not was_armed:
+        metrics.flightrec_disarm()
     return rc
 
 

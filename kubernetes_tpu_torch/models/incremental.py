@@ -570,6 +570,10 @@ class IncrementalEncoder:
         }
 
     # -- speculation support (the pipelined loop) ----------------------------
+    def has_pod(self, uid: str) -> bool:
+        """Whether ``uid`` already contributes to the resident planes."""
+        return uid in self._pods
+
     def is_noop_upsert(self, pod: api.Pod) -> bool:
         """True when applying ``pod`` as an upsert would not change the
         resident planes: same uid already accounted at the same host row.

@@ -36,14 +36,37 @@ kernel and solve one exemplar wave over the live cluster, then set the
 a load window. On the CPU there is nothing to build; the exemplar wave
 runs the plain version.
 
+Pipelined mode (``pipeline=True``, the binary's ``--pipeline``): the
+reference's speculative double-buffered loop. Wave k's solve runs on a
+side thread (``tpu-batch-solve``) while the loop thread drains wave k+1;
+once wave k's decisions exist its bindings commit on a commit thread
+(``tpu-batch-commit``) while the loop thread encodes wave k+1 against the
+PREDICTED post-commit state (the encoder's resident planes plus wave k's
+not-yet-committed placements) and dispatches its solve. When the commit
+lands, the prediction is verified before anything of wave k+1 may
+commit: every placed pod bound at its chosen host, and the modeler's
+changelog holds exactly those events. Any divergence (a CAS-lost bind, a
+foreign store delta, a changelog resync) discards the speculative solve
+unseen, rolls the predicted rows back and re-encodes causally. Committed
+decisions therefore equal the causal loop's; speculation changes when
+work runs, never what state a decision was solved against
+(``scheduler_pipeline_*`` counts waves, hits, invalidations by reason and
+overlapped seconds). Waves with gang members encode causally. A policy
+that forces the full encoder runs the causal loop, with a logged warning,
+as in the reference.
+
+Unschedulable pods get the reference's per-filter breakdown line in
+their FailedScheduling event (models/explain.py: rate-limited, on the
+loop thread only, on ``self.device``). With tracing on (util/tracing.py)
+each wave is one trace of ``wave.drain/prepare/encode/solve/commit``
+spans, in either loop.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item rather than replaced by a substitute: the pipelined loop
-(``pipeline=True``), the shared solver daemon (``solver_addr``) and the
-device mesh (``mesh="on"``). A wave that raises ``NotImplementedError`` is handed to the error handler
-and the error propagates out of ``schedule_wave``, so the loop stops
-instead of requeueing it forever. Unschedulable pods get
-the generic ``FitError`` line (the diagnosis layer, models/explain.py, is
-not ported), and the loop records no tracing spans.
+ROADMAP item rather than replaced by a substitute: the shared solver
+daemon (``solver_addr``) and the device mesh (``mesh="on"``). A wave that
+raises ``NotImplementedError`` is handed to the error handler and the
+error propagates out of ``schedule_wave``, so the loop stops instead of
+requeueing it forever.
 """
 
 from __future__ import annotations
@@ -56,6 +79,7 @@ from datetime import timezone
 from typing import List, NamedTuple, Optional
 
 from kubernetes_tpu_torch.api import types as api
+from kubernetes_tpu_torch.models import explain as explain_mod
 from kubernetes_tpu_torch.models import gang
 from kubernetes_tpu_torch.models import preempt as preempt_mod
 from kubernetes_tpu_torch.models.batch_solver import (decisions_to_names,
@@ -67,11 +91,20 @@ from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.scheduler.driver import (ConfigFactory,
                                                    SchedulerConfig)
 from kubernetes_tpu_torch.scheduler.generic import FitError
-from kubernetes_tpu_torch.util import metrics
+from kubernetes_tpu_torch.util import metrics, tracing
 
 __all__ = ["BatchScheduler"]
 
 _log = logging.getLogger("kubernetes_tpu_torch.scheduler.tpu_batch")
+
+
+def _assumed_clone(pod, host):
+    """The post-bind copy the modeler assumes (and the pipelined loop's
+    speculative encode predicts): a value copy with ``host`` set."""
+    cl = deep_clone(pod)
+    cl.spec.host = host
+    cl.status.host = host
+    return cl
 
 
 class _WaveMetrics:
@@ -125,17 +158,74 @@ def _wave_metrics() -> _WaveMetrics:
     return _WaveMetrics._singleton
 
 
+class _PipelineMetrics:
+    """The scheduler_pipeline_* family: speculative double-buffering
+    effectiveness. hits/invalidations partition the speculated waves;
+    overlap_seconds_total is the wall time of host work that ran under a
+    solve or a commit instead of after it."""
+
+    _singleton = None
+
+    def __init__(self):
+        reg = metrics.default_registry()
+        self.waves = reg.counter(
+            "scheduler_pipeline_waves_total",
+            "Waves run by the pipelined loop")
+        self.hits = reg.counter(
+            "scheduler_pipeline_speculation_hits_total",
+            "Speculative encodes verified and dispatched without re-encode")
+        self.invalidations = reg.counter(
+            "scheduler_pipeline_speculation_invalidations_total",
+            "Speculative encodes invalidated before dispatch, by divergence "
+            "reason", label_names=("reason",))
+        self.unspeculated = reg.counter(
+            "scheduler_pipeline_unspeculated_waves_total",
+            "Next waves encoded causally without a speculation attempt "
+            "(gang members present, or no resident delta state yet)")
+        self.overlap = reg.counter(
+            "scheduler_pipeline_overlap_seconds_total",
+            "Wall seconds of drain/encode work overlapped with the solve "
+            "and commit of the preceding wave")
+
+
+def _pipeline_metrics() -> _PipelineMetrics:
+    if _PipelineMetrics._singleton is None:
+        _PipelineMetrics._singleton = _PipelineMetrics()
+    return _PipelineMetrics._singleton
+
+
 class _WaveDecisions(NamedTuple):
     """One wave's solve outcome: per-pod host names (None =
     unschedulable), the victim sets of preempting placements, the solve's
-    start (the preempt-to-bind window opens there) and the raw outputs
-    over the padded pod axis."""
+    start (the preempt-to-bind window opens there), and the solved
+    snapshot with the raw outputs over the padded pod axis — references
+    only, for the diagnosis of unschedulable rows (models/explain.py)."""
 
     hosts: list
     victims: list           # aligned with hosts; None = normal placement
     t0: float               # perf_counter at the solve's start
+    snap: object            # ClusterSnapshot the solve consumed
     chosen: object          # [P] node indices (-1 = unschedulable)
     scores: object          # [P] winning scores (preempt score channel)
+
+
+class _SpecResult(NamedTuple):
+    """Outcome of a speculative encode (see BatchScheduler._speculate)."""
+
+    snap: object           # ClusterSnapshot, or None when speculation failed
+    pending: Optional[list]  # ordered wave pods (None when snap is None)
+    applied: bool          # predicted rows were applied to the encoder
+    reason: str            # "" on success, else the failure class
+    encode_s: float
+
+
+class _Inflight(NamedTuple):
+    """Carry between pipelined cycles: the wave whose solve is running on
+    the solve thread right now."""
+
+    fut: object            # Future -> _WaveDecisions
+    pending: list          # the wave's ordered pods (snap row order)
+    tctx: object = None    # the wave's trace context (None = untraced)
 
 
 class BatchScheduler:
@@ -165,10 +255,10 @@ class BatchScheduler:
             raise NotImplementedError(
                 "the shared solver daemon is not ported yet (ROADMAP Queue "
                 "1: solver/service.py + cmd/solverd.py)")
-        if config.pipeline if pipeline is None else pipeline:
-            raise NotImplementedError(
-                "the pipelined wave loop is not ported yet (ROADMAP Queue "
-                "1: the pipelined loop)")
+        # speculative double-buffered wave loop (module docstring); None
+        # inherits the config's recorded --pipeline flag
+        self.pipeline = bool(config.pipeline if pipeline is None
+                             else pipeline)
         if config.mesh == "on":
             raise NotImplementedError(
                 "the device-mesh solve is not ported yet (ROADMAP Queue 1: "
@@ -192,6 +282,9 @@ class BatchScheduler:
         self._ckpt = None            # (encoder state, modeler token)
         self._ckpt_waves = 0
         self.checkpoint_every = 4
+        # rate-limited unschedulability diagnosis over the solved wave's
+        # planes, consulted only when a wave returns unschedulable pods
+        self._explainer = explain_mod.Explainer(device=self.device)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # the error that stopped the loop thread (a NotImplementedError
@@ -321,30 +414,35 @@ class BatchScheduler:
         return ok, starved
 
     # -- solving ------------------------------------------------------------
-    def _encode_wave(self, nodes, pending, services, get_existing):
+    def _encode_wave(self, nodes, pending, services, get_existing,
+                     tctx=None):
         t0 = time.perf_counter()
-        if self._encoder is not None:
-            snap = self._encode_incremental(nodes, pending, services,
-                                            get_existing)
-        else:
-            snap = encode_snapshot(nodes, get_existing(), pending, services,
-                                   policy=self.batch_policy)
+        with tracing.span("wave.encode", parent=tctx, pods=len(pending)):
+            if self._encoder is not None:
+                snap = self._encode_incremental(nodes, pending, services,
+                                                get_existing)
+            else:
+                snap = encode_snapshot(nodes, get_existing(), pending,
+                                       services, policy=self.batch_policy)
         dt = time.perf_counter() - t0
         _wave_metrics().encode.observe(dt)
         _wave_metrics().note_stall(dt)
         return snap
 
-    def _solve_snap(self, snap, n_pending: int) -> _WaveDecisions:
+    def _solve_snap(self, snap, n_pending: int, tctx=None) -> _WaveDecisions:
         """One wave's solve on ``self.device`` -> _WaveDecisions. Inside
         the kernel's domain this is one launch of commit_solve; the gang
-        all-or-nothing post-pass is part of ``solve``. A placed pod whose
-        score encodes a preemption threshold gets its victims from the
+        all-or-nothing post-pass is part of ``solve``. Runs on the
+        pipelined loop's solve thread too; ``tctx`` carries the wave's
+        trace across that thread boundary. A placed pod whose score
+        encodes a preemption threshold gets its victims from the
         incremental encoder's per-node registry: the deterministic replay
         of models/preempt.assign_victims (the reference's
         tpu_batch.py:477-499). The encoder changes only after this wave's
-        decisions are read."""
+        decisions are read (the ordering of ``_pipelined_cycle``)."""
         t0 = time.perf_counter()
-        chosen, scores = solve(snap, device=self.device)
+        with tracing.span("wave.solve", parent=tctx, pods=n_pending):
+            chosen, scores = solve(snap, device=self.device)
         dt = time.perf_counter() - t0
         _wave_metrics().solve.observe(dt)
         _wave_metrics().note_stall(dt)
@@ -368,11 +466,13 @@ class BatchScheduler:
                         "pods (the policy forces the full encoder)")
                 hosts = [None if preempt_mod.is_preempt_score(int(s))
                          else h for h, s in zip(hosts, scores)]
-        return _WaveDecisions(hosts, victims, t0, chosen, scores)
+        return _WaveDecisions(hosts, victims, t0, snap, chosen, scores)
 
-    def _default_solve(self, nodes, get_existing, pending, services):
-        snap = self._encode_wave(nodes, pending, services, get_existing)
-        return self._solve_snap(snap, len(pending))
+    def _default_solve(self, nodes, get_existing, pending, services,
+                       tctx=None):
+        snap = self._encode_wave(nodes, pending, services, get_existing,
+                                 tctx=tctx)
+        return self._solve_snap(snap, len(pending), tctx=tctx)
 
     def _encode_incremental(self, nodes, pending, services, get_existing):
         """O(changed + pending) when the modeler's changelog covers the
@@ -453,29 +553,60 @@ class BatchScheduler:
     def _split_decisions(self, pending, decisions: _WaveDecisions):
         """(pod, host, victims) triples for placed pods (victims None for
         a normal placement); unschedulable pods are evented + handed to
-        the error handler (backoff + requeue)."""
+        the error handler (backoff + requeue). When some pod is
+        unschedulable, the diagnosis layer (rate-limited, loop thread
+        only — models/explain.Explainer) renders the per-filter breakdown
+        into the FailedScheduling event in place of the empty FitError
+        line. It runs HERE — after the solve result exists and before this
+        wave's commit is submitted — so it never sits inside the pipelined
+        solve/commit overlap. A declined diagnosis keeps the generic
+        message; the error handed to the requeue path is the same."""
         c = self.config
+        diag_msgs = {}
+        n_unsched = sum(1 for h in decisions.hosts if h is None)
+        if n_unsched:
+            try:
+                diag_msgs = self._explainer.diagnose_wave(
+                    decisions.snap, decisions.chosen, decisions.scores,
+                    n_unsched=n_unsched)
+            except Exception:
+                _log.exception("kube-explain diagnosis failed; falling "
+                               "back to the generic FailedScheduling "
+                               "message")
         placed = []
-        for pod, host, vict in zip(pending, decisions.hosts,
-                                   decisions.victims):
+        for row, (pod, host, vict) in enumerate(zip(
+                pending, decisions.hosts, decisions.victims)):
             if host is None:
                 err = FitError(pod, {})
-                self._record(pod, "FailedScheduling",
-                             "Error scheduling: %s", err)
+                msg = diag_msgs.get(row)
+                if msg is not None:
+                    self._record(pod, "FailedScheduling", "%s", msg)
+                else:
+                    self._record(pod, "FailedScheduling",
+                                 "Error scheduling: %s", err)
                 c.error(pod, err)
             else:
                 placed.append((pod, host, vict))
         return placed
 
-    def _commit_wave(self, placed, preempt_t0: Optional[float] = None):
+    def _commit_wave(self, placed, assumed: Optional[list] = None,
+                     tctx=None, preempt_t0: Optional[float] = None):
         """Bind the wave's placements, event every outcome, assume the
-        winners. Returns (outcomes, bound): outcomes[i] is None on
-        success, else the bind error (aligned with ``placed``). A
+        winners. ``assumed`` optionally supplies the post-bind clones,
+        aligned with ``placed``: the pipelined loop shares them with its
+        speculative encode so the encoder and the modeler account the
+        IDENTICAL objects. Returns (outcomes, bound): outcomes[i] is None
+        on success, else the bind error (aligned with ``placed``). A
         placement with victims commits as an atomic evict+bind
         (Binding.victims): the server deletes every victim and binds the
         pod in one step, or fails the item with 409; the victims' deletes
         then reach the encoder like any other. ``preempt_t0`` opens the
         preempt-to-bind window."""
+        with tracing.span("wave.commit", parent=tctx, pods=len(placed)):
+            return self._commit_wave_inner(placed, assumed, preempt_t0)
+
+    def _commit_wave_inner(self, placed, assumed: Optional[list],
+                           preempt_t0: Optional[float]):
         t_commit0 = time.perf_counter()
         c = self.config
 
@@ -548,10 +679,13 @@ class BatchScheduler:
                 # failures stay visible as requeues
                 pmx.conflicts.inc()
 
+        if assumed is None:
+            # value copy before mutating (the popped pod may be shared)
+            assumed = [_assumed_clone(pod, host) for pod, host, _v in placed]
         bound = 0
         now_m = time.monotonic()
         now_w = time.time()
-        for (pod, host, _vict), err in zip(placed, outcomes):
+        for (pod, host, _vict), cl, err in zip(placed, assumed, outcomes):
             if err is not None:
                 # lost a CAS race: requeue; next wave sees fresh state
                 self._record(pod, "FailedScheduling",
@@ -560,10 +694,6 @@ class BatchScheduler:
                 continue
             self._record(pod, "Scheduled", "Successfully assigned %s to %s",
                          pod.metadata.name, host)
-            # value copy before mutating (the popped pod may be shared)
-            cl = deep_clone(pod)
-            cl.spec.host = host
-            cl.status.host = host
             c.modeler.assume_pod(cl)
             bound += 1
             # pod-lifecycle latency: create -> bind committed, and arm the
@@ -591,23 +721,26 @@ class BatchScheduler:
         ``timeout``, and NotImplementedError (after handing the wave to
         the error handler) when the wave needs a feature the port lacks."""
         c = self.config
+        t_dr0 = time.monotonic_ns()
         pods = self._drain_wave(timeout)
+        # one trace per wave: a bare root context the stage spans attach
+        # to; drain and prepare are recorded once they ended
+        tctx = tracing.new_ctx()
+        tracing.record("wave.drain", t_dr0, time.monotonic_ns(),
+                       parent=tctx, pods=len(pods))
+        t_pr0 = time.monotonic_ns()
         prep = self._prepare_wave(pods)
+        tracing.record("wave.prepare", t_pr0, time.monotonic_ns(),
+                       parent=tctx)
         if prep is None:
             return 0
         pending, nodes, services, get_existing = prep
         try:
             # `existing` resolves lazily: the delta path never lists it
             decisions = self._default_solve(nodes, get_existing, pending,
-                                            services)
+                                            services, tctx=tctx)
         except Exception as e:
-            # a failed solve must not drop the drained wave: hand every pod
-            # to the error handler for backoff+requeue, like the serial
-            # driver does per pod (scheduler.go:96-101)
-            for pod in pending:
-                self._record(pod, "FailedScheduling",
-                             "Error scheduling wave: %s", e)
-                c.error(pod, e)
+            self._fail_wave(pending, e)
             if isinstance(e, NotImplementedError):
                 raise
             _log.warning("wave solve failed; %d pods requeued: %s",
@@ -617,8 +750,272 @@ class BatchScheduler:
         placed = self._split_decisions(pending, decisions)
         if not placed:
             return 0
-        _, bound = self._commit_wave(placed, decisions.t0)
+        _, bound = self._commit_wave(placed, tctx=tctx,
+                                     preempt_t0=decisions.t0)
         return bound
+
+    def _fail_wave(self, pods, err) -> None:
+        """A failed solve must not drop the drained wave: hand every pod
+        to the error handler for backoff+requeue, like the serial driver
+        does per pod (scheduler.go:96-101)."""
+        for pod in pods:
+            self._record(pod, "FailedScheduling",
+                         "Error scheduling wave: %s", err)
+            self.config.error(pod, err)
+
+    # -- the pipelined wave loop ----------------------------------------------
+    def _speculate(self, pods: List[api.Pod], predicted: List[api.Pod],
+                   tctx=None) -> _SpecResult:
+        """Encode wave k+1 against the PREDICTED post-commit state: the
+        encoder's resident planes plus wave k's not-yet-committed
+        placements. Runs on the loop thread while the commit thread binds
+        wave k — the commit path never touches the encoder, and this
+        never reads the modeler (a half-committed view would be
+        unverifiable)."""
+        t0 = time.perf_counter()
+        enc = self._encoder
+        if any(enc.has_pod(p.metadata.uid) for p in predicted):
+            # a predicted pod is already resident (e.g. a stale requeue of
+            # a pod another scheduler bound — its CAS will lose): applying
+            # would re-account the row and rollback could not restore it
+            return _SpecResult(None, None, False, "resident_conflict",
+                               time.perf_counter() - t0)
+        try:
+            nodes = self.config.minion_lister.list().items
+            services = self.factory.service_store.list()
+        except Exception:
+            return _SpecResult(None, None, False, "lister_error",
+                               time.perf_counter() - t0)
+        pending = gang.order_wave(pods)  # identity: the wave is gang-free
+        t_enc0 = time.monotonic_ns()
+        snap = enc.encode_delta(nodes, predicted, [], pending, services)
+        tracing.record("wave.encode", t_enc0, time.monotonic_ns(),
+                       parent=tctx, pods=len(pending), speculative=True)
+        if snap is None:
+            # encode_delta declines before applying anything when the
+            # node/service planes changed, but an overflow is detected
+            # after the apply — has_pod says which happened
+            applied = any(enc.has_pod(p.metadata.uid) for p in predicted)
+            return _SpecResult(None, None, applied, "encoder_fallback",
+                               time.perf_counter() - t0)
+        _wave_metrics().encode.observe(time.perf_counter() - t0)
+        return _SpecResult(snap, pending, True, "", time.perf_counter() - t0)
+
+    def _verify_speculation(self, spec: _SpecResult, predicted, outcomes):
+        """The divergence check: compare the prediction (every placed pod
+        bound at its chosen host, nothing else changed) against what
+        actually happened. Returns (reason, token, failed_uids):
+
+        - ``""``: the prediction held exactly — the speculative encode
+          (and the solve already in flight on it) is valid;
+        - ``"bind_failed"``: the only divergence is CAS-lost/failed binds
+          (or a speculative overflow) — O(changed) repair is possible;
+        - ``"store_delta"`` / ``"resync"``: foreign interference (another
+          scheduler's pod landed, a pod was removed, the changelog window
+          was exceeded) — full causal re-encode required.
+        """
+        failed_uids = {cl.metadata.uid for cl, err in zip(predicted, outcomes)
+                       if err is not None}
+        ok_uids = {cl.metadata.uid for cl in predicted} - failed_uids
+        d = self.config.modeler.delta(self._delta_token)
+        if d is None:
+            return "resync", None, failed_uids
+        upserted, removed, token = d
+        by_uid = {cl.metadata.uid: cl.status.host for cl in predicted}
+        matched = set()
+        for p in upserted:
+            uid = p.metadata.uid
+            if uid in ok_uids and by_uid.get(uid) == p.status.host:
+                matched.add(uid)
+                continue
+            if self._encoder.is_noop_upsert(p):
+                continue  # watch-confirm re-delivery of a resident pod
+            return "store_delta", None, failed_uids
+        if removed or matched != ok_uids:
+            # a removal touches node capacity; a missing assume event
+            # means the changelog raced — both are foreign interference
+            return "store_delta", None, failed_uids
+        if failed_uids or spec.snap is None:
+            return "bind_failed", token, failed_uids
+        return "", token, failed_uids
+
+    def _dispatch_causal(self, pods, solve_pool, pm: _PipelineMetrics,
+                         tctx=None) -> Optional[_Inflight]:
+        """Prepare + causally encode + dispatch a wave (bootstrap, and the
+        restart path after a divergence or an unspeculated wave). ``tctx``
+        reuses a trace the caller already opened for these pods (the
+        pipelined drain leg); None starts a fresh wave trace."""
+        if not pods:
+            return None
+        if tctx is None:
+            tctx = tracing.new_ctx()
+        t_pr0 = time.monotonic_ns()
+        prep = self._prepare_wave(pods)
+        tracing.record("wave.prepare", t_pr0, time.monotonic_ns(),
+                       parent=tctx)
+        if prep is None:
+            return None
+        pending, nodes, services, get_existing = prep
+        snap = self._encode_wave(nodes, pending, services, get_existing,
+                                 tctx=tctx)
+        pm.waves.inc()
+        return _Inflight(solve_pool.submit(self._solve_snap, snap,
+                                           len(pending), tctx),
+                         pending, tctx)
+
+    def _pipelined_cycle(self, inflight: Optional[_Inflight], solve_pool,
+                         commit_pool, pm: _PipelineMetrics
+                         ) -> Optional[_Inflight]:
+        """One double-buffered wave. With wave k's solve in flight:
+
+        1. drain wave k+1 (the linger rides the solve);
+        2. collect wave k's decisions;
+        3. start wave k's commit on the commit thread;
+        4. speculatively encode wave k+1 against the predicted post-commit
+           planes and dispatch its solve — both riding wave k's commit;
+        5. when the commit lands, verify the prediction: a hit keeps the
+           in-flight wave k+1 solve, a divergence discards it (its future
+           is never read), rolls the predicted rows back, and re-encodes
+           before re-dispatching.
+
+        Committed decisions equal the causal loop's: speculation changes
+        when work runs, never what state it sees."""
+        c = self.config
+        if inflight is None:
+            # bootstrap / restart: nothing in flight, encode causally. An
+            # empty queue is a normal idle tick, told apart HERE and not
+            # by exception type in the loop: socket.timeout IS
+            # TimeoutError, and a network timeout escaping a cycle must
+            # never pass for an empty drain
+            try:
+                t_dr0 = time.monotonic_ns()
+                pods = self._drain_wave(timeout=0.2)
+            except TimeoutError:
+                return None
+            tctx = tracing.new_ctx()
+            tracing.record("wave.drain", t_dr0, time.monotonic_ns(),
+                           parent=tctx, pods=len(pods))
+            return self._dispatch_causal(pods, solve_pool, pm, tctx=tctx)
+        pending = inflight.pending
+        # overlap 1: drain wave k+1 while wave k solves
+        t0 = time.perf_counter()
+        t_dr0 = time.monotonic_ns()
+        next_pods: List[api.Pod] = []
+        try:
+            next_pods = self._drain_wave(timeout=self.wave_linger_s)
+        except TimeoutError:
+            pass
+        drain_s = time.perf_counter() - t0
+        # wave k+1's trace opens at its drain; every later leg (spec
+        # encode, solve, commit — or the causal re-encode on divergence)
+        # attaches to this context
+        next_tctx = tracing.new_ctx() if next_pods else None
+        if next_pods:
+            tracing.record("wave.drain", t_dr0, time.monotonic_ns(),
+                           parent=next_tctx, pods=len(next_pods))
+        try:
+            decisions = inflight.fut.result()
+        except Exception as e:
+            self._fail_wave(pending, e)
+            if isinstance(e, NotImplementedError):
+                self._fail_wave(next_pods, e)
+                raise
+            return self._dispatch_causal(next_pods, solve_pool, pm,
+                                         tctx=next_tctx)
+        solve_s = time.perf_counter() - t0
+        pm.overlap.inc(by=min(drain_s, solve_s))
+        placed = self._split_decisions(pending, decisions)
+        if not placed:
+            return self._dispatch_causal(next_pods, solve_pool, pm,
+                                         tctx=next_tctx)
+        # the predicted post-bind clones: shared verbatim between the
+        # speculative encode and assume_pod, so a verified hit leaves the
+        # encoder accounting the very objects the modeler holds
+        predicted = [_assumed_clone(pod, host) for pod, host, _v in placed]
+        # wave k's bindings commit on the commit thread; the speculative
+        # encode (overlap 2) and wave k+1's solve (overlap 3) ride it
+        t_c0 = time.perf_counter()
+        commit_fut = commit_pool.submit(self._commit_wave, placed, predicted,
+                                        inflight.tctx, decisions.t0)
+        # a wave that evicts changes the cluster beyond its own binds
+        # (victim deletions land in the changelog), so the predicted
+        # post-commit state would always verify as divergent
+        wave_evicts = any(vict for _pod, _host, vict in placed)
+        spec = None
+        next_fut = None
+        if next_pods and self._delta_token is not None and \
+                not wave_evicts and \
+                not any(gang.gang_key(p) is not None for p in next_pods):
+            spec = self._speculate(next_pods, predicted, tctx=next_tctx)
+            if spec.snap is not None:
+                next_fut = solve_pool.submit(self._solve_snap, spec.snap,
+                                             len(spec.pending), next_tctx)
+        elif next_pods:
+            pm.unspeculated.inc()
+        try:
+            outcomes, _bound = commit_fut.result()
+        except Exception as e:
+            # infra fault mid-commit: roll the speculation back and force
+            # a full resync — the encoder must not keep unverified rows.
+            # The drained next wave would otherwise be stranded (popped
+            # from the FIFO, never solved): hand it to the error handler,
+            # which re-fetches and requeues still-unbound pods.
+            if spec is not None and spec.applied:
+                self._encoder.forget_pods(
+                    [cl.metadata.uid for cl in predicted])
+            self._delta_token = None
+            self._fail_wave(next_pods, e)
+            raise
+        commit_s = time.perf_counter() - t_c0
+        if spec is None:
+            return self._dispatch_causal(next_pods, solve_pool, pm,
+                                         tctx=next_tctx)
+        pm.overlap.inc(by=min(commit_s, spec.encode_s))
+        reason, token, failed_uids = self._verify_speculation(
+            spec, predicted, outcomes)
+        if not reason:
+            # prediction held: wave k+1 is already solving on the exact
+            # state the causal path would have encoded — a clean,
+            # token-paired state, so it is also a checkpoint site
+            self._delta_token = token
+            self._maybe_checkpoint(token)
+            pm.hits.inc()
+            pm.waves.inc()
+            return _Inflight(next_fut, spec.pending, next_tctx)
+        # divergence: the in-flight speculative solve (if any) is
+        # discarded — its results never commit
+        if reason == "bind_failed" and spec.applied:
+            # only this wave's own CAS losers (and/or an overflow)
+            # diverged: roll back the losing rows and rebuild over the
+            # corrected planes
+            self._encoder.forget_pods(failed_uids)
+            self._delta_token = token
+            pm.invalidations.inc("bind_failed" if failed_uids
+                                 else spec.reason or "encoder_fallback")
+            pending2 = spec.pending if spec.pending is not None \
+                else gang.order_wave(next_pods)
+            try:
+                nodes = c.minion_lister.list().items
+                services = self.factory.service_store.list()
+                snap2 = self._encoder.encode_delta(nodes, [], [], pending2,
+                                                   services)
+            except Exception:
+                snap2 = None
+            if snap2 is not None:
+                pm.waves.inc()
+                return _Inflight(solve_pool.submit(self._solve_snap, snap2,
+                                                   len(pending2), next_tctx),
+                                 pending2, next_tctx)
+            return self._dispatch_causal(next_pods, solve_pool, pm,
+                                         tctx=next_tctx)
+        # foreign interference: exact rollback of every speculative row;
+        # the un-advanced token re-delivers the actual events (this
+        # wave's real binds included) to the causal encode below
+        if spec.applied:
+            self._encoder.forget_pods([cl.metadata.uid for cl in predicted])
+        pm.invalidations.inc(reason or spec.reason or "speculation_failed")
+        return self._dispatch_causal(next_pods, solve_pool, pm,
+                                     tctx=next_tctx)
 
     # -- boot prewarm ---------------------------------------------------------
     def _prewarm_boot(self) -> None:
@@ -664,8 +1061,7 @@ class BatchScheduler:
             self._sx.prewarm_ready.set(0)
             threading.Thread(target=self._prewarm_boot, daemon=True,
                              name="tpu-batch-prewarm-boot").start()
-        self._thread = threading.Thread(target=self._loop_causal,
-                                        daemon=True,
+        self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tpu-batch-scheduler")
         self._thread.start()
         return self
@@ -680,14 +1076,33 @@ class BatchScheduler:
             self._thread.join(timeout)
         return not self._thread.is_alive()
 
+    def _loop(self) -> None:
+        if self.pipeline:
+            # speculation needs the incremental encoder's delta planes
+            if self._encoder is not None:
+                return self._loop_pipelined()
+            _log.warning("pipeline mode unavailable (policy needs the "
+                         "order-dependent full encoder); falling back to "
+                         "the causal wave loop")
+        self._loop_causal()
+
+    def _loop_errors(self):
+        return metrics.default_registry().counter(
+            "scheduler_wave_loop_errors_total",
+            "exceptions escaping the tpu-batch wave loop")
+
+    def _stop_on(self, err: NotImplementedError) -> None:
+        """A wave the port cannot solve stops the loop with ``fault`` set
+        instead of requeueing it forever."""
+        _log.error("wave loop stopped: %s", err)
+        self.fault = err
+        self._stop.set()
+
     def _loop_causal(self) -> None:
         # per-pod and per-wave failures are evented + requeued inside
         # schedule_wave; an exception escaping to here is an
-        # infrastructure fault that must not spin silently, and a wave the
-        # port cannot solve stops the loop
-        errs = metrics.default_registry().counter(
-            "scheduler_wave_loop_errors_total",
-            "exceptions escaping the tpu-batch wave loop")
+        # infrastructure fault that must not spin silently
+        errs = self._loop_errors()
         while not self._stop.is_set():
             try:
                 self.schedule_wave(timeout=0.2)
@@ -695,13 +1110,58 @@ class BatchScheduler:
                 continue
             except NotImplementedError as e:
                 errs.inc()
-                _log.error("wave loop stopped: %s", e)
-                self.fault = e
-                self._stop.set()
+                self._stop_on(e)
             except Exception:
                 errs.inc()
                 _log.exception("wave loop error (backing off 10ms)")
                 time.sleep(0.01)
+
+    def _loop_pipelined(self) -> None:
+        import concurrent.futures as cf
+
+        errs = self._loop_errors()
+        pm = _pipeline_metrics()
+        # the pool names are the Explainer's hot-thread guard
+        solve_pool = cf.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tpu-batch-solve")
+        commit_pool = cf.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tpu-batch-commit")
+        inflight: Optional[_Inflight] = None
+        try:
+            while not self._stop.is_set():
+                prev = inflight
+                try:
+                    inflight = self._pipelined_cycle(inflight, solve_pool,
+                                                     commit_pool, pm)
+                except NotImplementedError as e:
+                    errs.inc()
+                    self._stop_on(e)
+                except Exception as e:
+                    # TimeoutError included: the empty-queue drain timeout
+                    # is handled INSIDE the cycle, so one here is a real
+                    # fault and resets state like every other error —
+                    # continuing with the consumed in-flight wave would
+                    # commit it twice
+                    errs.inc()
+                    _log.exception(
+                        "pipelined wave loop error (backing off 10ms)")
+                    # heal: drop the speculation cursor (the next encode
+                    # resyncs, clearing any unverified rows) and hand the
+                    # in-flight wave's pods to the error handler — an
+                    # already-bound pod re-fetches as scheduled and is not
+                    # requeued, so this never double-schedules
+                    self._delta_token = None
+                    inflight = None
+                    if prev is not None:
+                        for pod in prev.pending:
+                            try:
+                                self.config.error(pod, e)
+                            except Exception:
+                                pass
+                    time.sleep(0.01)
+        finally:
+            solve_pool.shutdown(wait=False)
+            commit_pool.shutdown(wait=False)
 
     def _record(self, pod, reason, fmt, *args):
         if self.config.recorder is not None:

@@ -9,21 +9,31 @@ binary's ``/metrics``), the encoder-resync counters and checkpoint
 histogram of the journal-replay path and the boot prewarm's readiness
 gauge and seconds (``SlipstreamMetrics``), the two pod-latency histograms
 the commit and the bound-pod observer write (``PodLatencyMetrics``), the
-preemption family of the commit (``PreemptionMetrics``) and the async
-event recorder's posted/dropped counters (``EventRecorderMetrics``). The
-flight recorder's sampling (``/debug/vars``) is not ported.
+preemption family of the commit (``PreemptionMetrics``), the async
+event recorder's posted/dropped counters (``EventRecorderMetrics``), the
+unschedulability-diagnosis family (``ExplainMetrics``), and the flight
+recorder: every series of the registry sampled into a bounded ring per
+series, with a ``<name>:rate`` series per counter, served incrementally
+at the binary's ``/debug/vars?since=<ns>`` (``FlightRecorder``,
+``flightrec_arm`` ...).
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "DEFAULT_BUCKETS", "POD_E2E_BUCKETS", "SlipstreamMetrics",
            "slipstream_metrics", "PodLatencyMetrics", "pod_latency_metrics",
            "PreemptionMetrics", "preemption_metrics",
-           "EventRecorderMetrics", "event_recorder_metrics"]
+           "EventRecorderMetrics", "event_recorder_metrics",
+           "ExplainMetrics", "explain_metrics",
+           "FlightRecorder", "flightrec_arm", "flightrec_disarm",
+           "flightrec_armed", "flightrec_watch", "flightrec_vars",
+           "flightrec_sample_now", "flightrec"]
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                    10.0)
@@ -80,6 +90,11 @@ class Counter(_Metric):
         with self._lock:
             return sum(self._values.values())
 
+    def by_label(self) -> Dict[Tuple[str, ...], float]:
+        """Snapshot copy of {label values: count}."""
+        with self._lock:
+            return dict(self._values)
+
     def render(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} {self.typ}"]
@@ -91,6 +106,16 @@ class Counter(_Metric):
             out.append(f"{self.name}{_fmt_labels(self.label_names, key)} "
                        f"{_num(v)}")
         return out
+
+    def samples(self) -> List[Tuple[str, str, float]]:
+        """Scalar time-series points for the flight recorder: one
+        ``(series name incl. labels, type, value)`` per label set."""
+        with self._lock:
+            items = list(self._values.items())
+        if not items and not self.label_names:
+            items = [((), 0.0)]
+        return [(self.name + _fmt_labels(self.label_names, key), self.typ, v)
+                for key, v in items]
 
 
 class Gauge(Counter):
@@ -151,6 +176,32 @@ class Histogram(_Metric):
                        f"{_fmt_labels(self.label_names, key)} {n}")
         return out
 
+    def samples(self) -> List[Tuple[str, str, float]]:
+        """Flight-recorder series: cumulative bucket counts (type
+        ``bucket``, no rate series derived for them) including the
+        ``+Inf`` bucket, plus ``_sum``/``_count`` as counters."""
+        with self._lock:
+            items = [(k, (list(c), n, t))
+                     for k, (c, n, t) in self._series.items()]
+        out: List[Tuple[str, str, float]] = []
+        for key, (counts, n, total) in items:
+            for b, c in zip(self.buckets, counts):
+                le = 'le="' + _num(b) + '"'
+                out.append((f"{self.name}_bucket"
+                            f"{_fmt_labels(self.label_names, key, le)}",
+                            "bucket", float(c)))
+            le_inf = 'le="+Inf"'
+            out.append((f"{self.name}_bucket"
+                        f"{_fmt_labels(self.label_names, key, le_inf)}",
+                        "bucket", float(n)))
+            out.append((f"{self.name}_sum"
+                        f"{_fmt_labels(self.label_names, key)}",
+                        "counter", float(total)))
+            out.append((f"{self.name}_count"
+                        f"{_fmt_labels(self.label_names, key)}",
+                        "counter", float(n)))
+        return out
+
 
 class Registry:
     """Named metric registry (get-or-create by name); render_text() is the
@@ -184,7 +235,6 @@ class Registry:
                     f"{cls.__name__}{tuple(label_names)}")
             return m
 
-
     def render_text(self) -> str:
         with self._lock:
             metrics = [self._metrics[k] for k in sorted(self._metrics)]
@@ -192,6 +242,16 @@ class Registry:
         for m in metrics:
             lines.extend(m.render())
         return "\n".join(lines) + "\n"
+
+    def sample(self) -> List[Tuple[str, str, float]]:
+        """Every series in the registry as (name-with-labels, type,
+        value) — one flight-recorder snapshot tick's raw material."""
+        with self._lock:
+            metrics = [self._metrics[k] for k in sorted(self._metrics)]
+        out: List[Tuple[str, str, float]] = []
+        for m in metrics:
+            out.extend(m.samples())
+        return out
 
 
 _default = Registry()
@@ -333,3 +393,272 @@ def event_recorder_metrics() -> EventRecorderMetrics:
     if EventRecorderMetrics._singleton is None:
         EventRecorderMetrics._singleton = EventRecorderMetrics()
     return EventRecorderMetrics._singleton
+
+
+class ExplainMetrics:
+    """Unschedulability diagnosis (models/explain.py, read by the wave
+    scheduler's FailedScheduling path). The
+    ``scheduler_unschedulable_total{reason=...}`` buckets (one per pod,
+    its DOMINANT node-elimination reason; ``unexplained`` when diagnosis
+    was skipped) always sum to ``scheduler_unschedulable_pods_total``."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.pods = reg.counter(
+            "scheduler_unschedulable_pods_total",
+            "Pods a solved wave returned unschedulable (each requeue "
+            "that fails again counts again — this is the pending "
+            "pressure signal, not a distinct-pod count)")
+        self.reasons = reg.counter(
+            "scheduler_unschedulable_total",
+            "Unschedulable pods by dominant node-elimination reason "
+            "('unexplained' = diagnosis skipped)", ("reason",))
+        self.invocations = reg.counter(
+            "scheduler_explain_invocations_total",
+            "Waves diagnosed (rate-limited; a wave where every pod binds "
+            "never invokes it)")
+        self.seconds = reg.counter(
+            "scheduler_explain_seconds_total",
+            "CPU seconds spent in diagnosis (thread_time on the wave "
+            "loop thread)")
+        self.skipped = reg.counter(
+            "scheduler_explain_skipped_total",
+            "Waves with unschedulable pods whose diagnosis was declined, "
+            "by reason (rate_limited / unsupported / hot_path / error)",
+            ("reason",))
+
+
+def explain_metrics() -> ExplainMetrics:
+    if ExplainMetrics._singleton is None:
+        ExplainMetrics._singleton = ExplainMetrics()
+    return ExplainMetrics._singleton
+
+
+# -- the flight recorder: continuous in-process metric time-series ----------
+#
+# /metrics answers "what is the value NOW"; the flight recorder snapshots
+# every Registry series into a per-process fixed-size ring of
+# (monotonic_ns, value) samples at a configurable period (default 1 s),
+# derives a ``<name>:rate`` series for every counter, and serves the rings
+# incrementally at ``GET /debug/vars?since=<ns>``. Lazily armed (a process
+# that never samples pays one module-global branch and allocates
+# nothing); sampling is a pull from a dedicated thread, so no metric
+# writer is ever blocked; eviction is bounded and counted.
+
+_FLIGHTREC_CAPACITY = 512          # ring slots per series (~8.5 min at 1 s)
+_FLIGHTREC_PERIOD_S = 1.0
+
+
+class _SeriesRing:
+    """Fixed-size (t_ns, value) ring for one series. The single sampler
+    thread writes; readers walk newest->oldest under the recorder lock."""
+
+    __slots__ = ("typ", "t", "v", "n", "cap")
+
+    def __init__(self, typ: str, cap: int):
+        self.typ = typ
+        self.cap = cap
+        self.t = [0] * cap
+        self.v = [0.0] * cap
+        self.n = 0              # samples ever written; n-cap evicted
+
+    def put(self, t_ns: int, value: float) -> None:
+        i = self.n % self.cap
+        self.t[i] = t_ns
+        self.v[i] = value
+        self.n += 1
+
+    def since(self, since_ns: int) -> List[List[float]]:
+        """Samples with t > since_ns, oldest first. Walks backward from
+        the newest slot, so an incremental pull is O(new samples)."""
+        out: List[List[float]] = []
+        live = min(self.n, self.cap)
+        for k in range(live):
+            i = (self.n - 1 - k) % self.cap
+            if self.t[i] <= since_ns:
+                break
+            out.append([self.t[i], self.v[i]])
+        out.reverse()
+        return out
+
+    @property
+    def evicted(self) -> int:
+        return max(0, self.n - self.cap)
+
+
+class FlightRecorder:
+    """Samples every watched Registry (plus per-process built-ins: RSS,
+    CPU seconds, tracing span loss) into per-series rings."""
+
+    def __init__(self, service: str = "",
+                 period_s: float = _FLIGHTREC_PERIOD_S,
+                 capacity: int = _FLIGHTREC_CAPACITY):
+        self.service = service or f"pid{os.getpid()}"
+        self.period_s = period_s
+        self.capacity = capacity
+        self._rings: Dict[str, _SeriesRing] = {}
+        self._prev: Dict[str, Tuple[int, float]] = {}
+        self._lock = threading.Lock()
+        self._registries: List[Registry] = [default_registry()]
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "FlightRecorder":
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="flightrec-sampler")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+
+    def watch(self, registry: Registry) -> None:
+        """Add a non-default registry to the sampled set."""
+        with self._lock:
+            if registry not in self._registries:
+                self._registries.append(registry)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.sample_now()
+            except Exception:
+                pass  # a torn registry mutation must not kill sampling
+            self._stop.wait(self.period_s)
+
+    # -- sampling ----------------------------------------------------------
+    def _process_samples(self) -> List[Tuple[str, str, float]]:
+        """Per-process built-ins no Registry carries: resident set size,
+        cumulative CPU seconds (rate = core share), and the span ring's
+        unread-loss estimate."""
+        from kubernetes_tpu_torch.util import tracing
+
+        out: List[Tuple[str, str, float]] = []
+        try:
+            with open("/proc/self/statm") as fh:
+                rss_pages = int(fh.read().split()[1])
+            out.append(("process_resident_bytes", "gauge",
+                        float(rss_pages * os.sysconf("SC_PAGE_SIZE"))))
+        except (OSError, IndexError, ValueError):
+            pass
+        out.append(("process_cpu_seconds_total", "counter",
+                    float(time.process_time())))
+        loss = tracing.loss_peek()
+        if loss is not None:
+            out.append(("tracing_spans_dropped", "gauge", float(loss)))
+        return out
+
+    def sample_now(self) -> int:
+        """One snapshot tick (the sampler thread's body; tests and the
+        arm path call it directly). Returns the series count touched."""
+        t_ns = time.monotonic_ns()
+        with self._lock:
+            regs = list(self._registries)
+        points: List[Tuple[str, str, float]] = []
+        for reg in regs:
+            points.extend(reg.sample())
+        points.extend(self._process_samples())
+        with self._lock:
+            for name, typ, val in points:
+                ring = self._rings.get(name)
+                if ring is None:
+                    ring = self._rings[name] = _SeriesRing(typ, self.capacity)
+                ring.put(t_ns, val)
+                if typ == "counter":
+                    prev = self._prev.get(name)
+                    self._prev[name] = (t_ns, val)
+                    if prev is not None and t_ns > prev[0]:
+                        rate = (val - prev[1]) / ((t_ns - prev[0]) / 1e9)
+                        rname = name + ":rate"
+                        rring = self._rings.get(rname)
+                        if rring is None:
+                            rring = self._rings[rname] = _SeriesRing(
+                                "rate", self.capacity)
+                        # counters are monotone; a reset (restart) shows
+                        # as a clamped-to-zero rate, never a negative one
+                        rring.put(t_ns, max(0.0, rate))
+        return len(points)
+
+    # -- the /debug/vars payload ------------------------------------------
+    def vars_payload(self, since_ns: int = 0) -> Dict[str, object]:
+        """The ``GET /debug/vars?since=<ns>`` body: this process's shard
+        of samples newer than the caller's cursor. The cursor lives with
+        the caller (the newest ``t`` it saw), so concurrent pullers never
+        disturb each other and a re-pull is idempotent."""
+        with self._lock:
+            series = {}
+            evicted = 0
+            for name, ring in self._rings.items():
+                pts = ring.since(since_ns)
+                evicted += ring.evicted
+                if pts:
+                    series[name] = {"type": ring.typ, "samples": pts}
+        return {"armed": True, "service": self.service, "pid": os.getpid(),
+                "period_s": self.period_s, "capacity": self.capacity,
+                "t_ns": time.monotonic_ns(), "evicted": evicted,
+                "series": series}
+
+
+# module-global fast path: one load + one branch when never armed, the
+# same shape as tracing._on
+_flightrec: Optional[FlightRecorder] = None
+
+
+def flightrec() -> Optional[FlightRecorder]:
+    return _flightrec
+
+
+def flightrec_armed() -> bool:
+    return _flightrec is not None
+
+
+def flightrec_arm(service: str = "", period_s: float = _FLIGHTREC_PERIOD_S,
+                  capacity: int = _FLIGHTREC_CAPACITY,
+                  sample: bool = True) -> FlightRecorder:
+    """Arm the per-process flight recorder (idempotent; the ring arrays
+    are allocated HERE, so a never-sampled process pays nothing at
+    import). ``sample=True`` takes an immediate first snapshot so the
+    first cursor pull is never empty."""
+    global _flightrec
+    if _flightrec is None:
+        _flightrec = FlightRecorder(service=service, period_s=period_s,
+                                    capacity=capacity)
+        if sample:
+            _flightrec.sample_now()
+        _flightrec.start()
+    elif service and _flightrec.service.startswith("pid"):
+        _flightrec.service = service
+    return _flightrec
+
+
+def flightrec_disarm() -> None:
+    global _flightrec
+    if _flightrec is not None:
+        _flightrec.stop()
+        _flightrec = None
+
+
+def flightrec_watch(registry: Registry) -> None:
+    if _flightrec is not None:
+        _flightrec.watch(registry)
+
+
+def flightrec_sample_now() -> int:
+    return _flightrec.sample_now() if _flightrec is not None else 0
+
+
+def flightrec_vars(since_ns: int = 0) -> Dict[str, object]:
+    """/debug/vars body; a disarmed process answers with a marker (no
+    shard yet), not an error."""
+    if _flightrec is None:
+        return {"armed": False, "service": f"pid{os.getpid()}",
+                "pid": os.getpid(), "t_ns": time.monotonic_ns(),
+                "series": {}}
+    return _flightrec.vars_payload(since_ns)

@@ -10,10 +10,10 @@ pod must equal the reference ``scheduler_server``'s on an identical
 second apiserver, and the serial oracle's (tolerance 0: host names).
 The binary's debug server (``/metrics`` with the ``scheduler_wave_*``
 family and ``compile_prewarm_ready 1`` under ``--prewarm``, ``/healthz``
-JSON, ``/debug/pprof``, 501 for the unported ``/debug/trace`` and
-``/debug/vars``), every unported flag's refusal naming its ROADMAP item,
-and the default ``--device cuda`` failing without a card are checked
-too.
+JSON, ``/debug/pprof``, the span shard at ``/debug/trace`` and the
+flight recorder's series at ``/debug/vars``), every unported flag's
+refusal naming its ROADMAP item, and the default ``--device cuda``
+failing without a card are checked too.
 """
 
 import json
@@ -276,9 +276,22 @@ def test_debug_server_endpoints(two_apiservers, tmp_path):
         code, body = _http_get(url + "/debug/pprof/goroutine")
         assert code == 200 and "tpu-batch-scheduler" in body
         assert _http_get(url + "/debug/pprof/bogus")[0] == 404
-        for path in ("/debug/trace", "/debug/vars"):
-            code, body = _http_get(url + path)
-            assert code == 501 and "Queue 1 item 5" in body, path
+        # the first /debug/vars pull arms the flight recorder; a cursor
+        # past every sample reads no series
+        code, body = _http_get(url + "/debug/vars")
+        fr = json.loads(body)
+        assert code == 200 and fr["armed"] and fr["pid"] == proc.pid
+        assert fr["service"] == "scheduler"
+        assert "process_resident_bytes" in fr["series"]
+        assert "scheduler_wave_pods_total" in fr["series"]
+        code, body = _http_get(url + f"/debug/vars?since="
+                                     f"{fr['t_ns'] + 10**13}")
+        assert code == 200 and json.loads(body)["series"] == {}
+        # tracing is off without --trace: an empty shard, not an error
+        code, body = _http_get(url + "/debug/trace")
+        shard = json.loads(body)
+        assert code == 200 and shard["pid"] == proc.pid
+        assert shard["spans"] == [] and shard["dropped"] == 0
         # a dead apiserver turns the deep health check to 503
         ours.close()
         code, body = _http_get(url + "/healthz")
@@ -288,11 +301,8 @@ def test_debug_server_endpoints(two_apiservers, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--algorithm", "tpu-batch", "--pipeline"], "Queue 1 item 4"),
     (["--solver-addr", "127.0.0.1:1"], "Queue 1 item 6"),
     (["--mesh", "on"], "Queue 1 item 7"),
-    (["--trace"], "Queue 1 item 5"),
-    (["--flightrec"], "Queue 1 item 5"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item, capsys):
     assert port_cmd.scheduler_server(["--master", "http://127.0.0.1:1"]
@@ -302,12 +312,12 @@ def test_unported_flags_exit_naming_their_roadmap_item(flags, item, capsys):
 
 def test_unported_flag_exits_nonzero_as_a_process(tmp_path):
     err = tmp_path / "stderr.txt"
-    proc = _port_binary(["--trace"], err)
+    proc = _port_binary(["--mesh", "on"], err)
     try:
         assert proc.wait(timeout=60) != 0
     finally:
         _stop_process(proc)
-    assert "Queue 1 item 5" in err.read_text()
+    assert "Queue 1 item 7" in err.read_text()
 
 
 def test_default_device_without_a_card_fails(two_apiservers, tmp_path):

@@ -45,7 +45,7 @@ def test_walk_covers_the_scheduler_slice():
               "api.latest", "client.http", "scheduler.predicates",
               "scheduler.priorities", "scheduler.listers",
               "scheduler.generic", "scheduler.plugins", "util.pprof",
-              "probe", "cmd.scheduler"):
+              "probe", "cmd.scheduler", "util.tracing", "models.explain"):
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 

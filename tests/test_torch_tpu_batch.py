@@ -13,8 +13,8 @@ package's, on the CPU.
     apiserver (``Master``), reached through a test-only transport that
     converts objects between the two packages by field name.
 (c) What the port does not do yet raises NotImplementedError naming its
-    ROADMAP item: the pipelined loop, the solver daemon, the device mesh,
-    the boot prewarm; and the default device needs a card.
+    ROADMAP item: the solver daemon and the device mesh; the boot prewarm
+    solves an exemplar wave; and the default device needs a card.
 (d) Preemption: a preempting pod binds with its victims through the
     FakeCluster's and the apiserver's atomic evict+bind; a binder without
     ``bind_many`` commits pod by pod.
@@ -429,8 +429,6 @@ def _small_factory(pending=(), bound=()):
 
 
 @pytest.mark.parametrize("kw, create_kw, item", [
-    ({"pipeline": True}, {}, "the pipelined loop"),
-    ({}, {"pipeline": True}, "the pipelined loop"),
     ({}, {"solver_addr": "localhost:1"}, "solverd"),
     ({}, {"mesh": "on"}, "parallel/mesh.py"),
 ])

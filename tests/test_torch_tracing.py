@@ -1,0 +1,355 @@
+"""The port's kube-trace (kubernetes_tpu_torch/util/tracing.py) against the
+JAX package's, on the CPU.
+
+Span nesting and parenting, the ring buffer's never-block and
+evict-oldest contract with its counted loss, the wire form read by either
+package's ``parse``, the Chrome-trace export equal to the reference's for
+the same shards, the disabled path's <1% overhead guard against the
+port's own encode, and the ``X-KTPU-Trace`` header of the port's
+``HTTPTransport`` joining the JAX package's apiserver (served in this
+process with the reference's tracing on) to the port's trace. Every test
+leaves both packages' tracing disabled.
+"""
+
+import json
+import threading
+import time
+
+import pytest
+
+from chip_smoke import _free_port
+from kubernetes_tpu.cmd.apiserver import apiserver_server
+from kubernetes_tpu.util import tracing as ref_tracing
+from kubernetes_tpu_torch.api import types as port_api
+from kubernetes_tpu_torch.api.quantity import Quantity
+from kubernetes_tpu_torch.client.client import Client
+from kubernetes_tpu_torch.client.http import HTTPTransport
+from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+from kubernetes_tpu_torch.util import tracing
+
+
+@pytest.fixture(autouse=True)
+def _tracing_off_after():
+    """Tracing state is process-global in both packages: every test
+    leaves it the way entry points start, disabled with drained rings."""
+    try:
+        yield
+    finally:
+        for t in (tracing, ref_tracing):
+            t.drain()
+            t.disable()
+
+
+def fresh(capacity=4096):
+    tracing.enable("test", capacity=capacity)
+    tracing.drain()
+
+
+def mk_node(name):
+    return port_api.Node(
+        metadata=port_api.ObjectMeta(name=name),
+        spec=port_api.NodeSpec(capacity={"cpu": Quantity("8"),
+                                         "memory": Quantity("16Gi")}))
+
+
+def mk_pod(name):
+    return port_api.Pod(
+        metadata=port_api.ObjectMeta(name=name, namespace="default",
+                                     uid=f"uid-{name}",
+                                     labels={"app": "web"}),
+        spec=port_api.PodSpec(containers=[port_api.Container(
+            name="c", image="i",
+            resources=port_api.ResourceRequirements(limits={
+                "cpu": Quantity("500m"), "memory": Quantity("512Mi")}))]))
+
+
+# -- spans: nesting and parenting --------------------------------------------
+
+class TestSpans:
+    def test_nesting_and_ordering(self):
+        fresh()
+        with tracing.span("outer", parent=None, wave=7) as outer:
+            with tracing.span("inner") as inner:
+                time.sleep(0.001)
+        assert inner.ctx[0] == outer.ctx[0]
+        spans = tracing.drain()["spans"]
+        assert [s["name"] for s in spans] == ["inner", "outer"]
+        i, o = spans
+        assert i["tid"] == o["tid"]
+        assert i["psid"] == o["sid"]
+        assert o["psid"] == ""
+        assert o["attrs"] == {"wave": 7}
+        assert i["t0"] >= o["t0"]
+        assert i["t0"] + i["dur"] <= o["t0"] + o["dur"]
+
+    def test_disabled_is_nop_and_records_nothing(self):
+        fresh()
+        tracing.disable()
+        s = tracing.span("x")
+        assert s is tracing.NOP
+        with s:
+            assert tracing.current() is None
+        tracing.record("y", 0, 10)
+        assert tracing.new_ctx() is None
+        assert tracing.wire() == ""
+        assert tracing.start("z") is tracing.NOP
+        tracing.enable("test")
+        assert tracing.drain()["spans"] == []
+
+    def test_child_span_outside_any_trace_is_nop(self):
+        fresh()
+        assert tracing.child_span("store.create") is tracing.NOP
+        with tracing.span("req"):
+            with tracing.child_span("store.create") as c:
+                assert c is not tracing.NOP
+        names = [s["name"] for s in tracing.drain()["spans"]]
+        assert names == ["store.create", "req"]
+
+    def test_exception_tags_span_and_propagates(self):
+        fresh()
+        with pytest.raises(ValueError):
+            with tracing.span("boom"):
+                raise ValueError("x")
+        (sp,) = tracing.drain()["spans"]
+        assert sp["attrs"]["error"] == "ValueError"
+
+    def test_explicit_parent_crosses_threads(self):
+        fresh()
+        ctx = tracing.new_ctx()
+        done = threading.Event()
+
+        def worker():
+            with tracing.span("stage", parent=ctx):
+                pass
+            done.set()
+
+        threading.Thread(target=worker, name="tpu-batch-solve_0").start()
+        assert done.wait(5)
+        (sp,) = tracing.drain()["spans"]
+        assert sp["tid"] == ctx[0] and sp["psid"] == ctx[1]
+        assert sp["thr"] == "tpu-batch-solve_0"
+
+    def test_start_finish_handle_does_not_install_ambient(self):
+        fresh()
+        h = tracing.start("wave", pods=3)
+        assert tracing.current() is None
+        h.set(bound=3)
+        h.finish(committed=True)
+        (sp,) = tracing.drain()["spans"]
+        assert sp["name"] == "wave"
+        assert sp["attrs"] == {"pods": 3, "bound": 3, "committed": True}
+
+    def test_record_retroactive_span(self):
+        fresh()
+        ctx = tracing.new_ctx()
+        tracing.record("wave.drain", 100, 250, parent=ctx, pods=4)
+        (sp,) = tracing.drain()["spans"]
+        assert (sp["tid"], sp["psid"]) == ctx
+        assert sp["t0"] == 100 and sp["dur"] == 150
+
+
+# -- the ring ------------------------------------------------------------------
+
+class TestRing:
+    def test_bounded_eviction_counts_dropped_never_blocks(self):
+        fresh(capacity=64)
+        for i in range(200):
+            tracing.record("s", i, i + 1, idx=i)
+        assert tracing.loss_peek() == 200 - 64   # visible before a drain
+        shard = tracing.drain()
+        assert len(shard["spans"]) == 64
+        assert shard["dropped"] == 200 - 64
+        assert shard["written"] == 200
+        assert [s["attrs"]["idx"] for s in shard["spans"]] == \
+            list(range(136, 200))
+        assert tracing.loss_peek() == 0
+
+    def test_drain_before_enable_is_empty_not_an_error(self):
+        saved = tracing._state.ring
+        try:
+            tracing.disable()
+            tracing._state.ring = None
+            assert tracing.loss_peek() is None
+            shard = tracing.drain()
+            assert shard["spans"] == []
+            assert shard["written"] == 0 and shard["dropped"] == 0
+        finally:
+            tracing._state.ring = saved
+
+    def test_drain_returns_each_span_once_and_peek_keeps_the_cursor(self):
+        fresh(capacity=64)
+        tracing.record("a", 0, 1)
+        assert len(tracing.drain(reset=False)["spans"]) == 1
+        assert len(tracing.drain()["spans"]) == 1
+        assert tracing.drain()["spans"] == []
+        tracing.record("b", 1, 2)
+        shard = tracing.drain()
+        assert [s["name"] for s in shard["spans"]] == ["b"]
+        assert shard["dropped"] == 0
+
+    def test_concurrent_writers_never_error(self):
+        fresh(capacity=128)
+        stop = threading.Event()
+        errs = []
+
+        def writer():
+            try:
+                while not stop.is_set():
+                    with tracing.span("w"):
+                        pass
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+
+        threads = [threading.Thread(target=writer) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for _ in range(20):
+            tracing.drain()
+            time.sleep(0.001)
+        stop.set()
+        for t in threads:
+            t.join(5)
+        assert not errs
+
+
+# -- the wire form, read by either package -----------------------------------
+
+class TestWireForm:
+    def test_each_package_parses_the_others_header(self):
+        fresh()
+        ref_tracing.enable("ref-test")
+        assert tracing.HEADER == ref_tracing.HEADER == "X-KTPU-Trace"
+        with tracing.span("port") as sp:
+            w = tracing.wire()
+        assert w and ref_tracing.parse(w) == tracing.parse(w) == sp.ctx
+        with ref_tracing.span("ref") as rsp:
+            rw = ref_tracing.wire()
+        assert tracing.parse(rw) == ref_tracing.parse(rw) == rsp.ctx
+        # a span parented on the other package's context joins its trace
+        with tracing.span("child", parent=tracing.parse(rw)) as c:
+            pass
+        assert c.ctx[0] == rsp.ctx[0]
+
+    @pytest.mark.parametrize("junk", [
+        None, "", "noseparator", "-", "a-", "-b", 42, b"x-y",
+        "t" * 65 + "-s", "t-" + "s" * 65])
+    def test_parse_tolerates_junk_as_the_reference_does(self, junk):
+        assert tracing.parse(junk) is None
+        assert ref_tracing.parse(junk) is None
+
+
+# -- the Chrome-trace export -------------------------------------------------
+
+class TestChromeExport:
+    def test_export_equals_the_references_for_the_same_shards(self, tmp_path):
+        fresh()
+        with tracing.span("wave", pods=2):
+            with tracing.span("encode"):
+                pass
+        shard_a = tracing.drain()
+        shard_b = {"service": "apiserver", "pid": 999, "written": 1,
+                   "dropped": 3, "spans": [
+                       {"name": "http.post", "tid": "t2", "sid": "s2",
+                        "psid": "p2", "t0": 5_000_000, "dur": 1_000_000,
+                        "thr": "worker-0", "attrs": {"code": 201}}]}
+        want = ref_tracing.chrome_trace([shard_a, shard_b])
+        assert tracing.chrome_trace([shard_a, shard_b]) == want
+        path = tracing.dump_chrome([shard_a, shard_b],
+                                   str(tmp_path / "merged_trace.json"))
+        with open(path) as fh:
+            doc = json.load(fh)
+        assert doc == json.loads(json.dumps(want))
+        x = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        assert len(x) == 3
+        assert {e["args"]["name"] for e in doc["traceEvents"]
+                if e["name"] == "process_name"} >= {"test", "apiserver"}
+        sd = next(e for e in x if e["name"] == "http.post")
+        assert sd["dur"] == pytest.approx(1000.0) and sd["pid"] == 999
+
+
+# -- the overhead guard --------------------------------------------------------
+
+class TestOverheadGuard:
+    def test_disabled_tracing_under_1pct_of_stage_loop(self):
+        """The disabled path, costed against the port's cheapest real
+        stage (one 128-node/256-pod encode): one wave's worth of disabled
+        call sites must cost <1% of it. Both sides are timed min-of-N so
+        a loaded machine cannot fail the comparison on noise alone."""
+        tracing.disable()
+        nodes = [mk_node(f"ov-n{i}") for i in range(128)]
+        pending = [mk_pod(f"ov-p{j}") for j in range(256)]
+        encode_snapshot(nodes, [], pending, [])  # warm the path
+
+        def one_encode():
+            t0 = time.perf_counter()
+            encode_snapshot(nodes, [], pending, [])
+            return time.perf_counter() - t0
+
+        stage_s = min(one_encode() for _ in range(5))
+
+        def noop_waves(n=10_000):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with tracing.span("wave.encode"):
+                    pass
+                with tracing.span("wave.solve"):
+                    pass
+                with tracing.span("wave.commit"):
+                    pass
+                with tracing.child_span("store.create"):
+                    pass
+                tracing.new_ctx()
+                tracing.record("wave.drain", 0, 1)
+                tracing.record("wave.prepare", 0, 1)
+                tracing.current()
+                tracing.current()
+                tracing.wire()
+            return (time.perf_counter() - t0) / n
+
+        per_wave_s = min(noop_waves() for _ in range(5))
+        assert per_wave_s < 0.01 * stage_s, (
+            f"disabled tracing {per_wave_s * 1e6:.2f}us/wave vs stage "
+            f"{stage_s * 1e3:.2f}ms — over the 1% budget")
+
+
+# -- the header over HTTP, into the JAX package's apiserver ------------------
+
+def test_port_request_joins_the_reference_apiservers_trace():
+    """The port's HTTPTransport, inside a port span, creates and binds a
+    pod on the JAX package's apiserver (served in this process, the
+    reference's tracing on): the apiserver's handler and store spans carry
+    the port's trace id and parent into it; untraced requests add none."""
+    port = _free_port()
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(target=apiserver_server,
+                         args=(["--port", str(port), "--trace"],),
+                         kwargs={"ready": ready, "stop": stop}, daemon=True)
+    t.start()
+    try:
+        assert ready.wait(30)
+        fresh()
+        client = Client(HTTPTransport(f"http://127.0.0.1:{port}"))
+        client.nodes().create(mk_node("trace-n0"))   # outside any span
+        ref_tracing.drain()
+        with tracing.span("test.bind") as sp:
+            client.pods("default").create(mk_pod("trace-p0"))
+            client.pods("default").bind(port_api.Binding(
+                metadata=port_api.ObjectMeta(name="trace-p0",
+                                             namespace="default"),
+                pod_name="trace-p0", host="trace-n0"))
+        client.nodes().create(mk_node("trace-n1"))   # untraced again
+        tid = sp.ctx[0]
+        spans = ref_tracing.drain()["spans"]
+        remote = [s for s in spans if s["tid"] == tid]
+        names = {s["name"] for s in remote}
+        assert "http.post" in names
+        assert "store.create" in names
+        assert all(s["psid"] for s in remote)
+        # the untraced creates opened no trace of the port's
+        assert all(s["tid"] == tid for s in spans
+                   if s["name"] == "http.post")
+        # the client-side span stayed in the port's ring
+        assert "test.bind" in {s["name"] for s in tracing.drain()["spans"]}
+    finally:
+        stop.set()
+        t.join(timeout=10)
