@@ -11,8 +11,11 @@ scheduler's wave loop (BatchScheduler) binding a north-star cluster wave
 by wave, causal and pipelined, and preempting on the priority cluster,
 and the scheduler binary (cmd/scheduler.py) binding a north-star cluster
 through an apiserver process over HTTP, causal and pipelined with wave
-tracing, the flight recorder and the unschedulability diagnosis — and
-holds the kernel against its plain PyTorch version. Phases:
+tracing, the flight recorder and the unschedulability diagnosis, and the
+shared solver daemon (solver/service.py, cmd/solverd.py) coalescing
+concurrent north-star waves into one batched launch, one block per wave,
+in process and under the binary — and holds the kernel against its plain
+PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
 2. build the CUDA sources with nvcc (one process per source, in
@@ -39,6 +42,19 @@ holds the kernel against its plain PyTorch version. Phases:
    equal-priority pods, gangs, zone anti-affinity, service affinity, both
    state layouts: kernel == plain version, bit for bit, and no victim at
    equal or higher priority, no Never pod placed by eviction;
+4d. the batched launch: sixteen seeded waves of different shapes (two
+   default north_star cuts, two zone anti-affinity, two gang, one int64
+   and one preemption wave, about 1,500 nodes x 120 pods; then groups
+   padded further to an odd node count and an odd group count, so that a
+   wave's packed state is not a multiple of 4 bytes: two gang waves, an
+   int64 wave with bands and one without, two int64 waves without bands,
+   and two north_star cuts of about 6,800 nodes, whose state lives in
+   global memory), grouped as the solver daemon groups them, each group
+   padded to its per-axis maximum, all given to one
+   ``solve_commit_batch``: every wave == the plain version (max abs err
+   0) == its own unpadded single-wave launch, one launch per distinct
+   launch key (shape and flags), and each group took the state layout
+   and the kernel instance named for it;
 5. north_star through ``solve``: exactly one kernel launch and no call of
    the plain version, decisions and scores bit-identical to the plain
    version, every pod bound; kernel time (median of CUDA-event timed
@@ -130,7 +146,26 @@ holds the kernel against its plain PyTorch version. Phases:
    span shard of /debug/trace holds the wave stages and a speculative
    encode (written as a Chrome trace to
    ``chiprun_out/phase9c_trace.json``), /debug/vars holds the pipeline
-   waves series and its rate, and the launches are accounted for.
+   waves series and its rate, and the launches are accounted for;
+10. the solver daemon: a ``SolverService`` on the card in this process
+   (gather window 50 ms) and four client threads, each with its own
+   ``RemoteSolver`` (delta wire on) and its own north_star cluster (5,000
+   nodes, seeded), each shipping 6 waves of 1,024 pods through its
+   ``IncrementalEncoder``, released together at a barrier every round.
+   Fails unless some device solve coalesced two or more waves, the
+   launches equal the daemon's kernel-path solves, the plain version
+   never ran, every reply equals the in-process ``solve(snap)`` of the
+   same wave, and every wave after a client's first rode the delta wire.
+   Logs the group sizes, the bytes shipped against the full frames, and
+   the batched launch alone (CUDA events) over k = 1, 2, 4, 8 and 16 of
+   the first round's waves, k = 4 against its plain version;
+10b. ``python -m kubernetes_tpu_torch.cmd.solverd --prewarm`` as its own
+   process and the scheduler binary (``--algorithm tpu-batch --prewarm
+   --solver-addr``) against a fresh apiserver process holding north_star's
+   nodes, bound pods and services, then 2,000 pending pods. Fails unless
+   every pod binds within capacity, every wave went to the daemon (no
+   fallback, no busy wave, no launch in the scheduler's process) and the
+   daemon's ``solverd_coalesced_waves_total`` equals the remote waves.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -138,7 +173,7 @@ from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
 goes to ``chiprun_out/chip_smoke.json``, the apiservers' and phase 9b's
-binary's output to ``chiprun_out/phase9*.log``.
+binary's output to ``chiprun_out/phase9*.log`` and ``phase10b_*.log``.
 """
 
 from __future__ import annotations
@@ -292,9 +327,10 @@ def _bound(ci, feasible_pairs: int, preempt_pairs: int = 0):
 
 def _ptxas_report(log: str) -> dict:
     """ptxas' registers, static shared memory, stack and spills for each
-    kernel instance, keyed by the instance's resource type, branch set and
-    state layout (``commit_solve<int32,pre,aff,anti,gang,static,shared>``
-    with 0/1 flags) or the kernel's name."""
+    kernel instance, keyed by the instance's resource type, branch set,
+    state layout and batching
+    (``commit_solve<int32,pre,aff,anti,gang,static,shared,batch>`` with 0/1
+    flags) or the kernel's name."""
     import re
 
     out: dict = {}
@@ -315,7 +351,8 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"Used \d+ registers.*", ln)
         if m and entry:
             flags = re.search(r"commit_solve_kernelI([ix])Lb([01])ELb([01])"
-                              r"ELb([01])ELb([01])ELb([01])ELb([01])E", entry)
+                              r"ELb([01])ELb([01])ELb([01])ELb([01])"
+                              r"ELb([01])E", entry)
             name = entry
             if flags:
                 res = "int32" if flags.group(1) == "i" else "int64"
@@ -794,6 +831,207 @@ def _pre_fuzz(dev) -> dict:
     seen["wide"] = wide
     seen["seconds"] = time.perf_counter() - t0
     return seen
+
+
+# ---- phase 4d: the batched launch against its plain version ---------------
+
+# (family, seed, node and pod fractions of the phase's width, group): eight
+# waves, two of a family but int64 and preemption, of different shapes,
+# grouped as the daemon groups them; then the groups that pad to an odd
+# node count and an odd group count ("odd-*", _odd_target): a gang group
+# (the checkpoint is per wave), int64 with and without bands, int64 with
+# no bands (the int64 instance without preemption), and a group too wide
+# for shared memory (its node fractions are of ``n_global``)
+_BATCH_CASES = [
+    ("default", 700, 1.0, 1.0, ""), ("default", 701, 0.9, 0.8, ""),
+    ("anti", 710, 1.0, 1.0, ""), ("anti", 711, 0.95, 0.9, ""),
+    ("gang", 720, 1.0, 1.0, ""), ("gang", 721, 0.9, 1.1, ""),
+    ("int64", 730, 1.0, 1.0, ""), ("preempt", 740, 0.8, 1.0, ""),
+    ("gang", 722, 1.0, 1.0, "odd-gang"), ("gang", 723, 0.9, 0.9, "odd-gang"),
+    ("int64", 731, 1.0, 1.0, "odd-int64"),
+    ("int64flat", 732, 0.9, 1.0, "odd-int64"),
+    ("int64flat", 733, 1.0, 1.0, "odd-int64flat"),
+    ("int64flat", 734, 0.9, 0.9, "odd-int64flat"),
+    ("default", 750, 1.0, 1.0, "odd-global"),
+    ("default", 751, 0.97, 0.9, "odd-global"),
+]
+
+# the instance each group of two or more waves takes on the card
+# (commit_solver.instance_of: int32|int64, pre, aff, anti, gang, static,
+# shared, batch)
+_BATCH_INSTANCES = {
+    "default": "commit_solve<int32,1,1,1,0,1,1,1>",
+    "anti": "commit_solve<int32,0,0,1,0,0,1,1>",
+    "gang": "commit_solve<int32,0,0,0,1,0,1,1>",
+    "odd-gang": "commit_solve<int32,0,0,0,1,0,1,1>",
+    "odd-int64": "commit_solve<int64,1,1,1,0,1,0,1>",
+    "odd-int64flat": "commit_solve<int64,0,1,1,0,1,1,1>",
+    "odd-global": "commit_solve<int32,0,0,0,0,0,0,1>",
+}
+
+
+def _batch_wave(family: str, rng: random.Random, n_nodes: int,
+                n_pods: int):
+    """One seeded wave of a phase 4d family -> its snapshot. The anti and
+    gang families fix the spread weight, so their two waves share one
+    policy and pad together; the preemption wave runs the default policy,
+    so the default waves (no bands) pad to its bands. ``int64flat`` is
+    north_star's objects with one node of 1 TiB + 3 B: int64 planes, no
+    bands."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+
+    if family in ("default", "int64flat"):
+        # north_star's objects (no priority bands), cut by the case
+        from kubernetes_tpu_torch.models.fixtures import build_cluster
+        nodes, existing, pending, services = build_cluster(n_nodes, n_pods)
+        rng.shuffle(pending)
+        if family == "int64flat":
+            nodes[0].spec.capacity["memory"] = Quantity((1 << 40) + 3)
+        return encode_snapshot(nodes, existing, pending, services)
+    if family in ("anti", "gang"):
+        kw = dict(anti=1) if family == "anti" else dict(gangs=True)
+        wave, policy = _ext_wave(rng, n_nodes, n_pods, **kw)
+        return encode_snapshot(
+            *wave, policy=dataclasses.replace(policy, w_spread=1))
+    wave, policy = _pre_wave(rng, n_nodes, n_pods, 3 if family == "int64"
+                             else 4, wide=family == "int64")
+    return IncrementalEncoder(policy).encode(*wave)
+
+
+def _odd_target(target: dict) -> dict:
+    """A group target grown to an odd node count and an odd group count
+    (pad nodes and pad groups decide nothing): one wave's packed state is
+    then not a multiple of 4 bytes, so in a batched launch every wave
+    after the first would start misaligned but for the per-wave stride
+    (commit_solver.state_stride)."""
+    t = dict(target, N=target["N"] | 1, G=target["G"] | 1)
+    t["N1"] = t["N"] + 1
+    return t
+
+
+def _check_taken(taken: dict) -> None:
+    """Phase 4d at its full widths: each group of ``_BATCH_INSTANCES``
+    took the kernel instance named for it (the seventh flag is the state
+    layout: the "odd-global" group and the int64 group with bands keep
+    their state in global memory), and each "odd-*" group's state is not
+    a multiple of 4 bytes."""
+    for name, want in _BATCH_INSTANCES.items():
+        got = taken[name]
+        if got["instance"] != want:
+            raise AssertionError(f"phase 4d group {name}: instance "
+                                 f"{got['instance']} ({got['layout']} "
+                                 f"layout), want {want}")
+        if name.startswith("odd-") and got["state_bytes"] % 4 == 0:
+            raise AssertionError(f"phase 4d group {name}: state of "
+                                 f"{got['state_bytes']} B, a multiple of 4")
+
+
+def _batch_phase(dev, n_nodes=1_500, n_pods=120, n_global=6_801,
+                 count_launches=True) -> dict:
+    """Phase 4d: the waves of ``_BATCH_CASES`` grouped as the solver
+    daemon groups them (policy, gangs, resource type, label counts; the
+    case's group name splits what would arrive in different windows),
+    each group padded to its per-axis maximum (solver/service.py), the
+    "odd-*" groups further to an odd node and group count, and all of
+    them given to ONE ``solve_commit_batch``. Fails unless every wave
+    equals the plain version over its padded inputs and the wave's own
+    unpadded single-wave solve (max abs err 0); on the card also unless
+    the call launched once per distinct launch key, every group took the
+    state layout and kernel instance ``_BATCH_INSTANCES`` names for it
+    (the "odd-global" group the global layout), and the odd groups' state
+    is not a multiple of 4 bytes."""
+    import torch
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.solver.service import (_dims_of, _pad_inputs,
+                                                     _target_dims)
+
+    t0 = time.perf_counter()
+    snaps = [_batch_wave(fam, random.Random(seed),
+                         int((n_global if g == "odd-global" else n_nodes)
+                             * fn), int(n_pods * fp))
+             for fam, seed, fn, fp, g in _BATCH_CASES]
+    hosts = [bs.snapshot_to_host_inputs(s) for s in snaps]
+    groups: dict = {}
+    for i, (snap, host) in enumerate(zip(snaps, hosts)):
+        key = (_BATCH_CASES[i][4], snap.policy, snap.has_gangs,
+               str(host.cap.dtype), host.node_aff_vals.shape[1],
+               host.zone_idx.shape[0])
+        groups.setdefault(key, []).append(i)
+    padded: list = [None] * len(snaps)
+    for key, idx in groups.items():
+        target = _target_dims([_dims_of(hosts[i]) for i in idx])
+        if key[0]:
+            target = _odd_target(target)
+        for i in idx:
+            padded[i] = _pad_inputs(hosts[i], target)
+    cis = []
+    for i, snap in enumerate(snaps):
+        if not commit_solver.eligible(padded[i], snap.policy,
+                                      bs.peer_bound_of(snap)):
+            raise AssertionError(f"phase 4d wave {i}: outside the kernel's "
+                                 f"domain")
+        cis.append(commit_solver.prepare(bs.ship_inputs(padded[i], dev),
+                                         snap.policy, snap.has_gangs))
+    keys = {commit_solver.launch_key(ci) for ci in cis}
+    # the instance and layout each group takes, named by its first case's
+    # group or family
+    taken = {}
+    for key, idx in groups.items():
+        ci = cis[idx[0]]
+        name = key[0] or _BATCH_CASES[idx[0]][0]
+        taken[name] = {"instance": commit_solver.instance_of(ci, len(idx)),
+                       "layout": _layout(ci)[0], "waves": len(idx),
+                       "state_bytes": commit_solver.state_bytes(
+                           *commit_solver._dims(ci))}
+    l0 = commit_solver.solve_commit.launches
+    out = commit_solver.solve_commit_batch(cis)
+    launches = commit_solver.solve_commit.launches - l0
+    if count_launches:
+        if launches != len(keys):
+            raise AssertionError(f"phase 4d: {launches} launches for "
+                                 f"{len(keys)} launch keys")
+        _check_taken(taken)
+        for name in _BATCH_INSTANCES:
+            if taken[name]["instance"] not in \
+                    commit_solver.solve_commit.instances:
+                raise AssertionError(f"phase 4d group {name}: "
+                                     f"{taken[name]['instance']} never "
+                                     f"launched")
+    max_abs_err = 0
+    waves = []
+    for i, (ci, snap, (c, w)) in enumerate(zip(cis, snaps, out)):
+        fam, group = _BATCH_CASES[i][0], _BATCH_CASES[i][4]
+        pc, pw = commit_solver.solve_commit_reference(ci)
+        sc, sw = commit_solver.solve_commit(_inputs(snap, dev))
+        P = sc.shape[0]
+        for got, want, what in ((c, pc, "plain version"),
+                                (w, pw, "plain version"),
+                                (c[:P], sc, "unpadded solo solve"),
+                                (w[:P], sw, "unpadded solo solve")):
+            if not torch.equal(got, want):
+                k = int((got != want).nonzero()[0])
+                raise AssertionError(f"phase 4d wave {i} ({fam}): differs "
+                                     f"from the {what} at pod {k}")
+        max_abs_err = max(max_abs_err, int((c - pc).abs().max()),
+                          int((w - pw).abs().max()))
+        waves.append({"family": fam, "group": group or fam,
+                      "nodes": len(snap.node_names), "pods": P,
+                      "padded_nodes": ci.cap.shape[1],
+                      "padded_pods": ci.smask.shape[0],
+                      "padded_groups": ci.counts0.shape[0],
+                      "resource_type": str(ci.cap.dtype).split(".")[-1],
+                      "bands": ci.band.shape[0],
+                      "placed": int((c[:P] >= 0).sum())})
+    return {"waves": waves, "groups": len(groups), "taken": taken,
+            "launch_keys": len(keys), "launches": launches,
+            "max_abs_err": max_abs_err,
+            "seconds": time.perf_counter() - t0}
 
 
 def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
@@ -2158,6 +2396,361 @@ def _pipeline_binary_phase(dev, n_nodes=5_000, n_pending=5_000, seeders=8,
     }
 
 
+# ---- phases 10 and 10b: the solver daemon ----------------------------------
+
+def _seeded_north_star(seed: int, n_nodes: int, n_pending: int):
+    """north_star's objects (``n_nodes`` nodes, 2 bound pods each, 8
+    services, ``n_pending`` pending) made distinct by ``seed``: a tenth
+    of the bound pods gone and the pending order shuffled."""
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    rng = random.Random(seed)
+    existing = [p for p in existing if rng.random() >= 0.1]
+    rng.shuffle(pending)
+    return nodes, existing, pending, services
+
+
+def _daemon_phase(dev, n_nodes=5_000, wave_size=1_024, rounds=6, clients=4,
+                  gather_window_s=0.05, count_launches=True) -> dict:
+    """Phase 10: a SolverService on ``dev`` in this process (so the
+    kernel's launch counter can be read) and ``clients`` threads, each
+    with its own RemoteSolver (delta wire on) and its own north_star
+    cluster (``_seeded_north_star``), each shipping ``rounds`` waves of
+    ``wave_size`` pods through its IncrementalEncoder, released together
+    at a barrier every round. Fails unless some device solve coalesced 2
+    or more waves, commit_solve launched once per kernel-path device solve
+    of the daemon and the plain version never ran, every reply equals the
+    in-process single-wave ``solve(snap, device=dev)`` of the same wave,
+    and every wave after each client's first rode the delta wire. On the
+    card it then times ``solve_commit_batch`` alone over k = 1, 2, 4, 8
+    and 16 of the first round's waves (padded to one shape), and holds
+    the k = 4 launch against the plain version."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.solver.client import RemoteSolver
+    from kubernetes_tpu_torch.solver.service import (SolverService, _dims_of,
+                                                     _pad_inputs,
+                                                     _target_dims)
+
+    t_phase = time.perf_counter()
+    clusters = [_seeded_north_star(900 + c, n_nodes, rounds * wave_size)
+                for c in range(clients)]
+    srv = SolverService(gather_window_s=gather_window_s, max_batch=16,
+                        device=dev)
+    sizes: list = []
+    solve_group = srv._solve_group
+
+    def record_group(reqs):
+        sizes.append(len(reqs))
+        solve_group(reqs)
+
+    srv._solve_group = record_group
+    solvers = [RemoteSolver(srv.address, fallback=False, device=dev)
+               for _ in range(clients)]
+    held: list = [[] for _ in range(clients)]
+    barrier = threading.Barrier(clients)
+    errors: list = []
+
+    def client(c):
+        try:
+            nodes, existing, pending, services = clusters[c]
+            enc = IncrementalEncoder()
+            for r in range(rounds):
+                wave = pending[r * wave_size:(r + 1) * wave_size]
+                snap = enc.encode(nodes, existing, wave, services)
+                barrier.wait(timeout=600)
+                t0 = time.perf_counter()
+                chosen, scores = solvers[c].solve(snap)
+                held[c].append({"snap": _copy_snapshot(snap),
+                                "chosen": chosen, "scores": scores,
+                                "remote_s": time.perf_counter() - t0})
+                for p, h in zip(wave, bs.decisions_to_names(snap, chosen)):
+                    if h:
+                        p.spec.host = p.status.host = h
+                        existing.append(p)
+        except Exception as e:  # re-raised after the threads end
+            errors.append(e)
+            barrier.abort()
+
+    commit_solver.solve_commit.launches = 0
+    commit_solver.solve_commit_batch.launches = 0
+    commit_solver.solve_commit_reference.calls = 0
+    srv.start()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,), daemon=True,
+                                    name=f"phase10-client{c}")
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        run_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        joined = srv.join(60)
+    if not joined:
+        raise AssertionError("phase 10: the daemon's threads did not end")
+    # read once the solver thread has ended: a prewarm launch may run
+    # after the last reply
+    launches = commit_solver.solve_commit.launches
+    batched = commit_solver.solve_commit_batch.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("phase 10: a client thread did not finish")
+
+    # ---- the checks, after the run -------------------------------------
+    waves = clients * rounds
+    if srv.waves_served != waves:
+        raise AssertionError(f"phase 10: {srv.waves_served} of {waves} "
+                             f"waves served")
+    if max(sizes) < 2:
+        raise AssertionError(f"phase 10: no device solve coalesced two "
+                             f"waves (group sizes {sizes})")
+    multi = sum(1 for k in sizes if k > 1)
+    if count_launches and (launches != srv.batched_solves or srv.scan_waves
+                           or plain_calls or not multi <= batched
+                           <= multi + srv.prewarm_launches):
+        raise AssertionError(
+            f"phase 10: {launches} launches ({batched} of several waves) "
+            f"for {srv.batched_solves} kernel-path device solves ({multi} "
+            f"live groups of several waves, {srv.prewarm_launches} "
+            f"prewarm), {srv.scan_waves} waves outside the kernel's "
+            f"domain, {plain_calls} plain calls")
+    for c, rs in enumerate(solvers):
+        if (rs.remote_waves, rs.full_waves, rs.delta_waves,
+                rs.resync_waves) != (rounds, 1, rounds - 1, 0):
+            raise AssertionError(
+                f"phase 10 client {c}: remote {rs.remote_waves}, full "
+                f"{rs.full_waves}, delta {rs.delta_waves}, resync "
+                f"{rs.resync_waves}")
+    t0 = time.perf_counter()
+    for c in range(clients):
+        for r, h in enumerate(held[c]):
+            want = bs.solve(h["snap"], device=dev)
+            if not (np.array_equal(want[0], h["chosen"])
+                    and np.array_equal(want[1], h["scores"])):
+                raise AssertionError(f"phase 10 client {c} wave {r}: the "
+                                     f"reply differs from the in-process "
+                                     f"solve")
+            if (h["chosen"][:len(h["snap"].pod_names)] < 0).any():
+                raise AssertionError(f"phase 10 client {c} wave {r}: a pod "
+                                     f"found no node")
+    check_s = time.perf_counter() - t0
+    out = {
+        "nodes": n_nodes, "wave_size": wave_size, "rounds": rounds,
+        "clients": clients, "gather_window_s": gather_window_s,
+        "waves": waves, "group_sizes": sizes,
+        "device_solves": srv.solve_calls,
+        "batched_solves": srv.batched_solves,
+        "prewarm_launches": srv.prewarm_launches,
+        "prewarm_skipped": srv.prewarm_skipped,
+        "prewarm_s": srv.prewarm_s, "launches": launches,
+        "batched_launches": batched,
+        "plain_calls": plain_calls, "run_s": run_s,
+        "remote_s": [[h["remote_s"] for h in hc] for hc in held],
+        "delta_bytes_shipped": sum(rs.delta_bytes_shipped for rs in solvers),
+        "delta_bytes_full": sum(rs.delta_bytes_full for rs in solvers),
+        "check_s": check_s,
+    }
+
+    # ---- the batched launch alone, k waves of the first round ----------
+    if _device_type(dev) == "cuda":
+        from kubernetes_tpu_torch.tools.kernel_time import event_ms
+
+        hosts = [bs.snapshot_to_host_inputs(held[c][0]["snap"])
+                 for c in range(clients)]
+        target = _target_dims([_dims_of(h) for h in hosts])
+        pol = held[0][0]["snap"].policy
+        cis = [commit_solver.prepare(
+            bs.ship_inputs(_pad_inputs(h, target), dev), pol, False)
+            for h in hosts]
+        # the planes are stacked before the timed region: the times are
+        # the launch alone
+        if len({commit_solver.launch_key(ci) for ci in cis}) != 1:
+            raise AssertionError("phase 10: the first round's padded waves "
+                                 "differ in launch key")
+        batch_ms = {}
+        for k in (1, 2, 4, 8, 16):
+            planes = commit_solver.stack_planes(
+                [cis[i % clients] for i in range(k)])
+            batch_ms[k], _, res = event_ms(
+                lambda: commit_solver.launch_stacked(cis[0], planes, k),
+                3)
+            if k == clients:
+                got4 = list(zip(*res))
+        plain_ms = 0.0
+        max_abs_err = 0
+        bound_ms = 0.0
+        bound_by = ""
+        for ci, (c, w) in zip(cis, got4):
+            stats: dict = {}
+            ms, _, (pc, pw) = event_ms(
+                lambda: commit_solver.solve_commit_reference(ci, stats), 1)
+            plain_ms += ms
+            if not (torch.equal(c, pc) and torch.equal(w, pw)):
+                raise AssertionError("phase 10: the batched launch differs "
+                                     "from the plain version")
+            max_abs_err = max(max_abs_err, int((c - pc).abs().max()),
+                              int((w - pw).abs().max()))
+            b_ms, bound_by, _nb, _ops = _bound(
+                ci, int(stats["feasible"].sum()))
+            bound_ms += b_ms
+        out.update(batch_ms=batch_ms, batch_k=clients,
+                   batch_plain_ms=plain_ms, batch_bound_ms=bound_ms,
+                   batch_bound_by=bound_by, max_abs_err=max_abs_err,
+                   layout=_layout(cis[0]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _metric_value(body: str, name: str) -> float:
+    """The value of an unlabeled series in Prometheus text."""
+    for line in body.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"no {name} on /metrics")
+
+
+def _daemon_binary_phase(dev, n_nodes=5_000, n_pending=2_000, seeders=8,
+                         creators=4) -> dict:
+    """Phase 10b: ``python -m kubernetes_tpu_torch.cmd.solverd`` as its own
+    process (``--prewarm``), and the port's scheduler binary
+    (``--algorithm tpu-batch --prewarm --solver-addr``, in a thread) against
+    the JAX package's apiserver process seeded with north_star's nodes,
+    bound pods and services; then ``n_pending`` pending pods. Fails unless
+    every pod binds within capacity, every wave went to the daemon
+    (``remote_waves`` > 0, no fallback, no busy wave, no launch in the
+    scheduler's process), and the daemon's
+    ``solverd_coalesced_waves_total`` equals the remote waves."""
+    import subprocess
+    import threading
+
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    t_phase = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    names = {p.metadata.name for p in pending}
+    out_dir = os.path.join(_ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    dport, dmport = _free_port(), _free_port()
+    log = open(os.path.join(out_dir, "phase10b_solverd.log"), "w")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.solverd", "--port",
+         str(dport), "--metrics-port", str(dmport), "--device",
+         _device_type(dev), "--prewarm", "--prewarm-nodes", str(n_nodes)],
+        cwd=_ROOT, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    proc = None
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    held: dict = {}
+    thread = None
+    try:
+        durl = f"http://127.0.0.1:{dmport}"
+        deadline = time.monotonic() + 600
+        while "compile_prewarm_ready 1" not in _wait_http(
+                durl + "/metrics", daemon,
+                "phase 10b: the solver daemon").splitlines():
+            if time.monotonic() > deadline or daemon.poll() is not None:
+                raise AssertionError("phase 10b: the daemon's prewarm never "
+                                     "finished")
+            time.sleep(0.2)
+        daemon_ready_s = time.perf_counter() - t_phase
+        proc, url = _start_apiserver("phase10b")
+        client = Client(HTTPTransport(url))
+        seed_s = sum(_seed_cluster(client, nodes, existing, services,
+                                   seeders, "phase 10b"))
+        mport = _free_port()
+        argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
+                "--metrics-port", str(mport), "--device", _device_type(dev),
+                "--solver-addr", f"127.0.0.1:{dport}"]
+        thread = threading.Thread(
+            target=lambda: result.update(rc=cmd.scheduler_server(
+                argv, ready, stop, on_built=lambda s: held.update(sched=s))),
+            daemon=True, name="phase10b-binary")
+        thread.start()
+        if not ready.wait(120):
+            raise AssertionError("phase 10b: the binary never started")
+        sched = held["sched"]
+        f = sched.factory
+        while not (len(f.node_store) == n_nodes
+                   and len(f.scheduled_pods) == len(existing)
+                   and len(f.service_store) == len(services)):
+            if time.monotonic() > deadline or "rc" in result:
+                raise AssertionError("phase 10b: the scheduler's caches "
+                                     "never held the cluster")
+            time.sleep(0.05)
+        commit_solver.solve_commit.launches = 0
+        t_first = time.perf_counter()
+        _parallel(creators, pending, lambda p: client.pods().create(p))
+        while True:
+            final = client.pods("").list().items
+            left = [p for p in final
+                    if p.metadata.name in names and not p.spec.host]
+            if not left:
+                break
+            if time.monotonic() > deadline or "rc" in result:
+                raise AssertionError(f"phase 10b: {len(left)} pods unbound")
+            time.sleep(0.25)
+        loop_s = time.perf_counter() - t_first
+        local_launches = commit_solver.solve_commit.launches
+        code, body = _http_get(f"http://127.0.0.1:{mport}/healthz")
+        health = json.loads(body)
+        solver_item = [i for i in health.get("items", ())
+                       if i.get("name") == "solver"]
+        if code != 200 or not solver_item \
+                or solver_item[0]["status"] != "success":
+            raise AssertionError(f"phase 10b: /healthz {code} {body}")
+        _code, dmetrics = _http_get(durl + "/metrics")
+        coalesced = _metric_value(dmetrics, "solverd_coalesced_waves_total")
+        solves = _metric_value(dmetrics, "solverd_device_solves_total")
+        rs = sched.solver
+        remote = (rs.remote_waves, rs.fallback_waves, rs.busy_waves,
+                  rs.delta_waves, rs.full_waves)
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        if proc is not None:
+            _stop_process(proc)
+        _stop_process(daemon)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"phase 10b: the binary returned "
+                             f"{result.get('rc')}")
+    _check_placements(final, nodes, "phase 10b")
+    remote_waves, fallback_waves, busy_waves, delta_waves, full_waves = remote
+    if remote_waves == 0 or fallback_waves or busy_waves or local_launches:
+        raise AssertionError(
+            f"phase 10b: remote {remote_waves}, fallback {fallback_waves}, "
+            f"busy {busy_waves} waves, {local_launches} launches in the "
+            f"scheduler's process")
+    if coalesced != remote_waves:
+        raise AssertionError(f"phase 10b: the daemon served {coalesced} "
+                             f"waves, the scheduler sent {remote_waves}")
+    return {"nodes": n_nodes, "existing": len(existing),
+            "pending": n_pending, "daemon_ready_s": daemon_ready_s,
+            "seed_s": seed_s, "loop_s": loop_s,
+            "pods_per_s": n_pending / loop_s,
+            "remote_waves": remote_waves, "delta_waves": delta_waves,
+            "full_waves": full_waves, "daemon_waves": coalesced,
+            "daemon_solves": solves, "local_launches": local_launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def _device_type(dev) -> str:
     """``cuda`` or ``cpu`` for a torch.device or a device string."""
     return getattr(dev, "type", None) or str(dev).split(":")[0]
@@ -2414,6 +3007,47 @@ def _log_pipeline_binary(b: dict) -> None:
          f"events {b['events']}; /debug/vars {b['vars_series']} series")
 
 
+def _log_daemon(d: dict) -> None:
+    per_group = statistics.median(
+        t for ts in d["remote_s"] for t in ts) if d["remote_s"] else 0.0
+    _log(f"[10] solver daemon on the card, {d['clients']} clients x "
+         f"{d['rounds']} waves of {d['wave_size']} pods on {d['nodes']} "
+         f"nodes each (gather window {d['gather_window_s'] * 1e3:.0f} ms): "
+         f"{d['waves']} waves in {d['device_solves']} device solves, group "
+         f"sizes {d['group_sizes']}; {d['launches']} commit_solve launches "
+         f"({d['batched_launches']} of several waves) for "
+         f"{d['batched_solves']} kernel-path solves ("
+         f"{d['prewarm_launches']} of them prewarm, taking "
+         f"{d['prewarm_s']:.3f} s of the solver thread; "
+         f"{d['prewarm_skipped']} prewarm jobs skipped, their instance "
+         f"launched already), {d['plain_calls']} "
+         f"plain calls; every reply == the in-process solve; delta wire "
+         f"{d['delta_bytes_shipped']} B shipped for {d['delta_bytes_full']} "
+         f"B of full frames; run {d['run_s']:.2f}s, median remote wave "
+         f"{per_group:.3f}s")
+    if "batch_ms" in d:
+        where, dyn = d["layout"]
+        _log(f"     batched launch alone (CUDA events, median of 3), state in "
+             f"{where} memory ({dyn} B dynamic shared per block): "
+             + ", ".join(f"k={k} {ms:.3f} ms" for k, ms in
+                         d["batch_ms"].items())
+             + f"; k={d['batch_k']} plain {d['batch_plain_ms']:.1f} ms, bound "
+             f"{d['batch_bound_ms']:.5f} ms ({d['batch_bound_by']}), max abs "
+             f"err {d['max_abs_err']}")
+
+
+def _log_daemon_binary(b: dict) -> None:
+    _log(f"[10b] the binary through a solverd process: {b['nodes']} nodes, "
+         f"{b['existing']} bound, {b['pending']} pending bound in "
+         f"{b['loop_s']:.2f}s ({b['pods_per_s']:.1f} pods/s); "
+         f"{b['remote_waves']} remote waves ({b['full_waves']} full, "
+         f"{b['delta_waves']} delta frames), 0 fallback, "
+         f"{b['local_launches']} launches in the scheduler; the daemon "
+         f"served {b['daemon_waves']:.0f} waves in {b['daemon_solves']:.0f} "
+         f"device solves; daemon ready {b['daemon_ready_s']:.1f}s, seeding "
+         f"{b['seed_s']:.1f}s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2494,6 +3128,22 @@ def main() -> int:
              f"{w['kernel_ms']:.3f} ms, plain {w['plain_ms']:.1f} ms, bound "
              f"{w['bound_ms']:.5f} ms ({w['bound_by']})")
 
+    # 4d. the batched launch: sixteen waves of six families, one call
+    record["batched"] = bt = _batch_phase(dev)
+    _log(f"[4d] {len(bt['waves'])} seeded waves in {bt['groups']} padded "
+         f"groups, one solve_commit_batch: {bt['launches']} launches for "
+         f"{bt['launch_keys']} launch keys; every wave == plain version == "
+         f"its own unpadded launch (max abs err {bt['max_abs_err']}, "
+         f"{bt['seconds']:.2f}s)")
+    for name, g in bt["taken"].items():
+        _log(f"     group {name}: {g['waves']} waves, {g['instance']}, "
+             f"state in {g['layout']} memory, {g['state_bytes']} B a wave")
+    for w in bt["waves"]:
+        _log(f"     {w['family']} ({w['group']}): {w['nodes']}x{w['pods']} "
+             f"padded to {w['padded_nodes']}x{w['padded_pods']}, "
+             f"{w['padded_groups']} groups, {w['resource_type']}, "
+             f"{w['bands']} bands, {w['placed']} placed")
+
     # 5. north_star, the main path
     ns = _wave_phase("north_star", dev, kernel_runs=7)
     record["north_star"] = ns
@@ -2552,6 +3202,14 @@ def main() -> int:
     # 9c. the binary with the pipelined loop, tracing and the recorder
     record["pipeline_binary"] = _pipeline_binary_phase(dev)
     _log_pipeline_binary(record["pipeline_binary"])
+
+    # 10. the solver daemon: four clients coalescing at north_star width
+    record["daemon"] = dm = _daemon_phase(dev)
+    _log_daemon(dm)
+
+    # 10b. the scheduler binary through a solver daemon process
+    record["daemon_binary"] = _daemon_binary_phase(dev)
+    _log_daemon_binary(record["daemon_binary"])
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2564,12 +3222,22 @@ def main() -> int:
     # too, so max_abs_err covers both), the int64 instances (north_star_dec) and the preemption
     # branch (priority, launches over the priority loop); no PyTorch call
     # computes the sequential commit, so library_ms is null
+    # The batched launch (one block per coalesced wave) times k = 4 of
+    # phase 10's first-round waves against their plain versions, with the
+    # launches of several waves over the daemon's run; its bound is the 4
+    # waves' bounds.
+    batched = {"kernel_ms": dm["batch_ms"][dm["batch_k"]],
+               "plain_ms": dm["batch_plain_ms"],
+               "bound_ms": dm["batch_bound_ms"],
+               "bound_by": dm["batch_bound_by"],
+               "max_abs_err": max(dm["max_abs_err"], bt["max_abs_err"])}
     entries = (("commit_solve", dict(ns, max_abs_err=max(
                     ns["max_abs_err"], bp["max_abs_err"])), bp["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],
-                sum(w["launches"] for w in pl["waves"])))
+                sum(w["launches"] for w in pl["waves"])),
+               ("commit_solve[batched]", batched, dm["batched_launches"]))
     kernels = {"kernels": [{
         "name": name, "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cuh",

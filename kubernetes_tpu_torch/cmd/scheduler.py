@@ -13,15 +13,19 @@ the configured policy is one the batch solver cannot model.
 wave loop; ``--trace`` records each wave's spans and sends the trace
 context to the apiserver (drained at ``/debug/trace``); ``--flightrec``
 samples every metric series from boot (served at ``/debug/vars``, which
-also arms the recorder on its first pull). Flags whose feature is not
-ported exit non-zero naming their ROADMAP item: ``--solver-addr`` and
-``--mesh on``. The reference's ``warmstart.enable()`` (JAX's compile
-cache) has no counterpart: the kernel build is cached in ``ops/_build/``
-by a hash of its sources.
+also arms the recorder on its first pull). ``--solver-addr HOST:PORT``
+(with tpu-batch) solves each wave through a kube-solverd daemon
+(cmd/solverd.py); ``--solver-fallback`` says what a wave does while the
+daemon is busy or away (``inprocess``: solve it here on ``--device``;
+``requeue``: fail and requeue it), and the deep ``/healthz`` reports a
+dead daemon as degraded, not down. ``--mesh on`` is not ported and exits
+non-zero naming its ROADMAP item. The reference's ``warmstart.enable()``
+(JAX's compile cache) has no counterpart: the kernel build is cached in
+``ops/_build/`` by a hash of its sources.
 
 Run: ``python -m kubernetes_tpu_torch.cmd.scheduler --master URL
 --algorithm tpu-batch [--pipeline] [--trace] [--flightrec] [--device cpu]
-[--metrics-port N]``.
+[--solver-addr HOST:PORT] [--metrics-port N]``.
 """
 
 from __future__ import annotations
@@ -46,13 +50,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wave-period", type=float, default=0.05,
                    help="tpu-batch: max wait to accumulate a wave")
     p.add_argument("--solver-addr", "--solver_addr", default="",
-                   help="tpu-batch: HOST:PORT of a shared solver daemon "
-                        "(not ported: exits naming its ROADMAP item)")
+                   help="tpu-batch: HOST:PORT of a shared kube-solverd "
+                        "daemon that solves every wave (coalescing the "
+                        "waves of several schedulers into one launch); "
+                        "empty solves in-process")
     p.add_argument("--solver-fallback", "--solver_fallback",
                    choices=("inprocess", "requeue"), default="inprocess",
                    help="tpu-batch with --solver-addr: what a wave does "
-                        "while the daemon is away (accepted for parity; "
-                        "read by nothing until the daemon is ported)")
+                        "while the daemon is busy or away: solve it in "
+                        "this process on --device, or fail it so its pods "
+                        "requeue and the next wave retries the daemon")
     p.add_argument("--pipeline", action="store_true",
                    help="tpu-batch: speculative double-buffered waves — "
                         "encode and solve wave k+1 against the predicted "
@@ -102,9 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(opts) -> Optional[str]:
     """The message for the first flag whose feature is not ported."""
-    if opts.solver_addr:
-        return ("--solver-addr: the shared solver daemon is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
     if opts.mesh == "on":
         return ("--mesh on: the device-mesh solve is not ported yet "
                 "(ROADMAP Queue 1 item 7)")
@@ -197,10 +201,13 @@ def _serve_debug(port: int, service: str = "scheduler", health=None):
     return srv
 
 
-def _scheduler_health(master: str):
+def _scheduler_health(master: str, solver_addr: str = ""):
     """Deep-health probe of the scheduler binary: can it reach the
-    binder, the apiserver it commits to. componentstatus-style payload;
-    the caller answers 503 when unhealthy."""
+    binder (the apiserver it commits to) and, when configured, the shared
+    solver daemon. componentstatus-style payload; the caller answers 503
+    when unhealthy. A dead daemon is degraded, not down: its item reads
+    failure, but the waves fall back to in-process solves, so it does not
+    fail the check."""
     import urllib.parse
 
     from kubernetes_tpu_torch import probe
@@ -212,6 +219,12 @@ def _scheduler_health(master: str):
         items = [{"name": "binder", "status": st,
                   "message": f"apiserver {master} reachable" if ok
                   else msg}]
+        if solver_addr:
+            host, _, sport = solver_addr.rpartition(":")
+            sst, smsg = probe.probe_tcp(host or "127.0.0.1", int(sport))
+            items.append({"name": "solver", "status": sst,
+                          "message": smsg if sst != probe.SUCCESS else
+                          f"kube-solverd {solver_addr} reachable"})
         return ({"kind": "ComponentStatusList", "healthy": ok,
                  "items": items}, ok)
 
@@ -247,6 +260,7 @@ def build_scheduler(opts):
     config = factory.create(provider=opts.algorithm_provider,
                             policy=policy, recorder=recorder,
                             solver_addr=opts.solver_addr,
+                            solver_fallback=opts.solver_fallback,
                             pipeline=opts.pipeline, mesh=opts.mesh,
                             prewarm=opts.prewarm)
     if opts.pipeline and opts.algorithm != "tpu-batch":
@@ -308,7 +322,8 @@ def scheduler_server(argv: List[str],
     srv = None
     if opts.metrics_port:
         srv = _serve_debug(opts.metrics_port, service="scheduler",
-                           health=_scheduler_health(opts.master))
+                           health=_scheduler_health(opts.master,
+                                                    opts.solver_addr))
     sched.run()
     print(f"kube-scheduler running ({opts.algorithm})", file=sys.stderr)
     if ready is not None:

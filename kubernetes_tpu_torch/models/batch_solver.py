@@ -297,15 +297,20 @@ def peer_bound_of(source) -> int:
     return int(gc.sum(1).max())
 
 
-def solve(snap: ClusterSnapshot, device=None
-          ) -> Tuple[np.ndarray, np.ndarray]:
+def solve(snap: ClusterSnapshot, host: Optional[SolverInputs] = None,
+          device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Host entry: encoded wave -> device -> solve -> host decisions
     (chosen node index or -1, winning score or -1, int32 [P]; a score at
     or below preempt.PREEMPT_SCORE_BASE placed by preemption and encodes
     its band slot), with the all-or-nothing post-pass when the wave has
-    PodGroups. Runs on ``cuda`` unless ``device`` says otherwise."""
+    PodGroups. ``host`` skips the host-side encode when the caller already
+    holds ``snapshot_to_host_inputs(snap)`` (the solver client's fallback,
+    which encoded before it learned the daemon could not take the wave).
+    Runs on ``cuda`` unless ``device`` says otherwise."""
     dev = resolve_device(device)
-    inp = ship_inputs(snapshot_to_host_inputs(snap), dev)
+    if host is None:
+        host = snapshot_to_host_inputs(snap)
+    inp = ship_inputs(host, dev)
     has_gangs = snap.has_gangs
     chosen, scores = solve_device(inp, snap.policy, has_gangs,
                                   peer_bound_of(snap))

@@ -27,6 +27,11 @@ solves in ``solve_jit``'s scan (kubernetes_tpu/models/batch_solver.py
   torch ops built on ``ops/kernels``.
   ``solve_commit.launches`` counts kernel launches and
   ``solve_commit_reference.calls`` calls of the plain version.
+- ``solve_commit_batch`` solves several waves of one shape in one launch,
+  one block (one SM) per wave: the counterpart of the batch axis the
+  reference's solver daemon puts on ``solve_jit`` with ``vmap``
+  (kubernetes_tpu/solver/service.py:176-186). On the CPU it is the plain
+  version, wave by wave.
 - ``shared_layout`` is where the kernel keeps a wave's node state: in the
   block's shared memory when it fits, else in a global buffer.
 - ``spread_eval`` runs the kernel's spread-score device function over
@@ -38,6 +43,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch.models.policy import BatchPolicy
@@ -51,9 +57,10 @@ from kubernetes_tpu_torch.ops.kernels import (
     u64_mod_small,
 )
 
-__all__ = ["CommitInputs", "eligible", "layout_of", "mask_pitch", "prepare",
-           "shared_layout", "solve_commit", "solve_commit_reference",
-           "spread_eval", "MAX_B", "MAX_N"]
+__all__ = ["CommitInputs", "eligible", "launch_key", "layout_of",
+           "mask_pitch", "prepare", "shared_layout", "solve_commit",
+           "solve_commit_batch", "solve_commit_reference", "spread_eval",
+           "MAX_B", "MAX_N"]
 
 NEG = -1
 MAX_R = 8
@@ -97,6 +104,16 @@ def state_bytes(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
     int16 peer counts. Mirrors state_bytes in csrc/commit_solve.cuh."""
     return (res_bytes * (R + B * R) * N + 4 * (Wp + Wd + B) * N
             + 2 * G * N)
+
+
+def state_stride(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
+                 res_bytes: int = 4) -> int:
+    """Bytes from one wave's packed state to the next in a batched launch
+    (the global state and the gang checkpoint): ``state_bytes`` rounded up
+    to 16, so every wave's planes are as aligned as the first wave's (an
+    odd G * N leaves ``state_bytes`` 2 mod 4). Mirrors state_stride in
+    csrc/commit_solve.cuh."""
+    return -(-state_bytes(N, R, Wp, Wd, G, B, res_bytes) // 16) * 16
 
 
 def shared_layout(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
@@ -188,11 +205,11 @@ def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
     wave whose planes overflow its TPU core's memory; the kernel keeps its
     state in global memory when shared memory is too small
     (``shared_layout``), so it has no such budget. ``inp`` is a
-    SolverInputs of tensors; ``peer_bound`` the largest initial per-group
-    peer total (batch_solver.peer_bound_of)."""
+    SolverInputs of tensors or of host (numpy) arrays; ``peer_bound`` the
+    largest initial per-group peer total (batch_solver.peer_bound_of)."""
     if pol is None or pol.all_infeasible:
         return False
-    if inp.cap.dtype not in (torch.int32, torch.int64):
+    if inp.cap.dtype not in (torch.int32, torch.int64, np.int32, np.int64):
         return False
     N, R = inp.cap.shape
     G = inp.group_counts.shape[0]
@@ -530,9 +547,10 @@ solve_commit_reference.calls = 0
 
 
 _SIGNATURES = {
-    "kgpu_commit_solve": (ctypes.c_int, [ctypes.c_void_p] * 24
-                          + [ctypes.c_int] * 22
-                          + [ctypes.c_longlong, ctypes.c_void_p]),
+    "kgpu_commit_solve_batch": (ctypes.c_int, [ctypes.c_void_p] * 24
+                                + [ctypes.c_int] * 22
+                                + [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_void_p]),
     "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_longlong, ctypes.c_void_p]),
     "kgpu_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -605,17 +623,18 @@ def _check(ci: CommitInputs) -> None:
                          f"{len(ci.w_anti)}")
 
 
-def solve_commit(ci: CommitInputs):
-    """Solve one wave -> (chosen[P], win[P]) int32: chosen node index or -1,
-    the winning score, -1, or for a preempting placement
-    PREEMPT_SCORE_BASE - its band slot. A CUDA wave launches the kernel (or
-    raises); a CPU wave runs the plain version."""
-    _check(ci)
+# the kernel's input planes, in the order of its C interface
+_KERNEL_PLANES = ("smask", "podrow", "cap", "fit0", "off", "advx", "fitexc",
+                  "ports0", "pds0", "counts0", "offl", "sstat", "affv",
+                  "anchor0", "has0", "zone", "ecap0", "ecnt0", "band", "bord")
+
+
+def launch_stacked(ci: CommitInputs, planes, batch: int):
+    """One launch of the kernel over ``batch`` waves shaped and flagged
+    like ``ci``, one block each; ``planes`` are the ``_KERNEL_PLANES`` as
+    [batch, ...] stacks (or ``ci``'s own for one wave) -> (chosen, win)
+    int32 [batch, P] on the card. Raises when the launch is refused."""
     dev = ci.smask.device
-    if dev.type == "cpu":
-        return solve_commit_reference(ci)
-    if dev.type != "cuda":
-        raise ValueError(f"solve_commit runs on cuda or cpu, not {dev}")
     P = ci.smask.shape[0]
     N, R, Wp, Wd, G, B, res_bytes = _dims(ci)
     L, A = ci.affv.shape[0], ci.zone.shape[0]
@@ -629,31 +648,147 @@ def solve_commit(ci: CommitInputs):
     lib = _lib()
     on_chip, dyn_bytes = layout_of(ci)
     # the packed state planes (the kernel's layout, used when they do not
-    # fit on chip) and the gang checkpoint, one more copy of them
-    nbytes = state_bytes(N, R, Wp, Wd, G, B, res_bytes)
+    # fit on chip) and the gang checkpoint, one more copy of them; one of
+    # each per wave
+    nbytes = batch * state_stride(N, R, Wp, Wd, G, B, res_bytes)
     gstate = (None if on_chip else
               torch.empty(nbytes, dtype=torch.uint8, device=dev))
     ckpt = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
             if ci.flags & _GANGS else None)
-    chosen = torch.empty(P, dtype=torch.int32, device=dev)
-    win = torch.empty(P, dtype=torch.int32, device=dev)
+    chosen = torch.empty((batch, P), dtype=torch.int32, device=dev)
+    win = torch.empty((batch, P), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() if t is not None else None for t in (
-        ci.smask, ci.podrow, ci.cap, ci.fit0, ci.off, ci.advx, ci.fitexc,
-        ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv,
-        ci.anchor0, ci.has0, ci.zone, ci.ecap0, ci.ecnt0, ci.band, ci.bord,
-        gstate, ckpt, chosen, win)]
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (*planes, gstate, ckpt, chosen, win)]
     w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
-    rc = lib.kgpu_commit_solve(
+    rc = lib.kgpu_commit_solve_batch(
         *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B, res_bytes,
         _row_words(ci), ci.flags, ci.w_lr, ci.w_spread, ci.w_equal, *w_anti,
-        int(on_chip), dyn_bytes, stream)
+        int(on_chip), dyn_bytes, batch, stream)
     _check_launch(lib, rc, "commit_solve")
     solve_commit.launches += 1
+    solve_commit.instances.add(instance_of(ci, batch))
+    if batch > 1:
+        solve_commit_batch.launches += 1
     return chosen, win
 
 
+def _instance_name(res_bytes: int, N: int, R: int, Wp: int, Wd: int,
+                   G: int, B: int, L: int, A: int, gang: bool, static: bool,
+                   batch: int) -> str:
+    """Mirrors the dispatch of kgpu_commit_solve_batch in
+    csrc/commit_solve.cu: int32 waves without bands take the narrow
+    instances, the others the wide ones (extensions on, decided at run
+    time)."""
+    on_chip, _ = shared_layout(N, R, Wp, Wd, G, B, res_bytes)
+    if res_bytes == 4 and B == 0:
+        pre, aff, anti = False, L > 0, A > 0
+    else:
+        pre, aff, anti, static = res_bytes == 4 or B > 0, True, True, True
+    bits = ",".join(str(int(f)) for f in (pre, aff, anti, gang, static,
+                                          on_chip, batch > 1))
+    res = "int32" if res_bytes == 4 else "int64"
+    return f"commit_solve<{res},{bits}>"
+
+
+def instance_of(ci: CommitInputs, batch: int = 1) -> str:
+    """The kernel instance a launch of ``batch`` waves shaped and flagged
+    like ``ci`` takes, named as ptxas' report names it:
+    ``commit_solve<int32|int64,pre,aff,anti,gang,static,shared,batch>``
+    with 0/1 flags."""
+    N, R, Wp, Wd, G, B, res_bytes = _dims(ci)
+    return _instance_name(res_bytes, N, R, Wp, Wd, G, B, ci.affv.shape[0],
+                          ci.zone.shape[0], bool(ci.flags & _GANGS),
+                          bool(ci.flags & _USE_STATIC), batch)
+
+
+def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1) -> str:
+    """``instance_of`` the wave ``prepare`` would make of host (numpy)
+    SolverInputs, read off their shapes without preparing them."""
+    N, R = inp.cap.shape
+    return _instance_name(
+        np.dtype(inp.cap.dtype).itemsize, N, R, inp.node_ports.shape[1],
+        inp.node_pds.shape[1], inp.group_counts.shape[0],
+        inp.band_prio.shape[0] if pol.use_resources else 0,
+        inp.node_aff_vals.shape[1] if pol.has_affinity else 0,
+        len(pol.anti_affinity), gangs, bool(pol.label_prefs), batch)
+
+
+def solve_commit(ci: CommitInputs):
+    """Solve one wave -> (chosen[P], win[P]) int32: chosen node index or -1,
+    the winning score, -1, or for a preempting placement
+    PREEMPT_SCORE_BASE - its band slot. A CUDA wave launches the kernel (or
+    raises); a CPU wave runs the plain version."""
+    _check(ci)
+    dev = ci.smask.device
+    if dev.type == "cpu":
+        return solve_commit_reference(ci)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_commit runs on cuda or cpu, not {dev}")
+    chosen, win = launch_stacked(
+        ci, [getattr(ci, n) for n in _KERNEL_PLANES], 1)
+    return chosen[0], win[0]
+
+
+def launch_key(ci: CommitInputs) -> tuple:
+    """What a batched launch fixes: waves with equal keys (every shape,
+    the resource type, the policy flags and weights) run as blocks of one
+    launch."""
+    return (tuple(ci.smask.shape), _dims(ci), ci.affv.shape[0],
+            ci.zone.shape[0], ci.V, ci.flags, ci.w_lr, ci.w_spread,
+            ci.w_equal, tuple(ci.w_anti), ci.podrow is None)
+
+
+def stack_planes(cis):
+    """The kernel's input planes (``_KERNEL_PLANES``) of waves that share a
+    ``launch_key``, each stacked on a new leading axis: what one batched
+    launch reads."""
+    return [torch.stack([getattr(ci, n) for ci in cis])
+            for n in _KERNEL_PLANES]
+
+
+def solve_commit_batch(cis):
+    """Solve several waves -> [(chosen[P], win[P]) per wave], each what
+    ``solve_commit`` gives it alone. On CUDA the waves that share a
+    ``launch_key`` run as one launch of the kernel, one block (one SM) per
+    wave, and the waves of each key stack their planes on a new leading
+    axis; each launch counts once in ``solve_commit.launches``, and a
+    launch of two or more waves (the batched instances) in
+    ``solve_commit_batch.launches`` too. A key with one wave takes the
+    single-wave instance. On the CPU it is the plain version, wave by
+    wave."""
+    cis = list(cis)
+    for ci in cis:
+        _check(ci)
+    if not cis:
+        return []
+    dev = cis[0].smask.device
+    for ci in cis:
+        if ci.smask.device != dev:
+            raise ValueError(f"solve_commit_batch: waves on {dev} and "
+                             f"{ci.smask.device}")
+    if dev.type == "cpu":
+        return [solve_commit_reference(ci) for ci in cis]
+    if dev.type != "cuda":
+        raise ValueError(f"solve_commit_batch runs on cuda or cpu, not {dev}")
+    groups: dict = {}
+    for i, ci in enumerate(cis):
+        groups.setdefault(launch_key(ci), []).append(i)
+    out: list = [None] * len(cis)
+    for idx in groups.values():
+        chosen, win = launch_stacked(
+            cis[idx[0]], stack_planes([cis[i] for i in idx]), len(idx))
+        for j, i in enumerate(idx):
+            out[i] = (chosen[j], win[j])
+    return out
+
+
+solve_commit_batch.launches = 0
+
+
 solve_commit.launches = 0
+# the instances this process has launched (instance_of), a set
+solve_commit.instances = set()
 
 
 def spread_eval(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

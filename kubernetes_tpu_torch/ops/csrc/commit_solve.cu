@@ -1,6 +1,7 @@
-// commit_solve.cu — the C interface of the sequential-commit wave solve
-// (the kernel is in commit_solve.cuh; its instances in commit_solve_*.cu,
-// which compile in parallel) and the spread-score check kernel.
+// commit_solve.cu — the C interface of the sequential-commit wave solve,
+// one wave or a batch of waves of one shape in one launch (the kernel is in
+// commit_solve.cuh; its instances in commit_solve_*.cu, which compile in
+// parallel) and the spread-score check kernel.
 //
 // Build: each source with nvcc -gencode arch=compute_90a,code=sm_90a
 //        -std=c++17 -O3 -c -Xcompiler -fPIC (no --use_fast_math: the spread
@@ -35,27 +36,27 @@ long long shared_bytes(int N, int pitch, int R, int Wp, int Wd, int G, int B,
 
 extern "C" {
 
-// One wave. Pointers are device pointers; the wrapper allocates the global
-// state (global layout only; null otherwise), the gang checkpoint (gang
-// waves only; null otherwise) and the outputs. ``B`` is the number of
-// priority bands (0: no preemption), ``res_bytes`` the resource type's
-// size (4: int32, 8: int64), ``dyn_bytes`` the dynamic shared memory the
-// wrapper reckoned for the layout; it must agree. Returns a cudaError_t
-// (0 = launched).
-int kgpu_commit_solve(const void* smask, const void* podrow, const void* cap,
-                      const void* fit0, const void* off, const void* advx,
-                      const void* fitexc, const void* ports0, const void* pds0,
-                      const void* counts0, const void* offl, const void* sstat,
-                      const void* affv, const void* anchor0, const void* has0,
-                      const void* zone, const void* ecap0, const void* ecnt0,
-                      const void* band, const void* bord, void* gstate,
-                      void* ck, void* chosen, void* win, int P, int N,
-                      int pitch, int R, int Wp, int Wd, int G, int L, int A,
-                      int V, int B, int res_bytes, int row, int flags,
-                      int w_lr, int w_spread, int w_equal, int w_anti0,
-                      int w_anti1, int w_anti2, int w_anti3, int on_chip,
-                      long long dyn_bytes, void* stream) {
-  if (P < 0 || N < 0 || N > kThreads * kMaxChunk || R < 0 || R > kMaxR ||
+// ``batch`` waves of one shape in one launch, one block each. Pointers are
+// device pointers to [batch, ...] stacks of each plane; the wrapper
+// allocates the global state (global layout only; null otherwise), the
+// gang checkpoint (gang waves only; null otherwise), one per wave, and the
+// outputs. ``B`` is the number of priority bands (0: no preemption),
+// ``res_bytes`` the resource type's size (4: int32, 8: int64),
+// ``dyn_bytes`` the dynamic shared memory the wrapper reckoned for one
+// wave's layout; it must agree. Returns a cudaError_t (0 = launched).
+int kgpu_commit_solve_batch(
+    const void* smask, const void* podrow, const void* cap, const void* fit0,
+    const void* off, const void* advx, const void* fitexc, const void* ports0,
+    const void* pds0, const void* counts0, const void* offl,
+    const void* sstat, const void* affv, const void* anchor0,
+    const void* has0, const void* zone, const void* ecap0, const void* ecnt0,
+    const void* band, const void* bord, void* gstate, void* ck, void* chosen,
+    void* win, int P, int N, int pitch, int R, int Wp, int Wd, int G, int L,
+    int A, int V, int B, int res_bytes, int row, int flags, int w_lr,
+    int w_spread, int w_equal, int w_anti0, int w_anti1, int w_anti2,
+    int w_anti3, int on_chip, long long dyn_bytes, int batch, void* stream) {
+  if (batch < 1 || batch > kMaxBatch || P < 0 || N < 0 ||
+      N > kThreads * kMaxChunk || R < 0 || R > kMaxR ||
       Wp < 0 || Wp > kMaxW || Wd < 0 || Wd > kMaxW || G < 0 || G > kMaxG ||
       L < 0 || L > kMaxL || A < 0 || A > kMaxA || V < 0 || V > kMaxV ||
       B < 0 || B > kMaxB || (res_bytes != 4 && res_bytes != 8) ||
@@ -78,15 +79,23 @@ int kgpu_commit_solve(const void* smask, const void* podrow, const void* cap,
                 {w_anti0, w_anti1, w_anti2, w_anti3}};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool gangs = (flags & kGangs) != 0;
+  // one wave takes the instances without the batch offsets
+  const bool many = batch > 1;
   if (res_bytes == 4 && B == 0) {
     const int which = (L > 0) | (A > 0) << 1 | gangs << 2 |
                       ((flags & kUseStatic) != 0) << 3;
-    return on_chip ? launch_i32_shared(which, a, s, dyn_bytes, st)
-                   : launch_i32_global(which, a, s, dyn_bytes, st);
+    if (on_chip)
+      return many ? launch_batch_i32_shared(which, a, s, dyn_bytes, batch, st)
+                  : launch_i32_shared(which, a, s, dyn_bytes, 1, st);
+    return many ? launch_batch_i32_global(which, a, s, dyn_bytes, batch, st)
+                : launch_i32_global(which, a, s, dyn_bytes, 1, st);
   }
   const int which = gangs | (on_chip != 0) << 1;
-  if (res_bytes == 4) return launch_i32_preempt(which, a, s, dyn_bytes, st);
-  return launch_i64(B > 0, which, a, s, dyn_bytes, st);
+  if (res_bytes == 4)
+    return many ? launch_batch_i32_preempt(which, a, s, dyn_bytes, batch, st)
+                : launch_i32_preempt(which, a, s, dyn_bytes, 1, st);
+  return many ? launch_batch_i64(B > 0, which, a, s, dyn_bytes, batch, st)
+              : launch_i64(B > 0, which, a, s, dyn_bytes, 1, st);
 }
 
 // The spread device function over n (total, count) pairs, for checking it

@@ -35,6 +35,15 @@
 // needs no barrier: a pod costs three block barriers (filter reductions,
 // score max, count scan), and two more when it preempts.
 //
+// A batched launch (commit_solver.solve_commit_batch: the waves the solver
+// daemon coalesced, the reference's vmap axis) runs k waves of one shape as
+// k blocks of one grid, one SM each; the blocks share nothing, and each
+// offsets every plane pointer by its wave once, at entry. The offsets are a
+// template flag (kBatch) with instances of their own: held in registers,
+// the per-wave plane pointers cost the 64-register pod loop 3-6% (measured
+// on north_star and binpack3), so a single wave keeps the instance that
+// reads its pointers straight from the kernel's parameters.
+//
 // Where the state lives. As the TPU kernel kept its node state in VMEM,
 // this one keeps it in the block's dynamic shared memory whenever it fits
 // the 227 KB a block may have: the [R, N] fit usage and [B, R, N] evictable
@@ -129,6 +138,7 @@ constexpr int kMaxA = 4;   // anti-affinity labels
 constexpr int kMaxV = 64;  // zones per anti-affinity label
 constexpr int kMaxL = 4;   // service-affinity labels
 constexpr int kMaxB = 32;  // priority bands
+constexpr int kMaxBatch = 1024;  // waves in one batched launch
 constexpr int kRowFixed = 7;  // tie_hi tie_lo gid member zreq unit prio
 // longest pod row: int64 requests take two words each
 constexpr int kMaxRow = 2 * kMaxR + 2 * kMaxW + kRowFixed + kMaxL;
@@ -191,10 +201,21 @@ struct Planes {
 // evictable capacity), [Wp + Wd + B, N] int32 planes (port words, PD words,
 // evictable counts), [G, N] int16 peer counts. Mirrors
 // commit_solver.state_bytes.
-inline long long state_bytes(int N, int R, int Wp, int Wd, int G, int B,
-                             int res_bytes) {
+__host__ __device__ inline long long state_bytes(int N, int R, int Wp,
+                                                 int Wd, int G, int B,
+                                                 int res_bytes) {
   return (long long)res_bytes * (R + B * R) * N + 4LL * (Wp + Wd + B) * N +
          2LL * G * N;
+}
+
+// Bytes from one wave's packed state to the next in a batched launch (the
+// global state and the gang checkpoint): state_bytes rounded up to 16, so
+// every wave's planes are as aligned as the first wave's (an odd G * N
+// leaves state_bytes 2 mod 4). Mirrors commit_solver.state_stride.
+__host__ __device__ inline long long state_stride(int N, int R, int Wp,
+                                                  int Wd, int G, int B,
+                                                  int res_bytes) {
+  return (state_bytes(N, R, Wp, Wd, G, B, res_bytes) + 15) / 16 * 16;
 }
 
 // The packed state's planes, in order; plane k of a group starts at k * N.
@@ -399,11 +420,12 @@ __device__ __noinline__ PreemptBest preempt_pass(
 // kPre = preemption (B > 0 bands), kAff = ServiceAffinity anchors (L > 0),
 // kAnti = ServiceAntiAffinity zones (A > 0), kGang = gang checkpoint and
 // rollback, kStatic = the NodeLabelPriority plane; kShared = the state lives
-// in dynamic shared memory (else in gstate). The host picks the instance;
-// the wide-domain instances set kAff, kAnti and kStatic and let L, A and
-// kUseStatic decide at run time.
+// in dynamic shared memory (else in gstate); kBatch = block b solves wave b
+// of [batch, ...] stacks. The host picks the instance; the wide-domain
+// instances set kAff, kAnti and kStatic and let L, A and kUseStatic decide
+// at run time.
 template <class Res, bool kPre, bool kAff, bool kAnti, bool kGang,
-          bool kStatic, bool kShared>
+          bool kStatic, bool kShared, bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     const uint8_t* __restrict__ smask,   // [P, pitch] static feasibility
     const int* __restrict__ podrow,      // [P, row] packed pod rows
@@ -428,6 +450,40 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     unsigned char* __restrict__ gstate,  // packed state (global layout only)
     unsigned char* __restrict__ ck,      // packed gang checkpoint (kGang)
     int* __restrict__ chosen, int* __restrict__ win, const Shape s) {
+  // A batched launch runs one wave per block, every wave of one shape: each
+  // plane is a [batch, ...] stack, and block b reads and writes item b. The
+  // offsets are taken once here.
+  if constexpr (kBatch) {
+    const size_t b = blockIdx.x;
+    const size_t nn = (size_t)s.N;
+    const size_t ps = (size_t)s.P;
+    smask += b * ps * s.pitch;
+    podrow += b * ps * s.row;
+    cap += b * s.R * nn;
+    fit0 += b * s.R * nn;
+    off += b * s.R * nn;
+    advx += b * s.R * nn;
+    fitexc += b * nn;
+    ports0 += b * s.Wp * nn;
+    pds0 += b * s.Wd * nn;
+    counts0 += b * s.G * nn;
+    offl += b * s.G;
+    if (s.flags & kUseStatic) sstat += b * nn;
+    affv += b * s.L * nn;
+    anchor0 += b * s.G * s.L;
+    has0 += b * s.G;
+    zone += b * s.A * nn;
+    ecap0 += b * s.B * s.R * nn;
+    ecnt0 += b * s.B * nn;
+    band += b * s.B;
+    bord += b * s.B;
+    const size_t sb =
+        (size_t)state_stride(s.N, s.R, s.Wp, s.Wd, s.G, s.B, sizeof(Res));
+    if constexpr (!kShared) gstate += b * sb;
+    if constexpr (kGang) ck += b * sb;
+    chosen += b * ps;
+    win += b * ps;
+  }
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -874,17 +930,20 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   }
 }
 
-using Launch = int (*)(const Planes&, const Shape&, long long, cudaStream_t);
+using Launch = int (*)(const Planes&, const Shape&, long long, int,
+                       cudaStream_t);
 
-// Launch one instance: check that its static and the wave's dynamic shared
-// memory fit what one block may opt in to, raise the dynamic limit, launch.
-// Returns a cudaError_t (0 = launched).
+// Launch one instance over ``batch`` waves of one shape, one block each:
+// check that its static and the wave's dynamic shared memory fit what one
+// block may opt in to, raise the dynamic limit, launch. Returns a
+// cudaError_t (0 = launched).
 template <class Res, bool kPre, bool kAff, bool kAnti, bool kGang,
-          bool kStatic, bool kShared>
+          bool kStatic, bool kShared, bool kBatch>
 int launch_one(const Planes& a, const Shape& s, long long dyn_bytes,
-               cudaStream_t stream) {
+               int batch, cudaStream_t stream) {
+  if (!kBatch && batch != 1) return (int)cudaErrorInvalidValue;
   const auto kernel = &commit_solve_kernel<Res, kPre, kAff, kAnti, kGang,
-                                           kStatic, kShared>;
+                                           kStatic, kShared, kBatch>;
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
@@ -899,7 +958,7 @@ int launch_one(const Planes& a, const Shape& s, long long dyn_bytes,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dyn_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kThreads, (size_t)dyn_bytes, stream>>>(
+  kernel<<<batch, kThreads, (size_t)dyn_bytes, stream>>>(
       a.smask, a.podrow, (const Res*)a.cap, (const Res*)a.fit0,
       (const Res*)a.off, a.advx, a.fitexc, a.ports0, a.pds0, a.counts0,
       a.offl, a.sstat, a.affv, a.anchor0, a.has0, a.zone,
@@ -908,45 +967,60 @@ int launch_one(const Planes& a, const Shape& s, long long dyn_bytes,
   return (int)cudaGetLastError();
 }
 
-// The int32 instances without preemption, one table per layout: index bit
-// 0 kAff, bit 1 kAnti, bit 2 kGang, bit 3 kStatic.
-template <bool kShared, int I>
+// The int32 instances without preemption, one table per layout (and per
+// kBatch): index bit 0 kAff, bit 1 kAnti, bit 2 kGang, bit 3 kStatic.
+template <bool kShared, bool kBatch, int I>
 constexpr Launch narrow_instance() {
   return &launch_one<int, false, (I & 1) != 0, (I & 2) != 0, (I & 4) != 0,
-                     (I & 8) != 0, kShared>;
+                     (I & 8) != 0, kShared, kBatch>;
 }
 
-template <bool kShared, int... I>
+template <bool kShared, bool kBatch, int... I>
 constexpr std::array<Launch, sizeof...(I)> narrow_table(
     std::integer_sequence<int, I...>) {
-  return {narrow_instance<kShared, I>()...};
+  return {narrow_instance<kShared, kBatch, I>()...};
 }
 
-// The wide-domain instances of one (Res, kPre): index bit 0 kGang, bit 1
-// kShared; the extensions are run-time flags.
-template <class Res, bool kPre, int I>
+// The wide-domain instances of one (Res, kPre, kBatch): index bit 0 kGang,
+// bit 1 kShared; the extensions are run-time flags.
+template <class Res, bool kPre, bool kBatch, int I>
 constexpr Launch wide_instance() {
-  return &launch_one<Res, kPre, true, true, (I & 1) != 0, true, (I & 2) != 0>;
+  return &launch_one<Res, kPre, true, true, (I & 1) != 0, true, (I & 2) != 0,
+                     kBatch>;
 }
 
-template <class Res, bool kPre>
+template <class Res, bool kPre, bool kBatch>
 constexpr std::array<Launch, 4> wide_table() {
-  return {wide_instance<Res, kPre, 0>(), wide_instance<Res, kPre, 1>(),
-          wide_instance<Res, kPre, 2>(), wide_instance<Res, kPre, 3>()};
+  return {wide_instance<Res, kPre, kBatch, 0>(),
+          wide_instance<Res, kPre, kBatch, 1>(),
+          wide_instance<Res, kPre, kBatch, 2>(),
+          wide_instance<Res, kPre, kBatch, 3>()};
 }
 
 // Defined one per source file, so the instances compile in parallel:
 // commit_solve_i32_shared.cu, commit_solve_i32_global.cu (``which``: the
 // narrow index), commit_solve_preempt.cu (int32 with preemption) and
 // commit_solve_i64.cu (int64, ``pre`` picks preemption; ``which``: the wide
-// index).
+// index) take ``batch`` = 1; their kBatch twins, commit_solve_batch_*.cu,
+// any ``batch``.
 int launch_i32_shared(int which, const Planes& a, const Shape& s,
-                      long long dyn_bytes, cudaStream_t stream);
+                      long long dyn_bytes, int batch, cudaStream_t stream);
 int launch_i32_global(int which, const Planes& a, const Shape& s,
-                      long long dyn_bytes, cudaStream_t stream);
+                      long long dyn_bytes, int batch, cudaStream_t stream);
 int launch_i32_preempt(int which, const Planes& a, const Shape& s,
-                       long long dyn_bytes, cudaStream_t stream);
+                       long long dyn_bytes, int batch, cudaStream_t stream);
 int launch_i64(bool pre, int which, const Planes& a, const Shape& s,
-               long long dyn_bytes, cudaStream_t stream);
+               long long dyn_bytes, int batch, cudaStream_t stream);
+int launch_batch_i32_shared(int which, const Planes& a, const Shape& s,
+                            long long dyn_bytes, int batch,
+                            cudaStream_t stream);
+int launch_batch_i32_global(int which, const Planes& a, const Shape& s,
+                            long long dyn_bytes, int batch,
+                            cudaStream_t stream);
+int launch_batch_i32_preempt(int which, const Planes& a, const Shape& s,
+                             long long dyn_bytes, int batch,
+                             cudaStream_t stream);
+int launch_batch_i64(bool pre, int which, const Planes& a, const Shape& s,
+                     long long dyn_bytes, int batch, cudaStream_t stream);
 
 }  // namespace kgpu

@@ -8,10 +8,10 @@
 namespace kgpu {
 
 int launch_i32_shared(int which, const Planes& a, const Shape& s,
-                      long long dyn_bytes, cudaStream_t stream) {
+                      long long dyn_bytes, int batch, cudaStream_t stream) {
   static const auto table =
-      narrow_table<true>(std::make_integer_sequence<int, 16>{});
-  return table[which](a, s, dyn_bytes, stream);
+      narrow_table<true, false>(std::make_integer_sequence<int, 16>{});
+  return table[which](a, s, dyn_bytes, batch, stream);
 }
 
 }  // namespace kgpu

@@ -8,10 +8,11 @@
 namespace kgpu {
 
 int launch_i64(bool pre, int which, const Planes& a, const Shape& s,
-               long long dyn_bytes, cudaStream_t stream) {
-  static const auto plain = wide_table<long long, false>();
-  static const auto with_preemption = wide_table<long long, true>();
-  return (pre ? with_preemption : plain)[which](a, s, dyn_bytes, stream);
+               long long dyn_bytes, int batch, cudaStream_t stream) {
+  static const auto plain = wide_table<long long, false, false>();
+  static const auto with_preemption = wide_table<long long, true, false>();
+  return (pre ? with_preemption : plain)[which](a, s, dyn_bytes, batch,
+                                                stream);
 }
 
 }  // namespace kgpu

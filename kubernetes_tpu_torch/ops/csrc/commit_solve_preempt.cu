@@ -8,9 +8,9 @@
 namespace kgpu {
 
 int launch_i32_preempt(int which, const Planes& a, const Shape& s,
-                       long long dyn_bytes, cudaStream_t stream) {
-  static const auto table = wide_table<int, true>();
-  return table[which](a, s, dyn_bytes, stream);
+                       long long dyn_bytes, int batch, cudaStream_t stream) {
+  static const auto table = wide_table<int, true, false>();
+  return table[which](a, s, dyn_bytes, batch, stream);
 }
 
 }  // namespace kgpu

@@ -1,8 +1,9 @@
 """Probe primitives (ref: pkg/probe/{exec,http,tcp}).
 
-Port of ``kubernetes_tpu/probe/__init__.py``'s HTTP prober, what the
-scheduler binary's deep ``/healthz`` probes its apiserver with; the TCP
-and exec probers come with the kubelet (ROADMAP Queue 1 item 8).
+Port of ``kubernetes_tpu/probe/__init__.py``'s HTTP and TCP probers,
+what the scheduler binary's deep ``/healthz`` probes its apiserver and its
+solver daemon with; the exec prober comes with the kubelet (ROADMAP Queue
+1 item 8).
 
 Each prober returns one of SUCCESS / FAILURE / UNKNOWN
 (ref: pkg/probe/probe.go Result).
@@ -10,6 +11,7 @@ Each prober returns one of SUCCESS / FAILURE / UNKNOWN
 
 from __future__ import annotations
 
+import socket
 import urllib.error
 import urllib.request
 from typing import Tuple
@@ -18,7 +20,7 @@ SUCCESS = "success"
 FAILURE = "failure"
 UNKNOWN = "unknown"
 
-__all__ = ["SUCCESS", "FAILURE", "UNKNOWN", "probe_http"]
+__all__ = ["SUCCESS", "FAILURE", "UNKNOWN", "probe_http", "probe_tcp"]
 
 
 def probe_http(host: str, port: int, path: str = "/",
@@ -35,4 +37,13 @@ def probe_http(host: str, port: int, path: str = "/",
     except urllib.error.HTTPError as e:
         return FAILURE, str(e)
     except Exception as e:
+        return FAILURE, str(e)
+
+
+def probe_tcp(host: str, port: int, timeout: float = 1.0) -> Tuple[str, str]:
+    """ref: pkg/probe/tcp/tcp.go — a successful connect is success."""
+    try:
+        with socket.create_connection((host, port), timeout=timeout):
+            return SUCCESS, ""
+    except OSError as e:
         return FAILURE, str(e)

@@ -167,10 +167,19 @@ class SchedulerConfig:
     # configuration it cannot model instead of solving the default one
     provider: str = schedplugins.DEFAULT_PROVIDER
     policy: Optional[schedplugins.Policy] = None
-    # topology flags of the reference's scheduler binary; the port runs
-    # only the in-process, causal, single-device loop and refuses the rest
+    # HOST:PORT of a shared kube-solverd daemon; empty = solve in-process.
+    # Recorded here (not on the driver) so any wave-capable driver built
+    # from this config inherits the cluster's solver topology.
     solver_addr: str = ""
+    # What a wave does when the daemon is away (kube-scheduler
+    # --solver-fallback): "inprocess" solves the wave in this process on
+    # the scheduler's own device, "requeue" fails the wave instead, every
+    # pod requeues through the error handler and the next wave retries the
+    # daemon
+    solver_fallback: str = "inprocess"
+    # the speculative double-buffered loop (kube-scheduler --pipeline)
     pipeline: bool = False
+    # device-mesh solve; the port runs on one device and refuses "on"
     mesh: str = "auto"
     # build the solve kernel and run one exemplar wave at boot, off the
     # wave loop (scheduler/tpu_batch.py _prewarm_boot)
@@ -303,7 +312,8 @@ class ConfigFactory:
                policy: Optional[schedplugins.Policy] = None,
                recorder: Optional[EventRecorder] = None,
                solver_addr: str = "", pipeline: bool = False,
-               mesh: str = "auto", prewarm: bool = False) -> SchedulerConfig:
+               mesh: str = "auto", solver_fallback: str = "inprocess",
+               prewarm: bool = False) -> SchedulerConfig:
         """ref: factory.go:77-172 CreateFromProvider/CreateFromConfig/
         CreateFromKeys."""
         # reflector: unassigned pods -> FIFO (field selector spec.host=)
@@ -356,6 +366,7 @@ class ConfigFactory:
             provider=provider,
             policy=policy,
             solver_addr=solver_addr,
+            solver_fallback=solver_fallback,
             pipeline=pipeline,
             mesh=mesh,
             prewarm=prewarm,

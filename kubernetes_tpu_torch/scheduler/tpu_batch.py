@@ -61,12 +61,21 @@ loop thread only, on ``self.device``). With tracing on (util/tracing.py)
 each wave is one trace of ``wave.drain/prepare/encode/solve/commit``
 spans, in either loop.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item rather than replaced by a substitute: the shared solver
-daemon (``solver_addr``) and the device mesh (``mesh="on"``). A wave that
-raises ``NotImplementedError`` is handed to the error handler and the
-error propagates out of ``schedule_wave``, so the loop stops instead of
-requeueing it forever.
+The shared solver daemon (``solver=``, or ``config.solver_addr``, the
+binary's ``--solver-addr``): each wave's solve goes to a kube-solverd
+process through ``solver/client.RemoteSolver`` inside the ``wave.solve``
+span, whose context rides the v3 frame; the daemon coalesces concurrent
+waves of several schedulers into one launch. When the daemon is busy or
+away the wave solves in this process on ``self.device``
+(``config.solver_fallback="inprocess"``) or fails and requeues
+(``"requeue"``). With a daemon, the boot prewarm builds nothing here: the
+daemon prewarms its own launches, and the ready gauge reads 1 at once.
+
+Not ported yet: the device mesh (``mesh="on"`` raises
+``NotImplementedError`` naming its ROADMAP item rather than solving on a
+substitute). A wave that raises ``NotImplementedError`` is handed to the
+error handler and the error propagates out of ``schedule_wave``, so the
+loop stops instead of requeueing it forever.
 """
 
 from __future__ import annotations
@@ -236,12 +245,15 @@ class BatchScheduler:
     derived from the config's recorded provider and policy, so
     constructing this class for an unsupported configuration raises
     UnsupportedPolicy. ``device`` is where each wave solves: ``cuda``
-    unless the caller names another; without a card the default raises."""
+    unless the caller names another; without a card the default raises.
+    ``solver`` is a shared-solver client (``solver/client.RemoteSolver``);
+    None builds one from ``config.solver_addr`` when that is set, and
+    otherwise every wave solves in this process."""
 
     def __init__(self, config: SchedulerConfig, factory: ConfigFactory,
                  client, wave_size: int = 1024, wave_linger_s: float = 0.02,
                  batch_policy: Optional[BatchPolicy] = None,
-                 pipeline: Optional[bool] = None, device=None):
+                 pipeline: Optional[bool] = None, device=None, solver=None):
         self.config = config
         self.factory = factory
         self.client = client
@@ -251,10 +263,16 @@ class BatchScheduler:
         self.batch_policy = batch_policy or batch_policy_from(
             config.provider, config.policy)
         _wave_metrics()   # the scheduler_wave_* family scrapes from boot
-        if config.solver_addr:
-            raise NotImplementedError(
-                "the shared solver daemon is not ported yet (ROADMAP Queue "
-                "1: solver/service.py + cmd/solverd.py)")
+        # shared-solver seam: an explicit client, or one built from the
+        # config's recorded solver topology (--solver-addr); None solves
+        # in-process
+        if solver is None and config.solver_addr:
+            from kubernetes_tpu_torch.solver.client import RemoteSolver
+            solver = RemoteSolver(
+                config.solver_addr,
+                fallback=config.solver_fallback != "requeue",
+                device=self.device)
+        self.solver = solver
         # speculative double-buffered wave loop (module docstring); None
         # inherits the config's recorded --pipeline flag
         self.pipeline = bool(config.pipeline if pipeline is None
@@ -430,9 +448,10 @@ class BatchScheduler:
         return snap
 
     def _solve_snap(self, snap, n_pending: int, tctx=None) -> _WaveDecisions:
-        """One wave's solve on ``self.device`` -> _WaveDecisions. Inside
-        the kernel's domain this is one launch of commit_solve; the gang
-        all-or-nothing post-pass is part of ``solve``. Runs on the
+        """One wave's solve on ``self.device``, or through ``self.solver``
+        (the shared daemon) -> _WaveDecisions. Inside the kernel's domain
+        this is one launch of commit_solve; the gang all-or-nothing
+        post-pass is part of ``solve`` and ``RemoteSolver.solve``. Runs on the
         pipelined loop's solve thread too; ``tctx`` carries the wave's
         trace across that thread boundary. A placed pod whose score
         encodes a preemption threshold gets its victims from the
@@ -442,7 +461,10 @@ class BatchScheduler:
         decisions are read (the ordering of ``_pipelined_cycle``)."""
         t0 = time.perf_counter()
         with tracing.span("wave.solve", parent=tctx, pods=n_pending):
-            chosen, scores = solve(snap, device=self.device)
+            if self.solver is not None:
+                chosen, scores = self.solver.solve(snap)
+            else:
+                chosen, scores = solve(snap, device=self.device)
         dt = time.perf_counter() - t0
         _wave_metrics().solve.observe(dt)
         _wave_metrics().note_stall(dt)
@@ -1057,7 +1079,11 @@ class BatchScheduler:
 
     # -- the loop -----------------------------------------------------------
     def run(self) -> "BatchScheduler":
-        if self.config.prewarm:
+        if self.config.prewarm and self.solver is not None:
+            # the daemon builds and prewarms the launches; this worker
+            # has nothing of its own to warm
+            self._sx.prewarm_ready.set(1)
+        elif self.config.prewarm:
             self._sx.prewarm_ready.set(0)
             threading.Thread(target=self._prewarm_boot, daemon=True,
                              name="tpu-batch-prewarm-boot").start()

@@ -8,8 +8,11 @@ Policy where it has one; ``north_star_dec`` takes the int64 instances and
 the card and times ``solve_commit`` with CUDA events: one warm-up launch,
 then the median of ``--runs`` launches. With ``--wave`` it times the whole
 wave as a user runs it, on the host clock: encode_snapshot, solve and
-decisions_to_names, one warm-up wave, then ``--runs`` waves. Prints one
-JSON line with the card's name and power limit.
+decisions_to_names, one warm-up wave, then ``--runs`` waves. With
+``--batch K`` it times one batched launch over K stacked copies of the
+wave, K blocks (the solver daemon's coalesced group; the planes are
+stacked before the timed launches). Prints one JSON line with the card's
+name and power limit.
 
 The package is imported from the working directory, so the same script
 times two trees of the repository in turns:
@@ -85,6 +88,9 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=7)
     ap.add_argument("--wave", action="store_true",
                     help="time the whole wave, not the kernel alone")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="time one batched launch over this many copies "
+                         "of the wave")
     args = ap.parse_args()
 
     import torch
@@ -115,9 +121,16 @@ def main() -> int:
                                       bs.peer_bound_of(snap)):
             raise AssertionError("wave outside the kernel's domain")
         ci = commit_solver.prepare(inp, snap.policy, snap.has_gangs)
-        commit_solver.solve_commit(ci)                  # build and warm up
-        ms, runs, _ = event_ms(lambda: commit_solver.solve_commit(ci),
-                               args.runs)
+        if args.batch:
+            # the planes are stacked once, outside the timed launches
+            planes = commit_solver.stack_planes([ci] * args.batch)
+            run = lambda: commit_solver.launch_stacked(  # noqa: E731
+                ci, planes, args.batch)
+            out["batch"] = args.batch
+        else:
+            run = lambda: commit_solver.solve_commit(ci)  # noqa: E731
+        run()                                           # build and warm up
+        ms, runs, _ = event_ms(run, args.runs)
         on_chip, _ = commit_solver.layout_of(ci)
         out.update({"kernel_ms": ms, "kernel_ms_runs": runs,
                     "resource_type": str(ci.cap.dtype).split(".")[-1],

@@ -6,8 +6,10 @@ apiserver.go:40-87, pkg/kubelet/metrics/metrics.go:31-84) trimmed to what
 the scheduler binary writes: ``Counter``, ``Gauge``, ``Histogram``, the
 ``Registry`` and its Prometheus text exposition (``render_text``, the
 binary's ``/metrics``), the encoder-resync counters and checkpoint
-histogram of the journal-replay path and the boot prewarm's readiness
-gauge and seconds (``SlipstreamMetrics``), the two pod-latency histograms
+histogram of the journal-replay path, the prewarm's readiness gauge,
+seconds and bucket counts and the solver daemon's mirrors of its
+schedulers' resync counters (``SlipstreamMetrics``), the solver daemon's
+delta-wire family (``SolverdDeltaMetrics``), the two pod-latency histograms
 the commit and the bound-pod observer write (``PodLatencyMetrics``), the
 preemption family of the commit (``PreemptionMetrics``), the async
 event recorder's posted/dropped counters (``EventRecorderMetrics``), the
@@ -27,7 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "DEFAULT_BUCKETS", "POD_E2E_BUCKETS", "SlipstreamMetrics",
-           "slipstream_metrics", "PodLatencyMetrics", "pod_latency_metrics",
+           "slipstream_metrics", "SolverdDeltaMetrics",
+           "solverd_delta_metrics", "PodLatencyMetrics", "pod_latency_metrics",
            "PreemptionMetrics", "preemption_metrics",
            "EventRecorderMetrics", "event_recorder_metrics",
            "ExplainMetrics", "explain_metrics",
@@ -261,6 +264,45 @@ def default_registry() -> Registry:
     return _default
 
 
+class SolverdDeltaMetrics:
+    """The ``solverd_delta_*`` family: delta-wire effectiveness of the
+    solver daemon's resident plane cache (solver/service.py), exported
+    from the daemon's /metrics beside its queue and coalescing series."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.hits = reg.counter(
+            "solverd_delta_hits_total",
+            "Solve frames whose resident planes arrived as row deltas "
+            "and were applied to the daemon's cache")
+        self.full_frames = reg.counter(
+            "solverd_delta_full_frames_total",
+            "Full-plane solve frames (cache establish/refresh, v1 "
+            "clients, or post-resync re-sends)")
+        self.resyncs = reg.counter(
+            "solverd_delta_resyncs_total",
+            "Delta frames refused pending a full resync, by reason",
+            ("reason",))
+        self.bytes_shipped = reg.counter(
+            "solverd_delta_bytes_shipped_total",
+            "Array bytes received on the wire for solve frames")
+        self.bytes_saved = reg.counter(
+            "solverd_delta_bytes_saved_total",
+            "Array bytes NOT shipped because resident planes were "
+            "reused (full reconstruction size minus wire size)")
+        self.cache_entries = reg.gauge(
+            "solverd_delta_cache_entries",
+            "Live (worker, shape-bucket) resident plane cache entries")
+
+
+def solverd_delta_metrics() -> SolverdDeltaMetrics:
+    if SolverdDeltaMetrics._singleton is None:
+        SolverdDeltaMetrics._singleton = SolverdDeltaMetrics()
+    return SolverdDeltaMetrics._singleton
+
+
 class SlipstreamMetrics:
     """The encoder-resync family of the journal-replay path
     (models/incremental.py checkpoint, scheduler/tpu_batch.py replay):
@@ -295,6 +337,26 @@ class SlipstreamMetrics:
             "compile_prewarm_ready",
             "Boot prewarm done: the solve kernel built and one exemplar "
             "wave solved (1), or not yet (0); load windows gate on this")
+        # solver/prewarm.py: buckets the daemon's prewarm thread launched
+        # ahead of the live waves, and those still queued
+        self.prewarm_total = reg.counter(
+            "compile_prewarm_total",
+            "Shape buckets launched off the wave loop by the prewarm "
+            "thread (kernel built, one exemplar wave solved)")
+        self.prewarm_pending = reg.gauge(
+            "compile_prewarm_pending",
+            "Prewarm targets queued but not yet launched")
+        # solverd-side mirrors of the schedulers' resync counters,
+        # piggybacked on solve headers ("enc") and summed per scheduler:
+        # last-reported gauges, not daemon-local counters
+        self.replay_reported = reg.gauge(
+            "solverd_encoder_resync_replay_reported",
+            "Sum of encoder_resync_replay_total last reported by each "
+            "connected scheduler in its solve headers")
+        self.full_reported = reg.gauge(
+            "solverd_encoder_resync_full_reported",
+            "Sum of encoder_resync_full_total last reported by each "
+            "connected scheduler in its solve headers")
 
 
 def slipstream_metrics() -> SlipstreamMetrics:

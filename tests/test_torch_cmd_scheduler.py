@@ -11,9 +11,11 @@ second apiserver, and the serial oracle's (tolerance 0: host names).
 The binary's debug server (``/metrics`` with the ``scheduler_wave_*``
 family and ``compile_prewarm_ready 1`` under ``--prewarm``, ``/healthz``
 JSON, ``/debug/pprof``, the span shard at ``/debug/trace`` and the
-flight recorder's series at ``/debug/vars``), every unported flag's
-refusal naming its ROADMAP item, and the default ``--device cuda``
-failing without a card are checked too.
+flight recorder's series at ``/debug/vars``), ``--solver-addr`` binding
+through a port solverd process (and the deep ``/healthz`` degraded, not
+down, once the daemon dies), ``--mesh on``'s refusal naming its ROADMAP
+item, and the default ``--device cuda`` failing without a card are
+checked too.
 """
 
 import json
@@ -301,13 +303,110 @@ def test_debug_server_endpoints(two_apiservers, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--solver-addr", "127.0.0.1:1"], "Queue 1 item 6"),
     (["--mesh", "on"], "Queue 1 item 7"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item, capsys):
     assert port_cmd.scheduler_server(["--master", "http://127.0.0.1:1"]
                                      + flags) == 1
     assert item in capsys.readouterr().err
+
+
+def _solverd_process(port, stderr_path):
+    """The port's cmd/solverd on ``port`` (the CPU), under the launcher
+    that refuses jax and the reference package."""
+    launcher = LAUNCHER.replace('"kube-scheduler"', '"kube-solverd"')
+    launcher = launcher.replace("kubernetes_tpu_torch.cmd.scheduler",
+                                "kubernetes_tpu_torch.cmd.solverd")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    err = open(stderr_path, "w")
+    proc = subprocess.Popen([sys.executable, "-c", launcher, "--port",
+                             str(port), "--device", "cpu",
+                             "--gather-window", "0.001"],
+                            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                            stderr=err)
+    err.close()
+    deadline = time.monotonic() + 60
+    while "kube-solverd listening" not in open(stderr_path).read():
+        assert proc.poll() is None, open(stderr_path).read()
+        assert time.monotonic() < deadline, "the daemon never listened"
+        time.sleep(0.1)
+    return proc
+
+
+def _solver_item(url):
+    code, body = _http_get(url + "/healthz")
+    health = json.loads(body)
+    items = {i["name"]: i for i in health["items"]}
+    return code, health, items.get("solver")
+
+
+def test_binary_binds_through_a_solverd_process(two_apiservers, tmp_path):
+    """``--solver-addr``: the port's binary solves its wave on a port
+    solverd process and places every pod as the reference binary does
+    (in-process) and as the serial oracle does; the deep /healthz
+    reaches the daemon."""
+    ours, theirs = two_apiservers
+    for a in (ours, theirs):
+        _seed(a)
+        _create_pending(a)
+    dport, mport = _free_port(), _free_port()
+    daemon = _solverd_process(dport, tmp_path / "solverd.txt")
+    proc = None
+    ref_stop = None
+    try:
+        proc = _port_binary(["--master", ours.url, "--device", "cpu",
+                             "--algorithm", "tpu-batch", "--wave-period",
+                             "0.5", "--solver-addr", f"127.0.0.1:{dport}",
+                             "--solver-fallback", "requeue",
+                             "--metrics-port", str(mport)],
+                            tmp_path / "stderr.txt")
+        ref_stop, ref_thread = _serve(ref_cmd.scheduler_server,
+                                      ["--master", theirs.url, "--algorithm",
+                                       "tpu-batch", "--wave-period", "0.5"])
+        url = f"http://127.0.0.1:{mport}"
+        _wait_healthy(url, proc)
+        got, want = _placement(ours), _placement(theirs)
+        assert got == want == _oracle()
+        code, health, solver = _solver_item(url)
+        assert code == 200 and health["healthy"] is True
+        assert solver["status"] == "success"
+        metrics = _http_get(url + "/metrics")[1].splitlines()
+        assert any(m.startswith("scheduler_wave_solve_seconds_count ")
+                   for m in metrics)
+    finally:
+        if proc is not None:
+            _stop_process(proc)
+        _stop_process(daemon)
+        if ref_stop is not None:
+            ref_stop.set()
+            ref_thread.join(timeout=10)
+
+
+def test_healthz_degraded_when_the_solverd_dies(two_apiservers, tmp_path):
+    """A dead daemon is degraded, not down: /healthz stays 200 and
+    healthy, with the solver item failing."""
+    ours, _ = two_apiservers
+    dport, mport = _free_port(), _free_port()
+    daemon = _solverd_process(dport, tmp_path / "solverd.txt")
+    proc = None
+    try:
+        proc = _port_binary(["--master", ours.url, "--device", "cpu",
+                             "--algorithm", "tpu-batch", "--solver-addr",
+                             f"127.0.0.1:{dport}", "--metrics-port",
+                             str(mport)], tmp_path / "stderr.txt")
+        url = f"http://127.0.0.1:{mport}"
+        _wait_healthy(url, proc)
+        assert _solver_item(url)[2]["status"] == "success"
+        _stop_process(daemon)
+        code, health, solver = _solver_item(url)
+        assert code == 200 and health["healthy"] is True
+        assert solver["status"] == "failure"
+        assert health["items"][0]["name"] == "binder"
+    finally:
+        if proc is not None:
+            _stop_process(proc)
+        _stop_process(daemon)
 
 
 def test_unported_flag_exits_nonzero_as_a_process(tmp_path):

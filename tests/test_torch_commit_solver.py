@@ -333,14 +333,15 @@ def test_float32_spread_expression_is_spread_score():
 
 def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():
     # chip_smoke prints ptxas' registers and spills per kernel instance; two
-    # instances that differ only in the state layout keep an entry each
+    # instances that differ only in the state layout keep an entry each, and
+    # so does the batched twin (the last flag)
     import chip_smoke
-    mangled = ("_ZN4kgpu19commit_solve_kernelIiLb0ELb0ELb1ELb0ELb0ELb{}EEEvPKhP"
-               "KiPKT_S7_S7_S2_S2_S4_S4_S4_S4_S4_S4_S4_S2_S4_S7_S4_S4_S4_PhS8_"
-               "PiS9_NS_5ShapeE")
+    mangled = ("_ZN4kgpu19commit_solve_kernelIiLb0ELb0ELb1ELb0ELb0ELb{}ELb{}EEEv"
+               "PKhPKiPKT_S7_S7_S2_S2_S4_S4_S4_S4_S4_S4_S4_S2_S4_S7_S4_S4_S4_"
+               "PhS8_PiS9_NS_5ShapeE")
     log = ["ptxas info    : 0 bytes gmem"]
-    for shared, spill in ((1, 8), (0, 0)):
-        name = mangled.format(shared)
+    for shared, batch, spill in ((1, 0, 8), (0, 0, 0), (1, 1, 4)):
+        name = mangled.format(shared, batch)
         log += [
             f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
             f"ptxas info    : Function properties for {name}",
@@ -349,9 +350,11 @@ def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():
             "ptxas info    : Used 64 registers, used 1 barriers, 80 bytes "
             "cumulative stack size, 2096 bytes smem"]
     report = chip_smoke._ptxas_report("\n".join(log))
-    on, off = ("commit_solve<int32,0,0,1,0,0,1>",
-               "commit_solve<int32,0,0,1,0,0,0>")
-    assert set(report) == {on, off}
+    on, off, batched = ("commit_solve<int32,0,0,1,0,0,1,0>",
+                        "commit_solve<int32,0,0,1,0,0,0,0>",
+                        "commit_solve<int32,0,0,1,0,0,1,1>")
+    assert set(report) == {on, off, batched}
     assert report[on].startswith("Used 64 registers")
     assert "8 bytes spill stores" in report[on]
     assert " 0 bytes spill stores" in report[off]
+    assert "4 bytes spill stores" in report[batched]

@@ -12,9 +12,10 @@ package's, on the CPU.
 (b) The scenario of tests/test_tpu_batch.py against the JAX package's
     apiserver (``Master``), reached through a test-only transport that
     converts objects between the two packages by field name.
-(c) What the port does not do yet raises NotImplementedError naming its
-    ROADMAP item: the solver daemon and the device mesh; the boot prewarm
-    solves an exemplar wave; and the default device needs a card.
+(c) ``solver_addr`` solves through a solver daemon; what the port does
+    not do yet (the device mesh) raises NotImplementedError naming its
+    ROADMAP item; the boot prewarm solves an exemplar wave; and the
+    default device needs a card.
 (d) Preemption: a preempting pod binds with its victims through the
     FakeCluster's and the apiserver's atomic evict+bind; a binder without
     ``bind_many`` commits pod by pod.
@@ -429,7 +430,6 @@ def _small_factory(pending=(), bound=()):
 
 
 @pytest.mark.parametrize("kw, create_kw, item", [
-    ({}, {"solver_addr": "localhost:1"}, "solverd"),
     ({}, {"mesh": "on"}, "parallel/mesh.py"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
@@ -443,6 +443,35 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
         assert item in str(err.value)
     finally:
         assert factory.stop(join=True)
+
+
+@pytest.mark.parametrize("fallback", ["inprocess", "requeue"])
+def test_batch_scheduler_built_from_solver_addr(fallback):
+    """``solver_addr`` builds a RemoteSolver on the scheduler's device
+    (``requeue`` turns its fallback off) and the wave solves on the
+    daemon: one remote wave, both pods bound."""
+    from kubernetes_tpu_torch.solver.client import RemoteSolver
+    from kubernetes_tpu_torch.solver.service import SolverService
+
+    srv = SolverService(gather_window_s=0.001, device="cpu").start()
+    cluster, factory = _small_factory(
+        pending=[REF.pod("a", cpu_m=100), REF.pod("b", cpu_m=100)])
+    try:
+        config = factory.create(solver_addr=srv.address,
+                                solver_fallback=fallback)
+        sched = BatchScheduler(config, factory, cluster.client,
+                               device="cpu")
+        assert isinstance(sched.solver, RemoteSolver)
+        assert sched.solver.device == torch.device("cpu")
+        assert sched.solver.fallback is (fallback == "inprocess")
+        cluster.wait_synced()
+        assert sched.schedule_wave(timeout=1.0) == 2
+        assert sorted(p.metadata.name for p in cluster.bound()) == ["a", "b"]
+        assert sched.solver.remote_waves == 1 and srv.waves_served == 1
+    finally:
+        assert factory.stop(join=True)
+        srv.stop()
+        assert srv.join(10.0)
 
 
 def test_prewarm_solves_an_exemplar_wave_and_sets_the_ready_gauge():
