@@ -96,12 +96,14 @@ PyTorch version. Phases:
    leave the stores, each wave's bindings and victim sets equal the
    replay of solve(encode_snapshot(...)) of its state, and the
    scheduler_preemption_* counters agree;
-9. the scheduler binary: the JAX package's apiserver binary
-   (``kubernetes_tpu.cmd.apiserver``) runs as a separate OS process in
-   the cluster's place (the port has no apiserver yet; this script
-   imports nothing of it); the north-star cluster (5,000 nodes, 10,000
-   bound pods, 8 services) is seeded over HTTP with the port's client
-   from 8 threads; the port's ``scheduler_server`` (``--algorithm
+9. the scheduler binary: the port's apiserver binary
+   (``kubernetes_tpu_torch.cmd.apiserver``, default flags) runs as a
+   separate OS process in the cluster's place; the north-star cluster
+   (5,000 nodes, 10,000 bound pods, 8 services) is seeded over HTTP with
+   the port's client from 8 threads while a watch of pods and one of
+   nodes read every create (logging the apiserver's creates/s; fails
+   unless the watches saw every create, resourceVersions strictly
+   increasing); the port's ``scheduler_server`` (``--algorithm
    tpu-batch --prewarm --metrics-port``) runs in a thread, lists and
    watches over the v1 wire, builds the kernel and solves one exemplar
    wave off its loop; once ``compile_prewarm_ready 1`` reads on
@@ -1713,20 +1715,19 @@ def _wait_http(url: str, proc, what: str, deadline_s: float = 120.0) -> str:
 
 
 def _start_apiserver(tag: str):
-    """The JAX package's apiserver binary as a separate OS process (the
-    port has no apiserver yet), standing in the cluster's place; its
-    output goes to chiprun_out/<tag>_apiserver.log. -> (process, URL)."""
+    """The port's apiserver binary (``kubernetes_tpu_torch.cmd.apiserver``,
+    default flags) as a separate OS process, standing in the cluster's
+    place; its output goes to chiprun_out/<tag>_apiserver.log.
+    -> (process, URL)."""
     import subprocess
 
     port = _free_port()
     os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
     log = open(os.path.join(_ROOT, "chiprun_out", f"{tag}_apiserver.log"),
                "w")
-    env = dict(os.environ)
-    env.setdefault("JAX_PLATFORMS", "cpu")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "kubernetes_tpu.cmd.apiserver", "--port",
-         str(port)], cwd=_ROOT, env=env, stdout=log,
+        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.apiserver",
+         "--port", str(port)], cwd=_ROOT, stdout=log,
         stderr=subprocess.STDOUT)
     log.close()
     url = f"http://127.0.0.1:{port}"
@@ -1839,16 +1840,74 @@ def _seed_cluster(client, nodes, existing, services, seeders: int,
     return seed_nodes_s, seed_pods_s, time.perf_counter() - t0
 
 
+class _CreateWatch:
+    """Watches of every pod and node create on an apiserver, each read by a
+    thread of its own from before the first create: each stream's
+    resourceVersions must rise strictly, and ``check`` waits until the
+    ADDED events name every created object."""
+
+    def __init__(self, url: str):
+        import threading
+
+        from kubernetes_tpu_torch.client.client import Client
+        from kubernetes_tpu_torch.client.http import HTTPTransport
+
+        client = Client(HTTPTransport(url))
+        self.watches = {"pods": client.pods("").watch(),
+                        "nodes": client.nodes().watch()}
+        self.added = {k: set() for k in self.watches}
+        self.order_faults: list = []
+        self.threads = [threading.Thread(target=self._read, args=(k, w),
+                                         daemon=True, name=f"watch-{k}")
+                        for k, w in self.watches.items()]
+        for t in self.threads:
+            t.start()
+
+    def _read(self, kind, w) -> None:
+        last = 0
+        while True:
+            ev = w.next_event()
+            if ev is None:
+                return
+            rv = int(ev.object.metadata.resource_version)
+            if rv <= last:
+                self.order_faults.append((kind, last, rv))
+            last = rv
+            if ev.type == "ADDED":
+                self.added[kind].add(ev.object.metadata.name)
+
+    def check(self, want: dict, tag: str, timeout_s: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while any(not want[k] <= self.added[k] for k in want):
+            if time.monotonic() > deadline:
+                missing = {k: len(want[k] - self.added[k]) for k in want}
+                raise AssertionError(f"{tag}: the watch missed creates "
+                                     f"{missing}")
+            time.sleep(0.05)
+        if self.order_faults:
+            raise AssertionError(f"{tag}: watch resourceVersions not "
+                                 f"strictly increasing: "
+                                 f"{self.order_faults[:3]}")
+
+    def stop(self) -> None:
+        for w in self.watches.values():
+            w.stop()
+        for t in self.threads:
+            t.join(timeout=10)
+
+
 def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
                   creators=4, count_launches=True) -> dict:
     """Phase 9: the port's scheduler binary (cmd/scheduler.scheduler_server
     with --algorithm tpu-batch --prewarm, in a thread of this process so
-    the kernel's launch counter can be read) against the JAX package's
+    the kernel's launch counter can be read) against the port's
     apiserver in its own process, over HTTP and the v1 wire. The cluster
     (north_star: ``n_nodes`` nodes, 2 bound pods each, 8 services) is
-    seeded through the port's client; once compile_prewarm_ready reads 1
-    on /metrics and the scheduler's caches hold the cluster, ``n_pending``
-    pods are created from ``creators`` threads. Fails unless every pod
+    seeded through the port's client, watched create by create
+    (``_CreateWatch``), and the creates/s logged; once
+    compile_prewarm_ready reads 1 on /metrics and the scheduler's caches
+    hold the cluster, ``n_pending`` pods are created from ``creators``
+    threads. Fails unless every pod
     reads back bound, no node is over capacity and no host port doubled,
     each wave launched commit_solve once and the plain version never ran,
     each wave's decisions equal the plain version's on the CPU over the
@@ -1948,11 +2007,24 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
     stop, ready = threading.Event(), threading.Event()
     result: dict = {}
     thread = None
-    watch = None
+    watch = creates = None
     try:
-        # ---- seed the cluster over HTTP ----------------------------------
+        # ---- seed the cluster over HTTP, watching every create -----------
+        creates = _CreateWatch(url)
         seed_nodes_s, seed_pods_s, seed_bind_s = _seed_cluster(
             client, nodes, existing, services, seeders, "phase 9")
+        creates.check({"nodes": {n.metadata.name for n in nodes},
+                       "pods": {p.metadata.name for p in existing}},
+                      "phase 9")
+        creates.stop()
+        n_creates = len(nodes) + len(services) + len(existing)
+        creates_per_s = n_creates / (seed_nodes_s + seed_pods_s)
+        _log(f"phase 9: the port's apiserver took {n_creates} creates "
+             f"({len(nodes)} nodes and {len(services)} services in "
+             f"{seed_nodes_s:.3f} s, {len(existing)} pods in "
+             f"{seed_pods_s:.3f} s, {seeders} threads): "
+             f"{creates_per_s:.1f} creates/s; a watch saw every create, "
+             f"resourceVersions strictly increasing")
 
         # ---- the binary, its prewarm and its caches ----------------------
         mport = _free_port()
@@ -2032,6 +2104,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
             gc.callbacks.remove(on_gc)
         if watch is not None:
             watch.stop()
+        if creates is not None:
+            creates.stop()
         stop.set()
         if thread is not None:
             thread.join(timeout=60)
@@ -2102,7 +2176,7 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         "nodes": n_nodes, "existing": len(existing), "pending": n_pending,
         "services": len(services), "seeders": seeders, "creators": creators,
         "seed_nodes_s": seed_nodes_s, "seed_pods_s": seed_pods_s,
-        "seed_bind_s": seed_bind_s,
+        "seed_bind_s": seed_bind_s, "creates_per_s": creates_per_s,
         "prewarm_s": sched.prewarm_s, "prewarm_ready_s": prewarm_ready_s,
         "caches_synced_s": synced_s,
         "window_start_s": t_first - t_phase, "window_end_s": t_last - t_phase,
@@ -2626,7 +2700,7 @@ def _daemon_binary_phase(dev, n_nodes=5_000, n_pending=2_000, seeders=8,
     """Phase 10b: ``python -m kubernetes_tpu_torch.cmd.solverd`` as its own
     process (``--prewarm``), and the port's scheduler binary
     (``--algorithm tpu-batch --prewarm --solver-addr``, in a thread) against
-    the JAX package's apiserver process seeded with north_star's nodes,
+    the port's apiserver process seeded with north_star's nodes,
     bound pods and services; then ``n_pending`` pending pods. Fails unless
     every pod binds within capacity, every wave went to the daemon
     (``remote_waves`` > 0, no fallback, no busy wave, no launch in the

@@ -1,20 +1,25 @@
-"""resource.Quantity — exact SI resource amounts (parsing, integer views,
-canonical wire strings).
+"""resource.Quantity — canonicalized SI resource amounts.
 
-Port of ``kubernetes_tpu/api/quantity.py`` trimmed to what the scheduler
-reads and writes: parsing a quantity string, its ``milli_value`` /
-``int_value`` (ref: pkg/api/resource/quantity.go), value equality, and the
-canonical string the wire codec encodes (ref: suffix.go). The amount is an
-exact rational, so milli-CPU and binary-SI byte arithmetic are both exact.
-Arithmetic between quantities is not ported.
+Port of ``kubernetes_tpu/api/quantity.py`` (ref: pkg/api/resource/
+quantity.go + suffix.go): a fixed-point decimal/binary quantity with suffix
+canonicalization, the basis of all capacity math (node capacity, pod
+requests/limits, quota).
+
+Internally the amount is an exact rational (numerator/denominator over powers
+of 2 and 10), so milli-CPU arithmetic and binary-SI byte arithmetic are both
+exact. Formatting follows the reference's canonicalization rules: the suffix
+family of the original string is preserved (BinarySI / DecimalSI /
+DecimalExponent), and values are printed with the largest suffix that keeps
+the mantissa integral.
 """
 
 from __future__ import annotations
 
 import re
 from fractions import Fraction
+from functools import total_ordering
 
-__all__ = ["Quantity", "QuantityError"]
+__all__ = ["Quantity", "parse_quantity", "QuantityError"]
 
 
 class QuantityError(ValueError):
@@ -23,13 +28,24 @@ class QuantityError(ValueError):
 
 # Suffix tables (ref: pkg/api/resource/suffix.go).
 _BINARY_SUFFIXES = {
-    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30,
-    "Ti": 2**40, "Pi": 2**50, "Ei": 2**60,
+    "Ki": 2**10,
+    "Mi": 2**20,
+    "Gi": 2**30,
+    "Ti": 2**40,
+    "Pi": 2**50,
+    "Ei": 2**60,
 }
 _DECIMAL_SUFFIXES = {
-    "n": Fraction(1, 10**9), "u": Fraction(1, 10**6), "m": Fraction(1, 10**3),
-    "": Fraction(1), "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12,
-    "P": 10**15, "E": 10**18,
+    "n": Fraction(1, 10**9),
+    "u": Fraction(1, 10**6),
+    "m": Fraction(1, 10**3),
+    "": Fraction(1),
+    "k": 10**3,
+    "M": 10**6,
+    "G": 10**9,
+    "T": 10**12,
+    "P": 10**15,
+    "E": 10**18,
 }
 # Ordered largest-first for canonical formatting.
 _BINARY_ORDER = ["Ei", "Pi", "Ti", "Gi", "Mi", "Ki", ""]
@@ -45,13 +61,18 @@ DECIMAL_SI = "DecimalSI"
 DECIMAL_EXPONENT = "DecimalExponent"
 
 
+@total_ordering
 class Quantity:
-    """An exact resource amount with its preferred display format:
-    ``Quantity("100m")``, ``Quantity("1.5Gi")``, ``Quantity(2)``,
-    ``Quantity("3e6")``. Value-immutable; the integer views and the wire
-    string are memoized (decoding a cluster parses the same handful of
-    strings once per object)."""
+    """An exact resource amount with a preferred display format.
 
+    Construction: ``Quantity("100m")``, ``Quantity("1.5Gi")``, ``Quantity(2)``,
+    ``Quantity("3e6")``. Arithmetic (+, -, comparison) is exact.
+    """
+
+    # _milli_cache/_int_cache/_str_cache memoize the accessor results
+    # (arithmetic always returns new Quantity objects, so .value never
+    # mutates in place); the str form is the wire encoding and dominates
+    # per-object serialization cost via Fraction arithmetic otherwise
     __slots__ = ("value", "format", "_milli_cache", "_int_cache",
                  "_str_cache")
 
@@ -59,16 +80,41 @@ class Quantity:
         if isinstance(value, Quantity):
             self.value = value.value
             self.format = fmt or value.format
-        elif isinstance(value, (int, Fraction)):
+            return
+        if isinstance(value, (int,)):
             self.value = Fraction(value)
             self.format = fmt or DECIMAL_SI
-        elif isinstance(value, (float, str)):
-            # a float goes via its repr, so 0.1 is 1/10 and not binary dust
-            v, f = _parse(repr(value) if isinstance(value, float) else value)
-            self.value = v
-            self.format = fmt or f
-        else:
+            return
+        if isinstance(value, float):
+            # Floats are accepted for convenience but converted via str to
+            # avoid binary-float dust (0.1 -> 1/10, not 0.1000000000000000055).
+            value = repr(value)
+        if isinstance(value, Fraction):
+            self.value = value
+            self.format = fmt or DECIMAL_SI
+            return
+        if not isinstance(value, str):
             raise QuantityError(f"cannot parse quantity from {type(value)!r}")
+        v, f = _parse(value)
+        self.value = v
+        self.format = fmt or f
+
+    # -- arithmetic ---------------------------------------------------------
+    def __add__(self, other):
+        other = Quantity(other)
+        # a zero accumulator adopts the operand's format so that
+        # Quantity("0") + Quantity("64Mi") prints "64Mi", not raw bytes
+        # (quota usage strings stay human-canonical)
+        fmt = self.format if self.value else other.format
+        return Quantity(self.value + other.value, fmt)
+
+    def __sub__(self, other):
+        other = Quantity(other)
+        fmt = self.format if self.value else other.format
+        return Quantity(self.value - other.value, fmt)
+
+    def __neg__(self):
+        return Quantity(-self.value, self.format)
 
     def __eq__(self, other):
         if other is None:
@@ -78,19 +124,39 @@ class Quantity:
         except (QuantityError, TypeError):
             return NotImplemented
 
+    def __lt__(self, other):
+        try:
+            return self.value < Quantity(other).value
+        except (QuantityError, TypeError):
+            return NotImplemented
+
     def __hash__(self):
         return hash(self.value)
 
     def __bool__(self):
         return self.value != 0
 
+    # Value-immutable: arithmetic returns new instances and the caches are
+    # pure memos, so isolation copies (the in-process transport and the
+    # store make one per request) can share the instance. This prunes the
+    # deepest, most object-heavy leaves out of every Pod deepcopy — the
+    # dominant cost of the create path at churn rates.
+    def __copy__(self):
+        return self
+
+    def __deepcopy__(self, memo):
+        return self
+
+    # -- accessors ----------------------------------------------------------
+    # memoized: the snapshot encoder calls these once per pod-resource per
+    # wave and Fraction arithmetic dominates the host encode profile
     def milli_value(self) -> int:
         """Value scaled by 1000, rounded up (ref: quantity.go MilliValue)."""
         cached = getattr(self, "_milli_cache", None)
         if cached is None:
             v = self.value * 1000
-            cached = -(-v.numerator // v.denominator)
-            self._milli_cache = cached
+            cached = -(-v.numerator // v.denominator)  # ceil
+            object.__setattr__(self, "_milli_cache", cached)
         return cached
 
     def int_value(self) -> int:
@@ -99,53 +165,73 @@ class Quantity:
         if cached is None:
             v = self.value
             cached = -(-v.numerator // v.denominator)
-            self._int_cache = cached
+            object.__setattr__(self, "_int_cache", cached)
         return cached
 
+    def to_float(self) -> float:
+        return float(self.value)
+
+    def is_zero(self) -> bool:
+        return self.value == 0
+
+    def copy(self) -> "Quantity":
+        return Quantity(self.value, self.format)
+
+    # -- formatting ---------------------------------------------------------
     def __str__(self) -> str:
-        """The canonical wire string (ref: suffix.go)."""
         cached = getattr(self, "_str_cache", None)
         if cached is None:
-            key = (self.value, self.format)
-            cached = _FORMAT_CACHE.get(key)
+            # global memo too: decode creates a fresh instance per object
+            # (so the per-instance cache starts cold every time), yet the
+            # wire value vocabulary under churn is a handful of strings
+            fk = (self.value, self.format)
+            cached = _FORMAT_CACHE.get(fk)
             if cached is None:
                 cached = _format(self.value, self.format)
-                if len(_FORMAT_CACHE) >= _CACHE_MAX:
+                if len(_FORMAT_CACHE) >= _PARSE_CACHE_MAX:
                     _FORMAT_CACHE.clear()
-                _FORMAT_CACHE[key] = cached
-            self._str_cache = cached
+                _FORMAT_CACHE[fk] = cached
+            object.__setattr__(self, "_str_cache", cached)
         return cached
 
     def __repr__(self) -> str:
         return f"Quantity({str(self)!r})"
 
 
-# string -> (Fraction, format) and (Fraction, format) -> string memos; both
-# sides are immutable, so instances share them. Bounded by clearing.
+# string -> (Fraction, fmt) memo: decode paths parse the same handful of
+# wire strings ("100m", "128Mi", ...) millions of times under churn, and
+# Fraction construction dominates. Both members of the tuple are
+# immutable, so sharing across instances is safe. Bounded by wholesale
+# clear (the working set is tiny; eviction order is irrelevant).
 _PARSE_CACHE: dict = {}
+_PARSE_CACHE_MAX = 4096
+# (Fraction value, fmt) -> wire string; same bounding discipline
 _FORMAT_CACHE: dict = {}
-_CACHE_MAX = 4096
 
 
 def _parse(s: str):
     hit = _PARSE_CACHE.get(s)
-    if hit is None:
-        hit = _parse_uncached(s)
-        if len(_PARSE_CACHE) >= _CACHE_MAX:
-            _PARSE_CACHE.clear()
-        _PARSE_CACHE[s] = hit
-    return hit
+    if hit is not None:
+        return hit
+    out = _parse_uncached(s)
+    if len(_PARSE_CACHE) >= _PARSE_CACHE_MAX:
+        _PARSE_CACHE.clear()
+    _PARSE_CACHE[s] = out
+    return out
 
 
 def _parse_uncached(s: str):
-    m = _QUANTITY_RE.match(s.strip())
+    s = s.strip()
+    m = _QUANTITY_RE.match(s)
     if not m:
         raise QuantityError(f"unable to parse quantity {s!r}")
     sign = -1 if m.group("sign") == "-" else 1
     num = Fraction(m.group("num"))
-    suffix, exp = m.group("suffix"), m.group("exp")
+    suffix = m.group("suffix")
+    exp = m.group("exp")
     if exp is not None:
-        val, fmt = num * Fraction(10) ** int(exp), DECIMAL_EXPONENT
+        val = num * Fraction(10) ** int(exp)
+        fmt = DECIMAL_EXPONENT
     elif suffix is None:
         val, fmt = num, DECIMAL_SI
     elif suffix in _BINARY_SUFFIXES:
@@ -161,16 +247,19 @@ def _format(v: Fraction, fmt: str) -> str:
     sign = "-" if v < 0 else ""
     v = abs(v)
     if fmt == BINARY_SI:
-        # largest binary suffix with an integral mantissa; sub-integer
-        # amounts fall back to decimal SI
+        # Largest binary suffix with an integral mantissa; fall back to
+        # decimal-SI for sub-integer amounts (ref: suffix.go interpretation).
         for suf in _BINARY_ORDER:
-            scaled = v / _BINARY_SUFFIXES.get(suf, 1)
+            scale = _BINARY_SUFFIXES.get(suf, 1)
+            scaled = v / scale
             if scaled.denominator == 1 and (suf == "" or scaled.numerator >= 1):
                 return f"{sign}{scaled.numerator}{suf}"
         fmt = DECIMAL_SI
     if fmt == DECIMAL_EXPONENT:
-        # integral mantissa * 10^exp, exp a multiple of 3; a rational with
-        # no finite decimal form rounds up at nano precision
+        # mantissa * 10^exp with integral mantissa; exponent a multiple of 3
+        # (ref: suffix.go decimalExponent formats via e3/e6/...). Rationals
+        # whose denominator is not 2^a*5^b (e.g. 1/3) have no finite decimal
+        # form — round those up at nano precision like the DecimalSI fallback.
         exp = 0
         val = v
         for _ in range(30):
@@ -187,12 +276,20 @@ def _format(v: Fraction, fmt: str) -> str:
         while exp % 3 != 0:
             mant *= 10
             exp -= 1
-        return f"{sign}{mant}" if exp == 0 else f"{sign}{mant}e{exp}"
-    # decimal SI: largest suffix keeping the mantissa integral
+        if exp == 0:
+            return f"{sign}{mant}"
+        return f"{sign}{mant}e{exp}"
+    # DecimalSI: largest decimal suffix keeping the mantissa integral.
     for suf in _DECIMAL_ORDER:
-        scaled = v / _DECIMAL_SUFFIXES[suf]
+        scale = _DECIMAL_SUFFIXES[suf]
+        scaled = v / scale
         if scaled.denominator == 1:
             return f"{sign}{scaled.numerator}{suf}"
-    # below 1n: nano, rounded up (ref: quantity.go:239)
+    # Smaller than 1n: print as nano rounded up (reference rounds up on
+    # lossy canonicalization, quantity.go:239).
     scaled = v / _DECIMAL_SUFFIXES["n"]
     return f"{sign}{-(-scaled.numerator // scaled.denominator)}n"
+
+
+def parse_quantity(s) -> Quantity:
+    return Quantity(s)

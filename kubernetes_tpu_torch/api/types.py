@@ -1,16 +1,16 @@
-"""API objects the scheduler lists, watches, posts or gets back as errors.
+"""Internal API object model.
 
-Port of ``kubernetes_tpu/api/types.py`` (ref: pkg/api/types.go) with the
-full field set of every kind the scheduler binary exchanges with an
-apiserver: Pod/PodList (containers, probes, volumes, statuses), Node/
-NodeList (capacity, conditions, addresses, system info), Service/
-ServiceList, Binding (with its evict+bind ``victims``) and its batch form
-with per-pod results, Event/EventList and Status. A decoded object
-therefore carries every wire field the reference encodes, and writing it
-back drops nothing. Field names, defaults and declared ``kind``\\s match
-the reference, so one fixture function can construct a cluster through
-either package. The kinds the scheduler never touches (controllers,
-namespaces, secrets, quotas, priority classes) are not ported.
+Port of ``kubernetes_tpu/api/types.py``.
+
+Rebuild of the reference's internal types (ref: pkg/api/types.go:1-1623):
+Pod/PodSpec/PodStatus (:695-758), ReplicationController (:816), Service
+(:908), Endpoints (:921), Node/NodeSpec/NodeStatus (:953-1087), Namespace
+(:1125), Binding (:1145), Event (:1383), Status (:1167), plus the container,
+volume, probe, and condition substructures they reference.
+
+These are plain dataclasses; wire encoding/decoding and versioning live in
+kubernetes_tpu_torch.runtime (scheme + serialize), keeping the internal model
+version-free exactly like the reference's ``pkg/api`` package.
 """
 
 from __future__ import annotations
@@ -21,52 +21,117 @@ from typing import Dict, List, Optional
 
 from kubernetes_tpu_torch.api.quantity import Quantity
 
+# ---------------------------------------------------------------------------
+# Constants / enums (string enums, like the reference)
+# ---------------------------------------------------------------------------
+
 NamespaceDefault = "default"
 NamespaceAll = ""
+NamespaceNone = ""
 
 # PodPhase (ref: types.go:550-570)
 PodPending = "Pending"
 PodRunning = "Running"
 PodSucceeded = "Succeeded"
 PodFailed = "Failed"
+PodUnknown = "Unknown"
 
 # ConditionStatus (ref: types.go:608-618)
 ConditionTrue = "True"
 ConditionFalse = "False"
 ConditionUnknown = "Unknown"
 
+# PodConditionType
+PodReady = "Ready"
+
+# RestartPolicy
 RestartPolicyAlways = "Always"
+RestartPolicyOnFailure = "OnFailure"
+RestartPolicyNever = "Never"
+
+# DNSPolicy
 DNSClusterFirst = "ClusterFirst"
+DNSDefault = "Default"
+
+# Protocols
 ProtocolTCP = "TCP"
-AffinityNone = "None"
+ProtocolUDP = "UDP"
+
+# PullPolicy (ref: types.go PullAlways/PullNever/PullIfNotPresent)
+PullAlways = "Always"
+PullNever = "Never"
+PullIfNotPresent = "IfNotPresent"
+
+# Resource names (ref: types.go ResourceCPU/ResourceMemory + quota names)
+ResourceCPU = "cpu"
+ResourceMemory = "memory"
+ResourcePods = "pods"
+ResourceServices = "services"
+ResourceReplicationControllers = "replicationcontrollers"
+ResourceQuotas = "resourcequotas"
+ResourceSecrets = "secrets"
 
 # NodeConditionType (ref: types.go NodeReady/NodeReachable/NodeSchedulable)
 NodeReady = "Ready"
 NodeReachable = "Reachable"
 NodeSchedulable = "Schedulable"
 
+# NodePhase
+NodePending = "Pending"
+NodeRunning = "Running"
+NodeTerminated = "Terminated"
+
+# NodeAddressType
+NodeInternalIP = "InternalIP"
+NodeExternalIP = "ExternalIP"
+NodeHostName = "Hostname"
+
+# NamespacePhase (ref: types.go NamespaceActive/NamespaceTerminating)
+NamespaceActive = "Active"
+NamespaceTerminating = "Terminating"
+FinalizerKubernetes = "kubernetes"
+
+# Status values (ref: types.go:1167-1260)
 StatusSuccess = "Success"
 StatusFailure = "Failure"
+
+# StatusReason (ref: types.go:1203-1260)
 ReasonNotFound = "NotFound"
 ReasonAlreadyExists = "AlreadyExists"
 ReasonConflict = "Conflict"
+ReasonInvalid = "Invalid"
+ReasonBadRequest = "BadRequest"
+ReasonForbidden = "Forbidden"
+ReasonUnauthorized = "Unauthorized"
+ReasonMethodNotAllowed = "MethodNotAllowed"
+ReasonInternalError = "InternalError"
 ReasonExpired = "Expired"
+ReasonTooManyRequests = "TooManyRequests"
 
-ResourceCPU = "cpu"
-ResourceMemory = "memory"
+# Session affinity
+AffinityNone = "None"
+AffinityClientIP = "ClientIP"
 
-# PreemptionPolicy: whether a pod may claim a node by evicting
-# strictly-lower-priority pods.
+# PreemptionPolicy (PriorityClass / PodSpec): whether a pod of this
+# priority may claim a node by evicting strictly-lower-priority pods.
+PreemptLowerPriority = "PreemptLowerPriority"
 PreemptNever = "Never"
+
+# Priority values: user classes must stay below the system band, like the
+# upstream HighestUserDefinablePriority / system-cluster-critical split.
+HighestUserDefinablePriority = 1_000_000_000
 DefaultPodPriority = 0
 
-# the component name the scheduler's events carry
+# Event source components
 DefaultSchedulerName = "scheduler"
 
 ResourceList = Dict[str, Quantity]  # resource name -> Quantity
 
 
-# -- metadata -----------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Metadata
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class ObjectMeta:
@@ -103,7 +168,10 @@ class ObjectReference:
     field_path: str = ""
 
 
-# -- volumes (ref: types.go:147-330) ------------------------------------------
+# ---------------------------------------------------------------------------
+# Volumes (ref: types.go:147-330; plugin impls pkg/volume/)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class EmptyDirVolumeSource:
@@ -164,7 +232,10 @@ class VolumeMount:
     mount_path: str = ""
 
 
-# -- containers and probes (ref: types.go:330-550) ----------------------------
+# ---------------------------------------------------------------------------
+# Containers & probes (ref: types.go:330-550)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class ContainerPort:
@@ -237,8 +308,7 @@ class Container:
     working_dir: str = ""
     ports: List[ContainerPort] = field(default_factory=list)
     env: List[EnvVar] = field(default_factory=list)
-    resources: ResourceRequirements = field(
-        default_factory=ResourceRequirements)
+    resources: ResourceRequirements = field(default_factory=ResourceRequirements)
     volume_mounts: List[VolumeMount] = field(default_factory=list)
     liveness_probe: Optional[Probe] = None
     readiness_probe: Optional[Probe] = None
@@ -281,8 +351,7 @@ class ContainerStatus:
 
     name: str = ""
     state: ContainerState = field(default_factory=ContainerState)
-    last_termination_state: ContainerState = field(
-        default_factory=ContainerState)
+    last_termination_state: ContainerState = field(default_factory=ContainerState)
     ready: bool = False
     restart_count: int = 0
     image: str = ""
@@ -290,7 +359,10 @@ class ContainerStatus:
     container_id: str = ""
 
 
-# -- pods (ref: types.go:620-815) ---------------------------------------------
+# ---------------------------------------------------------------------------
+# Pod (ref: types.go:620-815)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class PodCondition:
@@ -300,9 +372,7 @@ class PodCondition:
 
 @dataclass
 class PodSpec:
-    """ref: types.go PodSpec (:695-720), plus the admission-resolved
-    priority fields the preemption emit gate reads (``priority`` None =
-    unresolved, treated as 0)."""
+    """ref: types.go PodSpec (:695-720)."""
 
     volumes: List[Volume] = field(default_factory=list)
     containers: List[Container] = field(default_factory=list)
@@ -312,6 +382,10 @@ class PodSpec:
     node_selector: Dict[str, str] = field(default_factory=dict)
     host: str = ""
     host_network: bool = False
+    # kube-preempt: the resolved integer priority (admission fills it from
+    # priority_class_name; None = unresolved, treated as 0) and the
+    # effective preemption policy ("" inherits the class's, defaulting to
+    # PreemptLowerPriority). The scheduler reads ONLY the resolved fields.
     priority: Optional[int] = None
     priority_class_name: str = ""
     preemption_policy: str = ""
@@ -345,7 +419,49 @@ class PodList:
     kind: str = "PodList"
 
 
-# -- services (ref: types.go:881-952) -----------------------------------------
+@dataclass
+class PodTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+# ---------------------------------------------------------------------------
+# ReplicationController (ref: types.go:816-880)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ReplicationControllerSpec:
+    replicas: int = 0
+    selector: Dict[str, str] = field(default_factory=dict)
+    template: Optional[PodTemplateSpec] = None
+
+
+@dataclass
+class ReplicationControllerStatus:
+    replicas: int = 0
+    observed_generation: int = 0
+
+
+@dataclass
+class ReplicationController:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ReplicationControllerSpec = field(default_factory=ReplicationControllerSpec)
+    status: ReplicationControllerStatus = field(default_factory=ReplicationControllerStatus)
+    kind: str = "ReplicationController"
+
+
+@dataclass
+class ReplicationControllerList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[ReplicationController] = field(default_factory=list)
+    kind: str = "ReplicationControllerList"
+
+
+# ---------------------------------------------------------------------------
+# Service & Endpoints (ref: types.go:881-952)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class ServiceSpec:
@@ -381,12 +497,40 @@ class ServiceList:
     kind: str = "ServiceList"
 
 
-# -- nodes (ref: types.go:953-1124) -------------------------------------------
+@dataclass
+class Endpoint:
+    ip: str = ""
+    port: int = 0
+    target_ref: Optional[ObjectReference] = None
+
+
+@dataclass
+class Endpoints:
+    """ref: types.go Endpoints (:921). The reference stores "ip:port" strings;
+    structured Endpoint records carry the same information plus a target ref."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    protocol: str = ProtocolTCP
+    endpoints: List[Endpoint] = field(default_factory=list)
+    kind: str = "Endpoints"
+
+
+@dataclass
+class EndpointsList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Endpoints] = field(default_factory=list)
+    kind: str = "EndpointsList"
+
+
+# ---------------------------------------------------------------------------
+# Node (ref: types.go:953-1124; called "Minion" in the reference wire API)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class NodeSpec:
-    """ref: types.go NodeSpec — capacity lives on the spec in this era and
-    is what the scheduler reads (ref: pkg/scheduler/predicates.go:137)."""
+    """ref: types.go NodeSpec — capacity lives on the spec in this era and is
+    what the scheduler reads (ref: pkg/scheduler/predicates.go:137)."""
 
     capacity: ResourceList = field(default_factory=dict)
     pod_cidr: str = ""
@@ -444,20 +588,81 @@ class NodeList:
     kind: str = "NodeList"
 
 
-# -- binding (ref: types.go:1145-1155) ----------------------------------------
+# ---------------------------------------------------------------------------
+# Namespace (ref: types.go:1125-1165)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class NamespaceSpec:
+    finalizers: List[str] = field(default_factory=lambda: [FinalizerKubernetes])
+
+
+@dataclass
+class NamespaceStatus:
+    phase: str = NamespaceActive
+
+
+@dataclass
+class Namespace:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NamespaceSpec = field(default_factory=NamespaceSpec)
+    status: NamespaceStatus = field(default_factory=NamespaceStatus)
+    kind: str = "Namespace"
+
+
+@dataclass
+class NamespaceList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Namespace] = field(default_factory=list)
+    kind: str = "NamespaceList"
+
+
+# ---------------------------------------------------------------------------
+# PriorityClass (kube-preempt: the scheduling.k8s.io/v1 shape on the
+# era-appropriate surface — cluster-scoped, int32 value, optional
+# preemption policy, at most one globalDefault)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PriorityClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+    global_default: bool = False
+    description: str = ""
+    preemption_policy: str = PreemptLowerPriority
+    kind: str = "PriorityClass"
+
+
+@dataclass
+class PriorityClassList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[PriorityClass] = field(default_factory=list)
+    kind: str = "PriorityClassList"
+
+
+# ---------------------------------------------------------------------------
+# Binding (ref: types.go:1145-1155; write path pkg/registry/pod/etcd/etcd.go:98)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class Binding:
-    """ref: types.go Binding — POST pods/{name}/binding. ``victims`` makes
-    it an atomic evict+bind: every victim is deleted and the pod bound in
-    one step, or nothing applies (a preempting placement fills it).
-    ``from_host``/``pod_uid`` mark a migration bind, which the scheduler
-    never sets."""
-
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     pod_name: str = ""
     host: str = ""
+    # kube-preempt: pods the server must evict (delete) atomically with
+    # this bind — either every victim is deleted AND the pod binds, or the
+    # item fails 409 and nothing is applied. Each ref names a pod in the
+    # binding's namespace; uid guards against name reuse.
     victims: List[ObjectReference] = field(default_factory=list)
+    # kube-defrag: when set, this is a MIGRATION bind — the pod is
+    # expected to be bound to from_host already and is atomically moved
+    # (evict-here + bind-there) to ``host``. pod_uid guards against the
+    # pod being deleted/recreated between the descheduler's proposal and
+    # the commit; any mismatch fails the item 409 with nothing applied.
+    # The scheduler never sets these, so the hot bind path is untouched.
     from_host: str = ""
     pod_uid: str = ""
     kind: str = "Binding"
@@ -465,8 +670,10 @@ class Binding:
 
 @dataclass
 class BindingList:
-    """A wave's bindings, committed in one transactional store pass; each
-    item keeps the per-pod CAS semantics, results come back positionally."""
+    """A wave's bindings, committed in one transactional store pass — the
+    batch extension SURVEY §7 hard part (e) calls for (10k binds landing in
+    one wave must not pay 10k apiserver round-trips). Each item keeps the
+    reference's per-pod CAS semantics; results come back positionally."""
 
     metadata: ListMeta = field(default_factory=ListMeta)
     items: List[Binding] = field(default_factory=list)
@@ -487,7 +694,10 @@ class BindingResultList:
     kind: str = "BindingResultList"
 
 
-# -- status (ref: types.go:1167-1330) -----------------------------------------
+# ---------------------------------------------------------------------------
+# Status & options (ref: types.go:1167-1330)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class StatusCause:
@@ -515,7 +725,24 @@ class Status:
     kind: str = "Status"
 
 
-# -- events (ref: types.go:1383-1420) -----------------------------------------
+@dataclass
+class DeleteOptions:
+    grace_period_seconds: Optional[int] = None
+    kind: str = "DeleteOptions"
+
+
+@dataclass
+class ListOptions:
+    label_selector: str = ""
+    field_selector: str = ""
+    watch: bool = False
+    resource_version: str = ""
+
+
+# ---------------------------------------------------------------------------
+# Events (ref: types.go:1383-1420; recorder pkg/client/record/event.go)
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class EventSource:
@@ -543,14 +770,131 @@ class EventList:
     kind: str = "EventList"
 
 
+# ---------------------------------------------------------------------------
+# Secrets, LimitRange, ResourceQuota (ref: types.go:1430-1623)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Secret:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)  # base64-encoded values
+    type: str = "Opaque"
+    kind: str = "Secret"
+
+
+@dataclass
+class SecretList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[Secret] = field(default_factory=list)
+    kind: str = "SecretList"
+
+
+@dataclass
+class LimitRangeItem:
+    type: str = ""  # "Pod" or "Container"
+    max: ResourceList = field(default_factory=dict)
+    min: ResourceList = field(default_factory=dict)
+    default: ResourceList = field(default_factory=dict)
+
+
+@dataclass
+class LimitRangeSpec:
+    limits: List[LimitRangeItem] = field(default_factory=list)
+
+
+@dataclass
+class LimitRange:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: LimitRangeSpec = field(default_factory=LimitRangeSpec)
+    kind: str = "LimitRange"
+
+
+@dataclass
+class LimitRangeList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[LimitRange] = field(default_factory=list)
+    kind: str = "LimitRangeList"
+
+
+@dataclass
+class ResourceQuotaSpec:
+    hard: ResourceList = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuotaStatus:
+    hard: ResourceList = field(default_factory=dict)
+    used: ResourceList = field(default_factory=dict)
+
+
+@dataclass
+class ResourceQuota:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: ResourceQuotaSpec = field(default_factory=ResourceQuotaSpec)
+    status: ResourceQuotaStatus = field(default_factory=ResourceQuotaStatus)
+    kind: str = "ResourceQuota"
+
+
+@dataclass
+class ResourceQuotaList:
+    metadata: ListMeta = field(default_factory=ListMeta)
+    items: List[ResourceQuota] = field(default_factory=list)
+    kind: str = "ResourceQuotaList"
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+LIST_KINDS = {
+    "PodList": PodList,
+    "ReplicationControllerList": ReplicationControllerList,
+    "ServiceList": ServiceList,
+    "EndpointsList": EndpointsList,
+    "NodeList": NodeList,
+    "NamespaceList": NamespaceList,
+    "EventList": EventList,
+    "SecretList": SecretList,
+    "LimitRangeList": LimitRangeList,
+    "ResourceQuotaList": ResourceQuotaList,
+    "PriorityClassList": PriorityClassList,
+}
+
+
 def pod_priority(pod: Pod) -> int:
-    """The scheduler-effective priority: the resolved spec.priority, 0
-    when unresolved."""
+    """The scheduler-effective priority of a pod: the admission-resolved
+    spec.priority, 0 (DefaultPodPriority) when unresolved."""
     p = pod.spec.priority
     return DefaultPodPriority if p is None else int(p)
 
 
 def pod_can_preempt(pod: Pod) -> bool:
-    """The resolved spec.preemption_policy, defaulting to
-    PreemptLowerPriority like the upstream API."""
+    """Whether this pod may claim a node by evicting lower-priority pods:
+    the resolved spec.preemption_policy, defaulting to
+    PreemptLowerPriority exactly like the upstream API."""
     return pod.spec.preemption_policy != PreemptNever
+
+
+def is_pod_active(pod: Pod) -> bool:
+    """ref: pkg/controller/replication_controller.go FilterActivePods (:182)."""
+    return pod.status.phase not in (PodSucceeded, PodFailed)
+
+
+def pod_requests(pod: Pod) -> Dict[str, int]:
+    """Sum container resource requests; cpu in millicores, memory in bytes.
+
+    Mirrors the capacity math in ref: pkg/scheduler/predicates.go:86-101
+    (getResourceRequest): limits in this era double as requests.
+    """
+    cpu = 0
+    mem = 0
+    for c in pod.spec.containers:
+        req = c.resources.requests or c.resources.limits
+        q = req.get(ResourceCPU)
+        if q is not None:
+            cpu += q.milli_value()
+        q = req.get(ResourceMemory)
+        if q is not None:
+            mem += q.int_value()
+    return {ResourceCPU: cpu, ResourceMemory: mem}

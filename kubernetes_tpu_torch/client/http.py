@@ -11,11 +11,14 @@ watches consumed as the chunked JSON frame stream (ref: pkg/apiserver/
 watch.go) by a pump thread feeding a ``watch.Watcher``. With tracing on
 (util/tracing.py) every request and watch carries the caller's ambient
 span as the ``X-KTPU-Trace`` header, so the apiserver's spans join the
-caller's trace.
+caller's trace. Credentials are ``auth=("basic", user, pw)`` or
+``("bearer", token)``; custom certificates come with the reference's
+kubeconfig modules (``client/clientcmd.py``, ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
 
+import base64
 import http.client
 import json
 import logging
@@ -77,25 +80,28 @@ class _EventDecodeCache:
 
 class HTTPTransport:
     """Talks to an API server over HTTP (or HTTPS with the system's trust
-    store). Client credentials and custom certificates come with the
-    reference's auth modules (ROADMAP Queue 1 item 8); the scheduler
-    binary passes none."""
+    store). ``auth`` is ``("basic", user, pw)`` or ``("bearer", token)``
+    (ref: pkg/client/client.go Config.{Username,Password,BearerToken})."""
 
     # a refused or failed CONNECT (an apiserver mid-restart) retries with
     # capped exponential backoff and jitter for this long before
     # surfacing; nothing was sent, so the retry can never double-execute
     CONNECT_RETRY_S = 15.0
-    # a 429 means the server refused the request before executing it, so
-    # a resend is always safe: honour its Retry-After for this long
-    THROTTLE_RETRY_S = 20.0
-    TIMEOUT_S = 30.0
 
     def __init__(self, base_url: str, version: str = "",
-                 user_agent: str = ""):
+                 auth: Optional[tuple] = None, timeout: float = 30.0,
+                 throttle_retry_s: float = 20.0, user_agent: str = ""):
+        # a 429 means the server refused the request before executing it,
+        # so a resend is always safe: honour its Retry-After for up to
+        # throttle_retry_s, then surface the StatusError (which carries
+        # details.retryAfterSeconds). 0 disables (fail-fast).
+        self.throttle_retry_s = throttle_retry_s
+        self.throttled_retries = 0
         self.base_url = base_url.rstrip("/")
         self.scheme = default_scheme
         # the v1 wire only: any other version raises NotImplementedError
         self.version = require_version(version)
+        self.timeout = timeout
         self.ssl_context = None
         if base_url.startswith("https"):
             import ssl
@@ -108,6 +114,14 @@ class HTTPTransport:
             # control-plane components identify themselves so their
             # reflector and bind traffic rides the system flow
             self._headers["User-Agent"] = user_agent
+        if auth is not None:
+            if auth[0] == "basic":
+                raw = base64.b64encode(f"{auth[1]}:{auth[2]}".encode()).decode()
+                self._headers["Authorization"] = f"Basic {raw}"
+            elif auth[0] == "bearer":
+                self._headers["Authorization"] = f"Bearer {auth[1]}"
+            else:
+                raise ValueError(f"unknown auth kind {auth[0]!r}")
 
     # -- url building (ref: request.go namespace/resource/name chain) -----
 
@@ -169,11 +183,11 @@ class HTTPTransport:
             parsed = urllib.parse.urlsplit(self.base_url)
             if parsed.scheme == "https":
                 conn = http.client.HTTPSConnection(
-                    parsed.hostname, parsed.port, timeout=self.TIMEOUT_S,
+                    parsed.hostname, parsed.port, timeout=self.timeout,
                     context=self.ssl_context)
             else:
                 conn = http.client.HTTPConnection(
-                    parsed.hostname, parsed.port, timeout=self.TIMEOUT_S)
+                    parsed.hostname, parsed.port, timeout=self.timeout)
             conn.connect()
             # headers and body go out as separate writes; without NODELAY,
             # Nagle + the peer's delayed ACK turns every request into a
@@ -298,7 +312,7 @@ class HTTPTransport:
                     # shouldRetryRequest/isReplayable).
                     if attempt or (sent and not idempotent):
                         raise
-            if status == 429:
+            if status == 429 and self.throttle_retry_s > 0:
                 # kube-fairshed shed: the server REFUSED this request
                 # before doing any work, so a resend can never
                 # double-execute — honor its measured Retry-After
@@ -306,7 +320,7 @@ class HTTPTransport:
                 # the throttle window, then surface the 429.
                 now = time.monotonic()
                 if throttle_deadline is None:
-                    throttle_deadline = now + self.THROTTLE_RETRY_S
+                    throttle_deadline = now + self.throttle_retry_s
                     throttle_backoff = Backoff(base=0.5, cap=5.0)
                 try:
                     hint = float(retry_after) if retry_after else 0.0
@@ -314,6 +328,7 @@ class HTTPTransport:
                     hint = 0.0
                 delay = hint if hint > 0 else throttle_backoff.next()
                 if now + delay < throttle_deadline:
+                    self.throttled_retries += 1
                     time.sleep(delay)
                     continue
             break

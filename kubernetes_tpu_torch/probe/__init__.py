@@ -3,7 +3,7 @@
 Port of ``kubernetes_tpu/probe/__init__.py``'s HTTP and TCP probers,
 what the scheduler binary's deep ``/healthz`` probes its apiserver and its
 solver daemon with; the exec prober comes with the kubelet (ROADMAP Queue
-1 item 8).
+1 item 15).
 
 Each prober returns one of SUCCESS / FAILURE / UNKNOWN
 (ref: pkg/probe/probe.go Result).

@@ -1,14 +1,16 @@
-"""runtime.Scheme — (version, kind) registry + JSON codec.
+"""runtime.Scheme — (version, kind) registry + codec + conversion seam.
 
 Port of ``kubernetes_tpu/runtime/scheme.py`` (ref: pkg/runtime/
-scheme.go:208-311). The Scheme maps (apiVersion, kind) to the internal
-Python type, encodes objects to versioned JSON wire form and decodes wire
-form back to internal objects, applying the version's defaulting pass on
-decode. Internal types are version-free and "v1" is the identity
-encoding (camelCase dataclass form from runtime/serialize.py). The
-reference's per-version wire transforms, kind aliases and field-label
-conversions exist for its legacy v1beta1/v1beta2 wire, which the port
-does not speak (api/latest.py).
+scheme.go:208-311 and pkg/conversion/scheme.go:25-54). The Scheme maps
+(apiVersion, kind) to the internal Python type, encodes objects to
+versioned JSON wire form and decodes wire form back to internal objects,
+applying the version's defaulting pass on decode.
+
+Internal types are version-free; a registered version may own a pair of
+wire-dict transforms, kind aliases and field-label conversions. "v1", the
+one version the port registers (api/latest.py), is the identity transform
+(camelCase dataclass encoding from runtime/serialize.py) and needs none
+of them; the seam stays for the legacy wire (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from kubernetes_tpu_torch.runtime.serialize import from_wire, to_wire
 
 __all__ = ["Scheme", "NotRegisteredError"]
 
+WireTransform = Callable[[dict], dict]
+
 
 class NotRegisteredError(KeyError):
     pass
@@ -30,9 +34,20 @@ class Scheme:
         self.default_version = default_version
         # version -> kind -> type
         self._types: Dict[str, Dict[str, Type]] = {}
+        # (version, kind) -> (internal_wire->versioned, versioned->internal_wire)
+        self._transforms: Dict[Tuple[str, str], Tuple[WireTransform, WireTransform]] = {}
+        # kind -> internal type (shared across versions)
+        self._internal: Dict[str, Type] = {}
+        # (version, wire kind) -> internal kind and back (e.g. v1beta1
+        # "Minion" <-> Node, ref: pkg/api/v1beta1/register.go)
+        self._kind_aliases: Dict[Tuple[str, str], str] = {}
+        self._kind_alias_out: Dict[Tuple[str, str], str] = {}
         # (version, kind) -> defaulter(obj), applied on decode
-        # (ref: pkg/api/v1beta3/defaults.go addDefaultingFuncs)
+        # (ref: pkg/api/v1beta1/defaults.go addDefaultingFuncs)
         self._defaulters: Dict[Tuple[str, str], Callable[[Any], None]] = {}
+        # (version, kind) -> fn(label, value) -> (internal label, value)
+        # (ref: pkg/api/v1beta1/conversion.go field-label funcs)
+        self._field_labels: Dict[Tuple[str, str], Callable] = {}
 
     # -- registration -------------------------------------------------------
     def add_known_types(self, version: str, *types_: Type) -> None:
@@ -43,11 +58,39 @@ class Scheme:
             if not (isinstance(kind, str) and kind):
                 kind = t.__name__
             kinds[kind] = t
+            self._internal.setdefault(kind, t)
+
+    def add_conversion(self, version: str, kind: str,
+                       encode: WireTransform, decode: WireTransform) -> None:
+        """Register wire transforms for a (version, kind) pair
+        (ref: conversion.Scheme.AddConversionFuncs)."""
+        self._transforms[(version, kind)] = (encode, decode)
+
+    def add_kind_alias(self, version: str, wire_kind: str, kind: str) -> None:
+        """A version may spell a kind differently on the wire."""
+        self._kind_aliases[(version, wire_kind)] = kind
+        self._kind_alias_out[(version, kind)] = wire_kind
 
     def add_defaulter(self, version: str, kind: str,
                       fn: Callable[[Any], None]) -> None:
         """Defaulting pass applied to objects decoded from this version."""
         self._defaulters[(version, kind)] = fn
+
+    def add_field_label_conversion(self, version: str, kind: str,
+                                   fn: Callable) -> None:
+        """fn(label, value) -> (internal label, value) for field selectors
+        expressed in this version's vocabulary."""
+        self._field_labels[(version, kind)] = fn
+
+    def convert_field_label(self, version: str, kind: str,
+                            label: str, value: str):
+        fn = self._field_labels.get((version, kind))
+        if fn is None:
+            return label, value
+        return fn(label, value)
+
+    def versions(self):
+        return sorted(self._types)
 
     def recognizes(self, version: str, kind: str) -> bool:
         return kind in self._types.get(version, {})
@@ -56,26 +99,30 @@ class Scheme:
         try:
             return self._types[version][kind]
         except KeyError:
-            raise NotRegisteredError(
-                f"no kind {kind!r} registered for version {version!r}")
+            raise NotRegisteredError(f"no kind {kind!r} registered for version {version!r}")
 
-    @staticmethod
-    def object_kind(obj: Any) -> str:
-        return getattr(obj, "kind", "") or type(obj).__name__
+    def object_kind(self, obj: Any) -> str:
+        kind = getattr(obj, "kind", "") or type(obj).__name__
+        return kind
+
+    def new(self, version: str, kind: str) -> Any:
+        return self.type_for(version, kind)()
 
     # -- codec --------------------------------------------------------------
     def encode_to_wire(self, obj: Any, version: Optional[str] = None) -> dict:
         version = version or self.default_version
         kind = self.object_kind(obj)
         if not self.recognizes(version, kind):
-            raise NotRegisteredError(
-                f"kind {kind!r} not registered in version {version!r}")
+            raise NotRegisteredError(f"kind {kind!r} not registered in version {version!r}")
         wire = to_wire(obj)
         if kind.endswith("List") and "items" not in wire:
-            # omitempty drops empty lists, but List kinds always carry
-            # items on the wire: clients index .items unconditionally
+            # omitempty drops empty lists, but List kinds must always carry
+            # items on the wire — clients index .items unconditionally
             wire["items"] = []
-        wire["kind"] = kind
+        enc, _ = self._transforms.get((version, kind), (None, None))
+        if enc is not None:
+            wire = enc(wire)
+        wire["kind"] = self._kind_alias_out.get((version, kind), kind)
         wire["apiVersion"] = version
         return wire
 
@@ -89,20 +136,35 @@ class Scheme:
             raise ValueError("expected a JSON object")
         wire = dict(wire)
         kind = wire.pop("kind", "") or default_kind
-        version = (wire.pop("apiVersion", "") or default_version
-                   or self.default_version)
+        version = wire.pop("apiVersion", "") or default_version or self.default_version
         if not kind:
             raise ValueError("unable to decode: 'kind' is not set")
-        obj = from_wire(self.type_for(version, kind), wire)
+        kind = self._kind_aliases.get((version, kind), kind)
+        t = self.type_for(version, kind)
+        _, dec = self._transforms.get((version, kind), (None, None))
+        if dec is not None:
+            wire = dec(wire)
+        obj = from_wire(t, wire)
         defaulter = self._defaulters.get((version, kind))
         if defaulter is not None:
             defaulter(obj)
         return obj
 
-    def decode(self, data, default_kind: str = "",
-               default_version: str = "") -> Any:
+    def decode(self, data, default_kind: str = "", default_version: str = "") -> Any:
         """ref: runtime.Codec.Decode — bytes/str JSON -> internal object."""
         if isinstance(data, (bytes, bytearray)):
             data = data.decode("utf-8")
-        return self.decode_from_wire(json.loads(data), default_kind,
-                                     default_version)
+        return self.decode_from_wire(json.loads(data), default_kind, default_version)
+
+    def deep_copy(self, obj: Any) -> Any:
+        """Round-trip copy through the wire form (ref: runtime.Scheme.Copy)."""
+        kind = self.object_kind(obj)
+        version = self.default_version
+        wire = self.encode_to_wire(obj, version)
+        return self.decode_from_wire(wire)
+
+    def convert_wire(self, wire: dict, from_version: str, to_version: str) -> dict:
+        """Convert a versioned wire dict between versions via the internal form
+        (ref: kube-version-change cmd)."""
+        obj = self.decode_from_wire(dict(wire), default_version=from_version)
+        return self.encode_to_wire(obj, to_version)

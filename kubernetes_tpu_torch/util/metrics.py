@@ -13,8 +13,12 @@ delta-wire family (``SolverdDeltaMetrics``), the two pod-latency histograms
 the commit and the bound-pod observer write (``PodLatencyMetrics``), the
 preemption family of the commit (``PreemptionMetrics``), the async
 event recorder's posted/dropped counters (``EventRecorderMetrics``), the
-unschedulability-diagnosis family (``ExplainMetrics``), and the flight
-recorder: every series of the registry sampled into a bounded ring per
+unschedulability-diagnosis family (``ExplainMetrics``), the apiserver's
+request-latency buckets (``APISERVER_BUCKETS``; its request, watch
+fan-out and batch-bind families live on each server's own registry, the
+watch package's loss counters on the default one), kube-fairshed's
+admission family (``FairshedMetrics``) and the chaos supervisor's restart
+family (``ChaosMetrics``), and the flight recorder: every series of the registry sampled into a bounded ring per
 series, with a ``<name>:rate`` series per counter, served incrementally
 at the binary's ``/debug/vars?since=<ns>`` (``FlightRecorder``,
 ``flightrec_arm`` ...).
@@ -34,10 +38,13 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "PreemptionMetrics", "preemption_metrics",
            "EventRecorderMetrics", "event_recorder_metrics",
            "ExplainMetrics", "explain_metrics",
+           "APISERVER_BUCKETS", "ChaosMetrics", "chaos_metrics",
+           "FairshedMetrics", "fairshed_metrics",
            "FlightRecorder", "flightrec_arm", "flightrec_disarm",
            "flightrec_armed", "flightrec_watch", "flightrec_vars",
            "flightrec_sample_now", "flightrec"]
 
+APISERVER_BUCKETS = (0.125, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0)
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                    10.0)
 # pod-lifecycle latency envelope: one wave in steady state, tens of
@@ -496,6 +503,92 @@ def explain_metrics() -> ExplainMetrics:
     if ExplainMetrics._singleton is None:
         ExplainMetrics._singleton = ExplainMetrics()
     return ExplainMetrics._singleton
+
+
+class ChaosMetrics:
+    """kube-chaos supervisor instrumentation: component kills/respawns
+    and time-to-recovery, incremented by the churn harness's supervisor
+    (hack/churn_mp.py) in its own process and pulled into the flightrec
+    timeline through the harness's /debug/vars target — so the
+    ``component_restart`` and ``recovery_time_ceiling`` SLO rules fire
+    and resolve LIVE during the run, not in post-mortem."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.restarts = reg.counter(
+            "component_restarts_total",
+            "Control-plane child processes respawned by the chaos "
+            "supervisor (scheduled kills and organic deaths alike; a "
+            "clean run carries 0)")
+        self.recovery_s = reg.histogram(
+            "component_recovery_seconds",
+            "Kill (or death detection) -> respawned child answering "
+            "its readiness probe",
+            buckets=(0.5, 1.0, 2.5, 5.0, 10.0, 20.0, 30.0, 45.0, 60.0))
+
+
+def chaos_metrics() -> ChaosMetrics:
+    if ChaosMetrics._singleton is None:
+        ChaosMetrics._singleton = ChaosMetrics()
+    return ChaosMetrics._singleton
+
+
+class FairshedMetrics:
+    """kube-fairshed instrumentation (apiserver/fairshed.py): per-flow
+    admission, shedding, queue wait, and the workload backlog governor.
+    Registered HERE so the metrics-sync vet rule binds the churn
+    harness's ``fairshed`` record scrape and the
+    ``system_flow_shed_zero`` SLO rule to the registry universe.
+
+    ``fairshed_system_shed_total`` is an invariant counter: system-flow
+    requests are structurally isolated from lower bands, so any
+    non-zero value is an isolation bug — the overload record contract
+    requires it to read 0."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.admitted = reg.counter(
+            "request_admitted_total",
+            "Requests admitted through fairshed, by flow", ("flow",))
+        self.shed = reg.counter(
+            "request_shed_total",
+            "Requests answered 429 by fairshed, by flow and reason "
+            "(queue_full / timeout / backlog)", ("flow", "reason"))
+        self.queue_wait = reg.histogram(
+            "request_queue_wait_seconds",
+            "Admission queue wait per admitted request (0 = an "
+            "inflight slot was free)", ("flow",),
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5, 5.0))
+        self.retry_after = reg.histogram(
+            "request_retry_after_seconds",
+            "Retry-After hints handed to shed requests (drain-rate "
+            "derived, clamped 1-30 s)", ("flow",),
+            buckets=(1.0, 2.0, 5.0, 10.0, 30.0))
+        self.inflight = reg.gauge(
+            "request_inflight",
+            "Concurrent dispatches holding a fairshed slot", ("flow",))
+        self.queued = reg.gauge(
+            "request_queue_depth",
+            "Waiters parked for an inflight slot", ("flow",))
+        self.system_shed = reg.counter(
+            "fairshed_system_shed_total",
+            "System-flow requests shed — MUST stay 0 (structural "
+            "isolation invariant; the system_flow_shed_zero SLO rule)")
+        self.backlog = reg.gauge(
+            "fairshed_backlog_depth",
+            "Workload backlog governor: pods created minus pods bound "
+            "as seen by this worker (sheds creates past the limit)")
+
+
+def fairshed_metrics() -> FairshedMetrics:
+    if FairshedMetrics._singleton is None:
+        FairshedMetrics._singleton = FairshedMetrics()
+    return FairshedMetrics._singleton
 
 
 # -- the flight recorder: continuous in-process metric time-series ----------

@@ -1,7 +1,7 @@
 """chip_smoke.py's phases 9 and 9b at a small size, on the plain version.
 
-Phase 9 seeds a cluster through the port's HTTP client into the JAX
-package's apiserver (a separate process), runs the port's scheduler
+Phase 9 seeds a cluster through the port's HTTP client into the port's
+apiserver (a separate process), watching every create, runs the port's scheduler
 binary in a thread with ``--device cpu --prewarm`` and checks every bind,
 capacity and host port, and each wave against solve(encode_snapshot(...))
 of its state; phase 9b runs the binary as a process whose Policy forces
@@ -21,6 +21,7 @@ def test_chip_smoke_binary_phases_run_on_the_cpu():
     assert sum(w["bound"] for w in b["waves"]) == 240
     assert b["prewarm_s"] is not None and b["health"]["healthy"] is True
     assert b["window_start_s"] < b["window_end_s"]
+    assert b["creates_per_s"] > 0
     f = chip_smoke._fallback_phase("cpu", n_nodes=20, n_pending=60)
     assert "falling back to serial" in f["fallback_line"]
     assert f["pending"] == 60

@@ -1,0 +1,246 @@
+"""The port's kube-apiserver binary (cmd/apiserver.py).
+
+``python -m kubernetes_tpu_torch.cmd.apiserver`` runs as a subprocess
+under a launcher that refuses any import of ``jax`` or ``kubernetes_tpu``
+(and of ``torch`` and ``numpy``: the apiserver is host code),
+with token and basic auth files, an ABAC policy, a CORS allow-list, the
+read-only port, a watch lag bound, ``--trace`` and ``--flightrec``:
+authentication and authorization answer 401/403/2xx, the port's client
+creates, lists, binds in a batch and watches through it, and ``/healthz``,
+``/version``, ``/validate``, ``/metrics`` (fairshed's and the request
+families), ``/ui/``, ``/debug/pprof/``, ``/debug/trace`` and
+``/debug/vars`` answer. Each option whose module the port does not have
+yet raises ``NotImplementedError`` naming its ROADMAP Queue 1 item, and
+the legacy wire is refused by the client and not served. Every process
+stops in a ``finally``; every HTTP read has a timeout.
+"""
+
+import base64
+import json
+import os
+import subprocess
+import sys
+import urllib.error
+import urllib.request
+
+import pytest
+
+from chip_smoke import _free_port, _stop_process, _wait_http
+from kubernetes_tpu_torch.api import types as api
+from kubernetes_tpu_torch.api.latest import require_version
+from kubernetes_tpu_torch.apiserver.http import APIServer
+from kubernetes_tpu_torch.apiserver.master import Master
+from kubernetes_tpu_torch.client.client import Client
+from kubernetes_tpu_torch.client.http import HTTPTransport
+from kubernetes_tpu_torch.cmd.apiserver import build_parser, build_server
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 10.0
+
+# runs the port's binary with jax, the reference package, torch and numpy
+# unimportable
+LAUNCHER = r"""
+import importlib.abc, runpy, sys
+BAD = ("jax", "jaxlib", "kubernetes_tpu", "torch", "numpy")
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BAD:
+            raise ImportError("refused import of " + name)
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["kube-apiserver"] + sys.argv[1:]
+runpy.run_module("kubernetes_tpu_torch.cmd.apiserver", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def test_parser_flags_accept_go_style_underscores():
+    opts = build_parser().parse_args(["--portal_net", "10.1.0.0/24"])
+    assert opts.portal_net == "10.1.0.0/24"
+    opts = build_parser().parse_args(["--portal-net", "10.2.0.0/24"])
+    assert opts.portal_net == "10.2.0.0/24"
+    opts = build_parser().parse_args([])
+    assert opts.fairshed is True
+    assert opts.admission_control == ("NamespaceAutoProvision,"
+                                      "NamespaceLifecycle,LimitRanger,"
+                                      "ResourceQuota,PriorityDefault")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--data-dir", "/nonexistent"], 8),
+    (["--store-server", "127.0.0.1:1"], 9),
+    (["--store-shards", "4"], 10),
+    (["--share-seg", "/nonexistent", "--share-worker", "0"], 11),
+    (["--cloud-provider", "fake"], 12),
+], ids=["data-dir", "store-server", "store-shards", "share-seg",
+        "cloud-provider"])
+def test_options_left_for_later_raise(flags, item):
+    opts = build_parser().parse_args(["--port", "0", *flags])
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}\\)"):
+        build_server(opts)
+
+
+def test_legacy_wire_is_refused_and_not_served():
+    for version in ("v1beta1", "v1beta2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            require_version(version)
+    srv = APIServer(Master()).start()
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            HTTPTransport(srv.base_url, version="v1beta1")
+        with urllib.request.urlopen(srv.base_url + "/api",
+                                    timeout=TIMEOUT_S) as r:
+            assert json.loads(r.read())["versions"] == ["v1"]
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(srv.base_url + "/api/v1beta1/pods",
+                                   timeout=TIMEOUT_S)
+        assert ei.value.code == 404
+    finally:
+        srv.stop()
+
+
+def _get(url, headers=None):
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT_S) as r:
+            return r.status, r.read().decode(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), dict(e.headers)
+
+
+def _post(url, body, headers=None):
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT_S) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def test_the_binary_serves_the_default_path(tmp_path):
+    (tmp_path / "tokens.csv").write_text(
+        "tok-admin,admin,u1\ntok-viewer,viewer,u2\ntok-nobody,nobody,u3\n")
+    (tmp_path / "basic.csv").write_text("pw-admin,admin-basic,u4\n")
+    (tmp_path / "policy.jsonl").write_text(
+        '{"user": "admin"}\n{"user": "admin-basic"}\n'
+        '{"user": "viewer", "readonly": true}\n')
+    port, ro_port = _free_port(), _free_port()
+    log = open(tmp_path / "apiserver.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", LAUNCHER, "--port", str(port),
+         "--read-only-port", str(ro_port), "--api-rate", "1000",
+         "--token-auth-file", str(tmp_path / "tokens.csv"),
+         "--basic-auth-file", str(tmp_path / "basic.csv"),
+         "--authorization-policy-file", str(tmp_path / "policy.jsonl"),
+         "--cors-allowed-origins", r"https://ui\.example\.com",
+         "--watch-lag-limit", "1000", "--trace", "--flightrec"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    url, ro = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{ro_port}"
+    admin = {"Authorization": "Bearer tok-admin"}
+    try:
+        assert _wait_http(ro + "/healthz/ping", proc,
+                          "the port's apiserver", 60.0) == "ok"
+        assert _get(url + "/healthz/ping")[0] == 401
+        pods = url + "/api/v1/namespaces/default/pods"
+        pod = {"kind": "Pod", "apiVersion": "v1",
+               "metadata": {"name": "p0", "namespace": "default"},
+               "spec": {"containers": [{"name": "c", "image": "img"}]}}
+        # authentication, then ABAC: admin writes, viewer only reads,
+        # nobody matches no line; basic auth works too
+        assert _get(pods)[0] == 401
+        assert _get(pods, {"Authorization": "Bearer bad"})[0] == 401
+        assert _post(pods, pod, {"Authorization": "Bearer tok-viewer"}) \
+            == 403
+        assert _get(pods, {"Authorization": "Bearer tok-nobody"})[0] == 403
+        assert _post(pods, pod, admin) == 201
+        basic = base64.b64encode(b"admin-basic:pw-admin").decode()
+        assert _get(pods, {"Authorization": "Basic " + basic})[0] == 200
+        code, body, _ = _get(pods, {"Authorization": "Bearer tok-viewer"})
+        assert code == 200
+        assert [p["metadata"]["name"] for p in json.loads(body)["items"]] \
+            == ["p0"]
+
+        # the port's client through the token: create, batch bind, watch
+        client = Client(HTTPTransport(url, auth=("bearer", "tok-admin"),
+                                      timeout=TIMEOUT_S))
+        w = client.pods().watch()
+        try:
+            client.nodes().create(api.Node(
+                metadata=api.ObjectMeta(name="n1"),
+                spec=api.NodeSpec(capacity={})))
+            client.pods().create(api.Pod(
+                metadata=api.ObjectMeta(name="p1", namespace="default"),
+                spec=api.PodSpec(containers=[
+                    api.Container(name="c", image="img")])))
+            res = client.pods().bind_many(api.BindingList(items=[
+                api.Binding(metadata=api.ObjectMeta(
+                    name=n, namespace="default"), pod_name=n, host="n1")
+                for n in ("p0", "p1")]))
+            assert [r.error for r in res.items] == ["", ""]
+            seen = [(ev.type, ev.object.metadata.name, ev.object.spec.host)
+                    for ev in (w.next_event(timeout=TIMEOUT_S)
+                               for _ in range(3))]
+        finally:
+            w.stop()
+        assert seen == [("ADDED", "p1", ""), ("MODIFIED", "p0", "n1"),
+                        ("MODIFIED", "p1", "n1")]
+
+        # the read-only port: no credentials, so the policy (no line for
+        # the anonymous user) refuses its reads; its writes are refused
+        # before authorization
+        code, body, _ = _get(ro + "/api/v1/namespaces/default/pods")
+        assert code == 403 and "<anonymous>" in body
+        req = urllib.request.Request(
+            ro + "/api/v1/namespaces/default/pods",
+            data=json.dumps(pod).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(req, timeout=TIMEOUT_S)
+        assert ei.value.code == 403
+        assert "read-only" in ei.value.read().decode()
+
+        # CORS for an allowed origin only
+        hdrs = _get(url + "/version",
+                    dict(admin, Origin="https://ui.example.com"))[2]
+        assert hdrs.get("Access-Control-Allow-Origin") == \
+            "https://ui.example.com"
+        assert "Access-Control-Allow-Origin" not in _get(
+            url + "/version", dict(admin, Origin="https://evil.example.net"))[2]
+
+        # the unversioned and debug endpoints (the health probes run as
+        # the anonymous user, whom the policy denies, on either port)
+        assert json.loads(_get(url + "/version", admin)[1])["gitVersion"]
+        code, body, _ = _get(ro + "/healthz")
+        assert code == 503 and json.loads(body)["healthy"] is False
+        assert "/validate" in json.loads(_get(ro + "/")[1])["paths"]
+        metrics = _get(url + "/metrics", admin)[1]
+        for family in ("apiserver_request_count",
+                       "apiserver_batch_bind_size", "request_admitted_total",
+                       "apiserver_watch_frame_cache_hits_total"):
+            assert family in metrics, family
+        code, body, hdrs = _get(url + "/ui/", admin)
+        assert code == 200 and hdrs["Content-Type"].startswith("text/html")
+        assert _get(url + "/debug/pprof/", admin)[0] == 200
+        trace = json.loads(_get(url + "/debug/trace?peek=1", admin)[1])
+        assert isinstance(trace, dict)
+        vars_ = json.loads(_get(url + "/debug/vars?since=0", admin)[1])
+        assert vars_["service"] == "apiserver"
+        assert "apiserver_request_count" in json.dumps(vars_["series"])
+    finally:
+        _stop_process(proc)
+    text = (tmp_path / "apiserver.log").read_text()
+    assert "refused import" not in text, text
+    assert "kube-apiserver listening on" in text, text
+
+
+def test_apiserver_time_tool_turn_on_the_cpu(tmp_path):
+    """tools/apiserver_time.py's turn: the port's binary seeded and bound
+    at 20 nodes, every pod read back bound."""
+    from kubernetes_tpu_torch.tools import apiserver_time
+    r = apiserver_time.turn("kubernetes_tpu_torch.cmd.apiserver", 20, 2,
+                            str(tmp_path / "apiserver.log"))
+    assert (r["nodes"], r["pods"]) == (20, 40)
+    assert r["creates_per_s"] > 0 and r["binds_per_s"] > 0

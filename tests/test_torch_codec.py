@@ -346,14 +346,15 @@ def test_unknown_wire_fields_are_ignored_as_the_reference_ignores_them():
         port_scheme.decode_from_wire(wire)
     assert ref_scheme.decode_from_wire(extra) == \
         ref_scheme.decode_from_wire(wire)
-    with pytest.raises(Exception):
-        port_scheme.decode_from_wire({"kind": "ReplicationController",
-                                      "apiVersion": "v1"})
+    for scheme in (port_scheme, ref_scheme):
+        with pytest.raises(Exception):
+            scheme.decode_from_wire({"kind": "NoSuchKind",
+                                     "apiVersion": "v1"})
 
 
 def test_legacy_wire_versions_are_not_ported(master):
     for version in ("v1beta1", "v1beta2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             HTTPTransport(master, version=version)
     assert HTTPTransport(master, version="v1").version == "v1"
 

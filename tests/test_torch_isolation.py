@@ -1,11 +1,15 @@
 """The port stands alone: no jax, nothing of kubernetes_tpu, vet-clean.
 
 The test process itself imports jax (tests/conftest.py), so the import
-check runs in a fresh interpreter.
+check runs in a fresh interpreter. The source check also refuses a module
+name of the reference anywhere in the port or in chip_smoke.py — in a
+string passed to ``python -m`` as much as in an import — so neither can
+run the reference's code as a process either.
 """
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -49,6 +53,19 @@ def test_walk_covers_the_scheduler_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_apiserver_slice():
+    mods = set(_modules())
+    for m in ("capabilities", "version", "api.fields", "api.validation",
+              "api.types", "api.quantity", "storage", "storage.memstore",
+              "storage.helper", "registry", "registry.generic",
+              "registry.resources", "admission", "admission.plugins",
+              "auth", "auth.abac", "util.throttle", "util.chaos",
+              "util.websocket", "ui", "ui.datafile", "apiserver",
+              "apiserver.fairshed", "apiserver.master", "apiserver.http",
+              "cmd.apiserver"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = (
         "import importlib, json, sys\n"
@@ -66,13 +83,33 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+# a module of the reference by name: "kubernetes_tpu.x" (never
+# "kubernetes_tpu_torch.x"), or the bare package in an import
+_REFERENCE_MODULE = re.compile(
+    r"\bkubernetes_tpu\.[A-Za-z_]|(import|from)\s+kubernetes_tpu\b(?!_)")
+
+
 def test_port_sources_carry_no_reference_import():
     for path in _port_files() + [os.path.join(ROOT, "chip_smoke.py")]:
         with open(path) as fh:
             text = fh.read()
-        for bad in ("import jax", "from jax", "import kubernetes_tpu\n",
-                    "import kubernetes_tpu.", "from kubernetes_tpu."):
+        for bad in ("import jax", "from jax"):
             assert bad not in text, f"{path}: {bad!r}"
+        m = _REFERENCE_MODULE.search(text)
+        assert m is None, f"{path}: {m.group(0)!r}"
+
+
+@pytest.mark.parametrize("text,bad", [
+    ('Popen([sys.executable, "-m", "kubernetes_tpu.cmd.apiserver"])', True),
+    ("from kubernetes_tpu.api import types", True),
+    ("import kubernetes_tpu", True),
+    ("from kubernetes_tpu import watch", True),
+    ('run_module("kubernetes_tpu_torch.cmd.apiserver")', False),
+    ("from kubernetes_tpu_torch import watch", False),
+    ("Port of ``kubernetes_tpu/apiserver/http.py``", False),
+])
+def test_reference_module_pattern(text, bad):
+    assert (_REFERENCE_MODULE.search(text) is not None) is bad
 
 
 def test_port_is_vet_clean():
