@@ -14,8 +14,9 @@ through an apiserver process over HTTP, causal and pipelined with wave
 tracing, the flight recorder and the unschedulability diagnosis, and the
 shared solver daemon (solver/service.py, cmd/solverd.py) coalescing
 concurrent north-star waves into one batched launch, one block per wave,
-in process and under the binary — and holds the kernel against its plain
-PyTorch version. Phases:
+in process and under the binary, the serial oracle against the kernel's
+decisions, and the binaries under the race probe and the self-checks —
+and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
 2. build the CUDA sources with nvcc (one process per source, in
@@ -167,15 +168,40 @@ PyTorch version. Phases:
    nodes, bound pods and services, then 2,000 pending pods. Fails unless
    every pod binds within capacity, every wave went to the daemon (no
    fallback, no busy wave, no launch in the scheduler's process) and the
-   daemon's ``solverd_coalesced_waves_total`` equals the remote waves.
+   daemon's ``solverd_coalesced_waves_total`` equals the remote waves;
+11. the serial oracle (``models/oracle.py``, run in spawned worker
+   processes while the card solves) against commit_solve's decisions:
+   (a) phase 4b's extension and gang waves (but the ghost-anchor cases,
+   which the serial scheduler cannot look up) and its 1,500 and 2,100-node
+   waves == ``solve_serial`` (``gangs`` where the wave has them); (b)
+   north_star's 5,000 nodes, 10,000 bound pods and 8 services with its
+   first ``_ORACLE_NS_PODS`` pending pods == ``solve_serial`` (the largest
+   count the oracle takes in 60 s on a build host's CPU); (c) phase 4c's
+   preemption waves without gangs and its 1,500-node wave ==
+   ``preempt_serial``, node and victim set; (d) phase 7e's 256
+   unschedulable pods once its 10,000 pending are bound where the kernel
+   put them: ``explain_wave`` on the card count-identical to
+   ``explain_serial``. Each compared wave is one counted launch of
+   ``solve`` and is timed alone (CUDA events); logs each part's waves,
+   pods compared, oracle seconds and kernel milliseconds;
+12. the apiserver and scheduler binaries as processes with
+   ``KTPU_RACE=1`` (1 us switch interval, locksmith armed) and
+   ``KTPU_DEBUG=1`` (the self-checks), the scheduler with ``--algorithm
+   tpu-batch --pipeline`` under the zone anti-affinity Policy: 500 nodes,
+   2,000 pending from 4 threads, then 200 deletes and 400 creates at a
+   higher priority. Fails unless every pod binds within capacity, both
+   exit cleanly, neither printed a locksmith report, a failed check or a
+   fallback to serial, and /metrics shows the waves solved on the card
+   with commit_solve launches. Its pods/s is a race run, not a speed.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
 from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
-goes to ``chiprun_out/chip_smoke.json``, the apiservers' and phase 9b's
-binary's output to ``chiprun_out/phase9*.log`` and ``phase10b_*.log``.
+goes to ``chiprun_out/chip_smoke.json``, the apiservers' and the
+binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log`` and
+``phase12_*.log``.
 """
 
 from __future__ import annotations
@@ -1610,34 +1636,15 @@ def _explain_phase(dev, n_nodes=5_000, n_pending=10_000) -> dict:
     ``dev`` and on the CPU: the counts must be equal pod for pod, the
     messages string for string, every count sum the node count, and each
     constructed pod's dominant reason the one it was built for."""
-    from kubernetes_tpu_torch.api import types as api
-    from kubernetes_tpu_torch.api.quantity import Quantity
     from kubernetes_tpu_torch.models import batch_solver as bs
     from kubernetes_tpu_torch.models import explain
     from kubernetes_tpu_torch.models.fixtures import build_cluster
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 
     nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
-
-    def pod(k, cpu, sel=None, port=0, host=""):
-        return api.Pod(
-            metadata=api.ObjectMeta(name=f"x-{k:03d}", namespace="default",
-                                    uid=f"uid-x-{k:03d}"),
-            spec=api.PodSpec(host=host, node_selector=sel or {},
-                             containers=[api.Container(
-                name="c", image="img",
-                ports=[api.ContainerPort(container_port=80, host_port=port)]
-                if port else [],
-                resources=api.ResourceRequirements(limits={
-                    "cpu": Quantity(cpu), "memory": Quantity("64Mi")}))]))
-
     kinds = ("Insufficient cpu", "Node selector mismatch", "Insufficient cpu",
              "Host mismatch")
-    extra = [pod(k, ("32", "10m", "17", "10m")[k // 64],
-                 sel={"zone": "z99"} if k // 64 == 1 else None,
-                 port=7000 if k // 64 == 2 else 0,
-                 host="node-gone" if k // 64 == 3 else "")
-             for k in range(256)]
+    extra = _explain_extra(256)
     snap = encode_snapshot(nodes, existing, pending + extra, services)
     chosen, scores = bs.solve(snap, device=dev)
     t0 = time.perf_counter()
@@ -1714,11 +1721,11 @@ def _wait_http(url: str, proc, what: str, deadline_s: float = 120.0) -> str:
         time.sleep(0.1)
 
 
-def _start_apiserver(tag: str):
+def _start_apiserver(tag: str, env=None):
     """The port's apiserver binary (``kubernetes_tpu_torch.cmd.apiserver``,
     default flags) as a separate OS process, standing in the cluster's
-    place; its output goes to chiprun_out/<tag>_apiserver.log.
-    -> (process, URL)."""
+    place, in ``env`` (this process's environment by default); its output
+    goes to chiprun_out/<tag>_apiserver.log. -> (process, URL)."""
     import subprocess
 
     port = _free_port()
@@ -1727,7 +1734,7 @@ def _start_apiserver(tag: str):
                "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubernetes_tpu_torch.cmd.apiserver",
-         "--port", str(port)], cwd=_ROOT, stdout=log,
+         "--port", str(port)], cwd=_ROOT, env=env, stdout=log,
         stderr=subprocess.STDOUT)
     log.close()
     url = f"http://127.0.0.1:{port}"
@@ -2687,11 +2694,14 @@ def _daemon_phase(dev, n_nodes=5_000, wave_size=1_024, rounds=6, clients=4,
     return out
 
 
-def _metric_value(body: str, name: str) -> float:
-    """The value of an unlabeled series in Prometheus text."""
+def _metric_value(body: str, name: str, default=None) -> float:
+    """The value of a series in Prometheus text (``name`` with its labels,
+    as exposed); ``default`` where it is absent, else a failure."""
     for line in body.splitlines():
         if line.startswith(name + " "):
-            return float(line.split()[1])
+            return float(line.split()[-1])
+    if default is not None:
+        return default
     raise AssertionError(f"no {name} on /metrics")
 
 
@@ -3122,6 +3132,451 @@ def _log_daemon_binary(b: dict) -> None:
          f"{b['seed_s']:.1f}s")
 
 
+# ---- phase 11: the serial oracle against the kernel -----------------------
+
+# north_star's first K pending pods for phase 11b: the largest K for which
+# the port's solve_serial finished within 60 s on an 8-core build host's CPU
+# (kubernetes_tpu_torch/tools/oracle_time.py --limit-s 60)
+_ORACLE_NS_PODS = 256
+# phase 4b's extension and gang waves, one seed each, and its two wide
+# waves (1,500 x 120 and 2,100 x 160); the ghost-anchor cases are left out,
+# since the serial scheduler fails a lookup of a node that is not there
+_ORACLE_EXT = [(seed, n, p, kw) for seed, n, p, kw in _EXT_CASES
+               if not kw.get("ghost")] + _EXT_WIDE[:2]
+# phase 4c's preemption waves without gangs (preempt_serial has no gang
+# rule), and its 1,500-node wide wave with 32 bands
+_ORACLE_PRE = [c for c in _PRE_CASES if not c[4].get("gangs")] \
+    + _PRE_WIDE[:1]
+
+
+def _policy_json(bp) -> str:
+    """The JSON Policy file whose batch form is the BatchPolicy ``bp``."""
+    preds = [{"name": name} for name, on in (
+        ("PodFitsPorts", bp.use_ports), ("PodFitsResources", bp.use_resources),
+        ("NoDiskConflict", bp.use_disk), ("MatchNodeSelector", bp.use_selector),
+        ("HostName", bp.use_host)) if on]
+    for i, (labels, presence) in enumerate(bp.label_presence):
+        preds.append({"name": f"presence{i}", "argument": {"labelsPresence": {
+            "labels": list(labels), "presence": presence}}})
+    if bp.affinity_labels:
+        preds.append({"name": "affinity", "argument": {"serviceAffinity": {
+            "labels": list(bp.affinity_labels)}}})
+    prios = [{"name": name, "weight": w} for name, w in (
+        ("LeastRequestedPriority", bp.w_lr),
+        ("ServiceSpreadingPriority", bp.w_spread),
+        ("EqualPriority", bp.w_equal)) if w]
+    for i, (label, w) in enumerate(bp.anti_affinity):
+        prios.append({"name": f"anti{i}", "weight": w, "argument": {
+            "serviceAntiAffinity": {"label": label}}})
+    for i, (label, presence, w) in enumerate(bp.label_prefs):
+        prios.append({"name": f"pref{i}", "weight": w, "argument": {
+            "labelPreference": {"label": label, "presence": presence}}})
+    return json.dumps({"predicates": preds, "priorities": prios})
+
+
+def _json_policy(bp):
+    """``bp`` as the oracle's Policy, read back from its JSON text; fails
+    unless the round trip gives ``bp`` again."""
+    from kubernetes_tpu_torch.models.policy import batch_policy_from
+    from kubernetes_tpu_torch.scheduler.plugins import load_policy
+
+    policy = load_policy(_policy_json(bp))
+    if batch_policy_from(policy=policy) != bp:
+        raise AssertionError(f"phase 11: {bp} does not round-trip as JSON")
+    return policy
+
+
+def _explain_extra(n: int = 256):
+    """Phase 7e's unschedulable pods: a quarter each oversized, with a
+    node selector no node matches, oversized with a host port the
+    residents hold, and pinned to a node that is not in the cluster."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+
+    q = n // 4
+    out = []
+    for k in range(n):
+        kind = min(k // q, 3)
+        out.append(api.Pod(
+            metadata=api.ObjectMeta(name=f"x-{k:03d}", namespace="default",
+                                    uid=f"uid-x-{k:03d}"),
+            spec=api.PodSpec(
+                host="node-gone" if kind == 3 else "",
+                node_selector={"zone": "z99"} if kind == 1 else {},
+                containers=[api.Container(
+                    name="c", image="img",
+                    ports=[api.ContainerPort(container_port=80,
+                                             host_port=7000)]
+                    if kind == 2 else [],
+                    resources=api.ResourceRequirements(limits={
+                        "cpu": Quantity(("32", "10m", "17", "10m")[kind]),
+                        "memory": Quantity("64Mi")}))])))
+    return out
+
+
+def _explain_state(n_nodes: int, n_pending: int, hosts):
+    """Phase 7e's cluster once its ``n_pending`` pods are bound where the
+    kernel put them: (nodes, existing, services)."""
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    for p, h in zip(pending, hosts):
+        if h is not None:
+            p.spec.host = p.status.host = h
+            existing.append(p)
+    return nodes, existing, services
+
+
+def _oracle_job(kind: str, args: tuple):
+    """One oracle run, in a worker process: rebuilds its wave from the
+    seed or the sizes and returns (result, seconds)."""
+    from kubernetes_tpu_torch.models import gang, oracle
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+
+    t0 = time.perf_counter()
+    if kind == "ext":
+        seed, n_nodes, n_pods, kw = args
+        wave, bp = _ext_wave(random.Random(seed), n_nodes, n_pods, **kw)
+        gangs = any(gang.gang_key(p) is not None for p in wave[2])
+        out = oracle.solve_serial(*wave, policy=_json_policy(bp),
+                                  gangs=gangs)
+    elif kind == "north_star":
+        n_nodes, k = args
+        nodes, existing, pending, services = build_cluster(n_nodes, k)
+        out = oracle.solve_serial(nodes, existing, pending, services)
+    elif kind == "pre":
+        seed, n_nodes, n_pods, n_bands, kw = args
+        wave, bp = _pre_wave(random.Random(seed), n_nodes, n_pods, n_bands,
+                             **kw)
+        names, victims = oracle.preempt_serial(*wave,
+                                               policy=_json_policy(bp))
+        out = (names, [sorted(v.uid for v in x) if x else None
+                       for x in victims])
+    elif kind == "explain":
+        n_nodes, n_pending, n_extra, hosts = args
+        nodes, existing, services = _explain_state(n_nodes, n_pending, hosts)
+        names, diags = oracle.explain_serial(nodes, existing,
+                                             _explain_extra(n_extra),
+                                             services)
+        out = (names, {j: (d.n_nodes, dict(d.counts), d.preempt)
+                       for j, d in enumerate(diags) if d is not None})
+    else:
+        raise ValueError(kind)
+    return out, time.perf_counter() - t0
+
+
+def _first_diff(got, want) -> int:
+    return next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+
+
+def _oracle_phase(dev, n_nodes=5_000, ns_pods=_ORACLE_NS_PODS,
+                  ext=_ORACLE_EXT, pre=_ORACLE_PRE, n_pending=10_000,
+                  n_extra=256, workers=4, count_launches=True) -> dict:
+    """Phase 11: the port's serial oracle (models/oracle.py) against
+    commit_solve's decisions on ``dev``, in four places: (a) phase 4b's
+    extension and gang waves == ``solve_serial`` (gangs where the wave has
+    them); (b) north_star's node axis with all its bound pods and the first
+    ``ns_pods`` pending == ``solve_serial``; (c) phase 4c's preemption
+    waves == ``preempt_serial`` (node and victim set); (d) phase 7e's
+    unschedulable pods, once 7e's pending pods are bound where the kernel
+    put them: ``explain_wave`` on ``dev`` count-identical to
+    ``explain_serial``. The oracle runs in ``workers`` spawned processes
+    while the card solves; each wave is solved once through ``solve``
+    (counted launches) and timed alone with CUDA events."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import explain, preempt
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.tools.kernel_time import event_ms
+
+    on_card = _device_type(dev) == "cuda"
+    launches = 0
+
+    def solve(snap):
+        nonlocal launches
+        before = commit_solver.solve_commit.launches
+        chosen, scores = bs.solve(snap, device=dev)
+        n = commit_solver.solve_commit.launches - before
+        if count_launches and n != 1:
+            raise AssertionError(f"phase 11: {n} commit_solve launches for "
+                                 f"one wave")
+        launches += n
+        kernel_ms = None
+        if on_card:
+            ci = _inputs(snap, dev)
+            kernel_ms = event_ms(lambda: commit_solver.solve_commit(ci),
+                                 1)[0]
+        return chosen, scores, kernel_ms
+
+    t_phase = time.perf_counter()
+    # 7e's pending wave first: (d)'s state is where the kernel bound it
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    base = encode_snapshot(nodes, existing, pending, services)
+    chosen, _scores = bs.solve(base, device=dev)
+    hosts = bs.decisions_to_names(base, chosen)
+    del nodes, existing, pending, services, base
+
+    jobs = [("north_star", (n_nodes, ns_pods)),
+            ("explain", (n_nodes, n_pending, n_extra, hosts))]
+    jobs += [("ext", c) for c in ext] + [("pre", c) for c in pre]
+    pool = ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    parts = {k: {"pods": 0, "waves": 0, "oracle_s": 0.0, "kernel_ms": 0.0}
+             for k in ("ext", "north_star", "pre", "explain")}
+    try:
+        futures = [(kind, args, pool.submit(_oracle_job, kind, args))
+                   for kind, args in jobs]
+        for kind, args, fut in futures:
+            part = parts[kind]
+            if kind == "ext":
+                seed, n, p, kw = args
+                wave, bp = _ext_wave(random.Random(seed), n, p, **kw)
+                snap = encode_snapshot(*wave, policy=bp)
+                chosen, scores, kms = solve(snap)
+                got = bs.decisions_to_names(snap, chosen)
+                what = f"(a) extension seed {seed} {kw}"
+            elif kind == "north_star":
+                nodes, existing, pending, services = build_cluster(*args)
+                snap = encode_snapshot(nodes, existing, pending, services)
+                chosen, scores, kms = solve(snap)
+                got = bs.decisions_to_names(snap, chosen)
+                what = f"(b) north_star, first {args[1]} pending"
+            elif kind == "pre":
+                seed, n, p, b, kw = args
+                wave, bp = _pre_wave(random.Random(seed), n, p, b, **kw)
+                snap = encode_snapshot(*wave, policy=bp)
+                chosen, scores, kms = solve(snap)
+                index = {x.metadata.name: i for i, x in enumerate(wave[0])}
+                victims = preempt.assign_victims(
+                    chosen, scores, snap.band_prio, n_pods=len(wave[2]),
+                    resident=preempt.resident_from_pods(wave[1], index))
+                got = (bs.decisions_to_names(snap, chosen),
+                       [sorted(v.uid for v in x) if x else None
+                        for x in victims])
+                part["preempting"] = part.get("preempting", 0) + sum(
+                    1 for v in got[1] if v)
+                what = f"(c) preemption seed {seed} {kw}"
+            else:
+                nodes, existing, services = _explain_state(
+                    n_nodes, n_pending, hosts)
+                snap = encode_snapshot(nodes, existing,
+                                       _explain_extra(n_extra), services)
+                chosen, scores, kms = solve(snap)
+                diags = explain.explain_wave(snap, chosen, scores,
+                                             device=dev)
+                got = (bs.decisions_to_names(snap, chosen),
+                       {j: (d.n_nodes, dict(d.counts), d.preempt)
+                        for j, d in diags.items()})
+                if len(got[1]) != n_extra:
+                    raise AssertionError(f"phase 11 (d): {len(got[1])} of "
+                                         f"{n_extra} pods diagnosed")
+                what = "(d) explain"
+            want, oracle_s = fut.result()
+            if got != want:
+                if kind in ("ext", "north_star"):
+                    i = _first_diff(got, want)
+                    raise AssertionError(
+                        f"phase 11 {what}: pod {i} kernel {got[i]} vs "
+                        f"oracle {want[i]}")
+                raise AssertionError(f"phase 11 {what}: the kernel's "
+                                     f"decisions differ from the oracle's")
+            part["waves"] += 1
+            part["pods"] += len(snap.pod_names)
+            part["oracle_s"] += oracle_s
+            part["kernel_ms"] += kms or 0.0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    if pre and not parts["pre"].get("preempting"):
+        raise AssertionError("phase 11 (c): no pod placed by preemption")
+    return {"parts": parts, "launches": launches, "ns_pods": ns_pods,
+            "workers": workers, "phase_s": time.perf_counter() - t_phase}
+
+
+def _log_oracle(o: dict) -> None:
+    names = {"ext": "(a) extension and gang waves == solve_serial",
+             "north_star": f"(b) north_star {o['ns_pods']} pending == "
+                           f"solve_serial",
+             "pre": "(c) preemption waves == preempt_serial",
+             "explain": "(d) explain_wave == explain_serial"}
+    _log(f"[11] the serial oracle against the kernel: {o['launches']} "
+         f"commit_solve launches, oracle in {o['workers']} worker processes, "
+         f"{o['phase_s']:.2f} s")
+    for k, p in o["parts"].items():
+        extra = (f", {p['preempting']} placed by preemption"
+                 if "preempting" in p else "")
+        _log(f"     {names[k]}: {p['waves']} waves, {p['pods']} pods "
+             f"compared{extra}, oracle {p['oracle_s']:.2f} s, kernel "
+             f"{p['kernel_ms']:.3f} ms")
+
+
+# ---- phase 12: the binaries under KTPU_RACE=1 and KTPU_DEBUG=1 -------------
+
+# what a phase 12 process must never print: a lock-order report, a failed
+# self-check, a fallback to the serial scheduler
+_RACE_FAULTS = ("[locksmith]", "AssertionError", "diverged",
+                "falling back to serial")
+
+
+def _race_binary_phase(dev, n_nodes=500, n_pending=2_000, n_deleted=200,
+                       n_added=400, seeders=4) -> dict:
+    """Phase 12: the port's apiserver and scheduler binaries as their own
+    processes with ``KTPU_RACE=1`` (a 1 us switch interval and locksmith
+    armed at import) and ``KTPU_DEBUG=1`` (the self-checks), the scheduler
+    with ``--algorithm tpu-batch --pipeline`` under the zone anti-affinity
+    Policy (so the resident zone-count check has planes to check). A
+    cluster of ``n_nodes`` nodes (two bound pods each, 8 services) takes
+    ``n_pending`` pods from ``seeders`` threads; then ``n_deleted`` bound
+    pods are deleted and ``n_added`` created at a priority above every
+    bound pod (so the evictable planes are emitted and checked), and the
+    delta path runs under the checks. Fails unless every pod binds within
+    capacity, /metrics shows the waves solved on ``dev`` through
+    commit_solve (on the card), both processes exit cleanly, and neither
+    printed a locksmith report, a failed self-check or a fallback to
+    serial."""
+    import subprocess
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.models.fixtures import (AFFINITY_POLICY_JSON,
+                                                      build_cluster)
+
+    t_phase = time.perf_counter()
+    devtype = _device_type(dev)
+    nodes, existing, pending, services = build_cluster(
+        n_nodes, n_pending + n_added)
+    pending, added = pending[:n_pending], pending[n_pending:]
+    for p in added:
+        p.spec.priority_class_name = "phase12-high"
+    env = dict(os.environ, KTPU_RACE="1", KTPU_DEBUG="1")
+    out_dir = os.path.join(_ROOT, "chiprun_out")
+    log_path = os.path.join(out_dir, "phase12_scheduler.log")
+    policy_path = os.path.join(out_dir, "phase12_policy.json")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(policy_path, "w") as fh:
+        fh.write(AFFINITY_POLICY_JSON)
+    proc, url = _start_apiserver("phase12", env=env)
+    sched_proc = None
+    try:
+        client = Client(HTTPTransport(url))
+        client.resource("priorityclasses").create(api.PriorityClass(
+            metadata=api.ObjectMeta(name="phase12-high"), value=1000))
+        seed_s = _seed_cluster(client, nodes, existing, services, seeders,
+                               "phase 12")
+        mport = _free_port()
+        log = open(log_path, "w")
+        sched_proc = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.cmd.scheduler",
+             "--master", url, "--algorithm", "tpu-batch", "--pipeline",
+             "--policy-config-file", policy_path, "--prewarm", "--device",
+             devtype, "--metrics-port", str(mport)],
+            cwd=_ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        murl = f"http://127.0.0.1:{mport}"
+        _wait_http(murl + "/healthz", sched_proc, "phase 12: the binary",
+                   300.0)
+        deadline = time.monotonic() + 300
+        while _metric_value(_http_get(murl + "/metrics")[1],
+                            "compile_prewarm_ready") != 1:
+            if sched_proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("phase 12: the binary's prewarm did "
+                                     "not finish")
+            time.sleep(0.2)
+
+        def wait_bound(want, tag):
+            deadline = time.monotonic() + 600
+            while True:
+                got = {p.metadata.name: p.spec.host
+                       for p in client.pods("").list().items}
+                if all(got.get(n) for n in want):
+                    return got
+                if sched_proc.poll() is not None or \
+                        time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"phase 12 {tag}: {sum(1 for n in want if got.get(n))}"
+                        f" of {len(want)} pods bound")
+                time.sleep(0.25)
+
+        t0 = time.perf_counter()
+        _parallel(seeders, pending, lambda p: client.pods().create(p))
+        wait_bound({p.metadata.name for p in pending}, "load")
+        load_s = time.perf_counter() - t0
+        # churn: delete bound pods, create more, while the loop runs
+        t0 = time.perf_counter()
+        gone = pending[:n_deleted]
+        _parallel(seeders, gone, lambda p: client.pods(
+            p.metadata.namespace).delete(p.metadata.name))
+        _parallel(seeders, added, lambda p: client.pods().create(p))
+        want = {p.metadata.name for p in pending[n_deleted:] + added}
+        got = wait_bound(want, "churn")
+        churn_s = time.perf_counter() - t0
+        final = client.pods("").list().items
+        _code, metrics_text = _http_get(murl + "/metrics")
+    finally:
+        codes = []
+        for p in (sched_proc, proc):
+            if p is not None:
+                _stop_process(p)
+                codes.append(p.returncode)
+    if {p.metadata.name for p in gone} & {p.metadata.name for p in final}:
+        raise AssertionError("phase 12: a deleted pod is still there")
+    _check_placements(final, nodes, "phase 12")
+    faults = {}
+    for tag, path in (("scheduler", log_path),
+                      ("apiserver", os.path.join(
+                          out_dir, "phase12_apiserver.log"))):
+        with open(path) as fh:
+            text = fh.read()
+        hits = [f for f in _RACE_FAULTS if f in text]
+        if hits:
+            faults[tag] = hits
+    if faults:
+        raise AssertionError(f"phase 12: {faults} (logs in chiprun_out/"
+                             f"phase12_*.log)")
+    if codes != [0, 0]:
+        raise AssertionError(f"phase 12: exit codes {codes} (scheduler, "
+                             f"apiserver): a process that does not exit "
+                             f"cleanly prints no locksmith report")
+    solves = {d: _metric_value(metrics_text,
+                               f'scheduler_wave_device_solves_total'
+                               f'{{device="{d}"}}', default=0.0)
+              for d in ("cuda", "cpu")}
+    kernel = _metric_value(metrics_text,
+                           "scheduler_wave_kernel_launches_total")
+    if solves[devtype] == 0 or any(v for d, v in solves.items()
+                                   if d != devtype):
+        raise AssertionError(f"phase 12: waves solved by device {solves}")
+    if devtype == "cuda" and kernel == 0:
+        raise AssertionError("phase 12: no commit_solve launch")
+    n_bound = len(pending) + len(added)
+    return {"nodes": n_nodes, "pending": n_pending, "deleted": n_deleted,
+            "added": n_added, "seed_s": list(seed_s), "load_s": load_s,
+            "churn_s": churn_s, "pods_per_s": n_bound / (load_s + churn_s),
+            "solves": solves, "launches": kernel,
+            "replays": _metric_value(metrics_text,
+                                     "encoder_resync_replay_total",
+                                     default=0.0),
+            "full_syncs": _metric_value(
+                metrics_text, "scheduler_wave_encode_resyncs_total",
+                default=0.0),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _log_race_binary(r: dict) -> None:
+    _log(f"[12] binaries under KTPU_RACE=1 KTPU_DEBUG=1: {r['nodes']} nodes, "
+         f"{r['pending']} pending then {r['deleted']} deleted and "
+         f"{r['added']} added, all bound in {r['load_s']:.2f} + "
+         f"{r['churn_s']:.2f} s ({r['pods_per_s']:.1f} pods/s, a race "
+         f"run: 1 us switch interval, not a speed number); waves solved "
+         f"{r['solves']}, {r['launches']:.0f} commit_solve launches, "
+         f"{r['replays']:.0f} journal replays, {r['full_syncs']:.0f} "
+         f"full encoder syncs; no locksmith report, no failed check")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3284,6 +3739,14 @@ def main() -> int:
     # 10b. the scheduler binary through a solver daemon process
     record["daemon_binary"] = _daemon_binary_phase(dev)
     _log_daemon_binary(record["daemon_binary"])
+
+    # 11. the serial oracle against the kernel's decisions
+    record["oracle"] = _oracle_phase(dev)
+    _log_oracle(record["oracle"])
+
+    # 12. the binaries under KTPU_RACE=1 and KTPU_DEBUG=1
+    record["race"] = _race_binary_phase(dev)
+    _log_race_binary(record["race"])
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)

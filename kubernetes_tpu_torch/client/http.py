@@ -12,8 +12,10 @@ watch.go) by a pump thread feeding a ``watch.Watcher``. With tracing on
 (util/tracing.py) every request and watch carries the caller's ambient
 span as the ``X-KTPU-Trace`` header, so the apiserver's spans join the
 caller's trace. Credentials are ``auth=("basic", user, pw)`` or
-``("bearer", token)``; custom certificates come with the reference's
-kubeconfig modules (``client/clientcmd.py``, ROADMAP Queue 1 item 15).
+``("bearer", token)``; TLS takes a CA bundle, a client certificate and
+key, or ``insecure_skip_tls_verify``, through the standard library's
+``ssl`` (the kubeconfig files that name them are read by
+``client/clientcmd.py``, ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -79,18 +81,24 @@ class _EventDecodeCache:
 
 
 class HTTPTransport:
-    """Talks to an API server over HTTP (or HTTPS with the system's trust
-    store). ``auth`` is ``("basic", user, pw)`` or ``("bearer", token)``
-    (ref: pkg/client/client.go Config.{Username,Password,BearerToken})."""
+    """Talks to an API server over HTTP or HTTPS. ``auth`` is ``("basic",
+    user, pw)`` or ``("bearer", token)`` (ref: pkg/client/client.go
+    Config.{Username,Password,BearerToken}); ``ca_cert``, ``client_cert``,
+    ``client_key`` and ``insecure_skip_tls_verify`` shape the TLS context
+    (ref: Config.TLSClientConfig, Config.Insecure)."""
 
-    # a refused or failed CONNECT (an apiserver mid-restart) retries with
-    # capped exponential backoff and jitter for this long before
-    # surfacing; nothing was sent, so the retry can never double-execute
-    CONNECT_RETRY_S = 15.0
-
-    def __init__(self, base_url: str, version: str = "",
+    def __init__(self, base_url: str, scheme=None, version: str = "",
                  auth: Optional[tuple] = None, timeout: float = 30.0,
-                 throttle_retry_s: float = 20.0, user_agent: str = ""):
+                 ca_cert: str = "", client_cert: str = "", client_key: str = "",
+                 insecure_skip_tls_verify: bool = False,
+                 connect_retry_s: float = 15.0,
+                 throttle_retry_s: float = 20.0,
+                 user_agent: str = ""):
+        # a refused or failed CONNECT (an apiserver mid-restart) retries
+        # with capped exponential backoff and jitter for up to
+        # connect_retry_s before surfacing; nothing was sent, so the retry
+        # can never double-execute. 0 disables (fail-fast probes).
+        self.connect_retry_s = connect_retry_s
         # a 429 means the server refused the request before executing it,
         # so a resend is always safe: honour its Retry-After for up to
         # throttle_retry_s, then surface the StatusError (which carries
@@ -98,14 +106,21 @@ class HTTPTransport:
         self.throttle_retry_s = throttle_retry_s
         self.throttled_retries = 0
         self.base_url = base_url.rstrip("/")
-        self.scheme = default_scheme
+        self.scheme = scheme or default_scheme
         # the v1 wire only: any other version raises NotImplementedError
         self.version = require_version(version)
         self.timeout = timeout
         self.ssl_context = None
-        if base_url.startswith("https"):
+        if base_url.startswith("https") or ca_cert or client_cert \
+                or insecure_skip_tls_verify:
             import ssl
-            self.ssl_context = ssl.create_default_context()
+            ctx = ssl.create_default_context(cafile=ca_cert or None)
+            if insecure_skip_tls_verify:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            if client_cert:
+                ctx.load_cert_chain(client_cert, client_key or None)
+            self.ssl_context = ctx
         self._tl = threading.local()   # per-thread kept-alive connection
         self._event_cache = _EventDecodeCache()
         self._headers: Dict[str, str] = {"Content-Type": "application/json"}
@@ -272,7 +287,7 @@ class HTTPTransport:
         throttle_deadline = None   # armed on the first 429
         throttle_backoff = None
         while True:
-            deadline = time.monotonic() + self.CONNECT_RETRY_S
+            deadline = time.monotonic() + self.connect_retry_s
             connect_backoff = Backoff(base=0.05, cap=1.0)
             for attempt in (0, 1):
                 while True:
@@ -286,10 +301,11 @@ class HTTPTransport:
                         # gaierror, TLS cert verification) fall through and
                         # surface immediately — backing off on those would
                         # turn a typo'd --master into a silent 15 s stall.
-                        if time.monotonic() + connect_backoff.peek() \
+                        if self.connect_retry_s <= 0 or \
+                                time.monotonic() + connect_backoff.peek() \
                                 >= deadline:
                             raise
-                        time.sleep(connect_backoff.next())
+                        connect_backoff.sleep_next()
                 sent = False
                 try:
                     conn.request(method, path, body=body, headers=headers)
@@ -383,7 +399,9 @@ class HTTPTransport:
         parsed = urllib.parse.urlsplit(url)
         conn_cls = (http.client.HTTPSConnection if parsed.scheme == "https"
                     else http.client.HTTPConnection)
-        conn = conn_cls(parsed.hostname, parsed.port, timeout=24 * 3600.0)
+        kw = {"context": self.ssl_context} if parsed.scheme == "https" else {}
+        conn = conn_cls(parsed.hostname, parsed.port, timeout=24 * 3600.0,
+                        **kw)
         path = parsed.path + ("?" + parsed.query if parsed.query else "")
         headers = self._trace_headers({
             k: v for k, v in self._headers.items()

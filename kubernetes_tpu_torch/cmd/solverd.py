@@ -113,13 +113,16 @@ def _solverd_health(srv):
     def health():
         import torch
 
-        dev = srv.device
+        dev = getattr(srv, "device", None)
+        if dev is None:     # no device pinned: probe the runtime itself
+            dev = torch.device("cuda" if torch.cuda.is_available()
+                               else "cpu")
         if dev.type == "cuda":
             n = torch.cuda.device_count() if torch.cuda.is_available() else 0
             ok = n > (dev.index or 0)
             msg = f"cuda, {n} device(s)"
         else:
-            ok, msg = True, "cpu"
+            ok, msg = True, "cpu, 1 device(s)"
         items = [{"name": "backend",
                   "status": probe.SUCCESS if ok else probe.FAILURE,
                   "message": msg}]

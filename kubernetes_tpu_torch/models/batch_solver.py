@@ -36,6 +36,7 @@ transfer.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -46,12 +47,19 @@ from kubernetes_tpu_torch.models.policy import BatchPolicy
 from kubernetes_tpu_torch.models.snapshot import ClusterSnapshot
 from kubernetes_tpu_torch.ops import commit_solver
 
-__all__ = ["SolverInputs", "snapshot_to_host_inputs", "ship_inputs",
-           "solve_scan", "solve_device", "solve", "peer_bound_of",
-           "decisions_to_names", "resolve_device", "derive_zone_counts"]
+__all__ = ["SolverInputs", "snapshot_to_host_inputs", "snapshot_to_inputs",
+           "ship_inputs", "solve_scan", "solve_device", "solve",
+           "peer_bound_of", "decisions_to_names", "resolve_device",
+           "derive_zone_counts"]
 
 NEG = -1
 _I32_HEADROOM = (2**31 - 1) // 10  # calculate_score multiplies by 10
+
+
+# KTPU_DEBUG=1: recompute encoder-resident zone_counts0 planes from the
+# group_counts/node_zone planes and assert they match (the same class of
+# insurance as the reference's _ktpu_rows verification)
+_DEBUG_VERIFY_ZONES = os.environ.get("KTPU_DEBUG", "") not in ("", "0")
 
 
 class SolverInputs(NamedTuple):
@@ -187,6 +195,13 @@ def snapshot_to_host_inputs(snap: ClusterSnapshot) -> SolverInputs:
     zone_counts0 = snap.zone_counts0
     if zone_counts0 is None:
         zone_counts0 = derive_zone_counts(node_zone, snap.group_counts, V)
+    elif _DEBUG_VERIFY_ZONES:
+        want = derive_zone_counts(node_zone, snap.group_counts, V)
+        assert zone_counts0.shape == want.shape and \
+            np.array_equal(zone_counts0, want), (
+                "resident zone_counts0 diverged from the group_counts/"
+                "node_zone planes — the incremental encoder's O(changed) "
+                "zone maintenance is out of sync")
     return SolverInputs(
         cap=cap.astype(rdt),
         advertises=np.asarray(snap.advertised, bool),
@@ -251,6 +266,12 @@ def ship_inputs(host: SolverInputs, device) -> SolverInputs:
             a = a.view(np.int32)
         out.append(torch.from_numpy(a).to(device))
     return SolverInputs(*out)
+
+
+def snapshot_to_inputs(snap: ClusterSnapshot, device=None) -> SolverInputs:
+    """encode_snapshot output -> SolverInputs on ``device`` (``cuda``
+    unless the caller names another)."""
+    return ship_inputs(snapshot_to_host_inputs(snap), resolve_device(device))
 
 
 def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None,

@@ -37,6 +37,7 @@ after creation (only status/host change post-bind).
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -57,6 +58,12 @@ from kubernetes_tpu_torch.scheduler import predicates as _preds
 from kubernetes_tpu_torch.scheduler.generic import pod_tie_break_key
 
 __all__ = ["IncrementalEncoder"]
+
+# KTPU_DEBUG=1: re-derive the resident evictable planes from the cached
+# pod records every emitted wave and assert equality with the O(bands)
+# incrementally-maintained ones (models/preempt.derive_evict_planes is
+# the authoritative from-scratch twin)
+_DEBUG_VERIFY_EVICT = os.environ.get("KTPU_DEBUG", "") not in ("", "0")
 
 
 class _PodRec:
@@ -819,6 +826,22 @@ class IncrementalEncoder:
                 evict_cap = np.pad(
                     evict_cap, ((0, 0), (0, 0),
                                 (0, R - evict_cap.shape[2])))
+            if _DEBUG_VERIFY_EVICT:
+                e_host = np.array([rec.host_idx
+                                   for rec in self._pods.values()])
+                e_prio = np.array([rec.prio
+                                   for rec in self._pods.values()])
+                e_req = np.zeros((len(self._pods), R), np.int64)
+                for k, rec in enumerate(self._pods.values()):
+                    for r, amt in rec.req:
+                        e_req[k, r] += amt
+                want_cap, want_cnt = _preempt.derive_evict_planes(
+                    e_host, e_prio, e_req, band_prio, N)
+                assert np.array_equal(want_cap, evict_cap) and \
+                    np.array_equal(want_cnt, evict_cnt), (
+                        "resident evictable planes diverged from the "
+                        "derive_evict_planes from-scratch twin — the "
+                        "O(bands) incremental maintenance is out of sync")
         else:
             band_prio = np.zeros(0, np.int32)
             evict_cap = np.zeros((N, 0, R), np.int64)

@@ -153,6 +153,14 @@ class ClusterSnapshot:
     policy: BatchPolicy = field(default_factory=lambda: DEFAULT_BATCH_POLICY)
 
     @property
+    def n_nodes(self) -> int:
+        return len(self.node_names)
+
+    @property
+    def n_pods(self) -> int:
+        return len(self.pod_names)
+
+    @property
     def has_gangs(self) -> bool:
         return self.pod_rid is not None and bool((self.pod_rid >= 0).any())
 

@@ -81,6 +81,7 @@ loop stops instead of requeueing it forever.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -96,6 +97,7 @@ from kubernetes_tpu_torch.models.batch_solver import (decisions_to_names,
 from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
 from kubernetes_tpu_torch.models.policy import BatchPolicy, batch_policy_from
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+from kubernetes_tpu_torch.ops import commit_solver
 from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.scheduler.driver import (ConfigFactory,
                                                    SchedulerConfig)
@@ -105,6 +107,13 @@ from kubernetes_tpu_torch.util import metrics, tracing
 __all__ = ["BatchScheduler"]
 
 _log = logging.getLogger("kubernetes_tpu_torch.scheduler.tpu_batch")
+
+# KTPU_DEBUG gates the journal-replay bit-identity check (same idiom as
+# models/incremental._DEBUG_VERIFY_EVICT): after every replay resync the
+# from-scratch diff-walk re-runs and the resident fingerprint must not
+# move. Assumes a quiescent store between replay and walk (tests, debug
+# runs).
+_DEBUG_REPLAY = os.environ.get("KTPU_DEBUG", "") not in ("", "0")
 
 
 def _assumed_clone(pod, host):
@@ -142,6 +151,14 @@ class _WaveMetrics:
         self.resyncs = reg.counter(
             "scheduler_wave_encode_resyncs_total",
             "Full-list encoder syncs (vs O(changed) delta waves)")
+        # where this process's own wave solves ran (a daemon's waves are
+        # not counted here), and the commit_solve launches they made
+        self.device_solves = reg.counter(
+            "scheduler_wave_device_solves_total",
+            "Waves solved in this process, by device", ("device",))
+        self.kernel_launches = reg.counter(
+            "scheduler_wave_kernel_launches_total",
+            "commit_solve launches made by this process's wave solves")
         self.bind_fallback = reg.counter(
             "scheduler_bind_fallback_total",
             "Waves committed through per-pod binder.bind because the "
@@ -400,14 +417,15 @@ class BatchScheduler:
             return None
         return gang.order_wave(pending), nodes, services, get_existing
 
-    def _gate_gang_quorum(self, pods: List[api.Pod], get_existing
+    def _gate_gang_quorum(self, pods: List[api.Pod], get_existing=()
                           ) -> tuple[List[api.Pod], List[api.Pod]]:
         """Split the wave into (schedulable, quorum-failed): a gang whose
         membership is below its declared min-members fails its present
         members up front (requeue + backoff) instead of solving a partial
         group as if it were whole. Quorum is aggregated per group (max of
         the members' declarations) and counts already-placed members of
-        the group from the cluster alongside the wave's."""
+        the group from the cluster alongside the wave's. ``get_existing`` is
+        the cluster's pods or a callable returning them."""
         present: dict = {}
         quorum: dict = {}
         for p in pods:
@@ -417,7 +435,8 @@ class BatchScheduler:
                 quorum[k] = max(quorum.get(k, 0), gang.gang_min_members(p))
         if not present or not any(quorum.values()):
             return list(pods), []  # gang-free wave: skip the O(cluster) scan
-        for p in get_existing():
+        existing = get_existing() if callable(get_existing) else get_existing
+        for p in existing:
             k = gang.gang_key(p)
             if k in present and (p.status.host or p.spec.host):
                 present[k] += 1
@@ -464,7 +483,11 @@ class BatchScheduler:
             if self.solver is not None:
                 chosen, scores = self.solver.solve(snap)
             else:
+                before = commit_solver.solve_commit.launches
                 chosen, scores = solve(snap, device=self.device)
+                _wave_metrics().device_solves.inc(self.device.type)
+                _wave_metrics().kernel_launches.inc(
+                    by=commit_solver.solve_commit.launches - before)
         dt = time.perf_counter() - t0
         _wave_metrics().solve.observe(dt)
         _wave_metrics().note_stall(dt)
@@ -516,7 +539,8 @@ class BatchScheduler:
                     self._delta_token = token
                     self._maybe_checkpoint(token)
                     return snap
-        snap, reason = self._replay_resync(nodes, pending, services)
+        snap, reason = self._replay_resync(nodes, pending, services,
+                                           get_existing)
         if snap is not None:
             return snap
         existing = get_existing()
@@ -545,7 +569,7 @@ class BatchScheduler:
         self._ckpt = (state, token)
         self._ckpt_waves = 0
 
-    def _replay_resync(self, nodes, pending, services):
+    def _replay_resync(self, nodes, pending, services, get_existing):
         """The journal-replay resync: restore the last checkpoint, then
         replay every store event since its token. Returns ``(snap,
         reason)``; snap is None when the journal could not cover the gap
@@ -568,8 +592,24 @@ class BatchScheduler:
             return None, "planes_changed"
         self._delta_token = token
         self._sx.resync_replay.inc()
+        if _DEBUG_REPLAY:
+            self._debug_verify_replay(nodes, pending, services,
+                                      get_existing)
         self._maybe_checkpoint(token)
         return snap, ""
+
+    def _debug_verify_replay(self, nodes, pending, services,
+                             get_existing) -> None:
+        """KTPU_DEBUG bit-identity gate: the from-scratch diff-walk over
+        the authoritative pod list must be a NO-OP on a correctly
+        replayed state — same planes, same vocab order, same registry —
+        so the resident fingerprint must not move across it."""
+        before = self._encoder.resident_fingerprint()
+        self._encoder.encode(nodes, get_existing(), pending, services)
+        after = self._encoder.resident_fingerprint()
+        assert before == after, (
+            "kube-slipstream: journal replay diverged from the "
+            "authoritative re-encode")
 
     # -- commit -------------------------------------------------------------
     def _split_decisions(self, pending, decisions: _WaveDecisions):
@@ -1058,7 +1098,7 @@ class BatchScheduler:
             return
         try:
             if self.device.type == "cuda":
-                from kubernetes_tpu_torch.ops import build, commit_solver
+                from kubernetes_tpu_torch.ops import build
                 build.build("commit_solve")
                 commit_solver._lib()
             pending = [api.Pod(metadata=api.ObjectMeta(

@@ -40,6 +40,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "ExplainMetrics", "explain_metrics",
            "APISERVER_BUCKETS", "ChaosMetrics", "chaos_metrics",
            "FairshedMetrics", "fairshed_metrics",
+           "SolverdMeshMetrics", "solverd_mesh_metrics",
+           "DefragMetrics", "defrag_metrics",
            "FlightRecorder", "flightrec_arm", "flightrec_disarm",
            "flightrec_armed", "flightrec_watch", "flightrec_vars",
            "flightrec_sample_now", "flightrec"]
@@ -136,6 +138,9 @@ class Gauge(Counter):
         with self._lock:
             self._values[key] = float(value)
 
+    def dec(self, *label_values: str, by: float = 1.0) -> None:
+        self.inc(*label_values, by=-by)
+
 
 class Histogram(_Metric):
     typ = "histogram"
@@ -165,6 +170,35 @@ class Histogram(_Metric):
         with self._lock:
             s = self._series.get(tuple(str(v) for v in label_values))
         return s[1] if s else 0
+
+    def quantile(self, q: float, *label_values: str) -> Optional[float]:
+        """Interpolation-free bucket quantile: the UPPER BOUND of the
+        first bucket whose cumulative count reaches ``rank = q * n``.
+
+        Semantics (the contract latency records in CHURN_MP_* rely on):
+
+        - returns None when the series has no observations (an empty
+          histogram has no quantiles, not 0.0);
+        - always one of the configured bucket bounds — a conservative
+          over-estimate of the true quantile, never an interpolated
+          value between bounds (a single-bucket histogram therefore
+          reports that bucket's bound for every in-range quantile);
+        - returns +inf when the rank falls beyond the largest bounded
+          bucket (observations overflowed the envelope — widen the
+          buckets rather than trusting the number);
+        - ``q`` is clamped to a minimum rank of one observation, so
+          q=0 (or pathological tiny q) reports the first non-empty
+          bucket instead of buckets[0] unconditionally.
+        """
+        s = self._series.get(tuple(str(v) for v in label_values))
+        if not s or s[1] == 0:
+            return None
+        counts, n, _ = s
+        rank = max(1.0, q * n)
+        for i, b in enumerate(self.buckets):
+            if counts[i] >= rank:
+                return b
+        return float("inf")
 
     def render(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}",
@@ -435,6 +469,142 @@ def preemption_metrics() -> PreemptionMetrics:
     if PreemptionMetrics._singleton is None:
         PreemptionMetrics._singleton = PreemptionMetrics()
     return PreemptionMetrics._singleton
+
+
+class SolverdMeshMetrics:
+    """The ``solverd_mesh_*`` family — the device-mesh production solve
+    (solver/mesh_exec.py): mesh topology, per-wave host->device transfer
+    traffic split into delta-applies vs full re-establishes (resharding),
+    the device-resident plane footprint (shard_memory_report), and the
+    single-device parity probe that keeps the mesh path bit-identity
+    evidence live in every run. Scraped into the CHURN_MP record's
+    ``solverd.mesh`` section alongside the solve quantiles (the contract
+    tests/test_bench_record.py enforces from r09 on). The port registers
+    the family ahead of its writer, the mesh executor (ROADMAP Queue 1
+    item 7), so the ``parity_divergence_zero`` SLO rule binds to it."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.devices = reg.gauge(
+            "solverd_mesh_devices",
+            "Devices in the solver mesh (0 = mesh dispatch disabled)")
+        self.pods_axis = reg.gauge(
+            "solverd_mesh_pods_axis", "Mesh 'pods' axis length")
+        self.node_shards = reg.gauge(
+            "solverd_mesh_node_shards",
+            "Node-axis shards of the ACTIVE solve layout (1 = the "
+            "measured dispatch chose the single-device submesh)")
+        self.waves = reg.counter(
+            "solverd_mesh_waves_total",
+            "Waves solved through the mesh executor's device-resident "
+            "path (vs the padded vmap fallback)")
+        self.transfer_bytes = reg.counter(
+            "solverd_mesh_transfer_bytes_total",
+            "Host->device bytes moved per wave (delta-row scatters + "
+            "per-wave pod planes)")
+        self.reshard_bytes = reg.counter(
+            "solverd_mesh_reshard_bytes_total",
+            "Host->device bytes re-established for planes that SHOULD "
+            "have been resident (cold buckets, evictions, out-of-order "
+            "bases) — the number back-to-back waves must keep near zero")
+        self.resident_bytes = reg.gauge(
+            "solverd_mesh_resident_bytes",
+            "Device-resident solver plane bytes across all cache entries")
+        self.shard_bytes_per_device = reg.gauge(
+            "solverd_mesh_shard_bytes_per_device",
+            "shard_memory_report total for the newest resident bucket "
+            "(planes + scan carry, per device)")
+        self.solve_s = reg.histogram(
+            "solverd_mesh_solve_seconds",
+            "Mesh-executor solve wall time per wave",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0,
+                     5.0, 10.0))
+        self.single_probe_s = reg.histogram(
+            "solverd_mesh_single_device_seconds",
+            "Single-device probe solves of mesh-path waves (the in-run "
+            "vs-single-device comparison the churn record carries)",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0,
+                     5.0, 10.0))
+        self.parity_checks = reg.counter(
+            "solverd_mesh_parity_checks_total",
+            "Mesh-path waves re-solved on one device and compared bitwise")
+        self.parity_divergent = reg.counter(
+            "solverd_mesh_parity_divergent_total",
+            "Parity probes whose decisions diverged (must stay 0)")
+
+
+def solverd_mesh_metrics() -> SolverdMeshMetrics:
+    if SolverdMeshMetrics._singleton is None:
+        SolverdMeshMetrics._singleton = SolverdMeshMetrics()
+    return SolverdMeshMetrics._singleton
+
+
+class DefragMetrics:
+    """kube-defrag instrumentation (descheduler/controller.py wave loop).
+    Registered HERE so the metrics-sync vet rule binds the churn
+    harness's ``fragmentation`` record section and the defrag SLO rules
+    to the registry universe.
+
+    ``fragmentation_score`` is the wave-level bin-packing score over the
+    resident planes (lower = better packed; an empty node contributes 0,
+    so emptying nodes IS the objective). Under an active descheduler it
+    must never trend up — the ``fragmentation_score_monotone_under_defrag``
+    SLO rule rides directly on this gauge. In the port the wave itself
+    is ``models/defrag.py``; the descheduler loop that writes this family
+    is ROADMAP Queue 1 item 14."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.fragmentation_score = reg.gauge(
+            "defrag_fragmentation_score",
+            "Cluster fragmentation score at the last defrag wave "
+            "(sum over non-empty nodes of free-permille across core "
+            "dims; lower is better packed)")
+        self.waves = reg.counter(
+            "defrag_waves_total",
+            "Defrag waves solved (a wave that proposes zero moves still "
+            "counts — it observed the cluster and declined to act)")
+        self.migrations = reg.counter(
+            "defrag_migrations_total",
+            "Pod migrations committed by defrag waves (atomic "
+            "evict-here + bind-there items that applied)")
+        self.conflicts = reg.counter(
+            "defrag_conflicts_total",
+            "Migration items that failed their commit guard (per-item "
+            "409/404: the pod moved, changed uid, or vanished between "
+            "proposal and commit; the next wave re-solves from truth)")
+        self.declined = reg.counter(
+            "defrag_declined_total",
+            "Waves declined before solving, by reason (rate_limited / "
+            "pending_work / error)", ("reason",))
+        self.nodes_drained = reg.counter(
+            "defrag_nodes_drained_total",
+            "Cordoned nodes a wave fully emptied (every resident pod "
+            "migrated off; the cordon-drain contract)")
+        self.nodes_emptied = reg.counter(
+            "defrag_nodes_emptied_total",
+            "Non-cordoned nodes a wave voluntarily emptied (whole-node "
+            "consolidations that committed)")
+        self.wave_seconds = reg.counter(
+            "defrag_wave_seconds_total",
+            "CPU seconds spent solving defrag waves (thread_time on "
+            "the wave-loop thread; strictly off the scheduler hot path)")
+        self.score_regressions = reg.counter(
+            "defrag_score_regressions_total",
+            "Waves whose accepted move set scored WORSE than the "
+            "mandatory-only outcome — MUST stay 0 (the acceptance gate "
+            "drops any voluntary set that does not strictly improve the "
+            "score; monotone-under-defrag is structural)")
+
+
+def defrag_metrics() -> DefragMetrics:
+    if DefragMetrics._singleton is None:
+        DefragMetrics._singleton = DefragMetrics()
+    return DefragMetrics._singleton
 
 
 class EventRecorderMetrics:

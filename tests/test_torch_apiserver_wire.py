@@ -19,6 +19,7 @@ import dataclasses
 import http.client
 import json
 import re
+import types
 
 import numpy as np
 import pytest
@@ -390,3 +391,142 @@ def test_seeded_differential_run_matches_the_reference():
     assert len(ref_frames) > 50
     assert [f["type"] for f in ref_frames].count("DELETED") > 0
     assert port_frames == ref_frames
+
+
+# -- the transport's arguments: scheme, TLS, the connect window -----------
+
+TRANSPORTS = pytest.mark.parametrize(
+    "transport", [RefHTTPTransport, PortHTTPTransport],
+    ids=["reference", "port"])
+
+
+def _closed_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@TRANSPORTS
+def test_transport_takes_the_scheme_it_is_given(transport):
+    from kubernetes_tpu.api.latest import scheme as ref_scheme
+    from kubernetes_tpu_torch.api.latest import scheme as port_scheme
+    mine = port_scheme if transport is PortHTTPTransport else ref_scheme
+    assert transport("http://127.0.0.1:1").scheme is mine
+    other = types.SimpleNamespace(default_version="v1")
+    assert transport("http://127.0.0.1:1", scheme=other).scheme is other
+
+
+@TRANSPORTS
+def test_connect_retry_zero_fails_at_once_on_a_closed_port(transport):
+    import time
+    c = transport(f"http://127.0.0.1:{_closed_port()}", connect_retry_s=0)
+    t0 = time.monotonic()
+    with pytest.raises(ConnectionError):
+        c.request("list", "pods", namespace="default")
+    assert time.monotonic() - t0 < 0.5
+
+
+@TRANSPORTS
+def test_connect_retry_window_retries_then_surfaces(transport):
+    import time
+    c = transport(f"http://127.0.0.1:{_closed_port()}", connect_retry_s=0.6)
+    assert c.connect_retry_s == 0.6
+    t0 = time.monotonic()
+    with pytest.raises(ConnectionError):
+        c.request("list", "pods", namespace="default")
+    assert 0.2 < time.monotonic() - t0 < 3.0
+
+
+@TRANSPORTS
+def test_tls_context_follows_the_arguments(transport, tmp_path):
+    import ssl
+    assert transport("http://127.0.0.1:1").ssl_context is None
+    ctx = transport("https://127.0.0.1:1").ssl_context
+    assert ctx.verify_mode == ssl.CERT_REQUIRED and ctx.check_hostname
+    ctx = transport("http://127.0.0.1:1",
+                    insecure_skip_tls_verify=True).ssl_context
+    assert ctx.verify_mode == ssl.CERT_NONE and not ctx.check_hostname
+    if _tls_files(tmp_path) is None:
+        return
+    ca, cert, key = _tls_files(tmp_path)
+    ctx = transport("https://127.0.0.1:1", ca_cert=ca).ssl_context
+    assert any(c.get("serialNumber") for c in ctx.get_ca_certs())
+    ctx = transport("https://127.0.0.1:1", ca_cert=ca, client_cert=cert,
+                    client_key=key).ssl_context
+    assert ctx.verify_mode == ssl.CERT_REQUIRED
+
+
+def _tls_files(tmp_path):
+    """A self-signed certificate for 127.0.0.1 made by the openssl
+    command, or None where it is missing: (ca, cert, key)."""
+    import shutil
+    import subprocess
+    if shutil.which("openssl") is None:
+        return None
+    cert, key = tmp_path / "tls.crt", tmp_path / "tls.key"
+    if not cert.exists():
+        proc = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", str(key), "-out", str(cert), "-days", "1",
+             "-subj", "/CN=127.0.0.1", "-addext",
+             "subjectAltName=IP:127.0.0.1"],
+            capture_output=True, timeout=60)
+        if proc.returncode != 0:
+            return None
+    return str(cert), str(cert), str(key)
+
+
+@pytest.mark.parametrize("server", ["reference", "port"])
+@TRANSPORTS
+def test_tls_round_trip_with_a_client_certificate(transport, server,
+                                                  tmp_path):
+    """Mutual TLS: the server requires a client certificate signed by its
+    CA (the same self-signed pair here); each package's transport creates,
+    gets and lists through it, and fails verification without the CA. The
+    port's watch carries the same context; the reference's watch opens its
+    connection without it, so a watch there verifies against the system's
+    trust store and refuses a private CA."""
+    import ssl
+    files = _tls_files(tmp_path)
+    if files is None:
+        # no openssl here: the context checks above stand in
+        test_tls_context_follows_the_arguments(transport, tmp_path)
+        return
+    ca, cert, key = files
+    sctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    sctx.load_cert_chain(cert, key)
+    sctx.load_verify_locations(ca)
+    sctx.verify_mode = ssl.CERT_REQUIRED
+    srv_cls, master = ((RefAPIServer, RefMaster) if server == "reference"
+                       else (PortAPIServer, PortMaster))
+    srv = srv_cls(master(), ssl_context=sctx).start()
+    try:
+        url = f"https://127.0.0.1:{srv.port}"
+        port = transport is PortHTTPTransport
+        client_cls = PortClient if port else RefClient
+        api = port_api if port else ref_api
+        c = client_cls(transport(url, ca_cert=ca, client_cert=cert,
+                                 client_key=key, connect_retry_s=0,
+                                 timeout=TIMEOUT_S))
+        w = c.pods("default").watch(resource_version="0") if port else None
+        try:
+            c.pods("default").create(api.Pod(
+                metadata=api.ObjectMeta(name="tls-pod"),
+                spec=api.PodSpec(containers=[api.Container(
+                    name="c", image="busybox")])))
+            if w is not None:
+                ev = w.next_event(timeout=TIMEOUT_S)
+                assert ev.object.metadata.name == "tls-pod"
+        finally:
+            if w is not None:
+                w.stop()
+        assert c.pods("default").get("tls-pod").metadata.name == "tls-pod"
+        names = [p.metadata.name for p in c.pods("default").list().items]
+        assert names == ["tls-pod"]
+        bad = client_cls(transport(url, connect_retry_s=0,
+                                   timeout=TIMEOUT_S))
+        with pytest.raises(ssl.SSLError):
+            bad.pods("default").list()
+    finally:
+        srv.stop()

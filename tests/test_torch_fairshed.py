@@ -6,8 +6,7 @@ port's ``HTTPTransport``, event-priority shedding and the chaos latency
 grammar of ``util/chaos.py``.
 
 Left out, each for a module the port does not have: the remote store's
-throttle (``storage/remote.py``), the SLO rules
-(``addons/monitoring.py``), and the cases that exercise
+throttle (``storage/remote.py``), and the cases that exercise
 ``hack/churn_mp.py`` and ``hack/perfgate.py``, the reference's harness
 scripts, which a twin would load unchanged.
 """
@@ -20,8 +19,6 @@ globals().update(port_twin("test_fairshed", {
     "TestRemoteStoreHonorsThrottle":
         "needs storage/remote.py (ROADMAP Queue 1 item 9)",
     "TestFeeder429Semantics": HARNESS,
-    "TestFairshedSLORules":
-        "needs addons/monitoring.py (ROADMAP Queue 1 item 15)",
     "TestOverloadRecordContract": HARNESS,
     "TestChaosLatencyGrammar::test_parse_chaos_mixes_kills_and_delays":
         HARNESS,

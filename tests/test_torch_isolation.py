@@ -113,11 +113,50 @@ def test_reference_module_pattern(text, bad):
 
 
 def test_port_is_vet_clean():
-    from kubernetes_tpu.analysis.engine import run_vet
-    active, _waived = run_vet(
-        paths=_port_files() + [os.path.join(ROOT, "chip_smoke.py")],
-        root=ROOT)
+    from kubernetes_tpu_torch.analysis import default_paths, run_vet
+    paths = _port_files() + [os.path.join(ROOT, "chip_smoke.py")]
+    assert sorted(default_paths(ROOT)) == sorted(paths)
+    active, _waived = run_vet(paths=paths, root=ROOT)
     assert active == [], "\n".join(str(v) for v in active)
+
+
+# A seeded violation of each rule the vet scopes to the package, on a
+# port path: the port's vet flags it, the reference's (scoped to
+# ``kubernetes_tpu/``) does not look at the file.
+_SCOPED_FIXTURES = {
+    "clone-mutation": {
+        "kubernetes_tpu_torch/scheduler/assume.py":
+            "from kubernetes_tpu_torch.runtime.clone import deep_clone\n"
+            "def assume(pod, modeler):\n"
+            "    cl = deep_clone(pod)\n"
+            "    pod.status.phase = 'Assumed'\n"
+            "    modeler.assume_pod(cl)\n"},
+    "metrics-sync": {
+        "kubernetes_tpu_torch/util/metrics.py":
+            "def build(reg):\n"
+            "    return reg.counter('solverd_frobs_total', 'frobs')\n",
+        "kubernetes_tpu_torch/addons/monitoring.py":
+            "def default_churn_rules(SLORule):\n"
+            "    return [SLORule('frobs', 'solverd_frob_count_total')]\n"},
+}
+
+
+@pytest.mark.parametrize("rule", sorted(_SCOPED_FIXTURES))
+def test_package_scoped_rules_fire_on_port_paths(rule, tmp_path):
+    from kubernetes_tpu.analysis import run_vet as ref_run_vet
+    from kubernetes_tpu_torch.analysis import run_vet
+    paths = []
+    for rel, text in _SCOPED_FIXTURES[rule].items():
+        path = tmp_path / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        paths.append(str(path))
+    active, _ = run_vet(paths=paths, rule_ids=[rule], root=str(tmp_path))
+    assert [v.rule for v in active] == [rule], active
+    assert active[0].path.startswith("kubernetes_tpu_torch/")
+    ref_active, _ = ref_run_vet(paths=paths, rule_ids=[rule],
+                                root=str(tmp_path))
+    assert ref_active == []
 
 
 def test_default_device_without_cuda_raises():
