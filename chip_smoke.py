@@ -15,7 +15,9 @@ tracing, the flight recorder and the unschedulability diagnosis, and the
 shared solver daemon (solver/service.py, cmd/solverd.py) coalescing
 concurrent north-star waves into one batched launch, one block per wave,
 in process and under the binary, the serial oracle against the kernel's
-decisions, and the binaries under the race probe and the self-checks —
+decisions, the binaries under the race probe and the self-checks, and the
+device mesh (the node-sharded loop, its kernel crossover, the daemon's
+mesh executor and the submesh) on four shards of the card —
 and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
@@ -192,7 +194,29 @@ and holds the kernel against its plain PyTorch version. Phases:
    higher priority. Fails unless every pod binds within capacity, both
    exit cleanly, neither printed a locksmith report, a failed check or a
    fallback to serial, and /metrics shows the waves solved on the card
-   with commit_solve launches. Its pods/s is a race run, not a speed.
+   with commit_solve launches. Its pods/s is a race run, not a speed;
+13. the device mesh (parallel/mesh.py, models/submesh.py,
+   solver/mesh_exec.py) on a virtual mesh of four node shards on the card
+   (``make_mesh([cuda:0] * 4)``): (a) the ``mesh`` shape (10,000 nodes x
+   2,048 pods, default policy) through the sharded loop
+   (``solve_sharded(..., prefer_kernel=False)``) == the single-device
+   ``solve_scan`` == commit_solve's decisions, no decision on a pad node,
+   each timed on the host clock, with ``shard_memory_report``'s bytes per
+   device; (b) the crossover: the same wave through ``solve(snap,
+   mesh=mesh)``, exactly one commit_solve launch and no sharded loop (the
+   phase's counted main path); (c) 33,152 nodes x 256 pods, beyond the
+   kernel's domain, through ``solve(snap, mesh=mesh)`` (one sharded loop)
+   == the single-device ``solve_scan``, and a preemption wave (phase 5e's
+   generator, full nodes in two bands) and a zone anti-affinity wave
+   (phase 4b's), 1,500 x 120 each, sharded == single-device, some pod
+   placed by preemption; (d) a
+   ``MeshExecutor`` on the same mesh (dispatch shard, probe all) serving
+   an ``IncrementalEncoder`` churn at 10,000 nodes, 5 waves of 256, each
+   == ``solve(snap)``: the first a full transfer, the rest delta scatters
+   with no reshard, no parity divergence; (e) a late-churn wave (10,000
+   nodes, 1,500 free) on the executor's single-device layout: compacted
+   (``plan_wave``) == the full solve, counted by
+   ``solverd_submesh_*``.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -3577,6 +3601,376 @@ def _log_race_binary(r: dict) -> None:
          f"full encoder syncs; no locksmith report, no failed check")
 
 
+# ---- phase 13: the device mesh ---------------------------------------------
+
+def _late_churn_cluster(n_nodes: int, n_free: int, n_pending: int,
+                        seed: int):
+    """A late-churn cluster: all but ``n_free`` nodes (2 cpu each) carry a
+    resident pod using their whole cpu, every fifth of those also a
+    service peer; ``n_pending`` pods of 250m wait. Most nodes can place
+    nothing, so the submesh keep rule drops them."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+
+    rng = random.Random(seed)
+    free = set(rng.sample(range(n_nodes), n_free))
+
+    def pod(name, mcpu, mem, host="", labels=None):
+        return api.Pod(
+            metadata=api.ObjectMeta(name=name, namespace="default",
+                                    uid=f"uid-{name}", labels=labels or {}),
+            spec=api.PodSpec(host=host, containers=[api.Container(
+                name="c", image="i",
+                resources=api.ResourceRequirements(limits={
+                    "cpu": Quantity(f"{mcpu}m"),
+                    "memory": Quantity(mem)}))]),
+            status=api.PodStatus(host=host))
+
+    nodes = [api.Node(metadata=api.ObjectMeta(name=f"n{i:05d}"),
+                      spec=api.NodeSpec(capacity={
+                          "cpu": Quantity("2"), "memory": Quantity("4Gi")}))
+             for i in range(n_nodes)]
+    existing = [pod(f"e{i}", 2000, "3Gi", host=f"n{i:05d}",
+                    labels={"app": "web"} if i % 5 == 0 else {})
+                for i in range(n_nodes) if i not in free]
+    pending = [pod(f"late{i}", 250, "256Mi",
+                   labels={"app": "web"} if i % 2 else {})
+               for i in range(n_pending)]
+    services = [api.Service(
+        metadata=api.ObjectMeta(name="web", namespace="default"),
+        spec=api.ServiceSpec(port=80, selector={"app": "web"}))]
+    return nodes, existing, pending, services
+
+
+def _resident_view(prev: dict, host):
+    """The solver daemon's copy-on-write reconstruction of one wave, for
+    driving a MeshExecutor directly: each resident plane equal to the
+    previous wave's is that same object, a changed plane of the same
+    shape is a new object with its changed rows as a (base, rows, vals)
+    delta -> (inputs, delta, the planes to keep for the next wave)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.parallel.mesh import RESIDENT_FIELDS
+
+    cols, delta, keep = {}, {}, {}
+    for name in RESIDENT_FIELDS:
+        cur = np.asarray(getattr(host, name))
+        base = prev.get(name)
+        if base is not None and base.shape == cur.shape \
+                and base.dtype == cur.dtype:
+            diff = ((base != cur).reshape(cur.shape[0], -1).any(axis=1)
+                    if cur.size else np.zeros(0, bool))
+            rows = np.flatnonzero(diff).astype(np.int64)
+            if rows.size == 0:
+                cols[name] = keep[name] = base
+                continue
+            new = base.copy()
+            new[rows] = cur[rows]
+            delta[name] = (base, rows, np.ascontiguousarray(cur[rows]))
+            cols[name] = keep[name] = new
+            continue
+        cols[name] = keep[name] = np.array(cur, copy=True)
+    return host._replace(**cols), delta, keep
+
+
+def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
+                cap_nodes=33_152, cap_pods=256, cap_services=8,
+                ext_nodes=1_500, ext_pods=120, churn_nodes=10_000,
+                churn_waves=5, churn_wave=256, late_nodes=10_000,
+                late_free=1_500, late_pods=256, count_launches=True) -> dict:
+    """Phase 13: a virtual mesh of ``shards`` node shards on ``dev``. (a)
+    the ``mesh`` shape through the sharded loop == the single-device
+    solve_scan == commit_solve's decisions; (b) the crossover: the same
+    wave through ``solve(snap, mesh=...)``, one commit_solve launch and no
+    sharded loop (the counted main path); (c) waves beyond the kernel's
+    domain (33,152 nodes), a preemption wave (the priority cluster's
+    generator) and a zone anti-affinity wave (phase 4b's): sharded ==
+    single-device; (d) a MeshExecutor (dispatch shard, probe
+    all) serving an IncrementalEncoder churn, each wave == solve(); (e) a
+    late-churn wave that compacts (models/submesh.py) == the full solve,
+    counted by the submesh metrics."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import preempt
+    from kubernetes_tpu_torch.models.fixtures import (
+        FULL_SHAPES, build_cluster, build_priority_cluster, build_shape)
+    from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.parallel import mesh as pm
+    from kubernetes_tpu_torch.parallel.sharded_scan import sharded_commit
+    from kubernetes_tpu_torch.solver.mesh_exec import MeshExecutor
+    from kubernetes_tpu_torch.util import metrics
+
+    dev = torch.device(dev)
+    mesh = pm.make_mesh([dev] * shards)
+    out: dict = {"shards": shards, "device": str(dev)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def single(host, pol, gangs):
+        sync()
+        t0 = time.perf_counter()
+        c, s = bs.solve_scan(bs.ship_inputs(host, dev), pol, gangs)
+        both = torch.stack([c, s]).cpu().numpy()
+        return both[0], both[1], time.perf_counter() - t0
+
+    def sharded(host, pol, gangs):
+        sync()
+        t0 = time.perf_counter()
+        c, s = pm.solve_sharded(host, mesh, pol=pol, gangs=gangs,
+                                prefer_kernel=False)
+        return c, s, time.perf_counter() - t0
+
+    def same(tag, a, b):
+        for x, y, what in ((a[0], b[0], "chosen"), (a[1], b[1], "scores")):
+            if not np.array_equal(x, y):
+                i = int(np.flatnonzero(x != y)[0])
+                raise AssertionError(f"phase 13 {tag}: {what} differs at "
+                                     f"pod {i}: {x[i]} vs {y[i]}")
+
+    # ---- (a) the mesh shape, three ways --------------------------------
+    t_part = time.perf_counter()
+    n_nodes, n_pods, _kw, _policy = FULL_SHAPES["mesh"]
+    cluster = (build_shape("mesh") if mesh_nodes is None
+               else build_cluster(mesh_nodes, mesh_pods))
+    n_nodes = len(cluster[0])
+    snap = encode_snapshot(*cluster)
+    host = bs.snapshot_to_host_inputs(snap)
+    pol, gangs = snap.policy, snap.has_gangs
+    inp = bs.ship_inputs(host, dev)
+    if not commit_solver.eligible(inp, pol, bs.peer_bound_of(snap)):
+        raise AssertionError("phase 13 (a): the mesh shape is outside the "
+                             "kernel's domain; the check is three-way")
+    sh = sharded(host, pol, gangs)
+    sg = single(host, pol, gangs)
+    sync()
+    t0 = time.perf_counter()
+    kc, kw = commit_solver.solve_commit(commit_solver.prepare(inp, pol,
+                                                              gangs))
+    kern = torch.stack([kc, kw]).cpu().numpy()
+    kernel_s = time.perf_counter() - t0
+    same("(a) sharded vs single-device", sh, sg)
+    same("(a) sharded vs commit_solve", sh, (kern[0], kern[1]))
+    if sh[0].max(initial=-1) >= n_nodes:
+        raise AssertionError("phase 13 (a): a decision reached a pad node")
+    if (sh[0] < 0).any():
+        raise AssertionError("phase 13 (a): a pod of the mesh shape did "
+                             "not bind; the cluster has room for all")
+    out["a"] = {"nodes": n_nodes, "pods": len(snap.pod_names),
+                "sharded_s": sh[2], "single_s": sg[2],
+                "commit_solve_s": kernel_s,
+                "memory": pm.shard_memory_report(host, mesh),
+                "memory_one_device": pm.shard_memory_report(
+                    host, pm.make_mesh([dev])),
+                "seconds": time.perf_counter() - t_part}
+
+    # ---- (b) the crossover through solve(snap, mesh=): the main path ---
+    t_part = time.perf_counter()
+    commit_solver.solve_commit.launches = 0
+    commit_solver.solve_commit_reference.calls = 0
+    sharded_commit.calls = 0
+    floor = pm.DEFAULT_MESH_MIN_NODES
+    if n_nodes < floor:
+        pm.DEFAULT_MESH_MIN_NODES = n_nodes   # a small run's wave
+    try:
+        chosen, scores = bs.solve(snap, mesh=mesh)
+    finally:
+        pm.DEFAULT_MESH_MIN_NODES = floor
+    launches = commit_solver.solve_commit.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+    loops = sharded_commit.calls
+    if loops:
+        raise AssertionError(f"phase 13 (b): the crossover ran the sharded "
+                             f"loop {loops} times")
+    if count_launches and (launches != 1 or plain_calls):
+        raise AssertionError(f"phase 13 (b): {launches} commit_solve "
+                             f"launches and {plain_calls} plain calls, want "
+                             f"1 and 0")
+    same("(b) crossover vs sharded", (chosen, scores), sh)
+    out["b"] = {"launches": launches, "plain_calls": plain_calls,
+                "sharded_loops": loops,
+                "seconds": time.perf_counter() - t_part}
+    out["launches"] = launches
+
+    # ---- (c) beyond the kernel's domain, preemption, anti-affinity -----
+    t_part = time.perf_counter()
+    cap = build_cluster(cap_nodes, cap_pods, n_services=cap_services)
+    csnap = encode_snapshot(*cap)
+    chost = bs.snapshot_to_host_inputs(csnap)
+    if commit_solver.eligible(chost, csnap.policy, bs.peer_bound_of(csnap)):
+        raise AssertionError("phase 13 (c): the capacity wave is inside "
+                             "the kernel's domain")
+    sharded_commit.calls = 0
+    floor = pm.DEFAULT_MESH_MIN_NODES
+    pm.DEFAULT_MESH_MIN_NODES = min(floor, cap_nodes)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        cc, cs = bs.solve(csnap, mesh=mesh)
+    finally:
+        pm.DEFAULT_MESH_MIN_NODES = floor
+    cap_sharded_s = time.perf_counter() - t0
+    if sharded_commit.calls != 1:
+        raise AssertionError("phase 13 (c): the capacity wave did not run "
+                             "the sharded loop once")
+    cg = single(chost, csnap.policy, csnap.has_gangs)
+    same("(c) capacity", (cc, cs), cg)
+    if (cc < 0).any():
+        raise AssertionError("phase 13 (c): a capacity pod did not bind")
+    pre = build_priority_cluster(ext_nodes, ext_pods)
+    anti, anti_pol = _ext_wave(random.Random(1313), ext_nodes, ext_pods,
+                               anti=1)
+    extra = {}
+    for tag, snap_x in (
+            ("preemption", IncrementalEncoder().encode(*pre)),
+            ("anti_affinity", encode_snapshot(*anti, policy=anti_pol))):
+        xh = bs.snapshot_to_host_inputs(snap_x)
+        xs = sharded(xh, snap_x.policy, snap_x.has_gangs)
+        xg = single(xh, snap_x.policy, snap_x.has_gangs)
+        same(f"(c) {tag}", xs, xg)
+        extra[tag] = {"nodes": len(snap_x.node_names),
+                      "pods": len(snap_x.pod_names),
+                      "placed": int((xs[0] >= 0).sum()),
+                      "by_preemption": int(
+                          (xs[1] <= preempt.PREEMPT_SCORE_BASE).sum()),
+                      "sharded_s": xs[2], "single_s": xg[2]}
+    if not extra["preemption"]["by_preemption"]:
+        raise AssertionError("phase 13 (c): no pod placed by preemption")
+    out["c"] = {"nodes": cap_nodes, "pods": cap_pods,
+                "services": cap_services, "sharded_s": cap_sharded_s,
+                "single_s": cg[2],
+                "memory": pm.shard_memory_report(chost, mesh),
+                **extra, "seconds": time.perf_counter() - t_part}
+
+    # ---- (d) the executor over an IncrementalEncoder churn -------------
+    t_part = time.perf_counter()
+    me = MeshExecutor(devices=[dev] * shards, dispatch="shard", probe="all",
+                      min_nodes=1)
+    mm = metrics.solverd_mesh_metrics()
+    nodes, existing, _p, services = build_cluster(churn_nodes, 0)
+    enc = IncrementalEncoder()
+    prev: dict = {}
+    waves = []
+    for w in range(churn_waves):
+        pending = build_cluster(1, churn_wave)[2]
+        for j, p in enumerate(pending):
+            p.metadata.name = p.metadata.uid = f"churn-{w}-{j}"
+        wsnap = enc.encode(nodes, existing, pending, services)
+        whost = bs.snapshot_to_host_inputs(wsnap)
+        view, delta, prev = _resident_view(prev, whost)
+        x0, r0 = mm.transfer_bytes.value(), mm.reshard_bytes.value()
+        t0 = time.perf_counter()
+        got = me.solve(view, wsnap.policy, wsnap.has_gangs,
+                       cache_key=("phase13", "churn"), delta=delta)
+        solve_s = time.perf_counter() - t0
+        want = bs.solve(wsnap, device=dev)
+        same(f"(d) wave {w}", got, want)
+        waves.append({"wave": w, "delta_planes": sorted(delta),
+                      "transfer_bytes": mm.transfer_bytes.value() - x0,
+                      "reshard_bytes": mm.reshard_bytes.value() - r0,
+                      "placed": int((got[0] >= 0).sum()),
+                      "solve_s": solve_s})
+        if w and (not delta or waves[-1]["reshard_bytes"]):
+            raise AssertionError(f"phase 13 (d) wave {w}: not a delta "
+                                 f"scatter with residency kept "
+                                 f"({waves[-1]})")
+        for p, h in zip(pending, bs.decisions_to_names(wsnap, got[0])):
+            if h:
+                p.spec.host = p.status.host = h
+                existing.append(p)
+    if me.parity_divergent or me.parity_checks != churn_waves:
+        raise AssertionError(f"phase 13 (d): {me.parity_checks} parity "
+                             f"checks, {me.parity_divergent} divergent")
+    if waves[0]["transfer_bytes"] <= max(w["transfer_bytes"]
+                                         for w in waves[1:]):
+        raise AssertionError("phase 13 (d): the first wave was not the "
+                             "full transfer")
+    out["d"] = {"nodes": churn_nodes, "waves": waves,
+                "parity_checks": me.parity_checks,
+                "parity_divergent": me.parity_divergent,
+                "resident_bytes": mm.resident_bytes.value(),
+                "seconds": time.perf_counter() - t_part}
+
+    # ---- (e) a late-churn wave through the submesh ---------------------
+    t_part = time.perf_counter()
+    sm_m = metrics.solverd_submesh_metrics()
+    late = _late_churn_cluster(late_nodes, late_free, late_pods, 1314)
+    lsnap = encode_snapshot(*late)
+    lhost = bs.snapshot_to_host_inputs(lsnap)
+    # the compacted solve timed alone (no probe), then again with the
+    # parity probes that re-solve it on the full plane and the mesh
+    timed_me = MeshExecutor(devices=[dev] * shards, dispatch="single",
+                            probe="off", min_nodes=1)
+    sync()
+    t0 = time.perf_counter()
+    lfast = timed_me.solve(lhost, lsnap.policy, lsnap.has_gangs)
+    late_s = time.perf_counter() - t0
+    w0, k0 = sm_m.waves.value(), sm_m.parity_checks.value()
+    kept0 = sm_m.nodes_kept.value()
+    single_me = MeshExecutor(devices=[dev] * shards, dispatch="single",
+                             probe="all", min_nodes=1)
+    lgot = single_me.solve(lhost, lsnap.policy, lsnap.has_gangs,
+                           cache_key=("phase13", "late"))
+    lfull = single(lhost, lsnap.policy, lsnap.has_gangs)
+    same("(e) compacted vs full", lgot, lfull)
+    same("(e) compacted, no probe", lfast, lfull)
+    if sm_m.waves.value() != w0 + 1 or single_me.submesh_waves != 1:
+        raise AssertionError("phase 13 (e): the late-churn wave did not "
+                             "compact")
+    if sm_m.parity_checks.value() != k0 + 1 \
+            or single_me.submesh_parity_divergent:
+        raise AssertionError("phase 13 (e): the submesh parity probe did "
+                             "not hold")
+    out["e"] = {"nodes": late_nodes, "pods": late_pods,
+                "kept": int(sm_m.nodes_kept.value() - kept0),
+                "placed": int((lgot[0] >= 0).sum()),
+                "compacted_s": late_s, "full_s": lfull[2],
+                "seconds": time.perf_counter() - t_part}
+    return out
+
+
+def _log_mesh(m: dict) -> None:
+    a, b, c, d, e = (m[k] for k in "abcde")
+    _log(f"[13] the mesh: {m['shards']} node shards on {m['device']}")
+    _log(f"     (a) {a['nodes']}x{a['pods']}: sharded == single-device == "
+         f"commit_solve; sharded {a['sharded_s']:.3f}s, single-device "
+         f"{a['single_s']:.3f}s, commit_solve {a['commit_solve_s']:.3f}s "
+         f"(host clock, readback included); bytes per device "
+         f"{a['memory']['total_bytes_per_device']} over {m['shards']} "
+         f"shards vs {a['memory_one_device']['total_bytes_per_device']} on "
+         f"one ({a['seconds']:.1f}s)")
+    _log(f"     (b) solve(snap, mesh=): {b['launches']} commit_solve "
+         f"launch(es), {b['sharded_loops']} sharded loops, "
+         f"{b['plain_calls']} plain calls ({b['seconds']:.2f}s)")
+    _log(f"     (c) {c['nodes']}x{c['pods']} beyond the kernel's domain: "
+         f"sharded {c['sharded_s']:.3f}s == single-device "
+         f"{c['single_s']:.3f}s, {c['memory']['total_bytes_per_device']} "
+         f"B per device; preemption {c['preemption']['nodes']}x"
+         f"{c['preemption']['pods']} ({c['preemption']['by_preemption']} "
+         f"by preemption) sharded {c['preemption']['sharded_s']:.3f}s vs "
+         f"{c['preemption']['single_s']:.3f}s; anti-affinity "
+         f"{c['anti_affinity']['nodes']}x{c['anti_affinity']['pods']} "
+         f"sharded {c['anti_affinity']['sharded_s']:.3f}s vs "
+         f"{c['anti_affinity']['single_s']:.3f}s ({c['seconds']:.1f}s)")
+    _log(f"     (d) MeshExecutor churn at {d['nodes']} nodes: "
+         f"{len(d['waves'])} waves == solve(), {d['parity_checks']} parity "
+         f"checks, {d['parity_divergent']} divergent ({d['seconds']:.1f}s)")
+    for w in d["waves"]:
+        _log(f"         wave {w['wave']}: {w['transfer_bytes']} B moved, "
+             f"{w['reshard_bytes']} B resharded, deltas "
+             f"{w['delta_planes']}, {w['placed']} placed, "
+             f"{w['solve_s']:.3f}s")
+    _log(f"     (e) late churn {e['nodes']}x{e['pods']}: compacted to "
+         f"{e['kept']} nodes, {e['placed']} placed, compacted "
+         f"{e['compacted_s']:.3f}s vs full "
+         f"{e['full_s']:.3f}s ({e['seconds']:.1f}s)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3747,6 +4141,10 @@ def main() -> int:
     # 12. the binaries under KTPU_RACE=1 and KTPU_DEBUG=1
     record["race"] = _race_binary_phase(dev)
     _log_race_binary(record["race"])
+
+    # 13. the device mesh: four node shards on this card
+    record["mesh"] = ms = _mesh_phase(dev)
+    _log_mesh(ms)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -3768,8 +4166,11 @@ def main() -> int:
                "bound_ms": dm["batch_bound_ms"],
                "bound_by": dm["batch_bound_by"],
                "max_abs_err": max(dm["max_abs_err"], bt["max_abs_err"])}
+    # The default entry's launches include phase 13 (b)'s: the mesh
+    # crossover's one launch through solve(snap, mesh=).
     entries = (("commit_solve", dict(ns, max_abs_err=max(
-                    ns["max_abs_err"], bp["max_abs_err"])), bp["launches"]),
+                    ns["max_abs_err"], bp["max_abs_err"])),
+                bp["launches"] + ms["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

@@ -18,8 +18,10 @@ also arms the recorder on its first pull). ``--solver-addr HOST:PORT``
 (cmd/solverd.py); ``--solver-fallback`` says what a wave does while the
 daemon is busy or away (``inprocess``: solve it here on ``--device``;
 ``requeue``: fail and requeue it), and the deep ``/healthz`` reports a
-dead daemon as degraded, not down. ``--mesh on`` is not ported and exits
-non-zero naming its ROADMAP item. The reference's ``warmstart.enable()``
+dead daemon as degraded, not down. ``--mesh`` (with tpu-batch) shards
+waves above the mesh node floor over the host's CUDA devices
+(parallel/mesh.py): ``auto`` when more than one exists, ``on`` exits
+non-zero on a host with one. The reference's ``warmstart.enable()``
 (JAX's compile cache) has no counterpart: the kernel build is cached in
 ``ops/_build/`` by a hash of its sources.
 
@@ -68,12 +70,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "so decisions equal the causal loop's; ignored "
                         "with --algorithm serial")
     p.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
-                   help="tpu-batch: device-mesh solve; 'on' is not ported "
-                        "(exits naming its ROADMAP item), 'auto' and 'off' "
-                        "solve on one device")
+                   help="tpu-batch: device-mesh solve for in-process waves "
+                        "(parallel/mesh.py): auto shards waves above the "
+                        "node floor over the host's CUDA devices when >1 "
+                        "exists; on requires >1 (exits non-zero "
+                        "otherwise); off keeps the single-device path. "
+                        "With --solver-addr the daemon's own --mesh "
+                        "applies and this one covers the fallback")
     p.add_argument("--pods-axis", "--pods_axis", type=int, default=1,
-                   help="mesh 'pods' axis length (accepted for parity; "
-                        "read by nothing until the mesh is ported)")
+                   help="mesh 'pods' axis length (see kube-solverd "
+                        "--pods-axis)")
     p.add_argument("--prewarm", action="store_true",
                    help="tpu-batch: at boot, once nodes arrive, build and "
                         "load the commit_solve kernel and solve one "
@@ -105,14 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "the commit_solve kernel (and fails without a "
                         "card), cpu runs its plain version")
     return p
-
-
-def _unported(opts) -> Optional[str]:
-    """The message for the first flag whose feature is not ported."""
-    if opts.mesh == "on":
-        return ("--mesh on: the device-mesh solve is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
-    return None
 
 
 def _serve_debug(port: int, service: str = "scheduler", health=None):
@@ -262,6 +260,7 @@ def build_scheduler(opts):
                             solver_addr=opts.solver_addr,
                             solver_fallback=opts.solver_fallback,
                             pipeline=opts.pipeline, mesh=opts.mesh,
+                            pods_axis=opts.pods_axis,
                             prewarm=opts.prewarm)
     if opts.pipeline and opts.algorithm != "tpu-batch":
         print("kube-scheduler: --pipeline requires --algorithm tpu-batch; "
@@ -280,9 +279,16 @@ def build_scheduler(opts):
                   f"configuration ({e}); falling back to serial",
                   file=sys.stderr)
             return factory, Scheduler(config)
-        sched = tpu_batch.BatchScheduler(
-            config, factory, client, wave_linger_s=opts.wave_period,
-            batch_policy=batch_policy, device=opts.device)
+        try:
+            sched = tpu_batch.BatchScheduler(
+                config, factory, client, wave_linger_s=opts.wave_period,
+                batch_policy=batch_policy, device=opts.device)
+        except Exception:
+            # no scheduler to run: stop the reflectors create() started
+            # and the event recorder
+            factory.stop(join=True)
+            recorder.stop()
+            raise
         return factory, sched
     return factory, Scheduler(config)
 
@@ -305,18 +311,22 @@ def scheduler_server(argv: List[str],
     except argparse.ArgumentError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    refused = _unported(opts)
-    if refused:
-        print(f"kube-scheduler: {refused}", file=sys.stderr)
-        return 1
+    from kubernetes_tpu_torch.parallel.mesh import MeshUnavailable, maybe_mesh
     from kubernetes_tpu_torch.util import metrics, tracing
 
+    try:
+        if opts.algorithm == "tpu-batch":
+            # refuse --mesh on before the caches start listing
+            maybe_mesh(opts.mesh, opts.pods_axis)
+        factory, sched = build_scheduler(opts)
+    except MeshUnavailable as e:
+        print(f"kube-scheduler: {e}", file=sys.stderr)
+        return 1
     was_armed = metrics.flightrec_armed()
     if opts.trace:
         tracing.enable("scheduler")
     if opts.flightrec:
         metrics.flightrec_arm("scheduler", period_s=opts.flightrec_period)
-    factory, sched = build_scheduler(opts)
     if on_built is not None:
         on_built(sched)
     srv = None

@@ -7,17 +7,22 @@ arrive within the gather window solve as one launch of the commit_solve
 kernel, one block per wave (solver/service.py).
 
 ``--device`` (``cuda`` by default, which fails without a card; ``cpu``
-runs the kernel's plain version) picks where waves solve. ``--mesh on``
-exits non-zero naming its ROADMAP item (Queue 1 item 7); ``auto`` and
-``off`` solve on one card. ``--trace-device DIR`` records a
+runs the kernel's plain version) picks where waves solve. ``--mesh``
+turns on the device-mesh dispatch (solver/mesh_exec.py): ``auto`` when
+the host has more than one CUDA device, ``on`` demands more than one (and
+exits non-zero on a host with one); single waves above
+``--mesh-min-nodes`` that the kernel cannot take then solve from
+device-resident node shards. ``--trace-device DIR`` records a
 ``torch.profiler`` trace of the daemon's run into DIR, written as a
 Chrome trace when the daemon stops. The reference's ``warmstart.enable()``
 (JAX's compile cache) has no counterpart: the kernel build is cached in
-``ops/_build/`` by a hash of its sources.
+``ops/_build/`` by a hash of its sources; the mesh dispatch's calibration
+persists in ``util/warmstart.mesh_cal_path()``.
 
 Run: ``python -m kubernetes_tpu_torch.cmd.solverd [--port 10450]
 [--gather-window 0.003] [--max-batch 16] [--max-queue 64] [--device cpu]
-[--prewarm --prewarm-nodes N] [--metrics-port N]``.
+[--mesh on --mesh-dispatch shard] [--prewarm --prewarm-nodes N]
+[--metrics-port N]``.
 """
 
 from __future__ import annotations
@@ -57,9 +62,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve /metrics, /healthz and /debug/pprof on this "
                         "port (0 disables)")
     p.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
-                   help="device-mesh dispatch; 'on' is not ported (exits "
-                        "naming its ROADMAP item), 'auto' and 'off' solve "
-                        "on one card")
+                   help="device-mesh dispatch (solver/mesh_exec.py): auto "
+                        "enables it whenever >1 CUDA device is attached; "
+                        "on requires >1 (exits non-zero otherwise); waves "
+                        "above --mesh-min-nodes that the kernel cannot take "
+                        "then solve from device-resident node shards")
+    p.add_argument("--pods-axis", "--pods_axis", type=int, default=1,
+                   help="mesh 'pods' axis length; the rest of the devices "
+                        "shard the node axis (pods_axis=1 is pure "
+                        "tensor-parallel over nodes)")
+    p.add_argument("--mesh-min-nodes", "--mesh_min_nodes", type=int,
+                   default=None,
+                   help="node-count floor for the mesh dispatch (default "
+                        "parallel.mesh.DEFAULT_MESH_MIN_NODES); smaller "
+                        "waves keep the coalesced single-device path")
+    p.add_argument("--mesh-dispatch", "--mesh_dispatch",
+                   choices=("auto", "shard", "single"), default="auto",
+                   help="node-axis layout: auto times the sharded loop "
+                        "against the single-device layout once per shape "
+                        "(persisted in the warm-start dir) and runs the "
+                        "winner; shard/single pin a layout")
+    p.add_argument("--mesh-probe", "--mesh_probe",
+                   choices=("first", "all", "off"), default="first",
+                   help="live bit-identity probe: re-solve mesh-path "
+                        "waves in the other layout and compare bitwise "
+                        "(first = once per daemon run)")
     p.add_argument("--prewarm", action="store_true",
                    help="at boot, launch the shape buckets implied by "
                         "--prewarm-nodes/-pods/-batch off the solve path, "
@@ -106,8 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _solverd_health(srv):
     """Deep-health probe of the daemon: the device it solves on is still
-    there. componentstatus-style payload; the metrics-port server answers
-    503 when unhealthy."""
+    there, and — when the mesh dispatch is on — the device mesh itself.
+    componentstatus-style payload; the metrics-port server answers 503
+    when unhealthy."""
     from kubernetes_tpu_torch import probe
 
     def health():
@@ -126,6 +154,14 @@ def _solverd_health(srv):
         items = [{"name": "backend",
                   "status": probe.SUCCESS if ok else probe.FAILURE,
                   "message": msg}]
+        me = getattr(srv, "_mesh_exec", None)
+        if me is not None:
+            shards = getattr(me, "node_shards", 0)
+            st = probe.SUCCESS if shards >= 1 else probe.FAILURE
+            items.append({"name": "mesh", "status": st,
+                          "message": f"{shards} node-shard(s) x "
+                                     f"{getattr(me, 'pods_axis', 1)} pods"})
+            ok = ok and st == probe.SUCCESS
         return ({"kind": "ComponentStatusList", "healthy": ok,
                  "items": items}, ok)
 
@@ -164,31 +200,36 @@ def solverd_server(argv: List[str],
                    ready: Optional[threading.Event] = None,
                    stop: Optional[threading.Event] = None) -> int:
     """Run the daemon until ``stop`` is set (or SIGTERM/Ctrl-C). Returns
-    0 on a clean stop, 1 when a flag needs an unported feature, 2 on a
-    bad flag. On the way out it turns off the tracing it turned on and
+    0 on a clean stop, 1 when ``--mesh on`` finds one device or none, 2
+    on a bad flag. On the way out it turns off the tracing it turned on and
     disarms the flight recorder it armed."""
     try:
         opts = build_parser().parse_args(argv)
     except argparse.ArgumentError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if opts.mesh == "on":
-        print("kube-solverd: --mesh on: the device-mesh dispatch is not "
-              "ported yet (ROADMAP Queue 1 item 7)", file=sys.stderr)
-        return 1
+    from kubernetes_tpu_torch.parallel.mesh import MeshUnavailable
     from kubernetes_tpu_torch.solver.service import SolverService
     from kubernetes_tpu_torch.util import metrics, tracing
 
-    srv = SolverService(host=opts.address, port=opts.port,
-                        gather_window_s=opts.gather_window,
-                        max_batch=opts.max_batch,
-                        max_queue=opts.max_queue,
-                        cache_entries=opts.cache_entries,
-                        mesh=opts.mesh, prewarm=opts.prewarm,
-                        prewarm_nodes=opts.prewarm_nodes,
-                        prewarm_pods=opts.prewarm_pods,
-                        prewarm_batch=opts.prewarm_batch,
-                        device=opts.device)
+    try:
+        srv = SolverService(host=opts.address, port=opts.port,
+                            gather_window_s=opts.gather_window,
+                            max_batch=opts.max_batch,
+                            max_queue=opts.max_queue,
+                            cache_entries=opts.cache_entries,
+                            mesh=opts.mesh, pods_axis=opts.pods_axis,
+                            mesh_min_nodes=opts.mesh_min_nodes,
+                            mesh_dispatch=opts.mesh_dispatch,
+                            mesh_probe=opts.mesh_probe,
+                            prewarm=opts.prewarm,
+                            prewarm_nodes=opts.prewarm_nodes,
+                            prewarm_pods=opts.prewarm_pods,
+                            prewarm_batch=opts.prewarm_batch,
+                            device=opts.device)
+    except MeshUnavailable as e:
+        print(f"kube-solverd: {e}", file=sys.stderr)
+        return 1
     was_armed = metrics.flightrec_armed()
     if opts.trace:
         tracing.enable("solverd")
@@ -201,10 +242,15 @@ def solverd_server(argv: List[str],
         from kubernetes_tpu_torch.cmd.scheduler import _serve_debug
         debug = _serve_debug(opts.metrics_port, service="solverd",
                              health=_solverd_health(srv))
+    me = srv._mesh_exec
+    mesh_desc = (f", mesh {me.node_shards} node-shards x "
+                 f"{me.pods_axis} pods (min {me.min_nodes} nodes, "
+                 f"dispatch {opts.mesh_dispatch})"
+                 if me is not None else ", mesh off")
     print(f"kube-solverd listening on {srv.address} "
           f"(gather {opts.gather_window * 1000:.1f}ms, "
           f"batch<= {opts.max_batch}, queue<= {opts.max_queue}, "
-          f"device {srv.device}, mesh off)",
+          f"device {srv.device}{mesh_desc})",
           file=sys.stderr, flush=True)
     srv.start()
     if ready is not None:

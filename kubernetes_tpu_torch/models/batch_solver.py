@@ -30,6 +30,9 @@ the hand-written CUDA kernel (ops/commit_solver) for waves inside its
 domain, int64 and preemption waves included, and ``solve_scan`` for the
 rest, as the reference sends the latter to ``solve_jit``.
 
+``solve(..., mesh=)`` sends waves at or above the mesh node floor
+through the device mesh (parallel/mesh.py).
+
 Not ported yet (ROADMAP): the host-vs-device WaveRouter and the packed
 transfer.
 """
@@ -318,8 +321,16 @@ def peer_bound_of(source) -> int:
     return int(gc.sum(1).max())
 
 
+def _mesh_min_nodes() -> int:
+    """parallel.mesh.DEFAULT_MESH_MIN_NODES, read at call time: parallel/
+    mesh imports this module at load, so the constant cannot be a
+    top-level import here."""
+    from kubernetes_tpu_torch.parallel.mesh import DEFAULT_MESH_MIN_NODES
+    return DEFAULT_MESH_MIN_NODES
+
+
 def solve(snap: ClusterSnapshot, host: Optional[SolverInputs] = None,
-          device=None) -> Tuple[np.ndarray, np.ndarray]:
+          device=None, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Host entry: encoded wave -> device -> solve -> host decisions
     (chosen node index or -1, winning score or -1, int32 [P]; a score at
     or below preempt.PREEMPT_SCORE_BASE placed by preemption and encodes
@@ -327,17 +338,29 @@ def solve(snap: ClusterSnapshot, host: Optional[SolverInputs] = None,
     PodGroups. ``host`` skips the host-side encode when the caller already
     holds ``snapshot_to_host_inputs(snap)`` (the solver client's fallback,
     which encoded before it learned the daemon could not take the wave).
-    Runs on ``cuda`` unless ``device`` says otherwise."""
-    dev = resolve_device(device)
+    Runs on ``cuda`` unless ``device`` says otherwise.
+
+    ``mesh`` (a parallel.mesh Mesh, kube-scheduler --mesh) routes waves at
+    or above the mesh node floor through ``parallel.mesh.solve_sharded``
+    on the mesh's devices: its kernel-vs-mesh crossover sends a wave
+    inside the kernel's domain to one commit_solve launch on the mesh's
+    first device, and shards the rest. Decisions are identical either
+    way; the gang post-pass is applied here on both paths."""
     if host is None:
         host = snapshot_to_host_inputs(snap)
-    inp = ship_inputs(host, dev)
     has_gangs = snap.has_gangs
-    chosen, scores = solve_device(inp, snap.policy, has_gangs,
-                                  peer_bound_of(snap))
-    # one device -> host readback
-    both = torch.stack([chosen, scores]).cpu().numpy()
-    chosen, scores = both[0], both[1]
+    if mesh is not None and int(host.cap.shape[0]) >= _mesh_min_nodes():
+        from kubernetes_tpu_torch.parallel.mesh import solve_sharded
+        chosen, scores = solve_sharded(host, mesh, pol=snap.policy,
+                                       gangs=has_gangs,
+                                       peer_bound=peer_bound_of(snap))
+    else:
+        inp = ship_inputs(host, resolve_device(device))
+        chosen, scores = solve_device(inp, snap.policy, has_gangs,
+                                      peer_bound_of(snap))
+        # one device -> host readback
+        both = torch.stack([chosen, scores]).cpu().numpy()
+        chosen, scores = both[0], both[1]
     if has_gangs:
         chosen = gang.apply_all_or_nothing(snap.pod_rid, chosen)
         # a rolled-back member's tentative score is as stale as its host

@@ -8,7 +8,8 @@ node; a pending batch whose requests, service labels and host ports cycle
 deterministically, or gangs of ``gang_size`` members; and the preemption
 cluster, every node filled to capacity by pods of two low priorities
 before a storm of high-priority pods. ``FULL_SHAPES`` mirrors
-``bench.py:507-515`` for the shapes the port drives, plus
+``bench.py:507-515`` for the shapes the port drives (``mesh``, the
+device-mesh shape, is the node-sharded solve's), plus
 ``north_star_dec``: north_star with every pending pod's memory written in
 decimal units (``M``), as many manifests do, which makes the memory
 column's gcd 2^8 and the wave's resource planes int64. ``build_shape``
@@ -47,6 +48,7 @@ FULL_SHAPES = {
     "affinity": (5_000, 5_000, {}, AFFINITY_POLICY_JSON),
     "binpack3": (5_000, 10_000, {"three_resources": True}, None),
     "gang": (2_000, 0, {"gang_groups": 1_000, "gang_size": 8}, None),
+    "mesh": (10_000, 2_048, {}, None),
     "north_star_dec": (5_000, 10_000, {"decimal_memory": True}, None),
     "priority": (2_000, 1_000, {"fill_per_node": 4}, None),
 }

@@ -179,8 +179,15 @@ class SchedulerConfig:
     solver_fallback: str = "inprocess"
     # the speculative double-buffered loop (kube-scheduler --pipeline)
     pipeline: bool = False
-    # device-mesh solve; the port runs on one device and refuses "on"
+    # Device-mesh solve for the IN-PROCESS path (kube-scheduler --mesh):
+    # "auto" shards waves above parallel.mesh.DEFAULT_MESH_MIN_NODES over
+    # the host's CUDA devices when more than one exists, "on" requires
+    # more than one, "off" never builds a mesh. A solver daemon has its
+    # own --mesh flag; this one covers workers solving in-process (and
+    # the daemon fallback). Decisions are identical either way.
     mesh: str = "auto"
+    # the mesh's "pods" axis length (the rest of the devices shard nodes)
+    pods_axis: int = 1
     # build the solve kernel and run one exemplar wave at boot, off the
     # wave loop (scheduler/tpu_batch.py _prewarm_boot)
     prewarm: bool = False
@@ -312,7 +319,8 @@ class ConfigFactory:
                policy: Optional[schedplugins.Policy] = None,
                recorder: Optional[EventRecorder] = None,
                solver_addr: str = "", pipeline: bool = False,
-               mesh: str = "auto", solver_fallback: str = "inprocess",
+               mesh: str = "auto", pods_axis: int = 1,
+               solver_fallback: str = "inprocess",
                prewarm: bool = False) -> SchedulerConfig:
         """ref: factory.go:77-172 CreateFromProvider/CreateFromConfig/
         CreateFromKeys."""
@@ -369,6 +377,7 @@ class ConfigFactory:
             solver_fallback=solver_fallback,
             pipeline=pipeline,
             mesh=mesh,
+            pods_axis=pods_axis,
             prewarm=prewarm,
         )
 

@@ -71,11 +71,16 @@ away the wave solves in this process on ``self.device``
 (``"requeue"``). With a daemon, the boot prewarm builds nothing here: the
 daemon prewarms its own launches, and the ready gauge reads 1 at once.
 
-Not ported yet: the device mesh (``mesh="on"`` raises
-``NotImplementedError`` naming its ROADMAP item rather than solving on a
-substitute). A wave that raises ``NotImplementedError`` is handed to the
-error handler and the error propagates out of ``schedule_wave``, so the
-loop stops instead of requeueing it forever.
+The device mesh (``config.mesh``, the binary's ``--mesh``): resolved
+once by ``parallel.mesh.maybe_mesh`` — None on a host with one device
+(``auto``) or ``off``, ``MeshUnavailable`` for ``on`` there. With a mesh,
+waves at or above the mesh node floor solve through
+``parallel.mesh.solve_sharded`` (one commit_solve launch for a wave inside
+the kernel's domain, the sharded loop beyond it), and a daemon client's
+in-process fallback uses the same mesh. A wave that raises
+``NotImplementedError`` is handed to the error handler and the error
+propagates out of ``schedule_wave``, so the loop stops instead of
+requeueing it forever.
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
 from kubernetes_tpu_torch.models.policy import BatchPolicy, batch_policy_from
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from kubernetes_tpu_torch.ops import commit_solver
+from kubernetes_tpu_torch.parallel.mesh import maybe_mesh
 from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.scheduler.driver import (ConfigFactory,
                                                    SchedulerConfig)
@@ -294,10 +300,13 @@ class BatchScheduler:
         # inherits the config's recorded --pipeline flag
         self.pipeline = bool(config.pipeline if pipeline is None
                              else pipeline)
-        if config.mesh == "on":
-            raise NotImplementedError(
-                "the device-mesh solve is not ported yet (ROADMAP Queue 1: "
-                "parallel/mesh.py + solver/mesh_exec.py)")
+        # in-process device-mesh solve (kube-scheduler --mesh): resolved
+        # once — None when single-device or off
+        self._mesh = maybe_mesh(config.mesh, config.pods_axis)
+        if self.solver is not None and self._mesh is not None:
+            # a daemon wave solves under the daemon's own --mesh; this
+            # covers the in-process fallback when the daemon is away
+            self.solver.fallback_mesh = self._mesh
         try:
             # delta-maintained node planes + sticky vocabularies: per-wave
             # encode cost is O(changed pods)
@@ -484,7 +493,8 @@ class BatchScheduler:
                 chosen, scores = self.solver.solve(snap)
             else:
                 before = commit_solver.solve_commit.launches
-                chosen, scores = solve(snap, device=self.device)
+                chosen, scores = solve(snap, device=self.device,
+                                       mesh=self._mesh)
                 _wave_metrics().device_solves.inc(self.device.type)
                 _wave_metrics().kernel_launches.inc(
                     by=commit_solver.solve_commit.launches - before)
@@ -1107,7 +1117,7 @@ class BatchScheduler:
             snap = encode_snapshot(nodes, self.config.modeler.list(),
                                    pending, self.factory.service_store.list(),
                                    policy=self.batch_policy)
-            solve(snap, device=self.device)
+            solve(snap, device=self.device, mesh=self._mesh)
         except Exception as e:
             _log.exception("boot prewarm failed; stopping the wave loop")
             self.fault = e

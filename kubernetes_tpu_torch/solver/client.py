@@ -122,6 +122,9 @@ class RemoteSolver:
         self.resync_reasons: Dict[str, int] = {}
         self.delta_bytes_shipped = 0
         self.delta_bytes_full = 0
+        # device mesh for the in-process fallback (the daemon runs its own
+        # MeshExecutor); set by the scheduler from its --mesh flag
+        self.fallback_mesh = None
 
     # -- plumbing ----------------------------------------------------------
     def _connect(self) -> socket.socket:
@@ -341,7 +344,8 @@ class RemoteSolver:
             if not self.fallback:
                 raise SolverUnavailable("kube-solverd in unhealthy cooldown")
             self.fallback_waves += 1
-            return solve_in_process(snap, device=self.device)
+            return solve_in_process(snap, device=self.device,
+                                    mesh=self.fallback_mesh)
         pol = snap.policy or BatchPolicy()
         gangs = snap.has_gangs
         host = snapshot_to_host_inputs(snap)
@@ -353,13 +357,15 @@ class RemoteSolver:
             self.busy_waves += 1
             if not self.fallback:
                 raise
-            return solve_in_process(snap, host=host, device=self.device)
+            return solve_in_process(snap, host=host, device=self.device,
+                                    mesh=self.fallback_mesh)
         except (SolverUnavailable, protocol.SolverProtocolError):
             self._mark_unhealthy()
             if not self.fallback:
                 raise
             self.fallback_waves += 1
-            return solve_in_process(snap, host=host, device=self.device)
+            return solve_in_process(snap, host=host, device=self.device,
+                                    mesh=self.fallback_mesh)
         self.remote_waves += 1
         self._mark_healthy()  # the daemon answered: cooldown resets
         if gangs:

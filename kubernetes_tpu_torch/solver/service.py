@@ -55,8 +55,13 @@ consistent. A missing entry, an epoch skew or a row out of range is
 answered ``{"resync": reason}`` before any solve; the client re-sends the
 wave as a full frame.
 
-Not ported: the device-mesh dispatch (``MeshExecutor``, ROADMAP Queue 1
-item 7); ``mesh="on"`` raises ``NotImplementedError`` naming it.
+**The device mesh** (``mesh``, solver/mesh_exec.py): with ``mesh="on"``
+(or ``auto`` on a host with more than one CUDA device) a single-wave group
+at or above the executor's node floor that the kernel cannot take (on a
+card: more than 32,640 nodes, 31 services or 32 bands) solves through the
+``MeshExecutor``, from device-resident planes sharded over the node axis,
+with the delta wire's changed rows scattered onto them. ``on`` raises
+``parallel.mesh.MeshUnavailable`` on a host with one device.
 """
 
 from __future__ import annotations
@@ -231,16 +236,23 @@ def _solverd_metrics() -> _SolverdMetrics:
 
 
 class _Req:
-    __slots__ = ("inp", "pol", "gangs", "p", "conn", "send_lock", "trace",
-                 "t_enq")
+    __slots__ = ("inp", "pol", "gangs", "p", "conn", "send_lock",
+                 "cache_key", "delta", "trace", "t_enq")
 
-    def __init__(self, inp, pol, gangs, p, conn, send_lock, trace=None):
+    def __init__(self, inp, pol, gangs, p, conn, send_lock,
+                 cache_key=None, delta=None, trace=None):
         self.inp = inp          # host-side SolverInputs (numpy)
         self.pol = pol
         self.gangs = gangs
         self.p = p              # requester's pod-axis length (reply slice)
         self.conn = conn
         self.send_lock = send_lock
+        # delta-wire residency handles for the mesh executor: the cache
+        # entry this wave belongs to and, per changed plane, the
+        # (base, rows, vals) triple the executor can scatter onto its
+        # resident device plane instead of a full re-transfer
+        self.cache_key = cache_key
+        self.delta = delta
         # v3 trace context of the requesting wave (protocol.parse_trace)
         # + enqueue instant: the daemon's queue-wait and solve spans
         # attach to the wave's trace
@@ -272,16 +284,27 @@ class SolverService:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  gather_window_s: float = 0.003, max_batch: int = 16,
                  max_queue: int = 64, cache_entries: int = 64,
-                 mesh: str = "auto", prewarm: bool = False,
+                 mesh: str = "auto", pods_axis: int = 1,
+                 mesh_min_nodes=None, mesh_dispatch: str = "auto",
+                 mesh_probe: str = "first", prewarm: bool = False,
                  prewarm_nodes: int = 0, prewarm_pods: int = 1024,
                  prewarm_batch: int = 1, device=None):
-        if mesh == "on":
-            raise NotImplementedError(
-                "mesh='on': the device-mesh dispatch is not ported yet "
-                "(ROADMAP Queue 1 item 7); 'auto' and 'off' solve on one "
-                "card")
-        if mesh not in ("auto", "off"):
-            raise ValueError(f"mesh must be auto, on or off, not {mesh!r}")
+        # device-mesh dispatch (solver/mesh_exec.py): on when more than one
+        # device is attached (auto) or demanded (on); single-wave groups
+        # the executor takes then solve from device-resident shards
+        from kubernetes_tpu_torch.parallel.mesh import maybe_mesh
+        self._mesh_exec = None
+        if maybe_mesh(mesh, pods_axis) is not None:
+            from kubernetes_tpu_torch.solver.mesh_exec import MeshExecutor
+            self._mesh_exec = MeshExecutor(
+                pods_axis=pods_axis, min_nodes=mesh_min_nodes,
+                dispatch=mesh_dispatch, probe=mesh_probe,
+                cache_entries=cache_entries)
+            _log.info("mesh dispatch enabled: %d devices, pods_axis=%d, "
+                      "node_shards=%d, min_nodes=%d, dispatch=%s",
+                      self._mesh_exec.mesh.size, pods_axis,
+                      self._mesh_exec.node_shards,
+                      self._mesh_exec.min_nodes, mesh_dispatch)
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -545,6 +568,7 @@ class SolverService:
         shipped = sum(a.nbytes for a in arrays)
         cache_key = epoch = None
         new_planes: Dict[str, np.ndarray] = {}
+        delta_updates: Dict[str, tuple] = {}
         is_delta = False
         if planes is None:
             # v1-style full frame: every field present, nothing cached
@@ -615,6 +639,9 @@ class SolverService:
                         arr = base.copy()
                         arr[rows.astype(np.int64)] = vals
                         new_planes[name] = arr
+                        # the mesh executor can replay this as a scatter
+                        # when its resident plane still matches `base`
+                        delta_updates[name] = (base, rows, vals)
                         cols.append(arr)
                     else:
                         reject("SolverProtocolError",
@@ -631,6 +658,7 @@ class SolverService:
                 return
         inp = SolverInputs(*cols)
         req = _Req(inp, pol, gangs, int(inp.req.shape[0]), conn, send_lock,
+                   cache_key=cache_key, delta=delta_updates or None,
                    trace=protocol.parse_trace(header))
         with self._cond:
             busy = len(self._pending) >= self.max_queue
@@ -868,7 +896,8 @@ class SolverService:
         self._prewarm.boot_set(targets)
 
     @staticmethod
-    def _trace_group(reqs: List[_Req], t0_ns: int, end_ns: int) -> None:
+    def _trace_group(reqs: List[_Req], t0_ns: int, end_ns: int,
+                     mesh: bool = False) -> None:
         """Attach the daemon's per-wave spans (queue wait + batched
         solve) to each requesting wave's trace — the cross-process leg
         of the wave timeline. No-op unless the daemon runs with --trace
@@ -880,11 +909,55 @@ class SolverService:
                 continue
             tracing.record("solverd.queue", r.t_enq, t0_ns, parent=r.trace)
             tracing.record("solverd.solve", t0_ns, end_ns, parent=r.trace,
-                           coalesced=len(reqs), pods=r.p,
+                           coalesced=len(reqs), mesh=mesh, pods=r.p,
                            nodes=int(r.inp.cap.shape[0]))
+
+    def _solve_mesh(self, r: _Req) -> None:
+        """One wave through the mesh executor, from its resident planes,
+        and its reply."""
+        pol, gangs = r.pol, r.gangs
+        me = self._mesh_exec
+        t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
+        if r.trace is not None and tracing.enabled():
+            # ambient install so the executor's plane/device sub-spans
+            # attach to this wave's trace
+            with tracing.span("solverd.mesh", parent=r.trace):
+                chosen, scores = me.solve(r.inp, pol, gangs,
+                                          cache_key=r.cache_key,
+                                          delta=r.delta)
+        else:
+            chosen, scores = me.solve(r.inp, pol, gangs,
+                                      cache_key=r.cache_key, delta=r.delta)
+        dt = time.perf_counter() - t0
+        self._trace_group([r], t0_ns, time.monotonic_ns(), mesh=True)
+        self.solve_calls += 1
+        self.waves_served += 1
+        self._m.solves.inc()
+        self._m.waves.inc()
+        self._m.batch.observe(1)
+        self._m.solve_s.observe(dt)
+        self._m.requests.inc("ok")
+        try:
+            with r.send_lock:
+                protocol.send_msg(
+                    r.conn, {"ok": True, "coalesced": 1},
+                    (np.ascontiguousarray(chosen[:r.p]),
+                     np.ascontiguousarray(scores[:r.p])))
+        except OSError:
+            _log.debug("requester went away before its reply")
 
     def _solve_group(self, reqs: List[_Req]) -> None:
         pol, gangs = reqs[0].pol, reqs[0].gangs
+        # kernel-vs-mesh dispatch: a single-wave group the mesh executor
+        # takes (above its node floor, and on a card beyond the kernel's
+        # domain) solves from device-resident shards at its exact shape;
+        # coalesced groups and the kernel's waves keep the batched launch
+        me = self._mesh_exec
+        if me is not None and len(reqs) == 1 \
+                and me.eligible(reqs[0].inp, pol, gangs):
+            self._solve_mesh(reqs[0])
+            return
         all_dims = [_dims_of(r.inp) for r in reqs]
         target = _target_dims(all_dims)
         padded = [_pad_inputs(r.inp, target) for r in reqs]

@@ -41,6 +41,7 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "APISERVER_BUCKETS", "ChaosMetrics", "chaos_metrics",
            "FairshedMetrics", "fairshed_metrics",
            "SolverdMeshMetrics", "solverd_mesh_metrics",
+           "SolverdSubmeshMetrics", "solverd_submesh_metrics",
            "DefragMetrics", "defrag_metrics",
            "FlightRecorder", "flightrec_arm", "flightrec_disarm",
            "flightrec_armed", "flightrec_watch", "flightrec_vars",
@@ -479,9 +480,8 @@ class SolverdMeshMetrics:
     single-device parity probe that keeps the mesh path bit-identity
     evidence live in every run. Scraped into the CHURN_MP record's
     ``solverd.mesh`` section alongside the solve quantiles (the contract
-    tests/test_bench_record.py enforces from r09 on). The port registers
-    the family ahead of its writer, the mesh executor (ROADMAP Queue 1
-    item 7), so the ``parity_divergence_zero`` SLO rule binds to it."""
+    tests/test_bench_record.py enforces from r09 on). The
+    ``parity_divergence_zero`` SLO rule binds to its divergence counter."""
 
     _singleton = None
 
@@ -499,7 +499,7 @@ class SolverdMeshMetrics:
         self.waves = reg.counter(
             "solverd_mesh_waves_total",
             "Waves solved through the mesh executor's device-resident "
-            "path (vs the padded vmap fallback)")
+            "path (vs the coalesced single-device path)")
         self.transfer_bytes = reg.counter(
             "solverd_mesh_transfer_bytes_total",
             "Host->device bytes moved per wave (delta-row scatters + "
@@ -515,7 +515,7 @@ class SolverdMeshMetrics:
         self.shard_bytes_per_device = reg.gauge(
             "solverd_mesh_shard_bytes_per_device",
             "shard_memory_report total for the newest resident bucket "
-            "(planes + scan carry, per device)")
+            "(planes + loop carry + static mask, per device)")
         self.solve_s = reg.histogram(
             "solverd_mesh_solve_seconds",
             "Mesh-executor solve wall time per wave",
@@ -539,6 +539,53 @@ def solverd_mesh_metrics() -> SolverdMeshMetrics:
     if SolverdMeshMetrics._singleton is None:
         SolverdMeshMetrics._singleton = SolverdMeshMetrics()
     return SolverdMeshMetrics._singleton
+
+
+class SolverdSubmeshMetrics:
+    """The ``solverd_submesh_*`` family — active sub-meshing
+    (models/submesh.py): per-wave compaction of the node axis to the
+    nodes that can possibly place the wave, before the plain loop. The
+    kept/total counters disclose how much of the node axis each wave
+    really touched; the parity counters keep the submesh-vs-full
+    bit-identity evidence live in every run (divergence must stay 0 — the
+    compaction is decision-preserving by construction, and the probe
+    checks it)."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.waves = reg.counter(
+            "solverd_submesh_waves_total",
+            "Waves solved on a compacted node axis (vs full-plane)")
+        self.full_waves = reg.counter(
+            "solverd_submesh_full_waves_total",
+            "Waves where compaction was skipped (kept fraction past the "
+            "engage threshold, zero-req pods, or KTPU_SUBMESH=off)")
+        self.nodes_kept = reg.counter(
+            "solverd_submesh_nodes_kept_total",
+            "Nodes surviving the keep mask, summed over submesh waves")
+        self.nodes_total = reg.counter(
+            "solverd_submesh_nodes_total",
+            "Candidate nodes before compaction, summed over submesh waves")
+        self.parity_checks = reg.counter(
+            "solverd_submesh_parity_checks_total",
+            "Submesh waves re-solved on the full plane and compared "
+            "decision-for-decision")
+        self.parity_divergent = reg.counter(
+            "solverd_submesh_parity_divergent_total",
+            "Submesh parity probes whose decisions diverged (must stay 0)")
+        self.compact_s = reg.histogram(
+            "solverd_submesh_compact_seconds",
+            "Host-side keep-mask + plane-gather time per submesh wave",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5))
+
+
+def solverd_submesh_metrics() -> SolverdSubmeshMetrics:
+    if SolverdSubmeshMetrics._singleton is None:
+        SolverdSubmeshMetrics._singleton = SolverdSubmeshMetrics()
+    return SolverdSubmeshMetrics._singleton
 
 
 class DefragMetrics:

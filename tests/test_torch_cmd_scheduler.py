@@ -13,9 +13,9 @@ family and ``compile_prewarm_ready 1`` under ``--prewarm``, ``/healthz``
 JSON, ``/debug/pprof``, the span shard at ``/debug/trace`` and the
 flight recorder's series at ``/debug/vars``), ``--solver-addr`` binding
 through a port solverd process (and the deep ``/healthz`` degraded, not
-down, once the daemon dies), ``--mesh on``'s refusal naming its ROADMAP
-item, and the default ``--device cuda`` failing without a card are
-checked too.
+down, once the daemon dies), ``--mesh on`` (exiting non-zero on a host
+with one device, holding an eight-shard CPU mesh otherwise), and the
+default ``--device cuda`` failing without a card are checked too.
 """
 
 import json
@@ -302,13 +302,41 @@ def test_debug_server_endpoints(two_apiservers, tmp_path):
         _stop_process(proc)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--mesh", "on"], "Queue 1 item 7"),
+MESH_ON = ["--algorithm", "tpu-batch", "--device", "cpu", "--mesh", "on"]
+
+
+@pytest.mark.parametrize("flags, shards", [
+    (MESH_ON, 1),
+    (MESH_ON, 8),
+    (MESH_ON + ["--pods-axis", "4"], 8),
 ])
-def test_unported_flags_exit_naming_their_roadmap_item(flags, item, capsys):
-    assert port_cmd.scheduler_server(["--master", "http://127.0.0.1:1"]
-                                     + flags) == 1
-    assert item in capsys.readouterr().err
+def test_unported_flags_exit_naming_their_roadmap_item(flags, shards,
+                                                       monkeypatch, capsys):
+    """``--mesh on`` as the reference's: it exits non-zero on a host with
+    one device, and with eight CPU shards the wave loop holds the mesh
+    (its "pods" axis from ``--pods-axis``)."""
+    from kubernetes_tpu_torch.parallel import mesh as port_mesh
+    monkeypatch.setattr(port_mesh, "default_devices",
+                        lambda: [port_mesh.torch.device("cpu")] * shards)
+    built = []
+    stop = threading.Event()
+    stop.set()
+    if shards == 1:
+        rc = port_cmd.scheduler_server(["--master", "http://127.0.0.1:1"]
+                                       + flags, stop=stop,
+                                       on_built=built.append)
+        assert rc == 1 and not built
+        assert ">1 device" in capsys.readouterr().err
+        return
+    master = Apiserver()
+    try:
+        rc = port_cmd.scheduler_server(["--master", master.url] + flags,
+                                       stop=stop, on_built=built.append)
+    finally:
+        master.close()
+    assert rc == 0
+    pods = 4 if "--pods-axis" in flags else 1
+    assert built[0]._mesh.shape == {"pods": pods, "nodes": 8 // pods}
 
 
 def _solverd_process(port, stderr_path):
@@ -410,13 +438,15 @@ def test_healthz_degraded_when_the_solverd_dies(two_apiservers, tmp_path):
 
 
 def test_unported_flag_exits_nonzero_as_a_process(tmp_path):
+    """``--mesh on`` on a host without more than one CUDA device (this
+    one has none) exits non-zero, saying why."""
     err = tmp_path / "stderr.txt"
-    proc = _port_binary(["--mesh", "on"], err)
+    proc = _port_binary(["--master", "http://127.0.0.1:1"] + MESH_ON, err)
     try:
         assert proc.wait(timeout=60) != 0
     finally:
         _stop_process(proc)
-    assert "Queue 1 item 7" in err.read_text()
+    assert "--mesh on requires >1 device" in err.read_text()
 
 
 def test_default_device_without_a_card_fails(two_apiservers, tmp_path):

@@ -46,6 +46,7 @@ from kubernetes_tpu_torch.models.incremental import IncrementalEncoder
 from kubernetes_tpu_torch.models.policy import BatchPolicy, batch_policy_from
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from kubernetes_tpu_torch.ops import commit_solver
+from kubernetes_tpu_torch.parallel import mesh as port_mesh
 from kubernetes_tpu_torch.scheduler import driver as port_driver
 from kubernetes_tpu_torch.scheduler.plugins import (Policy, PolicyPredicate,
                                                     PolicyPriority)
@@ -64,6 +65,7 @@ from test_pipeline import mk_pod as pipe_pod
 from test_solverd import SERVICES as REF_SERVICES
 from test_solverd import mk_node, mk_pod
 from test_torch_policy import to_port
+from test_torch_twin import mesh_on_the_cpu
 
 # the suite runs in parallel workers: one intra-op thread each
 torch.set_num_threads(1)
@@ -341,9 +343,25 @@ class TestDaemonLifecycle:
         finally:
             _stop(srv)
 
-    def test_mesh_on_refused_naming_its_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    def test_mesh_on_refused_naming_its_roadmap_item(self, monkeypatch):
+        """``mesh="on"`` as the reference's: a host with one device
+        refuses it, ``auto`` there builds no executor, and eight CPU
+        shards build the mesh executor."""
+        monkeypatch.setattr(port_mesh, "default_devices",
+                            lambda: [torch.device("cpu")])
+        with pytest.raises(port_mesh.MeshUnavailable, match=">1 device"):
             _service(mesh="on")
+        srv = _service(mesh="auto")
+        assert srv._mesh_exec is None
+        _stop(srv)
+        mesh_on_the_cpu(monkeypatch)
+        srv = _service(mesh="on", mesh_min_nodes=1)
+        try:
+            assert srv._mesh_exec is not None
+            assert srv._mesh_exec.node_shards == 8
+            assert srv._mesh_exec.min_nodes == 1
+        finally:
+            _stop(srv)
 
 
 # -- solve correctness -------------------------------------------------------
@@ -1090,7 +1108,7 @@ def test_solverd_binary_serves_and_stops(tmp_path):
     assert (tmp_path / "prof" / "solverd_trace.json").stat().st_size > 0
 
 
-def test_solverd_flags_mirror_the_reference():
+def test_solverd_flags_mirror_the_reference(monkeypatch, capsys):
     from kubernetes_tpu.cmd import solverd as ref_solverd
 
     def options(parser):
@@ -1098,13 +1116,25 @@ def test_solverd_flags_mirror_the_reference():
 
     ours = options(port_solverd.build_parser())
     theirs = options(ref_solverd.build_parser())
-    mesh_only = {"--pods-axis", "--pods_axis", "--mesh-min-nodes",
-                 "--mesh_min_nodes", "--mesh-dispatch", "--mesh_dispatch",
-                 "--mesh-probe", "--mesh_probe"}
     assert ours - theirs == {"--device"}
-    assert theirs - ours == mesh_only
-    assert port_solverd.solverd_server(["--mesh", "on"]) == 1
+    assert theirs - ours == set()
+    # --mesh on fails on a one-device host, as the reference's does
+    monkeypatch.setattr(port_mesh, "default_devices",
+                        lambda: [torch.device("cpu")])
+    assert port_solverd.solverd_server(["--mesh", "on", "--device",
+                                        "cpu"]) == 1
+    assert ">1 device" in capsys.readouterr().err
     assert port_solverd.solverd_server(["--max-batch", "x"]) == 2
+    # with eight CPU shards the daemon starts with the mesh executor
+    mesh_on_the_cpu(monkeypatch)
+    stop = threading.Event()
+    stop.set()
+    assert port_solverd.solverd_server(
+        ["--mesh", "on", "--device", "cpu", "--port", "0",
+         "--mesh-min-nodes", "64", "--mesh-dispatch", "shard",
+         "--mesh-probe", "all"], stop=stop) == 0
+    assert ("mesh 8 node-shards x 1 pods (min 64 nodes, dispatch shard)"
+            in capsys.readouterr().err)
 
 
 # -- chip_smoke's new phases at a small size ---------------------------------

@@ -12,10 +12,10 @@ package's, on the CPU.
 (b) The scenario of tests/test_tpu_batch.py against the JAX package's
     apiserver (``Master``), reached through a test-only transport that
     converts objects between the two packages by field name.
-(c) ``solver_addr`` solves through a solver daemon; what the port does
-    not do yet (the device mesh) raises NotImplementedError naming its
-    ROADMAP item; the boot prewarm solves an exemplar wave; and the
-    default device needs a card.
+(c) ``solver_addr`` solves through a solver daemon; ``mesh`` builds
+    the scheduler's device mesh as the reference's does (``on`` raises
+    on a host with one device); the boot prewarm solves an exemplar
+    wave; and the default device needs a card.
 (d) Preemption: a preempting pod binds with its victims through the
     FakeCluster's and the apiserver's atomic evict+bind; a binder without
     ``bind_many`` commits pod by pod.
@@ -53,6 +53,7 @@ from kubernetes_tpu_torch.api import types as port_api
 from kubernetes_tpu_torch.api.quantity import Quantity as PortQuantity
 from kubernetes_tpu_torch.client.client import Client as PortClient
 from kubernetes_tpu_torch.client.record import EventRecorder
+from kubernetes_tpu_torch.parallel import mesh as port_mesh
 from kubernetes_tpu_torch.scheduler import driver as port_driver
 from kubernetes_tpu_torch.scheduler.plugins import \
     load_policy as port_load_policy
@@ -417,7 +418,7 @@ def test_scheduler_on_the_reference_apiserver_spreads():
         assert factory.stop(join=True)
 
 
-# -- (c) what is not ported yet ------------------------------------------------
+# -- (c) the device mesh option ------------------------------------------------
 
 def _small_factory(pending=(), bound=()):
     nodes = [REF.node("n0"), REF.node("n1")]
@@ -429,18 +430,34 @@ def _small_factory(pending=(), bound=()):
     return cluster, factory
 
 
-@pytest.mark.parametrize("kw, create_kw, item", [
-    ({}, {"mesh": "on"}, "parallel/mesh.py"),
+@pytest.mark.parametrize("shards, create_kw", [
+    (1, {"mesh": "on"}),
+    (8, {"mesh": "on"}),
+    (8, {"mesh": "auto", "pods_axis": 2}),
+    (8, {"mesh": "off"}),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(kw, create_kw,
-                                                          item):
+def test_unported_options_raise_naming_their_roadmap_item(
+        shards, create_kw, monkeypatch):
+    """``mesh`` as the reference's: ``on`` on a host with one device
+    raises; with eight CPU shards the scheduler holds a mesh (``auto``
+    too, over ``pods_axis``), and ``off`` never builds one."""
+    monkeypatch.setattr(port_mesh, "default_devices",
+                        lambda: [torch.device("cpu")] * shards)
     cluster, factory = _small_factory()
     try:
         config = factory.create(**create_kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            BatchScheduler(config, factory, cluster.client, device="cpu",
-                           **kw)
-        assert item in str(err.value)
+        if shards == 1:
+            with pytest.raises(port_mesh.MeshUnavailable,
+                               match=">1 device"):
+                BatchScheduler(config, factory, cluster.client,
+                               device="cpu")
+            return
+        sched = BatchScheduler(config, factory, cluster.client, device="cpu")
+        if create_kw["mesh"] == "off":
+            assert sched._mesh is None
+        else:
+            pods = create_kw.get("pods_axis", 1)
+            assert sched._mesh.shape == {"pods": pods, "nodes": 8 // pods}
     finally:
         assert factory.stop(join=True)
 

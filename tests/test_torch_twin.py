@@ -19,7 +19,9 @@ and ``rename`` maps a reference-only name to the port's own (each pair
 is replaced verbatim, and must occur in the file). A case that calls an
 entry point without a device asks for the CPU through
 ``port_on_the_cpu``, called from an autouse fixture of the twin module,
-since the port's entry points default to ``cuda``.
+since the port's entry points default to ``cuda``; a twin of a mesh
+test also calls ``mesh_on_the_cpu``, which builds meshes of eight CPU
+shards.
 """
 
 import os
@@ -81,6 +83,20 @@ def port_on_the_cpu(monkeypatch):
     for name in _DEVICE_USERS:
         mod = importlib.import_module("kubernetes_tpu_torch." + name)
         monkeypatch.setattr(mod, "resolve_device", cpu_default)
+
+
+def mesh_on_the_cpu(monkeypatch, shards: int = 8):
+    """For the rest of a case, a mesh built without named devices (and
+    ``maybe_mesh``'s device count) is ``shards`` CPU devices instead of
+    the host's CUDA devices: the counterpart of the reference suite's
+    ``--xla_force_host_platform_device_count=8`` (tests/conftest.py).
+    Entry points run on the CPU too (``port_on_the_cpu``)."""
+    import torch
+
+    from kubernetes_tpu_torch.parallel import mesh as pm
+    port_on_the_cpu(monkeypatch)
+    monkeypatch.setattr(pm, "default_devices",
+                        lambda: [torch.device("cpu")] * shards)
 
 
 def test_twin_rewrites_every_reference_name():
