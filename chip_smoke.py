@@ -15,9 +15,12 @@ tracing, the flight recorder and the unschedulability diagnosis, and the
 shared solver daemon (solver/service.py, cmd/solverd.py) coalescing
 concurrent north-star waves into one batched launch, one block per wave,
 in process and under the binary, the serial oracle against the kernel's
-decisions, the binaries under the race probe and the self-checks, and the
+decisions, the binaries under the race probe and the self-checks, the
 device mesh (the node-sharded loop, its kernel crossover, the daemon's
-mesh executor and the submesh) on four shards of the card —
+mesh executor and the submesh) on four shards of the card, and the
+scheduler binary against the apiserver's storage tier and worker fleet
+(a kube-store and two apiserver workers sharing a segment, each killed
+under load, then a durable apiserver alone, killed) —
 and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
@@ -217,6 +220,26 @@ and holds the kernel against its plain PyTorch version. Phases:
    nodes, 1,500 free) on the executor's single-device layout: compacted
    (``plan_wave``) == the full solve, counted by
    ``solverd_submesh_*``.
+14. The fleet. (a) The reference's production topology: one kube-store
+   process (``cmd.storeserver --shards 4 --data-dir``, a
+   ``DurableStripedStore``), a share segment this script creates, two
+   apiserver workers on one port (``--store-server --reuse-port
+   --share-seg --share-worker i``) and the scheduler binary in a thread
+   (``--algorithm tpu-batch --prewarm``): north_star seeded through the
+   port, then 5,000 pending from 4 threads that resend through the
+   outages; once a watch has seen a third bound the kube-store is
+   SIGKILLed between two waves and respawned, once two thirds, worker 0.
+   Every pod bound exactly once within capacity, every acknowledged
+   create, bind and marker write read back, the store's recovery
+   disclosed up to an index at or above every resourceVersion
+   acknowledged before its kill, both workers served, a frame seed
+   published by one worker and imported by the other, the ledger
+   exact with a backlog of 0, one launch a wave, no plain version, each
+   wave == the plain version and == solve(encode_snapshot(...)) of its
+   state. (b) One apiserver with ``--data-dir`` (a ``DurableStore``),
+   north_star's nodes, 2,000 pending; SIGKILLed and respawned on its port
+   and directory once half are bound, which the binary rides; the same
+   checks and the recovery on its /healthz.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -224,15 +247,17 @@ from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
 goes to ``chiprun_out/chip_smoke.json``, the apiservers' and the
-binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log`` and
-``phase12_*.log``.
+binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log``,
+``phase12_*.log`` and ``phase14*.log``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import random
+import re
 import statistics
 import sys
 import time
@@ -1745,22 +1770,59 @@ def _wait_http(url: str, proc, what: str, deadline_s: float = 120.0) -> str:
         time.sleep(0.1)
 
 
-def _start_apiserver(tag: str, env=None):
-    """The port's apiserver binary (``kubernetes_tpu_torch.cmd.apiserver``,
-    default flags) as a separate OS process, standing in the cluster's
-    place, in ``env`` (this process's environment by default); its output
-    goes to chiprun_out/<tag>_apiserver.log. -> (process, URL)."""
+def _spawn(tag: str, module: str, args, ready: str, env=None,
+           respawn: bool = False, deadline_s: float = 120.0):
+    """``python -m module args`` as a separate OS process in ``env`` (this
+    process's environment by default), its output in
+    chiprun_out/<tag>.log (appended to on a ``respawn``); waits until the
+    process prints ``ready`` -> (process, seconds from the spawn to that
+    line). Fails when the process exits or the deadline passes first."""
     import subprocess
 
-    port = _free_port()
-    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
-    log = open(os.path.join(_ROOT, "chiprun_out", f"{tag}_apiserver.log"),
-               "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kubernetes_tpu_torch.cmd.apiserver",
-         "--port", str(port)], cwd=_ROOT, env=env, stdout=log,
-        stderr=subprocess.STDOUT)
-    log.close()
+    out_dir = os.path.join(_ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{tag}.log")
+    offset = os.path.getsize(path) if respawn and os.path.exists(path) else 0
+    t0 = time.perf_counter()
+    # faulthandler on: _abort_children leaves each stack in the log
+    env = dict(os.environ if env is None else env, PYTHONFAULTHANDLER="1")
+    with open(path, "ab" if respawn else "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-m", module,
+                                 *map(str, args)], cwd=_ROOT, env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + deadline_s
+    try:
+        while True:
+            with open(path, "rb") as fh:
+                fh.seek(offset)
+                if ready.encode() in fh.read():
+                    return proc, time.perf_counter() - t0
+            if proc.poll() is not None:
+                raise AssertionError(f"{tag}: {module} exited with "
+                                     f"{proc.returncode} (chiprun_out/"
+                                     f"{tag}.log)")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: {module} not ready within "
+                                     f"{deadline_s:.0f} s")
+            time.sleep(0.05)
+    except BaseException:
+        _stop_process(proc)
+        raise
+
+
+def _start_apiserver(tag: str, env=None, args=(), port=None,
+                     respawn: bool = False):
+    """The port's apiserver binary (``kubernetes_tpu_torch.cmd.apiserver``
+    with ``args``, on ``port`` or a free one) as a separate OS process,
+    standing in the cluster's place, in ``env`` (this process's
+    environment by default); its output goes to
+    chiprun_out/<tag>_apiserver.log (appended to on a ``respawn``).
+    Ready once it prints that it listens and its /healthz answers.
+    -> (process, URL)."""
+    port = port or _free_port()
+    proc, _s = _spawn(f"{tag}_apiserver", "kubernetes_tpu_torch.cmd.apiserver",
+                      ["--port", port, *args], "kube-apiserver listening on",
+                      env=env, respawn=respawn)
     url = f"http://127.0.0.1:{port}"
     try:
         _wait_http(url + "/healthz", proc, f"{tag}: the apiserver", 120.0)
@@ -1927,65 +1989,42 @@ class _CreateWatch:
             t.join(timeout=10)
 
 
-def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
-                  creators=4, count_launches=True) -> dict:
-    """Phase 9: the port's scheduler binary (cmd/scheduler.scheduler_server
-    with --algorithm tpu-batch --prewarm, in a thread of this process so
-    the kernel's launch counter can be read) against the port's
-    apiserver in its own process, over HTTP and the v1 wire. The cluster
-    (north_star: ``n_nodes`` nodes, 2 bound pods each, 8 services) is
-    seeded through the port's client, watched create by create
-    (``_CreateWatch``), and the creates/s logged; once
-    compile_prewarm_ready reads 1 on /metrics and the scheduler's caches
-    hold the cluster, ``n_pending`` pods are created from ``creators``
-    threads. Fails unless every pod
-    reads back bound, no node is over capacity and no host port doubled,
-    each wave launched commit_solve once and the plain version never ran,
-    each wave's decisions equal the plain version's on the CPU over the
-    wave's own snapshot (bit for bit), each wave's bindings equal
-    solve(encode_snapshot(...)) of its state on ``dev``, and /healthz
-    answers healthy JSON. On the card the kernel alone is timed on each
-    wave's inputs."""
-    import gc
-    import threading
+class _WaveLog:
+    """The scheduler binary's ``on_built`` for the phases that run it in
+    this process: wraps the scheduler's wave steps on the instance to keep
+    each wave's pods, nodes, snapshot (copied: the incremental encoder
+    mutates its planes in place), decisions, placements with the names
+    whose bind succeeded, and seconds in ``rows``, and the garbage
+    collector's pauses inside each wave (``on_gc``, a ``gc.callbacks``
+    entry). ``after_wave(row)``, when given, runs in the loop's thread
+    after each wave, between the waves."""
 
-    import numpy as np
+    def __init__(self, after_wave=None):
+        from kubernetes_tpu_torch.util import metrics
 
-    from kubernetes_tpu_torch.client.client import Client
-    from kubernetes_tpu_torch.client.http import HTTPTransport
-    from kubernetes_tpu_torch.cmd import scheduler as cmd
-    from kubernetes_tpu_torch.models import batch_solver as bs
-    from kubernetes_tpu_torch.models.fixtures import build_cluster
-    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
-    from kubernetes_tpu_torch.ops import commit_solver
-    from kubernetes_tpu_torch.util import metrics
+        reg = metrics.default_registry()
+        self.hist = {k: reg.histogram(f"scheduler_wave_{k}_seconds")
+                     for k in ("encode", "solve", "commit")}
+        self.gc = {"s": 0.0, "full": 0, "t": 0.0}
+        self.rows: list = []
+        self.sched = None
+        self.after_wave = after_wave
 
-    t_phase = time.perf_counter()
-    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
-    names = {p.metadata.name for p in pending}
-    reg = metrics.default_registry()
-    hist = {k: reg.histogram(f"scheduler_wave_{k}_seconds")
-            for k in ("encode", "solve", "commit")}
-    gc_acc = {"s": 0.0, "full": 0, "t": 0.0}
-
-    def on_gc(phase, info):
+    def on_gc(self, phase, info) -> None:
         if phase == "start":
-            gc_acc["t"] = time.perf_counter()
+            self.gc["t"] = time.perf_counter()
         else:
-            gc_acc["s"] += time.perf_counter() - gc_acc["t"]
-            gc_acc["full"] += info["generation"] == 2
+            self.gc["s"] += time.perf_counter() - self.gc["t"]
+            self.gc["full"] += info["generation"] == 2
 
-    held: dict = {}
+    def __call__(self, sched) -> None:
+        from kubernetes_tpu_torch.ops import commit_solver
 
-    def record(sched):
-        """on_built: wraps the scheduler's wave steps on the instance to
-        keep each wave's pods, nodes, snapshot (copied: the incremental
-        encoder mutates its planes in place), decisions, commits and
-        seconds in ``held["rows"]``."""
-        rows: list = []
+        rows, hist, gc_acc = self.rows, self.hist, self.gc
         prepare, solve_snap, commit, wave = (
             sched._prepare_wave, sched._solve_snap, sched._commit_wave,
             sched.schedule_wave)
+        row: dict = {}
 
         def _prepare_wave(pods):
             prep = prepare(pods)
@@ -2008,6 +2047,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         def _commit_wave(placed, assumed=None, tctx=None, preempt_t0=None):
             outcomes, bound = commit(placed, assumed, tctx, preempt_t0)
             row["placed"] = [(p.metadata.name, h) for p, h, _v in placed]
+            row["bound_names"] = [p.metadata.name for (p, _h, _v), e
+                                  in zip(placed, outcomes) if not e]
             row["errors"] = [repr(e) for e in outcomes if e]
             return outcomes, bound
 
@@ -2015,8 +2056,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
             before = {k: h.sum() for k, h in hist.items()}
             gc0 = dict(gc_acc)
             row.clear()
-            row.update(order=[], nodes=[], placed=[], errors=[], launches=0,
-                       copy_s=0.0)
+            row.update(order=[], nodes=[], placed=[], bound_names=[],
+                       errors=[], launches=0, copy_s=0.0)
             t_w = time.perf_counter()
             n = wave(timeout)
             r = dict(row, bound=n, wave_s=time.perf_counter() - t_w,
@@ -2026,12 +2067,138 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
             for k, h in hist.items():
                 r[f"{k}_s"] = h.sum() - before[k]
             rows.append(r)
+            if self.after_wave is not None:
+                self.after_wave(r)
             return n
 
-        row: dict = {}
         sched._prepare_wave, sched._solve_snap = _prepare_wave, _solve_snap
         sched._commit_wave, sched.schedule_wave = _commit_wave, schedule_wave
-        held["sched"], held["rows"] = sched, rows
+        self.sched = sched
+
+
+def _check_waves(rows, final, names, svcs, dev, tag: str,
+                 count_launches: bool, launches: int,
+                 plain_calls: int) -> dict:
+    """The checks of a run of the scheduler binary recorded by
+    ``_WaveLog`` (``rows``, the waves that placed pods), against ``final``,
+    every pod read back after the run (``names`` the pending ones): each
+    wave launched commit_solve once and the plain version never ran
+    (``count_launches``); each wave's decisions on ``dev`` equal the plain
+    version's on the CPU over the wave's own snapshot, bit for bit; each
+    wave's placements equal ``solve(encode_snapshot(...))`` of its state
+    (the resident pods and those whose bind an earlier wave saw succeed);
+    every bind a wave saw succeed reads back where it was placed, and no
+    pod is bound without one. On the card the kernel alone is timed on
+    each wave's inputs (``kernel_ms``). -> the checks' seconds and the
+    largest difference from the plain version."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    if count_launches and (any(r["launches"] != 1 for r in rows)
+                           or launches != len(rows)):
+        raise AssertionError(f"{tag}: commit_solve launches per wave "
+                             f"{[r['launches'] for r in rows]}, {launches} "
+                             f"in all")
+    if count_launches and plain_calls:
+        raise AssertionError(f"{tag}: the plain version ran")
+    by_name = {p.metadata.name: p for p in final}
+    acked = {}
+    for r in rows:
+        ok = set(r["bound_names"])
+        acked.update((n, h) for n, h in r["placed"] if n in ok)
+    wrong = [n for n, h in acked.items() if by_name[n].spec.host != h]
+    if wrong:
+        raise AssertionError(f"{tag}: {len(wrong)} acknowledged binds do "
+                             f"not read back, e.g. {wrong[0]}")
+    unacked = [n for n in names if by_name[n].spec.host and n not in acked]
+    if unacked:
+        raise AssertionError(f"{tag}: {len(unacked)} pods bound without an "
+                             f"acknowledged bind, e.g. {unacked[0]}")
+    # each wave's decisions on ``dev`` against the plain version on the CPU
+    # over the wave's own snapshot (bit-equal), and the kernel alone timed
+    # on those inputs
+    t0 = time.perf_counter()
+    max_abs_err = 0
+    for k, r in enumerate(rows):
+        p_chosen, p_scores = bs.solve(r["snap"], device="cpu")
+        if not (np.array_equal(p_chosen, r["chosen"])
+                and np.array_equal(p_scores, r["scores"])):
+            raise AssertionError(f"{tag} wave {k}: decisions differ from "
+                                 f"the plain version")
+        max_abs_err = max(max_abs_err, *(
+            int(np.abs(np.asarray(a, np.int64) - b).max())
+            for a, b in ((p_chosen, r["chosen"]), (p_scores, r["scores"]))))
+    plain_check_s = time.perf_counter() - t0
+    if _device_type(dev) == "cuda":
+        from kubernetes_tpu_torch.tools.kernel_time import event_ms
+        for r in rows:
+            ci = _inputs(r["snap"], dev)
+            r["kernel_ms"] = event_ms(
+                lambda: commit_solver.solve_commit(ci), 3)[0]
+    residents = [p for p in final if p.metadata.name not in names]
+    t0 = time.perf_counter()
+    placed_before: list = []
+    for k, r in enumerate(rows):
+        state = residents + [by_name[n] for n in placed_before]
+        snap = encode_snapshot(r["nodes"], state, r["order"], svcs)
+        chosen, _ = bs.solve(snap, device=dev)
+        want = [(p.metadata.name, h) for p, h in
+                zip(r["order"], bs.decisions_to_names(snap, chosen)) if h]
+        if sorted(want) != sorted(r["placed"]):
+            raise AssertionError(f"{tag} wave {k}: bindings differ from "
+                                 f"solve(encode_snapshot(...)) of its state")
+        placed_before += r["bound_names"]
+    return {"replay_check_s": time.perf_counter() - t0,
+            "plain_check_s": plain_check_s, "max_abs_err": max_abs_err}
+
+
+def _wave_rows(rows, t_first: float) -> list:
+    """The per-wave numbers a phase keeps of ``_WaveLog`` rows."""
+    return [{k: r[k] for k in ("bound", "wave_s", "launches", "encode_s",
+                               "solve_s", "commit_s", "gc_s", "gc_full",
+                               "copy_s")}
+            | {"wave": i, "pods": len(r["order"]),
+               "kernel_ms": r.get("kernel_ms"),
+               "binds_failed": len(r["errors"]),
+               "t_end_s": r["t_end"] - t_first}
+            for i, r in enumerate(rows)]
+
+
+def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
+                  creators=4, count_launches=True) -> dict:
+    """Phase 9: the port's scheduler binary (cmd/scheduler.scheduler_server
+    with --algorithm tpu-batch --prewarm, in a thread of this process so
+    the kernel's launch counter can be read) against the port's
+    apiserver in its own process, over HTTP and the v1 wire. The cluster
+    (north_star: ``n_nodes`` nodes, 2 bound pods each, 8 services) is
+    seeded through the port's client, watched create by create
+    (``_CreateWatch``), and the creates/s logged; once
+    compile_prewarm_ready reads 1 on /metrics and the scheduler's caches
+    hold the cluster, ``n_pending`` pods are created from ``creators``
+    threads. Fails unless every pod
+    reads back bound, no node is over capacity and no host port doubled,
+    each wave launched commit_solve once and the plain version never ran,
+    each wave's decisions equal the plain version's on the CPU over the
+    wave's own snapshot (bit for bit), each wave's bindings equal
+    solve(encode_snapshot(...)) of its state on ``dev``, and /healthz
+    answers healthy JSON. On the card the kernel alone is timed on each
+    wave's inputs."""
+    import gc
+    import threading
+
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    t_phase = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    names = {p.metadata.name for p in pending}
+    wl = _WaveLog()
 
     proc, url = _start_apiserver("phase9")
     client = Client(HTTPTransport(url))
@@ -2065,7 +2232,7 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         t_boot = time.perf_counter()
         thread = threading.Thread(
             target=lambda: result.update(rc=cmd.scheduler_server(
-                argv, ready, stop, on_built=record)), daemon=True,
+                argv, ready, stop, on_built=wl)), daemon=True,
             name="phase9-binary")
         thread.start()
         murl = f"http://127.0.0.1:{mport}"
@@ -2078,7 +2245,7 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
                                      f"returned {result.get('rc')})")
             time.sleep(0.2)
         prewarm_ready_s = time.perf_counter() - t_boot
-        sched, rows = held["sched"], held["rows"]
+        sched, rows = wl.sched, wl.rows
         f = sched.factory
         while not (len(f.node_store) == n_nodes
                    and len(f.scheduled_pods) == len(existing)
@@ -2106,7 +2273,7 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         watcher = threading.Thread(target=watch_binds, daemon=True,
                                    name="phase9-watch")
         watcher.start()
-        gc.callbacks.append(on_gc)
+        gc.callbacks.append(wl.on_gc)
         commit_solver.solve_commit.launches = 0
         commit_solver.solve_commit_reference.calls = 0
         t_first = time.perf_counter()
@@ -2131,8 +2298,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         final = client.pods("").list().items
         svcs = f.service_store.list()
     finally:
-        if on_gc in gc.callbacks:
-            gc.callbacks.remove(on_gc)
+        if wl.on_gc in gc.callbacks:
+            gc.callbacks.remove(wl.on_gc)
         if watch is not None:
             watch.stop()
         if creates is not None:
@@ -2154,55 +2321,9 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
     _check_placements(final, nodes, "phase 9")
     if any(r["errors"] for r in rows):
         raise AssertionError("phase 9: a bind failed")
-    if count_launches and (any(r["launches"] != 1 for r in rows)
-                           or launches != len(rows)):
-        raise AssertionError(f"phase 9: commit_solve launches per wave "
-                             f"{[r['launches'] for r in rows]}, {launches} "
-                             f"in all")
-    if count_launches and plain_calls:
-        raise AssertionError("phase 9: the plain version ran")
-    # each wave's decisions on ``dev`` against the plain version on the CPU
-    # over the wave's own snapshot (bit-equal), and the kernel alone timed
-    # on those inputs
-    t0 = time.perf_counter()
-    max_abs_err = 0
-    for k, r in enumerate(rows):
-        p_chosen, p_scores = bs.solve(r["snap"], device="cpu")
-        if not (np.array_equal(p_chosen, r["chosen"])
-                and np.array_equal(p_scores, r["scores"])):
-            raise AssertionError(f"phase 9 wave {k}: decisions differ from "
-                                 f"the plain version")
-        max_abs_err = max(max_abs_err, *(
-            int(np.abs(np.asarray(a, np.int64) - b).max())
-            for a, b in ((p_chosen, r["chosen"]), (p_scores, r["scores"]))))
-    plain_check_s = time.perf_counter() - t0
-    if _device_type(dev) == "cuda":
-        from kubernetes_tpu_torch.tools.kernel_time import event_ms
-        for r in rows:
-            ci = _inputs(r["snap"], dev)
-            r["kernel_ms"] = event_ms(
-                lambda: commit_solver.solve_commit(ci), 3)[0]
-    residents = [p for p in final if p.metadata.name not in names]
-    t0 = time.perf_counter()
-    placed_before: list = []
-    for k, r in enumerate(rows):
-        state = residents + [by_name[n] for n in placed_before]
-        snap = encode_snapshot(r["nodes"], state, r["order"], svcs)
-        chosen, _ = bs.solve(snap, device=dev)
-        want = [(p.metadata.name, h) for p, h in
-                zip(r["order"], bs.decisions_to_names(snap, chosen)) if h]
-        if sorted(want) != sorted(r["placed"]):
-            raise AssertionError(f"phase 9 wave {k}: bindings differ from "
-                                 f"solve(encode_snapshot(...)) of its state")
-        placed_before += [n for n, _h in r["placed"]]
-    check_s = time.perf_counter() - t0
-    waves = [{k: r[k] for k in ("bound", "wave_s", "launches", "encode_s",
-                                "solve_s", "commit_s", "gc_s", "gc_full",
-                                "copy_s")}
-             | {"wave": i, "pods": len(r["order"]),
-                "kernel_ms": r.get("kernel_ms"),
-                "t_end_s": r["t_end"] - t_first}
-             for i, r in enumerate(rows)]
+    checks = _check_waves(rows, final, names, svcs, dev, "phase 9",
+                          count_launches, launches, plain_calls)
+    waves = _wave_rows(rows, t_first)
     return {
         "nodes": n_nodes, "existing": len(existing), "pending": n_pending,
         "services": len(services), "seeders": seeders, "creators": creators,
@@ -2214,10 +2335,8 @@ def _binary_phase(dev, n_nodes=5_000, n_pending=10_000, seeders=8,
         "create_s": create_s, "loop_s": t_last - t_first,
         "pods_per_s": n_pending / (t_last - t_first),
         "waves": waves, "launches": launches, "plain_calls": plain_calls,
-        "gc_s": gc_acc["s"], "gc_full": gc_acc["full"],
-        "health": health, "replay_check_s": check_s,
-        "plain_check_s": plain_check_s, "max_abs_err": max_abs_err,
-        "phase_s": time.perf_counter() - t_phase,
+        "gc_s": wl.gc["s"], "gc_full": wl.gc["full"], "health": health,
+        **checks, "phase_s": time.perf_counter() - t_phase,
     }
 
 
@@ -3971,6 +4090,658 @@ def _log_mesh(m: dict) -> None:
          f"{e['full_s']:.3f}s ({e['seconds']:.1f}s)")
 
 
+# ---- phase 14: the fleet: kube-store, apiserver workers, kills ------------
+
+
+class _BindWatch:
+    """Every pod's binds, through a watch of ``url`` that outlives the
+    kills: when its stream ends (the worker or the store behind it died)
+    it resumes from its last resourceVersion, and relists when that
+    revision is gone. ``hosts[name]`` holds every host a pod of ``names``
+    was seen on, ``first[name]`` when it was first seen bound."""
+
+    def __init__(self, url: str, names):
+        import threading
+
+        from kubernetes_tpu_torch.client.client import Client
+        from kubernetes_tpu_torch.client.http import HTTPTransport
+
+        self.client = Client(HTTPTransport(url))
+        self.names = names
+        self.hosts: dict = {}
+        self.first: dict = {}
+        self.resumes = self.relists = 0
+        self._w = None
+        self._stop = threading.Event()
+        rv = self._relist()
+        self.thread = threading.Thread(target=self._run, args=(rv,),
+                                       daemon=True, name="bind-watch")
+        self.thread.start()
+
+    def _see(self, pod) -> None:
+        name, host = pod.metadata.name, pod.spec.host
+        if host and name in self.names:
+            self.hosts.setdefault(name, set()).add(host)
+            self.first.setdefault(name, time.perf_counter())
+
+    def _relist(self) -> str:
+        lst = self.client.pods("").list()
+        for p in lst.items:
+            self._see(p)
+        return lst.metadata.resource_version
+
+    def _run(self, rv: str) -> None:
+        import http.client
+
+        from kubernetes_tpu_torch.api import errors
+
+        while not self._stop.is_set():
+            try:
+                if not rv:
+                    rv = self._relist()
+                    self.relists += 1
+                self._w = w = self.client.pods("").watch(resource_version=rv)
+                while True:
+                    ev = w.next_event()
+                    if ev is None:
+                        break
+                    if ev.type == "ERROR":  # dropped to resync
+                        rv = ""
+                        break
+                    rv = ev.object.metadata.resource_version
+                    self._see(ev.object)
+            except errors.StatusError as e:
+                if e.code == 410:
+                    rv = ""
+                self._stop.wait(0.1)
+            except (OSError, http.client.HTTPException):
+                self._stop.wait(0.1)
+            if not self._stop.is_set():
+                self.resumes += 1
+
+    def wait_for(self, n: int, timeout_s: float) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while len(self.first) < n:
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.02)
+        return True
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._w is not None:
+            self._w.stop()
+        self.thread.join(timeout=20)
+
+
+def _create_riding_kills(client, pod, acked: dict, landed: set,
+                         deadline_s: float = 300.0) -> None:
+    """Create ``pod``, resending through the outages a kill opens (a reset
+    connection, a 5xx, a 429) until the create is acknowledged
+    (``acked[name] = (time, resourceVersion)``) or a resend answers 409:
+    an earlier attempt landed without its acknowledgement (``landed``)."""
+    import http.client
+
+    from kubernetes_tpu_torch.api import errors
+
+    name = pod.metadata.name
+    deadline = time.monotonic() + deadline_s
+    for attempt in itertools.count():
+        try:
+            out = client.pods().create(pod)
+            acked[name] = (time.perf_counter(),
+                           int(out.metadata.resource_version))
+            return
+        except errors.StatusError as e:
+            if e.code == 409 and attempt:
+                landed.add(name)
+                return
+            if e.code < 500 and e.code != 429:
+                raise
+            err: Exception = e
+        except (OSError, http.client.HTTPException) as e:
+            err = e
+        if time.monotonic() > deadline:
+            raise AssertionError(f"create of {name} failed for "
+                                 f"{deadline_s:.0f} s: {err!r}")
+        time.sleep(0.05)
+
+
+def _api_requests(body: str) -> float:
+    """An apiserver's API requests on its /metrics: the sum of
+    ``apiserver_request_count`` over every resource (probes of /metrics
+    and /healthz carry none)."""
+    return sum(float(line.split()[-1]) for line in body.splitlines()
+               if line.startswith("apiserver_request_count{")
+               and 'resource=""' not in line)
+
+
+def _worker_metrics(url: str, workers: int, tries: int = 400) -> dict:
+    """/metrics of each worker behind one SO_REUSEPORT port: a new
+    connection a request (the kernel spreads them over the workers) until
+    every worker answered -> {worker index: body}."""
+    got: dict = {}
+    for _ in range(tries):
+        body = _http_get(url + "/metrics")[1]
+        got.setdefault(int(_metric_value(body, "apiserver_worker_index")),
+                       body)
+        if len(got) == workers:
+            break
+    return got
+
+
+def _abort_children(procs, tag: str) -> None:
+    """After a failed phase: every live child (started by ``_spawn``, so
+    with faulthandler on) dumps its threads' stacks into its log on
+    SIGABRT, and this process's threads go to chiprun_out/<tag>_threads.log."""
+    import faulthandler
+    import signal
+
+    for proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGABRT)
+            try:
+                proc.wait(timeout=10)
+            except Exception:  # _stop_process kills it next
+                pass
+    with open(os.path.join(_ROOT, "chiprun_out", f"{tag}_threads.log"),
+              "w") as fh:
+        faulthandler.dump_traceback(file=fh)
+
+
+def _kill(proc) -> float:
+    """SIGKILL ``proc`` and reap it -> the time of the kill."""
+    import signal
+
+    t = time.perf_counter()
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    return t
+
+
+def _drive_under_kills(dev, url: str, tag: str, nodes, existing, services,
+                       pending, kills, creators: int, seeders: int,
+                       wave_size=None) -> dict:
+    """Seed a cluster through ``url`` and run the port's scheduler binary
+    against it in a thread of this process (``--algorithm tpu-batch
+    --prewarm``, waves recorded by ``_WaveLog``); once it is warm and its
+    caches hold the cluster, create ``pending`` from ``creators`` threads
+    (``_create_riding_kills``) and count the binds through a watch
+    (``_BindWatch``). ``kills`` is a list of ``(fraction, name, kill,
+    respawn)``: after the first wave by whose end the watch saw that
+    fraction of the pending pods bound, two marker Secrets are written
+    (so a write is acknowledged just before), ``kill()`` SIGKILLs a
+    component in the loop's thread, between two waves, so that no bind is
+    in flight when it dies, and ``respawn()`` brings it back from another
+    thread and returns what its recovery disclosed. -> the run's record,
+    every pod read back after it, and the binary's /healthz."""
+    import gc
+    import threading
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    names = {p.metadata.name for p in pending}
+    client = Client(HTTPTransport(url))
+    mark = "-".join(re.findall("[a-z0-9]+", tag))
+    done: dict = {}
+    respawns: list = []
+    state: dict = {"watch": None}
+
+    def after_wave(row) -> None:
+        try:
+            chaos(row)
+        except Exception as e:  # the loop would log it and go on
+            state.setdefault("error", repr(e))
+
+    def chaos(row) -> None:
+        bw = state["watch"]
+        if bw is None or not row["bound_names"] or "error" in state:
+            return
+        # the watch catches up with the loop's binds before it decides
+        bw.wait_for(min(len(names), sum(
+            len(r["bound_names"]) for r in wl.rows)), 30.0)
+        for frac, what, kill, respawn in kills:
+            if what in done or len(bw.first) < frac * len(names):
+                continue
+            marks = [client.secrets("default").create(api.Secret(
+                metadata=api.ObjectMeta(name=f"{mark}-{what}-{k}")))
+                for k in range(2)]
+            t_kill = kill()
+            done[what] = {"t_kill": t_kill, "bound_seen": len(bw.first),
+                          "wave": len(wl.rows) - 1,
+                          "marks": [m.metadata.name for m in marks],
+                          "mark_rv": max(int(m.metadata.resource_version)
+                                         for m in marks)}
+
+            def back(what=what, respawn=respawn, t_kill=t_kill):
+                try:
+                    info = respawn()
+                    done[what].update(info, healthy_s=time.perf_counter()
+                                      - t_kill)
+                except BaseException as e:  # re-raised after the load
+                    done[what]["error"] = repr(e)
+
+            th = threading.Thread(target=back, daemon=True,
+                                  name=f"respawn-{what}")
+            th.start()
+            respawns.append(th)
+
+    wl = _WaveLog(after_wave)
+    t_phase = time.perf_counter()
+    seed_s = _seed_cluster(client, nodes, existing, services, seeders, tag)
+    mport = _free_port()
+    argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
+            "--metrics-port", str(mport), "--device", _device_type(dev)]
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+
+    def on_built(sched):
+        if wave_size is not None:
+            sched.wave_size = wave_size
+        wl(sched)
+
+    thread = threading.Thread(
+        target=lambda: result.update(rc=cmd.scheduler_server(
+            argv, ready, stop, on_built=on_built)), daemon=True,
+        name=f"{tag}-binary")
+    acked: dict = {}
+    landed: set = set()
+    bw = None
+    try:
+        thread.start()
+        murl = f"http://127.0.0.1:{mport}"
+        deadline = time.monotonic() + 600
+        while "compile_prewarm_ready 1" not in _wait_http(
+                murl + "/metrics", None,
+                f"{tag}: the scheduler binary").splitlines():
+            if "rc" in result or time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: no prewarm (binary returned "
+                                     f"{result.get('rc')})")
+            time.sleep(0.2)
+        f = wl.sched.factory
+        while not (len(f.node_store) == len(nodes)
+                   and len(f.scheduled_pods) == len(existing)
+                   and len(f.service_store) == len(services)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: the scheduler's caches never "
+                                     f"held the cluster")
+            time.sleep(0.05)
+        state["watch"] = bw = _BindWatch(url, names)
+        gc.callbacks.append(wl.on_gc)
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t_first = time.perf_counter()
+        _parallel(creators, pending,
+                  lambda p: _create_riding_kills(client, p, acked, landed))
+        create_s = time.perf_counter() - t_first
+        if not bw.wait_for(len(names), 300.0):
+            raise AssertionError(f"{tag}: {len(bw.first)} of {len(names)} "
+                                 f"binds seen through the watch")
+        t_last = max(bw.first.values())
+        while sum(len(r["bound_names"]) for r in wl.rows) < len(names):
+            if time.monotonic() > deadline or "rc" in result:
+                raise AssertionError(f"{tag}: the loop did not record "
+                                     f"every bind")
+            time.sleep(0.05)
+        launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
+        for th in respawns:
+            th.join(timeout=300)
+        if "error" in state:
+            raise AssertionError(f"{tag}: between two waves: "
+                                 f"{state['error']}")
+        missed = [k[1] for k in kills if k[1] not in done]
+        failed = {k: v["error"] for k, v in done.items() if "error" in v}
+        if missed or failed:
+            raise AssertionError(f"{tag}: kills not made {missed}, respawns "
+                                 f"failed {failed}")
+        code, body = _http_get(murl + "/healthz")
+        health = json.loads(body)
+        if code != 200 or health.get("healthy") is not True:
+            raise AssertionError(f"{tag}: /healthz {code} {body}")
+        final = client.pods("").list().items
+        secrets = {s.metadata.name
+                   for s in client.secrets("default").list().items}
+        svcs = f.service_store.list()
+    finally:
+        if wl.on_gc in gc.callbacks:
+            gc.callbacks.remove(wl.on_gc)
+        if bw is not None:
+            bw.stop()
+        stop.set()
+        thread.join(timeout=60)
+        for th in respawns:
+            th.join(timeout=60)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the binary returned "
+                             f"{result.get('rc')}")
+    return {"rows": [r for r in wl.rows if r["order"]], "final": final,
+            "svcs": svcs, "secrets": secrets, "acked": acked,
+            "landed": landed, "kills": done, "watch": bw,
+            "launches": launches, "plain_calls": plain_calls,
+            "health": health, "gc": dict(wl.gc), "seed_s": seed_s,
+            "t_phase": t_phase, "t_first": t_first, "t_last": t_last,
+            "create_s": create_s}
+
+
+def _check_run(run: dict, dev, nodes, pending, tag: str,
+               count_launches: bool) -> dict:
+    """A run of ``_drive_under_kills`` against what was acknowledged:
+    every pending pod bound exactly once (the watch saw one host each),
+    no node over capacity and no host port twice, every create and marker
+    acknowledged before a kill read back after it, and ``_check_waves``."""
+    names = {p.metadata.name for p in pending}
+    final, rows = run["final"], run["rows"]
+    by_name = {p.metadata.name: p for p in final}
+    lost = [n for n in run["acked"] if n not in by_name]
+    if lost:
+        raise AssertionError(f"{tag}: {len(lost)} acknowledged creates "
+                             f"lost, e.g. {lost[0]}")
+    unbound = [n for n in names if not by_name.get(n)
+               or not by_name[n].spec.host]
+    if unbound:
+        raise AssertionError(f"{tag}: {len(unbound)} pods unbound")
+    twice = {n: h for n, h in run["watch"].hosts.items() if len(h) != 1}
+    if twice or len(run["watch"].hosts) != len(names):
+        raise AssertionError(f"{tag}: pods seen on more than one host "
+                             f"{list(twice.items())[:3]}, or never")
+    _check_placements(final, nodes, tag)
+    for what, k in run["kills"].items():
+        gone = [m for m in k["marks"] if m not in run["secrets"]]
+        if gone:
+            raise AssertionError(f"{tag}: markers written before the "
+                                 f"{what} kill lost: {gone}")
+    checks = _check_waves(rows, final, names, run["svcs"], dev, tag,
+                          count_launches, run["launches"],
+                          run["plain_calls"])
+    return checks
+
+
+def _kill_record(run: dict) -> dict:
+    """Each kill's numbers, in seconds from the first create."""
+    t_first = run["t_first"]
+    return {what: {k: (v - t_first if k == "t_kill" else v)
+                   for k, v in rec.items()}
+            for what, rec in run["kills"].items()}
+
+
+def _fleet_phase(dev, n_nodes=5_000, n_pending=5_000, workers=2, shards=4,
+                 seeders=8, creators=4, wave_size=None,
+                 count_launches=True) -> dict:
+    """Phase 14 (a): the reference's production topology on the port.
+    One kube-store (``cmd.storeserver --shards 4 --data-dir --metrics-port``,
+    a ``DurableStripedStore``), a share segment this script creates with
+    ``ShareSegment.create(path, workers)``, ``workers`` apiserver processes
+    on one port (``--store-server --reuse-port --share-seg
+    --share-worker i``), and the scheduler binary in a thread: north_star
+    (``n_nodes`` nodes, 2 bound pods each, 8 services) seeded through the
+    shared port, then ``n_pending`` pods from ``creators`` threads. Once a
+    third of them are bound the kube-store is SIGKILLed and respawned with
+    the same flags; once two thirds are, worker 0 is, with the same share
+    index. Fails unless ``_check_run`` holds; the respawned store's
+    /healthz discloses a recovery that replayed WAL records up to an index
+    at or above every resourceVersion acknowledged before its kill; each
+    worker served requests and a frame one published was imported by the
+    other; and the segment's ledger counted every bind, no more creates
+    than there were, and reads a backlog of 0."""
+    import shutil
+    import tempfile
+
+    from kubernetes_tpu_torch.apiserver.share import (SharedLedger,
+                                                      ShareSegment)
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+
+    t_phase = time.perf_counter()
+    nodes, existing, pending, services = build_cluster(n_nodes, n_pending)
+    work = tempfile.mkdtemp(prefix="phase14-")
+    data_dir = os.path.join(work, "store")
+    seg_path = os.path.join(work, "share.seg")
+    seg = ShareSegment.create(seg_path, workers)
+    sport, smport, port = _free_port(), _free_port(), _free_port()
+    store_args = ["--port", sport, "--shards", shards, "--data-dir",
+                  data_dir, "--metrics-port", smport]
+    surl = f"http://127.0.0.1:{smport}"
+    procs: dict = {}
+
+    def worker_args(i):
+        return ["--store-server", f"127.0.0.1:{sport}", "--reuse-port",
+                "--share-seg", seg_path, "--share-worker", i]
+
+    def start_store(respawn=False):
+        procs["store"], up_s = _spawn(
+            "phase14_store", "kubernetes_tpu_torch.cmd.storeserver",
+            store_args, "kube-store listening on", respawn=respawn)
+        health = json.loads(_wait_http(surl + "/healthz", procs["store"],
+                                       "phase 14: kube-store", 60.0))
+        return {"up_s": up_s, "recovery": health.get("recovery")}
+
+    def start_worker(i, respawn=False):
+        t0 = time.perf_counter()
+        procs[i], url = _start_apiserver(f"phase14_worker{i}",
+                                         args=worker_args(i), port=port,
+                                         respawn=respawn)
+        return {"up_s": time.perf_counter() - t0}
+
+    before_kill: dict = {}
+
+    def kill_worker0():
+        before_kill.update(_worker_metrics(url, workers))
+        return _kill(procs[0])
+
+    url = f"http://127.0.0.1:{port}"
+    try:
+        store0 = start_store()
+        for i in range(workers):
+            start_worker(i)
+        run = _drive_under_kills(
+            dev, url, "phase 14 (a)", nodes, existing, services, pending,
+            [(1 / 3, "kube-store", lambda: _kill(procs["store"]),
+              lambda: start_store(respawn=True)),
+             (2 / 3, "worker0", kill_worker0,
+              lambda: start_worker(0, respawn=True))],
+            creators, seeders, wave_size)
+        per_worker = _worker_metrics(url, workers)
+        store_metrics = _http_get(surl + "/metrics")[1]
+        ledger = SharedLedger(seg)
+        counters = [seg.worker_counters(w) for w in range(workers)]
+        backlog = ledger.backlog()
+    except BaseException:
+        _abort_children(procs.values(), "phase14")
+        raise
+    finally:
+        for proc in procs.values():
+            _stop_process(proc)
+        seg.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    tag = "phase 14 (a)"
+    checks = _check_run(run, dev, nodes, pending, tag, count_launches)
+    kill = run["kills"]["kube-store"]
+    rec = kill.get("recovery") or {}
+    acked_rv = max([rv for t, rv in run["acked"].values()
+                    if t < kill["t_kill"]] + [kill["mark_rv"]])
+    if not (rec.get("replayed_records", 0) > 0
+            and rec.get("index", 0) >= acked_rv):
+        raise AssertionError(f"{tag}: the respawned kube-store's recovery "
+                             f"{rec} against resourceVersion {acked_rv} "
+                             f"acknowledged before its kill")
+    if sorted(per_worker) != list(range(workers)):
+        raise AssertionError(f"{tag}: workers answering /metrics: "
+                             f"{sorted(per_worker)}")
+    requests = {w: _api_requests(b) for w, b in per_worker.items()}
+    before = {w: _api_requests(b) for w, b in before_kill.items()}
+    if sorted(before) != list(range(workers)) or not all(
+            before.values()) or not all(requests[w]
+                                        for w in range(1, workers)):
+        raise AssertionError(f"{tag}: API requests served per worker "
+                             f"{before} before worker 0's kill, {requests} "
+                             f"at the end")
+    # worker 0's counters restart with it: its life before the kill adds
+    seeds = {w: {k: _metric_value(b, f"apiserver_cache_seed_{k}_total")
+                 + (_metric_value(before_kill[0],
+                                  f"apiserver_cache_seed_{k}_total")
+                    if w == 0 else 0.0)
+                 for k in ("published", "imported", "ring_drops")}
+             for w, b in per_worker.items()}
+    if not any(s["published"] for s in seeds.values()) or \
+            not any(s["imported"] for s in seeds.values()):
+        raise AssertionError(f"{tag}: no frame seed published by one "
+                             f"worker and imported by another: {seeds}")
+    n_pods = len(existing) + n_pending
+    created = sum(c["created"] for c in counters)
+    bound = sum(c["bound"] for c in counters)
+    if backlog != 0 or bound != n_pods or not (
+            len(run["acked"]) <= created <= n_pods):
+        raise AssertionError(f"{tag}: ledger backlog {backlog}, created "
+                             f"{created}, bound {bound} for {n_pods} pods "
+                             f"({len(run['acked'])} creates acknowledged)")
+    return {"nodes": n_nodes, "existing": len(existing),
+            "pending": n_pending, "workers": workers, "shards": shards,
+            "creators": creators, "seed_s": list(run["seed_s"]),
+            "create_s": run["create_s"],
+            "loop_s": run["t_last"] - run["t_first"],
+            "pods_per_s": n_pending / (run["t_last"] - run["t_first"]),
+            "store_boot": store0, "kills": _kill_record(run),
+            "acked_rv_before_store_kill": acked_rv,
+            "creates_landed_unacked": len(run["landed"]),
+            "waves": _wave_rows(run["rows"], run["t_first"]),
+            "launches": run["launches"], "plain_calls": run["plain_calls"],
+            "watch_resumes": run["watch"].resumes,
+            "watch_relists": run["watch"].relists,
+            "requests": requests, "requests_before_worker0_kill": before,
+            "seeds": seeds, "ledger": {"backlog": backlog,
+                                       "created": created, "bound": bound,
+                                       "workers": counters},
+            "wal": {k: _metric_value(store_metrics, f"store_wal_{k}",
+                                     default=0.0)
+                    for k in ("records_total", "ops_total",
+                              "group_commits_total", "bytes_total",
+                              "compactions_total", "size_bytes")},
+            "health": run["health"], "gc_s": run["gc"]["s"], **checks,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _durable_phase(dev, n_nodes=5_000, n_pending=2_000, seeders=8,
+                   creators=4, wave_size=None, count_launches=True) -> dict:
+    """Phase 14 (b): one apiserver process with ``--data-dir`` (a
+    ``DurableStore``) holding north_star's ``n_nodes`` nodes and 8
+    services, the scheduler binary in a thread against it, ``n_pending``
+    pods from ``creators`` threads; once half are bound the apiserver is
+    SIGKILLed and respawned on the same port and directory, which the
+    binary rides (its HTTPTransport connect retry). Fails unless
+    ``_check_run`` holds and the respawned apiserver's /healthz discloses a
+    recovery that replayed WAL records up to an index at or above every
+    resourceVersion acknowledged before the kill."""
+    import shutil
+    import tempfile
+
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+
+    t_phase = time.perf_counter()
+    nodes, _existing, pending, services = build_cluster(n_nodes, n_pending)
+    work = tempfile.mkdtemp(prefix="phase14b-")
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    args = ["--data-dir", os.path.join(work, "data")]
+    procs: dict = {}
+
+    def respawn():
+        procs["apiserver"], _url = _start_apiserver(
+            "phase14b", args=args, port=port, respawn=True)
+        return {"recovery": json.loads(
+            _http_get(url + "/healthz")[1]).get("recovery")}
+
+    try:
+        procs["apiserver"], _url = _start_apiserver("phase14b", args=args,
+                                                    port=port)
+        run = _drive_under_kills(
+            dev, url, "phase 14 (b)", nodes, [], services, pending,
+            [(1 / 2, "apiserver", lambda: _kill(procs["apiserver"]),
+              respawn)], creators, seeders, wave_size)
+    except BaseException:
+        _abort_children(procs.values(), "phase14b")
+        raise
+    finally:
+        for proc in procs.values():
+            _stop_process(proc)
+        shutil.rmtree(work, ignore_errors=True)
+    tag = "phase 14 (b)"
+    checks = _check_run(run, dev, nodes, pending, tag, count_launches)
+    kill = run["kills"]["apiserver"]
+    rec = kill.get("recovery") or {}
+    acked_rv = max([rv for t, rv in run["acked"].values()
+                    if t < kill["t_kill"]] + [kill["mark_rv"]])
+    if not (rec.get("replayed_records", 0) > 0
+            and rec.get("index", 0) >= acked_rv):
+        raise AssertionError(f"{tag}: the respawned apiserver's recovery "
+                             f"{rec} against resourceVersion {acked_rv} "
+                             f"acknowledged before its kill")
+    return {"nodes": n_nodes, "pending": n_pending, "creators": creators,
+            "seed_s": list(run["seed_s"]), "create_s": run["create_s"],
+            "loop_s": run["t_last"] - run["t_first"],
+            "pods_per_s": n_pending / (run["t_last"] - run["t_first"]),
+            "kills": _kill_record(run),
+            "acked_rv_before_kill": acked_rv,
+            "creates_landed_unacked": len(run["landed"]),
+            "waves": _wave_rows(run["rows"], run["t_first"]),
+            "launches": run["launches"], "plain_calls": run["plain_calls"],
+            "watch_resumes": run["watch"].resumes,
+            "watch_relists": run["watch"].relists,
+            "health": run["health"], **checks,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _log_fleet(a: dict, b: dict) -> None:
+    ks, kw = a["kills"]["kube-store"], a["kills"]["worker0"]
+    _log(f"[14] the fleet: kube-store (--shards {a['shards']}, a durable "
+         f"striped store), {a['workers']} apiserver workers on one port "
+         f"with a share segment, the scheduler binary on the card: "
+         f"{a['nodes']} nodes, {a['existing']} resident pods seeded in "
+         f"{' + '.join(f'{s:.2f}' for s in a['seed_s'])} s; "
+         f"{a['pending']} pending from {a['creators']} threads in "
+         f"{a['create_s']:.2f} s, last bind seen through a watch after "
+         f"{a['loop_s']:.3f} s: {a['pods_per_s']:.1f} pods/s; "
+         f"{len(a['waves'])} waves, {a['launches']} commit_solve launches, "
+         f"{a['plain_calls']} plain-version calls")
+    _log(f"     kube-store SIGKILLed {ks['t_kill']:.2f} s into the load "
+         f"(after wave {ks['wave']}, {ks['bound_seen']} bound), healthy "
+         f"again {ks['healthy_s']:.2f} s later; recovery {ks['recovery']}; "
+         f"worker 0 SIGKILLed {kw['t_kill']:.2f} s in (after wave "
+         f"{kw['wave']}, {kw['bound_seen']} bound), healthy again "
+         f"{kw['healthy_s']:.2f} s later; {a['creates_landed_unacked']} "
+         f"creates landed unacknowledged; the bind watch resumed "
+         f"{a['watch_resumes']} times, relisted {a['watch_relists']}")
+    _log(f"     WAL {a['wal']}; API requests per worker "
+         f"{a['requests_before_worker0_kill']} before worker 0's kill, "
+         f"{a['requests']} at the end; frame seeds {a['seeds']}; ledger "
+         f"{a['ledger']}")
+    for w in a["waves"] + b["waves"]:
+        kernel = ("" if w["kernel_ms"] is None
+                  else f", kernel {w['kernel_ms']:.3f} ms")
+        _log(f"     wave {w['wave']:2d} {w['pods']:5d} pods: encode "
+             f"{w['encode_s']:.4f} s, solve {w['solve_s']:.4f} s{kernel}, "
+             f"commit {w['commit_s']:.4f} s ({w['binds_failed']} binds "
+             f"failed), ended {w['t_end_s']:.3f} s into the load; launches "
+             f"{w['launches']}")
+    kb = b["kills"]["apiserver"]
+    _log(f"     (b) a durable apiserver alone: {b['nodes']} nodes, "
+         f"{b['pending']} pending in {b['loop_s']:.3f} s "
+         f"({b['pods_per_s']:.1f} pods/s), {len(b['waves'])} waves, "
+         f"{b['launches']} launches; SIGKILLed {kb['t_kill']:.2f} s in "
+         f"(after wave {kb['wave']}, {kb['bound_seen']} bound), healthy "
+         f"again {kb['healthy_s']:.2f} s later, recovery "
+         f"{kb['recovery']}")
+    _log(f"     every pod bound exactly once within capacity, every "
+         f"acknowledged write read back, every wave == the plain version "
+         f"(max abs err {max(a['max_abs_err'], b['max_abs_err'])}) and == "
+         f"solve(encode_snapshot) of its state; phase "
+         f"{a['phase_s']:.1f} + {b['phase_s']:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4145,6 +4916,12 @@ def main() -> int:
     # 13. the device mesh: four node shards on this card
     record["mesh"] = ms = _mesh_phase(dev)
     _log_mesh(ms)
+
+    # 14. the fleet: a kube-store and two apiserver workers killed under
+    # the binary's load; then a durable apiserver alone, killed
+    fl, du = _fleet_phase(dev), _durable_phase(dev)
+    record["fleet"] = {"store_and_workers": fl, "durable_apiserver": du}
+    _log_fleet(fl, du)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -4166,11 +4943,15 @@ def main() -> int:
                "bound_ms": dm["batch_bound_ms"],
                "bound_by": dm["batch_bound_by"],
                "max_abs_err": max(dm["max_abs_err"], bt["max_abs_err"])}
-    # The default entry's launches include phase 13 (b)'s: the mesh
-    # crossover's one launch through solve(snap, mesh=).
+    # The default entry's launches include phase 13 (b)'s (the mesh
+    # crossover's one launch through solve(snap, mesh=)) and phase 14's
+    # (one a wave of the binary against the fleet and the durable
+    # apiserver, each wave held against the plain version too).
     entries = (("commit_solve", dict(ns, max_abs_err=max(
-                    ns["max_abs_err"], bp["max_abs_err"])),
-                bp["launches"] + ms["launches"]),
+                    ns["max_abs_err"], bp["max_abs_err"], fl["max_abs_err"],
+                    du["max_abs_err"])),
+                bp["launches"] + ms["launches"] + fl["launches"]
+                + du["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

@@ -208,7 +208,7 @@ class FairShed:
 
     def __init__(self, flows: Optional[Dict[str, FlowConfig]] = None,
                  backlog_limit: int = 0,
-                 clock=time.monotonic):
+                 clock=time.monotonic, ledger=None):
         self._clock = clock
         self._lock = threading.Lock()
         self.flows: Dict[str, FlowConfig] = dict(DEFAULT_FLOWS)
@@ -225,19 +225,30 @@ class FairShed:
             f: deque(maxlen=_DRAIN_SAMPLES) for f in self.flows}
         # the workload backlog governor: pods created minus pods bound,
         # maintained by the write paths (note_pod_created /
-        # note_pods_bound / note_pod_deleted), exact when this worker
-        # serves both creates and binds. The cross-worker ledger of an
-        # SO_REUSEPORT fleet (the reference's share.SharedLedger) comes
-        # with the share segment (ROADMAP Queue 1 item 11).
+        # note_pods_bound / note_pod_deleted). A single worker's local
+        # counters are exact when that worker serves both creates and
+        # binds; an SO_REUSEPORT fleet passes ``ledger`` (a
+        # share.SharedLedger) — the cross-worker drain feed — so the
+        # governor and the measured Retry-After hints stay exact at
+        # ``--apiservers N`` (docs/design/apiserver-hotpath.md
+        # §cross-worker).
         self.backlog_limit = int(backlog_limit)
         self._created = 0
         self._bound = 0
         self._bind_done: deque = deque(maxlen=_DRAIN_SAMPLES)
+        self._ledger = ledger
         self._mx = metrics_pkg.fairshed_metrics()
+        self._lmx = metrics_pkg.fairshed_ledger_metrics() \
+            if ledger is not None else None
+        if self._lmx is not None:
+            self._lmx.workers.set(ledger.seg.nworkers)
 
     # -- accounting seams (the HTTP write paths call these) ---------------
 
     def note_pod_created(self) -> None:
+        if self._ledger is not None:
+            self._ledger.note_created()
+            self._lmx.creates.inc()
         with self._lock:
             self._created += 1
             self._mx.backlog.set(self._backlog_locked())
@@ -245,6 +256,9 @@ class FairShed:
     def note_pods_bound(self, n: int) -> None:
         if n <= 0:
             return
+        if self._ledger is not None:
+            self._ledger.note_bound(n)
+            self._lmx.binds.inc(by=n)
         now = self._clock()
         with self._lock:
             self._bound += n
@@ -258,11 +272,18 @@ class FairShed:
         backlog (sheds later than truth — the availability-safe
         direction) instead of wedging a long-lived server at a phantom
         ceiling."""
+        if self._ledger is not None:
+            self._ledger.note_deleted()
+            self._lmx.deletes.inc()
         with self._lock:
             self._created = max(self._bound, self._created - 1)
             self._mx.backlog.set(self._backlog_locked())
 
     def _backlog_locked(self) -> int:
+        if self._ledger is not None:
+            depth = self._ledger.backlog()
+            self._lmx.backlog.set(depth)
+            return depth
         return max(0, self._created - self._bound)
 
     @property
@@ -296,6 +317,8 @@ class FairShed:
             return self._rate(self._done[flow], self._clock())
 
     def bind_rate(self) -> float:
+        if self._ledger is not None:
+            return self._ledger.bind_rate(self._clock())
         with self._lock:
             return self._rate(self._bind_done, self._clock())
 
@@ -320,7 +343,10 @@ class FairShed:
             if pod_create and flow == WORKLOAD and self.backlog_limit:
                 backlog = self._backlog_locked()
                 if backlog >= self.backlog_limit:
-                    rate = self._rate(self._bind_done, now)
+                    if self._ledger is not None:
+                        rate = self._ledger.bind_rate(now)
+                    else:
+                        rate = self._rate(self._bind_done, now)
                     hint = self._hint(backlog - self.backlog_limit + 1,
                                       rate)
                     self._shed_locked(flow, "backlog", hint)
@@ -399,5 +425,7 @@ class FairShed:
             out["backlog"] = {"depth": self._backlog_locked(),
                               "limit": self.backlog_limit,
                               "bind_rate":
-                                  self._rate(self._bind_done, now)}
+                                  self._ledger.bind_rate(now)
+                                  if self._ledger is not None
+                                  else self._rate(self._bind_done, now)}
             return out

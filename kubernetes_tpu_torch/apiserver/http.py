@@ -460,7 +460,11 @@ class _Handler(BaseHTTPRequestHandler):
             code = e.code
             self._send_status_error(e, self._version_of(parts))
         except (BrokenPipeError, ConnectionResetError):
+            # the client left, or a dependency reset mid-request: nothing
+            # was answered, so end the connection rather than read the
+            # next request on it while the client waits for this answer
             code = 499
+            self.close_connection = True
         except Exception as e:  # ref: util.HandleCrash — 500, keep serving
             code = 500
             try:
@@ -1021,8 +1025,14 @@ class APIServer:
                  node_locator=None, kubelet_port: int = 10250,
                  reuse_port: bool = False, cors_allowed_origins=(),
                  read_only: bool = False, rate_limiter=None,
-                 watch_lag_limit: int = 65536, fairshed=None):
+                 watch_lag_limit: int = 65536, fairshed=None, share=None):
         self.master = master
+        # kube-share cross-worker side channel (apiserver/share.py;
+        # None on single-worker servers — zero cost): the write path
+        # publishes every seeded encoding into this worker's ring, and
+        # the fan-out's wire-cache misses drain sibling rings before
+        # falling back to a local encode.
+        self.share = share
         # kube-fairshed flow-classified admission (apiserver/fairshed.py;
         # None disables — zero cost on the request path). The binary
         # enables it by default; the overload harness adds the workload
@@ -1101,12 +1111,35 @@ class APIServer:
             "apiserver_batch_bind_seconds",
             "bindings:batch handler latency",
             buckets=metrics_pkg.DEFAULT_BUCKETS)
+        # cross-process cache seeding (apiserver/share.py): frames this
+        # worker published for siblings, sibling frames imported into
+        # the local wire cache, fan-out deliveries those imports saved
+        # from encoding, and ring laps (lost optimisation records)
+        self.metric_seed_published = self.metrics_registry.counter(
+            "apiserver_cache_seed_published_total",
+            "Seeded encodings published into this worker's share ring")
+        self.metric_seed_imported = self.metrics_registry.counter(
+            "apiserver_cache_seed_imported_total",
+            "Sibling-published encodings imported into the wire cache")
+        self.metric_seed_hits = self.metrics_registry.counter(
+            "apiserver_cache_seed_hits_total",
+            "Wire-cache misses resolved by draining sibling rings "
+            "(an encode avoided by the cross-process feed)")
+        self.metric_seed_ring_drops = self.metrics_registry.counter(
+            "apiserver_cache_seed_ring_drops_total",
+            "Ring records lost to reader lap (the sibling re-encodes; "
+            "correctness unaffected)")
         # worker identity for SO_REUSEPORT fleet scrapes: a /metrics GET
         # lands on an arbitrary worker, so the harness keys its
         # per-worker disclosure on these two gauges
         self.metric_worker_pid = self.metrics_registry.gauge(
             "apiserver_worker_pid", "This worker process's pid")
         self.metric_worker_pid.set(float(os.getpid()))
+        self.metric_worker_index = self.metrics_registry.gauge(
+            "apiserver_worker_index",
+            "Share-segment block index of this worker (-1 = standalone)")
+        self.metric_worker_index.set(
+            float(share.worker_index) if share is not None else -1.0)
         self._watchers: set = set()
         self._watch_lock = threading.Lock()
         # Encode-once fan-out caches (one lock guards both):
@@ -1124,6 +1157,8 @@ class APIServer:
         self._wire_cache: "OrderedDict" = OrderedDict()
         self._frame_cache: "OrderedDict" = OrderedDict()
         self._frame_lock = threading.Lock()
+        # serializes sibling-ring drains (the per-process mmap cursors)
+        self._share_drain_lock = threading.Lock()
         # (rv, version) -> Event: one fan-out thread encodes a revision,
         # concurrent watchers of the same event wait for its bytes
         # instead of burning the GIL on duplicate encodes
@@ -1244,6 +1279,11 @@ class APIServer:
             waiter = self._encode_inflight.pop(key, None)
         if waiter is not None:
             waiter.set()  # wake fan-out threads parked on this revision
+        if self.share is not None \
+                and self.share.publish_frame(rv, version, wire_json):
+            # the cross-process analog of the local seed: siblings'
+            # fan-outs import these bytes instead of re-encoding
+            self.metric_seed_published.inc()
 
     def encode_response(self, obj, version: str) -> str:
         """Encode a dispatch result for its HTTP response AND seed the
@@ -1298,6 +1338,15 @@ class APIServer:
                 self.metric_frame_hits.inc()
                 return entry
             obj_json = self._wire_cache.get(wkey)
+        if obj_json is None and self.share is not None:
+            # before paying an encode (or parking on one), drain the
+            # sibling rings: the worker that COMMITTED this revision
+            # published its bytes at write time
+            self._drain_share_seeds()
+            with self._frame_lock:
+                obj_json = self._wire_cache.get(wkey)
+            if obj_json is not None:
+                self.metric_seed_hits.inc()
         waiter = leader = None
         if obj_json is None:
             with self._frame_lock:
@@ -1352,6 +1401,43 @@ class APIServer:
             while len(self._frame_cache) > self._FRAME_CACHE_MAX:
                 self._frame_cache.popitem(last=False)
         return entry
+
+    def _drain_share_seeds(self) -> None:
+        """Import sibling-published encodings (apiserver/share.py) into
+        the local wire cache. Single-drainer: the mmap cursors are
+        per-process state, so one thread drains while concurrent missers
+        wait for its imports and then re-check the cache."""
+        share = self.share
+        if share is None:
+            return
+        if not self._share_drain_lock.acquire(blocking=False):
+            with self._share_drain_lock:  # ride out the active drain
+                return
+        try:
+            drops0 = share.ring_drops
+            records = share.drain_frames()
+            if share.ring_drops > drops0:
+                self.metric_seed_ring_drops.inc(
+                    by=share.ring_drops - drops0)
+            if not records:
+                return
+            waiters = []
+            with self._frame_lock:
+                for rv, ver, wire_json in records:
+                    key = (rv, ver)
+                    if key in self._wire_cache:
+                        continue
+                    self._wire_cache[key] = wire_json
+                    self.metric_seed_imported.inc()
+                    w = self._encode_inflight.pop(key, None)
+                    if w is not None:
+                        waiters.append(w)
+                while len(self._wire_cache) > self._WIRE_CACHE_MAX:
+                    self._wire_cache.popitem(last=False)
+            for w in waiters:
+                w.set()
+        finally:
+            self._share_drain_lock.release()
 
     def event_frame(self, ev, version: str) -> str:
         """One JSON watch frame per (object revision, event type, wire

@@ -1,12 +1,18 @@
 """kube-apiserver binary (ref: cmd/kube-apiserver/app/server.go:107-153).
 
-Port of ``kubernetes_tpu/cmd/apiserver.py``: an in-memory store, the
-default admission chain, kube-fairshed (``--no-fairshed`` turns it off),
-token, basic and ABAC authorization files, CORS, the watch lag bound, the
-rate-limited read-only port, ``--trace`` and ``--flightrec``.
-``python -m kubernetes_tpu_torch.cmd.apiserver --port 8080``. The options
-whose modules are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item (``_LATER``).
+Port of ``kubernetes_tpu/cmd/apiserver.py``: the store the reference
+picks (``--store-server`` a ``RemoteStore`` of a kube-store process, else
+``--data-dir`` a ``DurableStore``, or a ``DurableStripedStore`` with
+``--store-shards`` > 1, else ``--store-shards`` > 1 a ``StripedStore``,
+else the in-memory ``MemStore``), the default admission chain,
+kube-fairshed (``--no-fairshed`` turns it off), the share segment of an
+SO_REUSEPORT worker fleet (``--share-seg``/``--share-worker``: the frame
+seeds and fairshed's cross-worker ledger), token, basic and ABAC
+authorization files, CORS, the watch lag bound, the rate-limited
+read-only port, ``--trace`` and ``--flightrec``.
+``python -m kubernetes_tpu_torch.cmd.apiserver --port 8080``. The one
+option whose module is not ported yet, ``--cloud-provider``, raises
+``NotImplementedError`` naming its ROADMAP Queue 1 item (``_LATER``).
 """
 
 from __future__ import annotations
@@ -21,14 +27,6 @@ __all__ = ["apiserver_server", "main"]
 
 # option -> (is it set?, what it needs, its ROADMAP Queue 1 item)
 _LATER = (
-    ("--data-dir", lambda o: bool(getattr(o, "data_dir", "")),
-     "storage/durable.py", 8),
-    ("--store-server", lambda o: bool(getattr(o, "store_server", "")),
-     "storage/remote.py and cmd/storeserver.py", 9),
-    ("--store-shards", lambda o: getattr(o, "store_shards", 1) > 1,
-     "storage/stripestore.py", 10),
-    ("--share-seg", lambda o: bool(getattr(o, "share_seg", "")),
-     "apiserver/share.py", 11),
     ("--cloud-provider", lambda o: bool(getattr(o, "cloud_provider", "")),
      "cloudprovider/", 12),
 )
@@ -186,7 +184,24 @@ def build_server(opts, ready_event: Optional[threading.Event] = None):
         with open(opts.authorization_policy_file) as f:
             authorizer = ABACAuthorizer.from_text(f.read())
 
+    store = None
+    store_shards = getattr(opts, "store_shards", 1)
+    if getattr(opts, "store_server", ""):
+        from kubernetes_tpu_torch.storage.remote import RemoteStore
+        store = RemoteStore(opts.store_server)
+    elif getattr(opts, "data_dir", ""):
+        if store_shards > 1:
+            from kubernetes_tpu_torch.storage.stripestore import DurableStripedStore
+            store = DurableStripedStore(opts.data_dir, shards=store_shards)
+        else:
+            from kubernetes_tpu_torch.storage.durable import DurableStore
+            store = DurableStore(opts.data_dir)
+    elif store_shards > 1:
+        from kubernetes_tpu_torch.storage.stripestore import StripedStore
+        store = StripedStore(shards=store_shards)
+
     master = Master(MasterConfig(
+        store=store,
         portal_net=opts.portal_net,
         admission_control=tuple(
             x for x in opts.admission_control.split(",") if x),
@@ -195,17 +210,24 @@ def build_server(opts, ready_event: Optional[threading.Event] = None):
     ))
     cors = [o for o in
             getattr(opts, "cors_allowed_origins", "").split(",") if o]
+    share = ledger = None
+    if getattr(opts, "share_seg", ""):
+        from kubernetes_tpu_torch.apiserver.share import ShareSegment, SharedLedger
+        share = ShareSegment(opts.share_seg,
+                             worker_index=getattr(opts, "share_worker", -1))
+        ledger = SharedLedger(share)
     fs = None
     if getattr(opts, "fairshed", True):
         from kubernetes_tpu_torch.apiserver.fairshed import FairShed
-        fs = FairShed(backlog_limit=getattr(opts, "fairshed_backlog", 0))
+        fs = FairShed(backlog_limit=getattr(opts, "fairshed_backlog", 0),
+                      ledger=ledger)
     srv = APIServer(master, host=opts.address, port=opts.port,
                     authenticator=authenticator,
                     kubelet_port=opts.kubelet_port,
                     reuse_port=getattr(opts, "reuse_port", False),
                     cors_allowed_origins=cors,
                     watch_lag_limit=getattr(opts, "watch_lag_limit", 65536),
-                    fairshed=fs)
+                    fairshed=fs, share=share)
     ro_port = getattr(opts, "read_only_port", 0)
     if ro_port:
         # the kubernetes-ro companion (ref: cmd server.go:267-276):

@@ -17,8 +17,11 @@ unschedulability-diagnosis family (``ExplainMetrics``), the apiserver's
 request-latency buckets (``APISERVER_BUCKETS``; its request, watch
 fan-out and batch-bind families live on each server's own registry, the
 watch package's loss counters on the default one), kube-fairshed's
-admission family (``FairshedMetrics``) and the chaos supervisor's restart
-family (``ChaosMetrics``), and the flight recorder: every series of the registry sampled into a bounded ring per
+admission family (``FairshedMetrics``) and its cross-worker ledger
+(``FairshedLedgerMetrics``), the durable store's WAL and recovery family
+(``StoreWalMetrics``), the striped store's shard family
+(``StoreShardMetrics``), the chaos supervisor's restart family
+(``ChaosMetrics``), and the flight recorder: every series of the registry sampled into a bounded ring per
 series, with a ``<name>:rate`` series per counter, served incrementally
 at the binary's ``/debug/vars?since=<ns>`` (``FlightRecorder``,
 ``flightrec_arm`` ...).
@@ -40,6 +43,9 @@ __all__ = ["Counter", "Gauge", "Histogram", "Registry", "default_registry",
            "ExplainMetrics", "explain_metrics",
            "APISERVER_BUCKETS", "ChaosMetrics", "chaos_metrics",
            "FairshedMetrics", "fairshed_metrics",
+           "FairshedLedgerMetrics", "fairshed_ledger_metrics",
+           "StoreWalMetrics", "store_wal_metrics",
+           "StoreShardMetrics", "store_shard_metrics",
            "SolverdMeshMetrics", "solverd_mesh_metrics",
            "SolverdSubmeshMetrics", "solverd_submesh_metrics",
            "DefragMetrics", "defrag_metrics",
@@ -806,6 +812,144 @@ def fairshed_metrics() -> FairshedMetrics:
     if FairshedMetrics._singleton is None:
         FairshedMetrics._singleton = FairshedMetrics()
     return FairshedMetrics._singleton
+
+
+class StoreWalMetrics:
+    """kube-chaos: the ``store_wal_*`` family — durability-path evidence
+    from storage/durable.DurableStore, exported wherever the store
+    lives (kube-store's --metrics-port, or the apiserver's /metrics
+    merge when the store is in-process). Registered HERE so the churn
+    harness's ``store`` record section and the metrics-sync vet rule
+    bind to the registry universe.
+
+    The group-commit invariant these numbers prove: ``records >= ops``
+    would be the per-op seed behavior; after the fix one record carries
+    a whole txn item, so an evict+bind wave moves ``ops`` up by the op
+    count but ``records`` by the item count and ``group_commits`` (=
+    physical write+flush passes) by ONE per batched verb call."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.records = reg.counter(
+            "store_wal_records_total",
+            "WAL records appended (one JSON line each; a txn record "
+            "carries every op of one atomic item)")
+        self.ops = reg.counter(
+            "store_wal_ops_total",
+            "Mutations persisted through the WAL (ops inside txn "
+            "records included)")
+        self.group_commits = reg.counter(
+            "store_wal_group_commits_total",
+            "Physical WAL write+flush passes (one per batched verb "
+            "call — the N-fsyncs-per-wave fix's denominator)")
+        self.fsyncs = reg.counter(
+            "store_wal_fsyncs_total",
+            "fsync(2) calls on the WAL (fsync=True stores only)")
+        self.bytes_written = reg.counter(
+            "store_wal_bytes_total", "Bytes appended to the WAL")
+        self.compactions = reg.counter(
+            "store_wal_compactions_total",
+            "Snapshot+truncate compaction passes")
+        self.wal_size = reg.gauge(
+            "store_wal_size_bytes", "Live WAL file size after the last "
+            "append or compaction")
+        self.snapshot_size = reg.gauge(
+            "store_snapshot_size_bytes",
+            "snapshot.json size after the last compaction or recovery")
+        self.recovery_s = reg.histogram(
+            "store_recovery_seconds",
+            "Wall time of one crash recovery (snapshot load + WAL "
+            "replay)",
+            buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                     30.0, 60.0))
+        self.replayed = reg.gauge(
+            "store_recovery_replayed_records",
+            "WAL records replayed by the most recent recovery")
+        self.snapshot_age = reg.gauge(
+            "store_recovery_snapshot_age_seconds",
+            "Age of the snapshot loaded by the most recent recovery "
+            "(0 when no snapshot existed)")
+        self.torn_bytes = reg.counter(
+            "store_wal_torn_bytes_total",
+            "Bytes discarded as a torn/corrupt WAL tail across "
+            "recoveries (a crash mid-append leaves at most one torn "
+            "record; anything more is media corruption and is logged "
+            "loudly)")
+
+
+def store_wal_metrics() -> StoreWalMetrics:
+    if StoreWalMetrics._singleton is None:
+        StoreWalMetrics._singleton = StoreWalMetrics()
+    return StoreWalMetrics._singleton
+
+
+class StoreShardMetrics:
+    """kube-stripe: the ``store_shard_*`` family — keyspace-sharding
+    evidence from storage/stripestore.StripedStore, exported wherever
+    the store lives. The numbers to read: a balanced ``shard`` label
+    distribution on ``store_shard_ops_total`` means the namespace hash
+    is spreading load; a skewed one means one tenant owns the cluster
+    and the sharding buys nothing (which the record must disclose, not
+    hide). Incremented OUTSIDE the shard/rev critical sections — the
+    counter mutex must never appear inside a store lock's edge set."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.ops = reg.counter(
+            "store_shard_ops_total",
+            "Store mutations committed, by owning shard id ('cross' "
+            "for multi-shard batched verbs)", ("shard",))
+        self.shard_count = reg.gauge(
+            "store_shards",
+            "Configured shard count of the live striped store (absent/"
+            "0 means the unsharded MemStore twin)")
+
+
+def store_shard_metrics() -> StoreShardMetrics:
+    if StoreShardMetrics._singleton is None:
+        StoreShardMetrics._singleton = StoreShardMetrics()
+    return StoreShardMetrics._singleton
+
+
+class FairshedLedgerMetrics:
+    """The ``fairshed_ledger_*`` family — the cross-worker drain feed
+    (apiserver/share.SharedLedger): this worker's contributions to the
+    shared created/bound/deleted counters plus the GLOBAL backlog the
+    governor actually gates on. Only registered on servers wired with a
+    share segment; single-worker servers keep the local
+    ``fairshed_backlog_depth`` ledger alone."""
+
+    _singleton = None
+
+    def __init__(self, registry: Optional[Registry] = None):
+        reg = registry or default_registry()
+        self.creates = reg.counter(
+            "fairshed_ledger_creates_total",
+            "Pod creates this worker published into the shared ledger")
+        self.binds = reg.counter(
+            "fairshed_ledger_binds_total",
+            "Pod binds this worker published into the shared ledger")
+        self.deletes = reg.counter(
+            "fairshed_ledger_deletes_total",
+            "Pending-pod deletes this worker published into the shared "
+            "ledger (bound-pod deletes are clamped out, as locally)")
+        self.backlog = reg.gauge(
+            "fairshed_ledger_backlog_depth",
+            "GLOBAL workload backlog (sum of created minus bound minus "
+            "pending-deleted across every worker's ledger block)")
+        self.workers = reg.gauge(
+            "fairshed_ledger_workers",
+            "Worker blocks in the attached share segment")
+
+
+def fairshed_ledger_metrics() -> FairshedLedgerMetrics:
+    if FairshedLedgerMetrics._singleton is None:
+        FairshedLedgerMetrics._singleton = FairshedLedgerMetrics()
+    return FairshedLedgerMetrics._singleton
 
 
 # -- the flight recorder: continuous in-process metric time-series ----------

@@ -9,8 +9,10 @@ authentication and authorization answer 401/403/2xx, the port's client
 creates, lists, binds in a batch and watches through it, and ``/healthz``,
 ``/version``, ``/validate``, ``/metrics`` (fairshed's and the request
 families), ``/ui/``, ``/debug/pprof/``, ``/debug/trace`` and
-``/debug/vars`` answer. Each option whose module the port does not have
-yet raises ``NotImplementedError`` naming its ROADMAP Queue 1 item, and
+``/debug/vars`` answer. Each store option builds the store the reference
+builds for it and ``--share-seg`` wires the share segment as the
+reference does; ``--cloud-provider``, whose module the port does not have
+yet, raises ``NotImplementedError`` naming its ROADMAP Queue 1 item, and
 the legacy wire is refused by the client and not served. Every process
 stops in a ``finally``; every HTTP read has a timeout.
 """
@@ -66,18 +68,68 @@ def test_parser_flags_accept_go_style_underscores():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-dir", "/nonexistent"], 8),
-    (["--store-server", "127.0.0.1:1"], 9),
-    (["--store-shards", "4"], 10),
-    (["--share-seg", "/nonexistent", "--share-worker", "0"], 11),
     (["--cloud-provider", "fake"], 12),
-], ids=["data-dir", "store-server", "store-shards", "share-seg",
-        "cloud-provider"])
+], ids=["cloud-provider"])
 def test_options_left_for_later_raise(flags, item):
     opts = build_parser().parse_args(["--port", "0", *flags])
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}\\)"):
         build_server(opts)
+
+
+def _wiring(srv):
+    """(store class, share worker or None, fairshed ledger attached?)"""
+    share = srv.share
+    return (type(srv.master.store).__name__,
+            None if share is None else share.worker_index,
+            srv.fairshed is not None and srv.fairshed._ledger is not None)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--store-server", "{store}"], ("RemoteStore", None, False)),
+    (["--data-dir", "{dir}"], ("DurableStore", None, False)),
+    (["--store-shards", "4"], ("StripedStore", None, False)),
+    (["--data-dir", "{dir}", "--store-shards", "4"],
+     ("DurableStripedStore", None, False)),
+    (["--store-server", "{store}", "--data-dir", "{dir}",
+      "--store-shards", "4"], ("RemoteStore", None, False)),
+    (["--share-seg", "{seg}", "--share-worker", "1"],
+     ("MemStore", 1, True)),
+    (["--store-server", "{store}", "--share-seg", "{seg}",
+      "--share-worker", "0", "--reuse-port"], ("RemoteStore", 0, True)),
+], ids=["store-server", "data-dir", "shards-4", "data-dir-shards-4",
+        "store-server-first", "share-seg", "fleet-worker"])
+def test_store_options_build_the_reference_store(flags, want, tmp_path):
+    """Each store flag builds the store the reference's binary picks for
+    it (``--store-server`` first, then ``--data-dir``, striped with
+    ``--store-shards`` > 1, then ``--store-shards`` alone), and
+    ``--share-seg`` wires one segment into the server and fairshed's
+    ledger, as both packages' binaries do for the same flags."""
+    from kubernetes_tpu.apiserver.share import ShareSegment as RefSegment
+    from kubernetes_tpu.cmd import apiserver as ref_apiserver
+    from kubernetes_tpu_torch.storage.remote import StoreServer
+    store_srv = StoreServer().start()
+    RefSegment.create(str(tmp_path / "seg"), 2)
+    built = []
+    try:
+        for n, (parse, build) in enumerate((
+                (build_parser, build_server),
+                (ref_apiserver.build_parser, ref_apiserver.build_server))):
+            args = [a.format(store=store_srv.address, seg=tmp_path / "seg",
+                             dir=tmp_path / f"data{n}") for a in flags]
+            srv = build(parse().parse_args(["--port", "0", *args])).start()
+            built.append(srv)
+            assert _wiring(srv) == want, (n, flags)
+        port_srv, ref_srv = built
+        assert type(port_srv.master.store).__module__ == \
+            "kubernetes_tpu_torch." + \
+            type(ref_srv.master.store).__module__[len("kubernetes_tpu."):]
+    finally:
+        for srv in built:
+            srv.stop()
+            if srv.share is not None:
+                srv.share.close()
+        store_srv.stop()
 
 
 def test_legacy_wire_is_refused_and_not_served():

@@ -5,10 +5,10 @@ Retry-After hints and the backlog governor, over HTTP and through the
 port's ``HTTPTransport``, event-priority shedding and the chaos latency
 grammar of ``util/chaos.py``.
 
-Left out, each for a module the port does not have: the remote store's
-throttle (``storage/remote.py``), and the cases that exercise
-``hack/churn_mp.py`` and ``hack/perfgate.py``, the reference's harness
-scripts, which a twin would load unchanged.
+The remote store's throttle runs against the port's ``storage/remote.py``.
+Left out: the cases that exercise ``hack/churn_mp.py`` and
+``hack/perfgate.py``, the reference's harness scripts, which a twin would
+load unchanged.
 """
 
 from test_torch_twin import port_twin
@@ -16,8 +16,6 @@ from test_torch_twin import port_twin
 HARNESS = "tests hack/churn_mp.py or hack/perfgate.py, not the apiserver"
 
 globals().update(port_twin("test_fairshed", {
-    "TestRemoteStoreHonorsThrottle":
-        "needs storage/remote.py (ROADMAP Queue 1 item 9)",
     "TestFeeder429Semantics": HARNESS,
     "TestOverloadRecordContract": HARNESS,
     "TestChaosLatencyGrammar::test_parse_chaos_mixes_kills_and_delays":

@@ -66,6 +66,42 @@ def test_walk_covers_the_apiserver_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_storage_tier():
+    mods = set(_modules())
+    for m in ("storage.durable", "storage.remote", "storage.stripestore",
+              "cmd.storeserver", "apiserver.share"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
+# series the storage tier and the worker fleet register: the vet's
+# registry universe over the port holds each, so a gate may name it
+_STORAGE_SERIES = ("store_wal_records_total", "store_wal_group_commits_total",
+                   "store_recovery_seconds_bucket", "store_shard_ops_total",
+                   "fairshed_ledger_backlog_depth",
+                   "apiserver_cache_seed_published_total",
+                   "apiserver_cache_seed_imported_total",
+                   "apiserver_cache_seed_ring_drops_total")
+
+
+def test_metrics_sync_sees_the_storage_series(tmp_path):
+    from kubernetes_tpu_torch.analysis import run_vet
+    for rel in ("util/metrics.py", "apiserver/http.py"):
+        dst = tmp_path / "kubernetes_tpu_torch" / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(os.path.join(PORT, rel), dst)
+    rules = tmp_path / "kubernetes_tpu_torch" / "addons" / "monitoring.py"
+    rules.parent.mkdir(parents=True)
+    names = [*_STORAGE_SERIES, "store_wal_frobs_total"]
+    rules.write_text("def default_churn_rules(SLORule):\n    return [\n"
+                     + "".join(f"        SLORule('r', {n!r}),\n"
+                               for n in names) + "    ]\n")
+    paths = [str(p) for p in tmp_path.rglob("*.py")]
+    active, _ = run_vet(paths=paths, rule_ids=["metrics-sync"],
+                        root=str(tmp_path))
+    assert [v.message.split("'")[1] for v in active] == \
+        ["store_wal_frobs_total"], active
+
+
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = (
         "import importlib, json, sys\n"
