@@ -45,6 +45,7 @@ class MasterConfig:
     authorizer: Any = None          # .authorize(user, attrs) raising Forbidden
     portal_net: str = "10.0.0.0/24"
     event_ttl_seconds: float = 3600.0
+    cloud: Any = None               # cloudprovider.Interface (ref: master.go Cloud)
 
 
 class Master:
@@ -61,7 +62,9 @@ class Master:
         self.controllers = reg.make_rc_registry(self.helper)
         self.nodes = reg.make_node_registry(self.helper)
         self.services = reg.make_service_registry(
-            self.helper, reg.IPAllocator(c.portal_net))
+            self.helper, reg.IPAllocator(c.portal_net), cloud=c.cloud,
+            node_lister=lambda: [n.metadata.name for n in
+                                 self.nodes.list(Context()).items])
         self.endpoints = reg.make_endpoints_registry(self.helper)
         self.events = reg.make_event_registry(self.helper, c.event_ttl_seconds)
         self.namespaces = reg.make_namespace_registry(self.helper)

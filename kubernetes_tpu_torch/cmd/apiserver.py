@@ -9,10 +9,10 @@ kube-fairshed (``--no-fairshed`` turns it off), the share segment of an
 SO_REUSEPORT worker fleet (``--share-seg``/``--share-worker``: the frame
 seeds and fairshed's cross-worker ledger), token, basic and ABAC
 authorization files, CORS, the watch lag bound, the rate-limited
-read-only port, ``--trace`` and ``--flightrec``.
-``python -m kubernetes_tpu_torch.cmd.apiserver --port 8080``. The one
-option whose module is not ported yet, ``--cloud-provider``, raises
-``NotImplementedError`` naming its ROADMAP Queue 1 item (``_LATER``).
+read-only port, ``--trace``, ``--flightrec`` and ``--cloud-provider``
+(a provider of ``cloudprovider/`` for the services' external load
+balancers; an unknown name gives no cloud, as in the reference).
+``python -m kubernetes_tpu_torch.cmd.apiserver --port 8080``.
 """
 
 from __future__ import annotations
@@ -24,23 +24,6 @@ import threading
 from typing import List, Optional
 
 __all__ = ["apiserver_server", "main"]
-
-# option -> (is it set?, what it needs, its ROADMAP Queue 1 item)
-_LATER = (
-    ("--cloud-provider", lambda o: bool(getattr(o, "cloud_provider", "")),
-     "cloudprovider/", 12),
-)
-
-
-def refuse_unported(opts) -> None:
-    """Raise NotImplementedError for an option whose module the port does
-    not have yet, naming its ROADMAP Queue 1 item."""
-    for flag, is_set, needs, item in _LATER:
-        if is_set(opts):
-            raise NotImplementedError(
-                f"kube-apiserver {flag}: needs {needs}, not ported yet "
-                f"(ROADMAP Queue 1 item {item})")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kube-apiserver", exit_on_error=False)
@@ -159,11 +142,11 @@ def build_parser() -> argparse.ArgumentParser:
 def build_server(opts, ready_event: Optional[threading.Event] = None):
     from kubernetes_tpu_torch.apiserver.http import APIServer
     from kubernetes_tpu_torch.apiserver.master import Master, MasterConfig
+    from kubernetes_tpu_torch.cloudprovider import get_provider
 
     from kubernetes_tpu_torch import auth as authpkg
     from kubernetes_tpu_torch import capabilities
 
-    refuse_unported(opts)
     # per-binary capability gate (ref: cmd server.go:186 + capabilities.go):
     # validation consults it when admitting privileged containers
     capabilities.setup(getattr(opts, "allow_privileged", False))
@@ -207,6 +190,7 @@ def build_server(opts, ready_event: Optional[threading.Event] = None):
             x for x in opts.admission_control.split(",") if x),
         authorizer=authorizer,
         event_ttl_seconds=opts.event_ttl,
+        cloud=get_provider(opts.cloud_provider) if opts.cloud_provider else None,
     ))
     cors = [o for o in
             getattr(opts, "cors_allowed_origins", "").split(",") if o]

@@ -238,7 +238,10 @@ class GenericRegistry:
         return raw, (lambda ev: self.helper.translate_event(ev, filt))
 
     # -- selection ----------------------------------------------------------
-    _ATTR_CACHE_MAX = 8192
+    # Sized like the helper's decode cache: a selected list walks every
+    # object of the kind, so a cache smaller than the cluster (8192 here
+    # once, against 20,000 pods) misses on every object of every list.
+    _ATTR_CACHE_MAX = 65536
 
     def _attrs(self, obj: Any) -> Tuple[Dict[str, str], Dict[str, str]]:
         m = getattr(obj, "metadata", None)
@@ -247,8 +250,11 @@ class GenericRegistry:
         if not rv or not name:
             return self.attr_func(obj)
         key = (getattr(m, "namespace", ""), name, rv)
-        with self._attr_lock:
-            got = self._attr_cache.get(key)
+        # the read takes no lock: one OrderedDict.get is atomic, and a
+        # lock taken per object of every list convoys the concurrent lists
+        # of a controller manager (16 at once) behind one another; the
+        # lock keeps the insert and its eviction together
+        got = self._attr_cache.get(key)
         if got is None:
             got = self.attr_func(obj)
             with self._attr_lock:

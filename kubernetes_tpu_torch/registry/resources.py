@@ -348,14 +348,17 @@ class ServiceStrategy(Strategy):
 
 class ServiceRegistry(GenericRegistry):
     """Service storage owning portal-IP lifecycle
-    (ref: pkg/registry/service/rest.go Create/Delete). The cloud
-    load-balancer hooks of the reference come with ``cloudprovider/``
-    (ROADMAP Queue 1 item 12)."""
+    (ref: pkg/registry/service/rest.go Create/Delete)."""
 
-    def __init__(self, helper: StoreHelper, allocator: Optional[IPAllocator] = None):
+    def __init__(self, helper: StoreHelper, allocator: Optional[IPAllocator] = None,
+                 cloud=None, node_lister=None):
         super().__init__(helper, "/registry/services", api.Service, api.ServiceList,
                          ServiceStrategy())
         self.allocator = allocator or IPAllocator()
+        # cloud external load balancers (ref: pkg/registry/service/rest.go
+        # Create/Delete cloud hooks); node_lister() -> [hostnames]
+        self.cloud = cloud
+        self.node_lister = node_lister
         # Rebuild the allocation bitmap from pre-existing services, like the
         # reference does on startup (ip_allocator.go) — a Master over an
         # existing store must not hand out IPs already in use.
@@ -366,26 +369,58 @@ class ServiceRegistry(GenericRegistry):
                 except errors.StatusError:
                     pass  # duplicate/bad legacy data: leave as-is
 
+    def _lb(self):
+        return self.cloud.tcp_load_balancer() if self.cloud else None
+
+    def _region(self) -> str:
+        zones = self.cloud.zones() if self.cloud else None
+        return zones.get_zone().region if zones else ""
+
     def create(self, ctx: Context, svc: api.Service) -> api.Service:
         ip = self.allocator.allocate(svc.spec.portal_ip or None)
         svc.spec.portal_ip = ip
         try:
-            return super().create(ctx, svc)
+            created = super().create(ctx, svc)
         except Exception:
             self.allocator.release(ip)
             raise
+        lb = self._lb()
+        if lb is not None and svc.spec.create_external_load_balancer:
+            # ref: service/rest.go Create — build the cloud balancer over
+            # the current node set; ANY failure here (node list, zone
+            # lookup, the LB call) rolls the service back
+            try:
+                hosts = list(self.node_lister()) if self.node_lister else []
+                lb.create_tcp_load_balancer(
+                    svc.metadata.name, self._region(),
+                    svc.spec.public_ips[0] if svc.spec.public_ips else "",
+                    svc.spec.port, hosts)
+            except Exception as e:
+                super().delete(ctx, svc.metadata.name)
+                self.allocator.release(ip)
+                raise errors.new_internal_error(
+                    f"failed to create external load balancer: {e}")
+        return created
 
     def delete(self, ctx: Context, name: str) -> api.Status:
         svc = self.get(ctx, name)
         status = super().delete(ctx, name)
         if svc.spec.portal_ip:
             self.allocator.release(svc.spec.portal_ip)
+        lb = self._lb()
+        if lb is not None and svc.spec.create_external_load_balancer:
+            try:
+                lb.delete_tcp_load_balancer(name, self._region())
+            except Exception:
+                pass  # ref: rest.go logs and continues
         return status
 
 
 def make_service_registry(helper: StoreHelper,
-                          allocator: Optional[IPAllocator] = None) -> ServiceRegistry:
-    return ServiceRegistry(helper, allocator)
+                          allocator: Optional[IPAllocator] = None,
+                          cloud=None, node_lister=None) -> ServiceRegistry:
+    return ServiceRegistry(helper, allocator, cloud=cloud,
+                           node_lister=node_lister)
 
 
 class EndpointsStrategy(Strategy):

@@ -91,8 +91,10 @@ class StoreHelper:
     # -- encode/decode ------------------------------------------------------
     def _decode(self, kv, isolate: bool = False) -> Any:
         ck = (kv.key, kv.modified_index)
-        with self._decode_lock:
-            cached = self._decode_cache.get(ck)
+        # a lock-free read, as in GenericRegistry._attrs: a list decodes
+        # every object of its kind, and concurrent lists convoyed on a
+        # lock taken per object
+        cached = self._decode_cache.get(ck)
         if cached is None:
             cached = self.scheme.decode(kv.value)
             accessor.set_resource_version(cached, str(kv.modified_index))

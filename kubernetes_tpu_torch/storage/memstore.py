@@ -230,13 +230,14 @@ class MemStore:
             self._sweep_locked()
             if prefix and not prefix.endswith("/"):
                 prefix = prefix + "/"
-            i = bisect.bisect_left(self._keys, prefix)
-            out = []
-            keys = self._keys
-            while i < len(keys) and keys[i].startswith(prefix):
-                out.append(self._data[keys[i]])
-                i += 1
-            return out, self._index
+            keys, data = self._keys, self._data
+            i = bisect.bisect_left(keys, prefix)
+            # the keys under "a/b/" end before "a/b0" ('0' follows '/'):
+            # one slice, not a startswith test per key, since every other
+            # request waits on this lock while a list of every pod holds it
+            j = (bisect.bisect_left(keys, prefix[:-1] + "0", i) if prefix
+                 else len(keys))
+            return [data[k] for k in keys[i:j]], self._index
 
     # -- writes ------------------------------------------------------------
     def create(self, key: str, value: str, ttl: Optional[float] = None) -> KV:

@@ -11,9 +11,8 @@ creates, lists, binds in a batch and watches through it, and ``/healthz``,
 families), ``/ui/``, ``/debug/pprof/``, ``/debug/trace`` and
 ``/debug/vars`` answer. Each store option builds the store the reference
 builds for it and ``--share-seg`` wires the share segment as the
-reference does; ``--cloud-provider``, whose module the port does not have
-yet, raises ``NotImplementedError`` naming its ROADMAP Queue 1 item, and
-the legacy wire is refused by the client and not served. Every process
+reference does; ``--cloud-provider`` gives the service registry the
+reference's provider (none for an unknown name), and the legacy wire is refused by the client and not served. Every process
 stops in a ``finally``; every HTTP read has a timeout.
 """
 
@@ -68,13 +67,33 @@ def test_parser_flags_accept_go_style_underscores():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cloud-provider", "fake"], 12),
-], ids=["cloud-provider"])
+    (["--cloud-provider", "fake"], "FakeCloud"),
+    (["--cloud-provider", "no-such-cloud"], None),
+], ids=["cloud-provider", "cloud-provider-unknown"])
 def test_options_left_for_later_raise(flags, item):
-    opts = build_parser().parse_args(["--port", "0", *flags])
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}\\)"):
-        build_server(opts)
+    """The one option once left for a later slice, ``--cloud-provider``,
+    now builds what the reference's binary builds: the named provider of
+    ``cloudprovider/`` in the service registry (its external load
+    balancers), and no cloud for a name no provider registered, as
+    ``get_provider`` answers in both packages."""
+    from kubernetes_tpu.cmd import apiserver as ref_apiserver
+    built = []
+    try:
+        for parse, build in ((build_parser, build_server),
+                             (ref_apiserver.build_parser,
+                              ref_apiserver.build_server)):
+            srv = build(parse().parse_args(["--port", "0", *flags])).start()
+            built.append(srv)
+            cloud = srv.master.services.cloud
+            assert (None if cloud is None else type(cloud).__name__) == item
+        port_cloud = built[0].master.services.cloud
+        if item is not None:
+            assert type(port_cloud).__module__ == \
+                "kubernetes_tpu_torch.cloudprovider.cloud"
+            assert built[0].master.services.node_lister() == []
+    finally:
+        for srv in built:
+            srv.stop()
 
 
 def _wiring(srv):

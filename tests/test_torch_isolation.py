@@ -73,6 +73,19 @@ def test_walk_covers_the_storage_tier():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_controller_slice():
+    mods = set(_modules())
+    for m in ("cloudprovider", "cloudprovider.cloud",
+              "cloudprovider.inventory", "cloudprovider.probe",
+              "cloudprovider.locallb", "credentialprovider",
+              "credentialprovider.keyring", "controllers",
+              "controllers.util", "controllers.replication",
+              "controllers.endpoints", "controllers.node",
+              "controllers.namespace", "controllers.resourcequota",
+              "controllers.manager", "cmd.controller_manager"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
 # series the storage tier and the worker fleet register: the vet's
 # registry universe over the port holds each, so a gate may name it
 _STORAGE_SERIES = ("store_wal_records_total", "store_wal_group_commits_total",
