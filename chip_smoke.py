@@ -20,9 +20,10 @@ device mesh (the node-sharded loop, its kernel crossover, the daemon's
 mesh executor and the submesh) on four shards of the card, and the
 scheduler binary against the apiserver's storage tier and worker fleet
 (a kube-store and two apiserver workers sharing a segment, each killed
-under load, then a durable apiserver alone, killed), and the controller
+under load, then a durable apiserver alone, killed), the controller
 manager's replication controllers binding through it on nodes its node
-controller registered from an inventory cloud —
+controller registered from an inventory cloud, and an operator's
+kubectl session putting nodes and pods in through the legacy wire —
 and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
@@ -250,9 +251,9 @@ and holds the kernel against its plain PyTorch version. Phases:
    no labels), the scheduler binary in a thread. The NodeController
    registers the 5,000 nodes and writes their conditions (nodes/s
    logged); north_star's 8 services and 10,000 residents are seeded;
-   40 RCs ``rc-{a}-{v}`` of 250 (app ``app-{a}``, the ``v = 0``
+   40 RCs ``rc-{a}-{v}`` of 150 (app ``app-{a}``, the ``v = 0``
    templates with host port ``7000 + a``) are created, and the
-   ReplicationManager's 10,000 pods bind (pods/s from the first RC
+   ReplicationManager's 6,000 pods bind (pods/s from the first RC
    create to the last bind); the inventory is rewritten without 100
    instances: their nodes and pods go, the RCs recreate what they lost
    and it binds on the 4,900 left (seconds to recover); ``rc-0-1``
@@ -264,6 +265,24 @@ and holds the kernel against its plain PyTorch version. Phases:
    RC's pods and the manager exits 0 on SIGTERM; replicas created beyond
    the targets (the reference's racing syncs) are logged, as are the
    full and delta encodes.
+16. an operator's kubectl session feeding the card: the apiserver and
+   the controller manager (no cloud) as processes, the binary in a
+   thread, kubectl as processes over a kubeconfig it writes itself
+   (``config set-cluster``/``set-context``/``use-context``;
+   ``api-versions`` prints v1, v1beta1, v1beta2; ``cluster-info``,
+   ``version``, one request through ``proxy --once``). north_star's
+   5,000 nodes go in as one v1beta1 MinionList file and its 8 services
+   as a v1beta2 List, both by ``kubectl create -f``; its first 3,000
+   pending pods as a v1beta1 PodList, under a v1beta1 watch: each reads
+   back bound in v1beta1 (``desiredState.host``) as in v1, and the
+   legacy field selector ``DesiredState.Host=`` lists none. Then the 50
+   nodes with the most free CPU are cordoned, ``run-container web`` of
+   1,000 is resized to 2,000 (every pod bound, none on a cordoned
+   node), ``small`` (10) is rolled to ``small-v2``, a 64-CPU pod is
+   described with its FailedScheduling breakdown, and everything is
+   stopped and deleted again. Fails on any kubectl exit but 0, unless
+   each wave launched commit_solve once and equals the plain version
+   and ``solve(encode_snapshot(...))`` of the encoder's state.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -272,7 +291,8 @@ device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
 goes to ``chiprun_out/chip_smoke.json``, the apiservers' and the
 binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log``,
-``phase12_*.log``, ``phase14*.log`` and ``phase15_*.log``.
+``phase12_*.log``, ``phase14*.log``, ``phase15_*.log`` and
+``phase16_*.log``.
 """
 
 from __future__ import annotations
@@ -4190,15 +4210,16 @@ class _BindWatch:
     kills: when its stream ends (the worker or the store behind it died)
     it resumes from its last resourceVersion, and relists when that
     revision is gone. ``hosts[name]`` holds every host a pod of ``names``
-    was seen on, ``first[name]`` when it was first seen bound."""
+    was seen on, ``first[name]`` when it was first seen bound. The watch
+    speaks ``version`` (v1 unless named: phase 16 watches in v1beta1)."""
 
-    def __init__(self, url: str, names):
+    def __init__(self, url: str, names, version: str = ""):
         import threading
 
         from kubernetes_tpu_torch.client.client import Client
         from kubernetes_tpu_torch.client.http import HTTPTransport
 
-        self.client = Client(HTTPTransport(url))
+        self.client = Client(HTTPTransport(url, version=version))
         self.names = names
         self.hosts: dict = {}
         self.first: dict = {}
@@ -4942,6 +4963,38 @@ def _rc_object(name: str, app: str, replicas: int, k: int, host_port: int):
                         "memory": Quantity(f"{128 + (k % 6) * 256}Mi")}))]))))
 
 
+def _waiter(tag: str, procs: list, result: dict, elapsed,
+            default_s: float):
+    """-> wait(cond, what, deadline_s=default_s, poll_s=0.05,
+    progress=None) for a phase that runs ``procs`` and the scheduler
+    binary in a thread (its return code lands in ``result``): polls
+    ``cond`` until it holds; fails when a process exited, the binary
+    returned or the deadline passed; every 30 s logs ``progress()``."""
+    def wait(cond, what: str, deadline_s: float = default_s,
+             poll_s: float = 0.05, progress=None):
+        deadline = time.monotonic() + deadline_s
+        next_log = time.monotonic() + 30.0
+        while not cond():
+            if progress is not None and time.monotonic() > next_log:
+                next_log += 30.0
+                _log(f"     {tag}: {elapsed()} waiting for {what}: "
+                     f"{progress()}")
+            for p in procs:
+                if p.poll() is not None:
+                    raise AssertionError(f"{tag}: a process exited with "
+                                         f"{p.returncode} while waiting "
+                                         f"for {what}")
+            if "rc" in result:
+                raise AssertionError(f"{tag}: the binary returned "
+                                     f"{result['rc']} while waiting for "
+                                     f"{what}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: {what} not within "
+                                     f"{deadline_s:.0f} s")
+            time.sleep(poll_s)
+    return wait
+
+
 def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
                       n_gone=100, scale=(("rc-0-1", 100), ("rc-1-1", 400)),
                       host_ports=True, seeders=8, wave_size=None,
@@ -5039,26 +5092,7 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
             env=env)
         procs.append(mgr)
 
-        def wait(cond, what: str, deadline_s: float = 400.0,
-                 poll_s: float = 0.05, progress=None):
-            """Poll ``cond`` until it holds; fails when a process exited
-            or the deadline passed; every 30 s logs ``progress()``."""
-            deadline = time.monotonic() + deadline_s
-            next_log = time.monotonic() + 30.0
-            while not cond():
-                if progress is not None and time.monotonic() > next_log:
-                    next_log += 30.0
-                    _log(f"     {tag}: {elapsed()} waiting for {what}: "
-                         f"{progress()}")
-                for p in procs:
-                    if p.poll() is not None:
-                        raise AssertionError(f"{tag}: a process exited "
-                                             f"with {p.returncode} while "
-                                             f"waiting for {what}")
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"{tag}: {what} not within "
-                                         f"{deadline_s:.0f} s")
-                time.sleep(poll_s)
+        wait = _waiter(tag, procs, result, elapsed, 400.0)
 
         wait(lambda: len(nodes_w.seen) >= n_nodes,
              f"the registration of {n_nodes} nodes",
@@ -5376,6 +5410,553 @@ def _log_controller(c: dict) -> None:
          f"{c['phase_s']:.1f} s")
 
 
+def _kubectl_runner(env: dict, tag: str, times: list):
+    """-> kubectl(*args, timeout_s=120) running ``python -m
+    kubernetes_tpu_torch.cmd.kubectl args`` as a process of its own in
+    ``env``: its standard output, its seconds appended to ``times``;
+    fails on a non-zero exit, with the command's standard error."""
+    import subprocess
+
+    def kubectl(*args, timeout_s: float = 120.0) -> str:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubernetes_tpu_torch.cmd.kubectl",
+             *map(str, args)], cwd=_ROOT, env=env, capture_output=True,
+            text=True, timeout=timeout_s)
+        times.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag}: kubectl {' '.join(map(str, args))}"
+                                 f" exited {proc.returncode}: "
+                                 f"{proc.stderr.strip()[-2000:]}")
+        return proc.stdout
+    return kubectl
+
+
+def _json_stream(text: str) -> list:
+    """The JSON documents of kubectl's ``-o json`` output, one a
+    resource, printed one after another."""
+    dec, out, i = json.JSONDecoder(), [], 0
+    while True:
+        while i < len(text) and text[i].isspace():
+            i += 1
+        if i == len(text):
+            return out
+        doc, i = dec.raw_decode(text, i)
+        out.append(doc)
+
+
+def _legacy_file(path: str, kind: str, version: str, objs) -> None:
+    """``objs`` as one ``kind`` document of wire version ``version``,
+    each item encoded in that version with its own kind and apiVersion
+    (what kubectl's Builder reads out of a list)."""
+    from kubernetes_tpu_torch.api.latest import scheme
+
+    with open(path, "w") as fh:
+        json.dump({"kind": kind, "apiVersion": version,
+                   "items": [scheme.encode_to_wire(o, version)
+                             for o in objs]}, fh)
+
+
+def _kubectl_phase(dev, n_nodes=5_000, n_legacy=3_000, web=(1_000, 2_000),
+                   n_cordon=50, small=10, seeders=8, wave_size=None,
+                   wave_period=1.0, count_launches=True,
+                   keep_rows=False) -> dict:
+    """Phase 16: an operator's kubectl session feeding the card. The
+    port's kube-apiserver and kube-controller-manager (no cloud) as
+    processes, the scheduler binary (``--algorithm tpu-batch --prewarm
+    --wave-period`` ``wave_period``) in a thread with its waves recorded
+    with the encoder's state (``_WaveLog(keep_state=True)``), and kubectl
+    as processes (``python -m kubernetes_tpu_torch.cmd.kubectl``,
+    ``KUBECONFIG`` and ``HOME`` in this phase's temporary directory).
+    (1) ``config set-cluster``/``set-context``/``use-context``;
+    ``api-versions`` prints v1, v1beta1 and v1beta2; ``cluster-info``,
+    ``version``; ``proxy --port 0 --once`` relays one GET of the nodes.
+    (2) north_star's ``n_nodes`` nodes as one v1beta1 MinionList file and
+    its 8 services as a v1beta2 List, each through ``kubectl create
+    -f``; the 10,000 residents seeded as phase 9 seeds them. (3) Under a
+    v1beta1 watch of pods, the first ``n_legacy`` of north_star's pending
+    pods as a v1beta1 PodList through ``kubectl create -f``; every one
+    bound, ``--api-version v1beta1 get pods -o json`` gives each one's
+    ``desiredState.host`` equal to its binding read over v1, the v1beta1
+    watch saw each bind, and a v1beta1 list under the legacy field
+    selector ``DesiredState.Host=`` holds none of them. (4) ``cordon``
+    of the ``n_cordon`` nodes with the most free CPU, ``run-container
+    web`` of ``web[0]`` replicas, ``resize rc web`` to ``web[1]``: every
+    web pod bound, none on a cordoned node; ``uncordon`` of one prints
+    ``uncordoned``, a second ``cordon`` of another ``already cordoned``.
+    (5) ``run-container small`` of ``small``, ``rolling-update small -f``
+    a v1beta1 ``small-v2``: its pods bound, ``small`` gone. (6) One pod
+    that fits no node (64 CPUs); ``describe pod`` prints its
+    FailedScheduling event with explain's breakdown over the nodes the
+    binary schedules onto. (7) ``resize rc web`` to 0 (the reaper of
+    ``stop`` waits 30 s, and the ReplicationManager deletes 64 pods a
+    sync), ``stop rc web``, ``stop rc small-v2``, ``delete -f`` of step
+    3's file and of the unfit pod's: ``get pods -o json`` holds none of
+    them, and every resident. Every kubectl exits 0. Fails unless each wave launched
+    commit_solve once and never the plain version (``count_launches``),
+    each wave == the plain version and == ``solve(encode_snapshot(...))``
+    of the encoder's state, every acknowledged bind reads back, no node
+    is over capacity and no host port doubled, and the manager exits 0
+    on SIGTERM. ``keep_rows`` returns the waves with their states (for
+    the CPU tests' check against the JAX package)."""
+    import gc
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+    import threading
+
+    from kubernetes_tpu_torch.api import errors
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.scheduler.predicates import (
+        capacity_values, get_resource_request)
+
+    tag = "phase 16"
+    t_phase = time.perf_counter()
+
+    def elapsed() -> str:
+        return f"{time.perf_counter() - t_phase:.1f} s in,"
+    nodes, existing, pending, services = build_cluster(n_nodes, n_legacy)
+    legacy = {p.metadata.name for p in pending}
+    work = tempfile.mkdtemp(prefix="phase16-")
+    files = {k: os.path.join(work, f"{k}.json") for k in
+             ("nodes", "services", "pods", "small-v2", "unfit")}
+    _legacy_file(files["nodes"], "MinionList", "v1beta1", nodes)
+    _legacy_file(files["services"], "List", "v1beta2", services)
+    _legacy_file(files["pods"], "PodList", "v1beta1", pending)
+    from kubernetes_tpu_torch.api.latest import scheme
+    v2 = api.ReplicationController(
+        metadata=api.ObjectMeta(name="small-v2", namespace="default"),
+        spec=api.ReplicationControllerSpec(
+            replicas=small, selector={"run": "small-v2"},
+            template=api.PodTemplateSpec(
+                metadata=api.ObjectMeta(labels={"run": "small-v2"}),
+                spec=api.PodSpec(containers=[api.Container(
+                    name="small", image="nginx:v2")]))))
+    unfit = api.Pod(
+        metadata=api.ObjectMeta(name="unfit", namespace="default"),
+        spec=api.PodSpec(containers=[api.Container(
+            name="c", image="img", resources=api.ResourceRequirements(
+                limits={"cpu": Quantity("64"),
+                        "memory": Quantity("1Gi")}))]))
+    for key, obj in (("small-v2", v2), ("unfit", unfit)):
+        with open(files[key], "w") as fh:
+            json.dump(scheme.encode_to_wire(obj, "v1beta1"), fh)
+    env_k = {k: v for k, v in os.environ.items()
+             if k != "KUBERNETES_AUTH_PATH"}
+    env_k.update(KUBECONFIG=os.path.join(work, "kubeconfig"), HOME=work)
+    kubectl_s: list = []
+    kubectl = _kubectl_runner(env_k, tag, kubectl_s)
+
+    wl = _WaveLog(keep_state=True)
+    procs: list = []
+    watches: list = []
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = None
+    steps: dict = {}
+    try:
+        api_proc, url = _start_apiserver("phase16")
+        procs.append(api_proc)
+        mgr, mgr_ready_s = _spawn(
+            "phase16_manager", "kubernetes_tpu_torch.cmd.controller_manager",
+            ["--master", url], "kube-controller-manager running")
+        procs.append(mgr)
+        client = Client(HTTPTransport(url))
+
+        wait = _waiter(tag, procs, result, elapsed, 300.0)
+
+        # ---- (1) configure ------------------------------------------------
+        kubectl("config", "set-cluster", "local", f"--server={url}")
+        kubectl("config", "set-context", "c", "--cluster=local")
+        kubectl("config", "use-context", "c")
+        got = kubectl("api-versions")
+        if got != "Available Server Api Versions: v1, v1beta1, v1beta2\n":
+            raise AssertionError(f"{tag}: api-versions printed {got!r}")
+        info = kubectl("cluster-info")
+        if not info.startswith("Kubernetes master is running"):
+            raise AssertionError(f"{tag}: cluster-info printed {info!r}")
+        version = kubectl("version").strip()
+        proxy = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.cmd.kubectl",
+             "proxy", "--port", "0", "--once"], cwd=_ROOT, env=env_k,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            line = proxy.stdout.readline()
+            m = re.match(r"Starting to serve on 127\.0\.0\.1:(\d+)", line)
+            if m is None:
+                raise AssertionError(f"{tag}: kubectl proxy printed "
+                                     f"{line!r}")
+            code, body = _http_get(f"http://127.0.0.1:{m.group(1)}"
+                                   f"/api/v1/nodes")
+            proxy_rc = proxy.wait(timeout=30)
+        finally:
+            _stop_process(proxy)
+        if code != 200 or json.loads(body)["kind"] != "NodeList" \
+                or proxy_rc != 0:
+            raise AssertionError(f"{tag}: the proxy relayed {code}, "
+                                 f"exited {proxy_rc}")
+        _log(f"     {tag}: {elapsed()} kubectl configured; api-versions, "
+             f"cluster-info, version ({version}) and the proxy answer")
+
+        # ---- (2) nodes and services in the legacy wire; residents --------
+        nodes_w = _LifeWatch(url, "nodes")
+        watches.append(nodes_w)
+        t0 = time.perf_counter()
+        kubectl("create", "-f", files["nodes"], timeout_s=600)
+        nodes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kubectl("create", "-f", files["services"])
+        services_s = time.perf_counter() - t0
+        if len(client.nodes().list().items) != n_nodes:
+            raise AssertionError(f"{tag}: the MinionList did not create "
+                                 f"{n_nodes} nodes")
+        seed_s = _seed_cluster(client, [], existing, [], seeders, tag)
+        steps["create"] = {
+            "nodes_v1beta1_s": nodes_s, "nodes_per_s": n_nodes / nodes_s,
+            "services_v1beta2_s": services_s,
+            "services_per_s": len(services) / services_s,
+            "seed_s": seed_s}
+        _log(f"     {tag}: {elapsed()} {n_nodes} v1beta1 minions and "
+             f"{len(services)} v1beta2 services created, residents seeded")
+        mport = _free_port()
+        argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
+                "--wave-period", str(wave_period), "--metrics-port",
+                str(mport), "--device", _device_type(dev)]
+
+        def on_built(sched):
+            if wave_size is not None:
+                sched.wave_size = wave_size
+            wl(sched)
+
+        thread = threading.Thread(
+            target=lambda: result.update(rc=cmd.scheduler_server(
+                argv, ready, stop, on_built=on_built)), daemon=True,
+            name="phase16-binary")
+        thread.start()
+        murl = f"http://127.0.0.1:{mport}"
+        wait(lambda: "compile_prewarm_ready 1" in _wait_http(
+            murl + "/metrics", None, f"{tag}: the scheduler binary"
+        ).splitlines(), "the binary's prewarm", 600.0, poll_s=0.2)
+        f = wl.sched.factory
+        wait(lambda: (len(f.node_store) == n_nodes
+                      and len(f.scheduled_pods) == len(existing)
+                      and len(f.service_store) == len(services)),
+             "the scheduler's caches to hold the cluster")
+        _log(f"     {tag}: {elapsed()} the binary warm, its caches full")
+
+        # ---- (3) a legacy load ------------------------------------------
+        beta_w = _BindWatch(url, legacy, version="v1beta1")
+        pods_w = _LifeWatch(url, "pods")
+        watches += [beta_w, pods_w]
+        gc.callbacks.append(wl.on_gc)
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t_first = time.perf_counter()
+        kubectl("create", "-f", files["pods"], timeout_s=600)
+        create_s = time.perf_counter() - t_first
+        wait(lambda: all(n in pods_w.first for n in legacy),
+             f"the binds of {n_legacy} v1beta1 pods",
+             progress=lambda: f"{sum(n in pods_w.first for n in legacy)} "
+                              f"bound")
+        t_last = max(pods_w.first[n] for n in legacy)
+        wait(lambda: len(beta_w.first) == n_legacy,
+             "the v1beta1 watch to see every bind", 60.0)
+        v1_hosts = {p.metadata.name: p.spec.host
+                    for p in client.pods("").list().items}
+        docs = _json_stream(kubectl("--api-version", "v1beta1", "get",
+                                    "pods", "-o", "json"))
+        beta_hosts = {d["id"]: d["desiredState"].get("host", "")
+                      for d in docs if d["apiVersion"] == "v1beta1"}
+        wrong = [n for n in legacy if not v1_hosts.get(n)
+                 or beta_hosts.get(n) != v1_hosts[n]
+                 or beta_w.hosts.get(n) != {v1_hosts[n]}]
+        if wrong or len(docs) != len(v1_hosts):
+            raise AssertionError(f"{tag}: {len(wrong)} legacy pods' "
+                                 f"desiredState.host or v1beta1 watch "
+                                 f"differ from their v1 binding, e.g. "
+                                 f"{wrong[:1]}")
+        beta_w.stop()
+        beta = Client(HTTPTransport(url, version="v1beta1"))
+        unbound = {p.metadata.name for p in beta.pods("").list(
+            field_selector="DesiredState.Host=").items}
+        if unbound & legacy:
+            raise AssertionError(f"{tag}: DesiredState.Host= lists "
+                                 f"{len(unbound & legacy)} bound pods")
+        steps["legacy"] = {
+            "pods": n_legacy, "create_s": create_s,
+            "pods_v1beta1_per_s": n_legacy / create_s,
+            "loop_s": t_last - t_first,
+            "pods_per_s": n_legacy / (t_last - t_first),
+            "waves": sum(1 for r in wl.rows if r["order"])}
+        _log(f"     {tag}: {elapsed()} {n_legacy} v1beta1 pods bound, "
+             f"read back in v1beta1 and v1")
+
+        # ---- (4) cordon, run, resize --------------------------------------
+        wait(lambda: len(nodes_w.conds) >= n_nodes,
+             "the node controller's conditions on every node",
+             progress=lambda: f"{len(nodes_w.conds)} written")
+        all_pods = client.pods("").list().items
+        free = {n.metadata.name: capacity_values(n.spec.capacity)["cpu"]
+                for n in nodes}
+        for p in all_pods:
+            if p.spec.host:
+                free[p.spec.host] -= get_resource_request(p).get("cpu", 0)
+        cordoned = sorted(free, key=lambda n: (-free[n], n))[:n_cordon]
+        cordon_out: list = []
+        t0 = time.perf_counter()
+        _parallel(8, cordoned,
+                  lambda n: cordon_out.append(kubectl("cordon", n)))
+        cordon_s = time.perf_counter() - t0
+        if sorted(cordon_out) != sorted(f"node/{n} cordoned\n"
+                                        for n in cordoned):
+            raise AssertionError(f"{tag}: cordon printed "
+                                 f"{sorted(cordon_out)[:2]}")
+        # the binary polls its nodes (10 s) and drops the cordoned ones
+        wait(lambda: not {n.metadata.name for n in f.node_store.list()}
+             & set(cordoned), "the scheduler's nodes to drop the cordoned")
+
+        def rc_settled(rc_name: str, n: int) -> bool:
+            alive = [p for p in pods_w.alive()
+                     if pods_w.labels[p].get("run") == rc_name]
+            if len(alive) != n or any(p not in pods_w.first for p in alive):
+                return False
+            try:
+                rc = client.replication_controllers().get(rc_name)
+            except errors.StatusError:
+                return False
+            return rc.spec.replicas == rc.status.replicas == n
+
+        def settle(rc_name: str, n: int) -> float:
+            """Wait until RC ``rc_name`` stands at ``n`` bound pods, its
+            status at its spec, steady for 1 s without a pod event ->
+            the time its last pod was first seen bound."""
+            mark = {"events": -1, "since": 0.0}
+
+            def steady() -> bool:
+                if not rc_settled(rc_name, n):
+                    mark["events"] = -1
+                    return False
+                if pods_w.events != mark["events"]:
+                    mark["events"], mark["since"] = (pods_w.events,
+                                                     time.perf_counter())
+                    return False
+                return time.perf_counter() - mark["since"] >= 1.0
+
+            wait(steady, f"{rc_name} at {n} bound pods", poll_s=0.1,
+                 progress=lambda: f"{len(pods_w.first)} bound, "
+                                  f"{len(wl.rows)} waves")
+            return max((pods_w.first[p] for p in pods_w.alive()
+                        if pods_w.labels[p].get("run") == rc_name),
+                       default=time.perf_counter())
+
+        t0 = time.perf_counter()
+        kubectl("run-container", "web", "--image=nginx",
+                f"--replicas={web[0]}")
+        t_run = settle("web", web[0])
+        t1 = time.perf_counter()
+        out = kubectl("resize", "rc", "web", f"--replicas={web[1]}")
+        if out != "resized\n":
+            raise AssertionError(f"{tag}: resize printed {out!r}")
+        t_resize = settle("web", web[1])
+        web_pods = [p for p in pods_w.seen
+                    if pods_w.labels[p].get("run") == "web"]
+        on_cordoned = [p for p in web_pods
+                       if pods_w.hosts.get(p, set()) & set(cordoned)]
+        if on_cordoned:
+            raise AssertionError(f"{tag}: {len(on_cordoned)} web pods on "
+                                 f"cordoned nodes, e.g. {on_cordoned[0]}")
+        out = kubectl("uncordon", cordoned[0])
+        again = kubectl("cordon", cordoned[1])
+        if (out, again) != (f"node/{cordoned[0]} uncordoned\n",
+                            f"node/{cordoned[1]} already cordoned\n"):
+            raise AssertionError(f"{tag}: uncordon printed {out!r}, "
+                                 f"cordon again {again!r}")
+        steps["web"] = {
+            "cordoned": n_cordon, "cordon_s": cordon_s,
+            "run_s": t_run - t0, "run_pods_per_s": web[0] / (t_run - t0),
+            "resize_s": t_resize - t1,
+            "resize_pods_per_s": (web[1] - web[0]) / (t_resize - t1),
+            "created": len(web_pods)}
+        _log(f"     {tag}: {elapsed()} {web[1]} web pods bound, none on "
+             f"the {n_cordon} cordoned nodes")
+
+        # ---- (5) rolling update --------------------------------------------
+        kubectl("run-container", "small", "--image=nginx",
+                f"--replicas={small}")
+        settle("small", small)
+        t0 = time.perf_counter()
+        out = kubectl("rolling-update", "small", "-f", files["small-v2"],
+                      "--update-period", "0")
+        if out != "small-v2\n":
+            raise AssertionError(f"{tag}: rolling-update printed {out!r}")
+        roll_s = time.perf_counter() - t0
+        settle("small-v2", small)
+        try:
+            client.replication_controllers().get("small")
+            raise AssertionError(f"{tag}: rc small outlived its update")
+        except errors.StatusError as e:
+            if e.code != 404:
+                raise
+        steps["rolling_update"] = {"replicas": small, "update_s": roll_s}
+        _log(f"     {tag}: {elapsed()} small rolled to small-v2")
+
+        # ---- (6) diagnosis -------------------------------------------------
+        kubectl("create", "-f", files["unfit"])
+        wait(lambda: any(ev.reason == "FailedScheduling"
+                         and "nodes available" in ev.message
+                         for ev in client.events("default").list(
+                             field_selector="involvedObject.name=unfit"
+                         ).items), "unfit's FailedScheduling event",
+             120.0, poll_s=0.2)
+        text = kubectl("describe", "pod", "unfit")
+        lines = [ln for ln in text.splitlines() if "FailedScheduling" in ln
+                 and "nodes available" in ln]
+        if not lines:
+            raise AssertionError(f"{tag}: describe pod unfit printed no "
+                                 f"breakdown:\n{text}")
+        describe_line = lines[-1].strip()
+        msg = re.search(r"0/\d+ nodes available: .*$", describe_line).group(0)
+        breakdown = _parse_breakdown(msg)
+        # over the nodes the binary schedules onto: all but the cordoned,
+        # with the uncordoned one once its node poll has seen it
+        if breakdown["N"] not in (n_nodes - n_cordon, n_nodes - n_cordon + 1) \
+                or breakdown.get("Insufficient cpu") != breakdown["N"]:
+            raise AssertionError(f"{tag}: the breakdown {msg!r} is not "
+                                 f"every schedulable node short of cpu")
+        final = client.pods("").list().items
+        final_nodes = client.nodes().list().items
+        svcs = f.service_store.list()
+
+        # ---- (7) tear down -------------------------------------------------
+        # the reaper of ``stop`` waits 30 s for the RC's pods to go; the
+        # ReplicationManager deletes 64 a sync, too few a second for
+        # 2,000 on a loaded host, so the session resizes web to 0 first
+        t0 = time.perf_counter()
+        kubectl("resize", "rc", "web", "--replicas=0")
+        settle("web", 0)
+        web_down_s = time.perf_counter() - t0
+        stopped = (kubectl("stop", "rc", "web"),
+                   kubectl("stop", "rc", "small-v2"))
+        if stopped != ("web stopped\n", "small-v2 stopped\n"):
+            raise AssertionError(f"{tag}: stop printed {stopped}")
+        kubectl("delete", "-f", files["pods"], timeout_s=600)
+        kubectl("delete", "-f", files["unfit"])
+        teardown_s = time.perf_counter() - t0
+        left = {d["metadata"]["name"] for d in _json_stream(
+            kubectl("get", "pods", "-o", "json"))}
+        residents = {p.metadata.name for p in existing}
+        mine = set(pods_w.seen) - residents
+        if left & mine:
+            raise AssertionError(f"{tag}: {len(left & mine)} of the "
+                                 f"session's pods outlived the tear-down")
+        if left != residents:
+            raise AssertionError(f"{tag}: {len(residents - left)} of the "
+                                 f"{len(residents)} residents are gone")
+        steps["teardown"] = {"s": teardown_s, "web_to_0_s": web_down_s,
+                             "web_deleted_per_s": web[1] / web_down_s,
+                             "pods_left": len(left)}
+        mgr.send_signal(signal.SIGTERM)
+        mgr_rc = mgr.wait(timeout=30)
+    except BaseException:
+        _abort_children(procs, "phase16")
+        raise
+    finally:
+        if wl.on_gc in gc.callbacks:
+            gc.callbacks.remove(wl.on_gc)
+        for w in watches:
+            w.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        for p in procs:
+            _stop_process(p)
+        shutil.rmtree(work, ignore_errors=True)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the binary returned "
+                             f"{result.get('rc')}")
+    if mgr_rc != 0:
+        raise AssertionError(f"{tag}: the manager exited {mgr_rc} on "
+                             f"SIGTERM")
+    launches = commit_solver.solve_commit.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+
+    # ---- the checks, after the run -----------------------------------------
+    t_check = time.perf_counter()
+    _check_placements(final, final_nodes, tag)
+    rows = [r for r in wl.rows if r["order"]]
+    live = {p.metadata.name for p in final}
+    gone = set(pods_w.seen) - live
+    names = mine & live
+    checks = _check_waves(rows, final, names, svcs, dev, tag,
+                          count_launches, launches, plain_calls, gone=gone)
+    out = {
+        "nodes": n_nodes, "existing": len(existing),
+        "services": len(services), "legacy_pods": n_legacy, "web": web,
+        "small": small, "steps": steps, "manager_ready_s": mgr_ready_s,
+        "prewarm_s": wl.sched.prewarm_s,
+        "kubectl_runs": len(kubectl_s),
+        "kubectl_median_s": statistics.median(kubectl_s),
+        "describe": describe_line, "breakdown": breakdown,
+        "created": len(mine), "deleted_before_check": len(gone),
+        "encodes": {k: sum(r.get("encode_path") == k for r in rows)
+                    for k in ("full", "delta", "replay")},
+        "binds_failed": sum(len(r["errors"]) for r in rows),
+        "waves": _wave_rows(rows, t_first), "launches": launches,
+        "plain_calls": plain_calls, "gc_s": wl.gc["s"],
+        "gc_full": wl.gc["full"], **checks,
+        "checks_s": time.perf_counter() - t_check,
+        "phase_s": time.perf_counter() - t_phase}
+    if keep_rows:
+        out["rows"], out["svcs"] = rows, svcs
+    return out
+
+
+def _log_kubectl(k: dict) -> None:
+    st = k["steps"]
+    cr, lg, wb = st["create"], st["legacy"], st["web"]
+    _log(f"[16] an operator's kubectl session feeding the card: "
+         f"{k['kubectl_runs']} kubectl processes, median "
+         f"{k['kubectl_median_s']:.3f} s each; create -f of {k['nodes']} "
+         f"v1beta1 minions {cr['nodes_v1beta1_s']:.3f} s "
+         f"({cr['nodes_per_s']:.1f} objects/s), {k['services']} v1beta2 "
+         f"services {cr['services_v1beta2_s']:.3f} s "
+         f"({cr['services_per_s']:.1f} objects/s); {k['existing']} "
+         f"residents seeded in {' + '.join(f'{s:.2f}' for s in cr['seed_s'])}"
+         f" s")
+    _log(f"     legacy load: create -f of {lg['pods']} v1beta1 pods "
+         f"{lg['create_s']:.3f} s ({lg['pods_v1beta1_per_s']:.1f} "
+         f"objects/s), all bound {lg['loop_s']:.3f} s after its start "
+         f"({lg['pods_per_s']:.1f} pods/s), {lg['waves']} waves; "
+         f"desiredState.host == the v1 binding, the v1beta1 watch saw each "
+         f"bind, DesiredState.Host= lists none")
+    _log(f"     {wb['cordoned']} nodes cordoned in {wb['cordon_s']:.3f} s; "
+         f"web {k['web'][0]} bound {wb['run_s']:.3f} s after run-container "
+         f"({wb['run_pods_per_s']:.1f} pods/s), resized to {k['web'][1]} "
+         f"in {wb['resize_s']:.3f} s ({wb['resize_pods_per_s']:.1f} "
+         f"pods/s), {wb['created']} web pods created, none on a cordoned "
+         f"node; rolling update of {k['small']} in "
+         f"{st['rolling_update']['update_s']:.3f} s; tear-down "
+         f"{st['teardown']['s']:.3f} s (web resized to 0 in "
+         f"{st['teardown']['web_to_0_s']:.3f} s, "
+         f"{st['teardown']['web_deleted_per_s']:.1f} pods/s, before its "
+         f"stop)")
+    _log(f"     describe pod unfit: {k['describe']}")
+    _log(f"     {k['created']} pods created in the session; encodes "
+         f"{k['encodes']}; {len(k['waves'])} waves, {k['launches']} "
+         f"commit_solve launches, {k['plain_calls']} plain-version calls; "
+         f"every wave == the plain version (max abs err "
+         f"{k['max_abs_err']}) and == solve(encode_snapshot) of the "
+         f"encoder's state; checks {k['checks_s']:.1f} s, phase "
+         f"{k['phase_s']:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5519,9 +6100,10 @@ def main() -> int:
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
 
-    # Phases 9, 9c, 10b, 11, 12 and 14 (a) run below their functions'
-    # default depths (pending pods; phase 11's compared pods), so that
-    # phase 15 fits in the script's time limit with room for a slower host.
+    # Phases 9, 9c, 10b, 11, 12, 14 (a) and 15 run below their functions'
+    # default depths (pending pods; phase 11's compared pods; phase 15's
+    # replicas), so that phases 15 and 16 fit in the script's time limit
+    # with room for a slower host.
 
     # 9. the scheduler binary against an apiserver process, over HTTP
     record["binary"] = bp = _binary_phase(dev, n_pending=3_000)
@@ -5563,8 +6145,12 @@ def main() -> int:
     _log_fleet(fl, du)
 
     # 15. the controller manager and the inventory cloud feeding the card
-    record["controllers"] = cm = _controller_phase(dev)
+    record["controllers"] = cm = _controller_phase(dev, replicas=150)
     _log_controller(cm)
+
+    # 16. an operator's kubectl session, in the legacy wire, feeding it
+    record["kubectl"] = kc = _kubectl_phase(dev)
+    _log_kubectl(kc)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -5588,14 +6174,16 @@ def main() -> int:
                "max_abs_err": max(dm["max_abs_err"], bt["max_abs_err"])}
     # The default entry's launches include phase 13 (b)'s (the mesh
     # crossover's one launch through solve(snap, mesh=)), phase 14's (one
-    # a wave of the binary against the fleet and the durable apiserver)
-    # and phase 15's (one a wave of the RCs' pods), each wave held
-    # against the plain version too.
+    # a wave of the binary against the fleet and the durable apiserver),
+    # phase 15's (one a wave of the RCs' pods) and phase 16's (one a wave
+    # of the kubectl session's pods), each wave held against the plain
+    # version too.
     entries = (("commit_solve", dict(ns, max_abs_err=max(
                     ns["max_abs_err"], bp["max_abs_err"], fl["max_abs_err"],
-                    du["max_abs_err"], cm["max_abs_err"])),
+                    du["max_abs_err"], cm["max_abs_err"],
+                    kc["max_abs_err"])),
                 bp["launches"] + ms["launches"] + fl["launches"]
-                + du["launches"] + cm["launches"]),
+                + du["launches"] + cm["launches"] + kc["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

@@ -1,25 +1,37 @@
-"""Default scheme wiring — the v1 wire kinds and their decode defaults.
+"""Default scheme wiring — registered versions, conversions, defaults.
 
-Port of ``kubernetes_tpu/api/latest.py`` (ref: pkg/api/latest/latest.go)
-registering every kind the apiserver's registries serve, and the era
-defaults v1 applies on decode (ref: v1beta3/defaults.go; the reference
-registers them from ``api/v1beta1.py``'s DEFAULTERS). v1 needs no
-field-label conversion: its labels are the internal ones. The legacy
-``v1beta1``/``v1beta2`` wire, which serves old clients of the apiserver,
-is not ported (ROADMAP Queue 1 item 13): ``require_version`` refuses any
-version but v1, and the apiserver serves v1 alone.
+Port of ``kubernetes_tpu/api/latest.py``.
+
+ref: pkg/api/latest/latest.go — declares the supported external versions
+("v1" current, "v1beta1"/"v1beta2" legacy) and registers every kind plus
+conversion functions, defaulting, kind aliases, and field-label
+conversions. The legacy wire format lives in kubernetes_tpu_torch.api.v1beta1:
+a genuinely restructured sibling (flat metadata with ``id``,
+desiredState/currentState envelopes, manifest-nested pod specs,
+one-of-object restart policies, "Minion", "podID", "ip:port" endpoints)
+exercising the same seam the reference used for its hand-written
+v1beta1/v1beta2 conversions (ref: pkg/api/v1beta1/conversion.go).
+v1beta2 (kubernetes_tpu_torch.api.v1beta2) shares that envelope but drops the
+era's deprecated aliases (EnvVar.key, VolumeMount.path,
+MinionList.minions) and stamps its own manifest version — the same
+delta separating the reference's two betas (ref: pkg/api/v1beta2/
+types.go vs v1beta1/conversion.go:114-196); v1beta3 introduced the
+nested metadata that became v1, which is our "v1" here.
 """
 
 from __future__ import annotations
 
 from kubernetes_tpu_torch.api import types as api
+from kubernetes_tpu_torch.api import v1beta1, v1beta2
 from kubernetes_tpu_torch.runtime.scheme import Scheme
 
-__all__ = ["scheme", "VERSIONS", "LATEST_VERSION", "new_scheme",
-           "require_version"]
+__all__ = ["scheme", "VERSIONS", "LATEST_VERSION", "new_scheme"]
 
 LATEST_VERSION = "v1"
-VERSIONS = (LATEST_VERSION,)
+OLDEST_VERSION = "v1beta1"
+VERSIONS = ("v1", "v1beta1", "v1beta2")
+# each legacy version registers from its own wire module
+_LEGACY = {"v1beta1": v1beta1, "v1beta2": v1beta2}
 
 _ALL_KINDS = (
     api.Pod, api.PodList,
@@ -39,49 +51,25 @@ _ALL_KINDS = (
 )
 
 
-def require_version(version: str) -> str:
-    """The wire version a client may speak: v1 only."""
-    if version and version != LATEST_VERSION:
-        raise NotImplementedError(
-            f"API version {version!r}: the legacy v1beta1/v1beta2 wire is "
-            f"not ported yet (ROADMAP Queue 1 item 13); "
-            f"the port speaks {LATEST_VERSION}")
-    return LATEST_VERSION
-
-
-def _default_pod(pod: api.Pod) -> None:
-    if not pod.spec.restart_policy:
-        pod.spec.restart_policy = api.RestartPolicyAlways
-    if not pod.spec.dns_policy:
-        pod.spec.dns_policy = api.DNSClusterFirst
-    for c in pod.spec.containers:
-        for p in c.ports:
-            if not p.protocol:
-                p.protocol = api.ProtocolTCP
-            # with host networking, unset host ports default to the
-            # container port (ref: v1beta1/defaults.go:112-121)
-            if pod.spec.host_network and not p.host_port:
-                p.host_port = p.container_port
-
-
-def _default_service(svc: api.Service) -> None:
-    if not svc.spec.protocol:
-        svc.spec.protocol = api.ProtocolTCP
-    if not svc.spec.session_affinity:
-        svc.spec.session_affinity = api.AffinityNone
-
-
-def _default_endpoints(eps: api.Endpoints) -> None:
-    if not eps.protocol:
-        eps.protocol = api.ProtocolTCP
-
-
 def new_scheme() -> Scheme:
     s = Scheme(default_version=LATEST_VERSION)
-    s.add_known_types(LATEST_VERSION, *_ALL_KINDS)
-    s.add_defaulter(LATEST_VERSION, "Pod", _default_pod)
-    s.add_defaulter(LATEST_VERSION, "Service", _default_service)
-    s.add_defaulter(LATEST_VERSION, "Endpoints", _default_endpoints)
+    for v in VERSIONS:
+        s.add_known_types(v, *_ALL_KINDS)
+    for t in _ALL_KINDS:
+        kind = getattr(t, "kind", t.__name__) or t.__name__
+        for v, mod in _LEGACY.items():
+            s.add_conversion(v, kind, mod.encode_for(kind),
+                             mod.decode_for(kind))
+    for v, mod in _LEGACY.items():
+        for wire_kind, kind in mod.KIND_ALIASES.items():
+            s.add_kind_alias(v, wire_kind, kind)
+        for kind, fn in mod.DEFAULTERS.items():
+            s.add_defaulter(v, kind, fn)
+        for kind, fn in mod.FIELD_LABELS.items():
+            s.add_field_label_conversion(v, kind, fn)
+    # v1 applies the same era defaults on decode (ref: v1beta3/defaults.go)
+    for kind, fn in v1beta1.DEFAULTERS.items():
+        s.add_defaulter("v1", kind, fn)
     return s
 
 

@@ -1301,27 +1301,33 @@ class APIServer:
         without the leading apiVersion and kind (the keys are sorted), and
         a revision missing from the cache is encoded once and seeded. A
         controller manager lists every pod each second; without this each
-        list encoded every item again. An item without a revision, or
-        whose encoding does not start as expected, encodes the list
-        whole."""
+        list encoded every item again. A version that transforms the list
+        or its items (the legacy wire: a v1beta1 ``MinionList`` carries
+        its nodes twice, under ``items`` and ``minions``, and a legacy
+        object's keys sort ``id`` before ``kind``), an item without a
+        revision, or one whose encoding does not start as expected,
+        encodes the list whole."""
+        scheme = self.scheme
+        if not scheme.is_identity(version, scheme.object_kind(lst)):
+            return scheme.encode(lst, version)
         items = lst.items
         parts = []
         for obj in items:
             rv = self._rv_of(obj)
-            if not rv:
-                return self.scheme.encode(lst, version)
+            kind = scheme.object_kind(obj)
+            if not rv or not scheme.is_identity(version, kind):
+                return scheme.encode(lst, version)
             obj_json = self._wire_cache.get((rv, version))  # atomic read
             if obj_json is None:
-                obj_json = self.scheme.encode(obj, version)
+                obj_json = scheme.encode(obj, version)
                 self.seed_frame(obj, version, wire_json=obj_json)
-            head = '{"apiVersion": "%s", "kind": "%s", ' % (
-                version, self.scheme.object_kind(obj))
+            head = '{"apiVersion": "%s", "kind": "%s", ' % (version, kind)
             if not obj_json.startswith(head):
-                return self.scheme.encode(lst, version)
+                return scheme.encode(lst, version)
             parts.append("{" + obj_json[len(head):])
         lst.items = []
         try:
-            shell = self.scheme.encode(lst, version)
+            shell = scheme.encode(lst, version)
         finally:
             lst.items = items
         return shell.replace('"items": []',

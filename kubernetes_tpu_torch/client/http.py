@@ -3,7 +3,8 @@
 Port of ``kubernetes_tpu/client/http.py`` (ref: pkg/client/restclient.go +
 the chainable request builder, pkg/client/request.go): the
 ``request(verb, resource, **kw)`` seam the port's ``Client`` calls, over
-real HTTP/JSON against an apiserver speaking the v1 wire. Kept-alive
+real HTTP/JSON against an apiserver, in any wire version the scheme
+registers (v1, or the legacy v1beta1 and v1beta2). Kept-alive
 connections per thread with stale-connection detection, failure bodies
 raised as ``errors.StatusError``, field and label selectors in the URL,
 the batch-bind POST (``bindings:batch``), the 429 retry window, and
@@ -15,7 +16,7 @@ caller's trace. Credentials are ``auth=("basic", user, pw)`` or
 ``("bearer", token)``; TLS takes a CA bundle, a client certificate and
 key, or ``insecure_skip_tls_verify``, through the standard library's
 ``ssl`` (the kubeconfig files that name them are read by
-``client/clientcmd.py``, ROADMAP Queue 1 item 15).
+``client/clientcmd.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from typing import Any, Dict, NoReturn, Optional
 from kubernetes_tpu_torch import watch as watchpkg
 from kubernetes_tpu_torch.api import errors
 from kubernetes_tpu_torch.api import types as api
-from kubernetes_tpu_torch.api.latest import require_version
 from kubernetes_tpu_torch.api.latest import scheme as default_scheme
 from kubernetes_tpu_torch.runtime.clone import deep_clone
 from kubernetes_tpu_torch.util import tracing
@@ -44,6 +44,12 @@ from kubernetes_tpu_torch.util.retry import Backoff
 __all__ = ["HTTPTransport"]
 
 _log = logging.getLogger("kubernetes_tpu_torch.client.http")
+
+# Set by a test harness to run a suite over a chosen wire version (ref:
+# hack/test-go.sh KUBE_TEST_API_VERSIONS loop). Deliberately NOT read from
+# os.environ: a stray variable must not change the wire version of
+# production clients.
+test_version_override: str = ""
 
 
 class _EventDecodeCache:
@@ -107,8 +113,8 @@ class HTTPTransport:
         self.throttled_retries = 0
         self.base_url = base_url.rstrip("/")
         self.scheme = scheme or default_scheme
-        # the v1 wire only: any other version raises NotImplementedError
-        self.version = require_version(version)
+        self.version = version or test_version_override \
+            or self.scheme.default_version
         self.timeout = timeout
         self.ssl_context = None
         if base_url.startswith("https") or ca_cert or client_cert \

@@ -135,13 +135,20 @@ class NodeController:
         try:
             bound = self.client.pods(api.NamespaceAll).list(
                 field_selector="spec.host!=")
-            for pod in bound.items:
-                if pod.spec.host not in live:
-                    try:
-                        self.client.pods(pod.metadata.namespace).delete(
-                            pod.metadata.name)
-                    except errors.StatusError:
-                        continue
+            orphans = [p for p in bound.items if p.spec.host not in live]
+            if orphans:
+                # a node created while the checks above ran is not in the
+                # first list, nor are the pods bound to it orphans: ask
+                # again, after the pods were listed
+                fresh = {n.metadata.name
+                         for n in self.client.nodes().list().items}
+                orphans = [p for p in orphans if p.spec.host not in fresh]
+            for pod in orphans:
+                try:
+                    self.client.pods(pod.metadata.namespace).delete(
+                        pod.metadata.name)
+                except errors.StatusError:
+                    continue
         except errors.StatusError:
             pass
         # forget eviction timers of nodes that no longer exist, so a

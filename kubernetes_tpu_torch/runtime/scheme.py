@@ -7,10 +7,12 @@ versioned JSON wire form and decodes wire form back to internal objects,
 applying the version's defaulting pass on decode.
 
 Internal types are version-free; a registered version may own a pair of
-wire-dict transforms, kind aliases and field-label conversions. "v1", the
-one version the port registers (api/latest.py), is the identity transform
-(camelCase dataclass encoding from runtime/serialize.py) and needs none
-of them; the seam stays for the legacy wire (ROADMAP Queue 1 item 13).
+wire-dict transforms, kind aliases and field-label conversions. The
+default version "v1" is the identity transform (camelCase dataclass
+encoding from runtime/serialize.py) and needs none of them; the legacy
+"v1beta1" and "v1beta2" (api/v1beta1.py, api/v1beta2.py) register all
+three in api/latest.py, as the reference ships v1beta1/v1beta2/v1beta3
+side by side.
 """
 
 from __future__ import annotations
@@ -88,6 +90,12 @@ class Scheme:
         if fn is None:
             return label, value
         return fn(label, value)
+
+    def is_identity(self, version: str, kind: str) -> bool:
+        """Whether ``version`` writes ``kind`` as its plain camelCase
+        dataclass encoding: no wire transform and no kind alias."""
+        return (version, kind) not in self._transforms \
+            and (version, kind) not in self._kind_alias_out
 
     def versions(self):
         return sorted(self._types)

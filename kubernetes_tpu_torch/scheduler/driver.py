@@ -437,7 +437,8 @@ class ConfigFactory:
                 self._requeue_threads[:] = [x for x in self._requeue_threads
                                             if x.is_alive()]
                 self._requeue_threads.append(t)
-            t.start()
+                # started under the lock: stop() joins only started threads
+                t.start()
 
         return handle
 

@@ -12,8 +12,9 @@ families), ``/ui/``, ``/debug/pprof/``, ``/debug/trace`` and
 ``/debug/vars`` answer. Each store option builds the store the reference
 builds for it and ``--share-seg`` wires the share segment as the
 reference does; ``--cloud-provider`` gives the service registry the
-reference's provider (none for an unknown name), and the legacy wire is refused by the client and not served. Every process
-stops in a ``finally``; every HTTP read has a timeout.
+reference's provider (none for an unknown name), and the legacy
+v1beta1/v1beta2 wire is served and spoken with the reference's bytes.
+Every process stops in a ``finally``; every HTTP read has a timeout.
 """
 
 import base64
@@ -28,7 +29,6 @@ import pytest
 
 from chip_smoke import _free_port, _stop_process, _wait_http
 from kubernetes_tpu_torch.api import types as api
-from kubernetes_tpu_torch.api.latest import require_version
 from kubernetes_tpu_torch.apiserver.http import APIServer
 from kubernetes_tpu_torch.apiserver.master import Master
 from kubernetes_tpu_torch.client.client import Client
@@ -152,22 +152,57 @@ def test_store_options_build_the_reference_store(flags, want, tmp_path):
 
 
 def test_legacy_wire_is_refused_and_not_served():
-    for version in ("v1beta1", "v1beta2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            require_version(version)
-    srv = APIServer(Master()).start()
+    """The legacy wire, once refused, is now served and spoken (the name
+    is the case's first one): the port's server lists v1, v1beta1 and
+    v1beta2 under /api, and the same minion and pod created through the
+    port's client in each legacy version, then read back by name, as a
+    list and under the legacy field selector, give the reference
+    server's status codes and bodies (UIDs and timestamps normalized)."""
+    from kubernetes_tpu.apiserver.http import APIServer as RefAPIServer
+    from kubernetes_tpu.apiserver.master import Master as RefMaster
+    from test_torch_apiserver_wire import _norm
+    servers = (RefAPIServer(RefMaster()).start(), APIServer(Master()).start())
+    seen = []
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            HTTPTransport(srv.base_url, version="v1beta1")
-        with urllib.request.urlopen(srv.base_url + "/api",
-                                    timeout=TIMEOUT_S) as r:
-            assert json.loads(r.read())["versions"] == ["v1"]
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(srv.base_url + "/api/v1beta1/pods",
-                                   timeout=TIMEOUT_S)
-        assert ei.value.code == 404
+        for srv in servers:
+            code, body, _ = _get(srv.base_url + "/api")
+            assert (code, json.loads(body)["versions"]) == \
+                (200, ["v1", "v1beta1", "v1beta2"])
+            got = []
+            for version in ("v1beta1", "v1beta2"):
+                transport = HTTPTransport(srv.base_url, version=version)
+                assert transport.version == version
+                c = Client(transport)
+                c.nodes().create(api.Node(
+                    metadata=api.ObjectMeta(name=f"n-{version}"),
+                    spec=api.NodeSpec(capacity={})))
+                c.pods().create(api.Pod(
+                    metadata=api.ObjectMeta(name=f"p-{version}",
+                                            namespace="default"),
+                    spec=api.PodSpec(containers=[api.Container(
+                        name="c", image="img")])))
+                assert c.pods().get(f"p-{version}").metadata.name == \
+                    f"p-{version}"
+                base = f"{srv.base_url}/api/{version}"
+                for path in (f"/minions/n-{version}",
+                             f"/pods/p-{version}?namespace=default",
+                             "/minions",
+                             "/pods?namespace=default"
+                             "&fields=DesiredState.Host%3D"):
+                    code, body, _ = _get(base + path)
+                    got.append((code, _norm(json.loads(body))))
+            seen.append(got)
     finally:
-        srv.stop()
+        for srv in servers:
+            srv.stop()
+    want, got = seen
+    assert got == want
+    assert [code for code, _ in got] == [200] * 8
+    minion, pod = got[0][1], got[1][1]
+    assert (minion["kind"], minion["id"]) == ("Minion", "n-v1beta1")
+    assert pod["desiredState"]["manifest"]["version"] == "v1beta1"
+    assert len(got[6][1]["items"]) == 2 and "minions" not in got[6][1]
+    assert len(got[2][1]["minions"]) == 1
 
 
 def _get(url, headers=None):

@@ -10,7 +10,8 @@ in both packages encode to the same JSON, a Binding with victims
 included. The port's types declare every wire field the reference's do,
 over the whole tree of each kind the scheduler decodes, and a field
 neither models is ignored as the reference ignores it; a transport asked
-for a legacy version refuses it; a watch at an expired
+for a legacy version speaks it to the reference apiserver, whose legacy
+bytes the port decodes and writes again unchanged; a watch at an expired
 resourceVersion raises the 410 the reflector relists on, and the port's
 reflector over HTTP loses nothing across that relist.
 """
@@ -353,10 +354,31 @@ def test_unknown_wire_fields_are_ignored_as_the_reference_ignores_them():
 
 
 def test_legacy_wire_versions_are_not_ported(master):
-    for version in ("v1beta1", "v1beta2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            HTTPTransport(master, version=version)
+    """The legacy wire, once refused, is now spoken (the name is the
+    case's first one): the port's transport in v1beta1 and v1beta2
+    creates a pod with every field group on the reference apiserver and
+    reads back what a v1 transport reads; the reference's bytes of it, single and as a list,
+    decode in the port and encode again to the same JSON."""
     assert HTTPTransport(master, version="v1").version == "v1"
+    for version in ("v1beta1", "v1beta2"):
+        transport = HTTPTransport(master, version=version)
+        assert transport.version == version
+        pods = Client(transport).pods("default")
+        name = f"legacy-{version}"
+        pods.create(_full_pod(port_api, PortQuantity, name))
+        assert pods.get(name) == \
+            Client(HTTPTransport(master)).pods("default").get(name)
+        status, one = _get(f"{master}/api/{version}/pods/{name}"
+                           f"?namespace=default")
+        assert status == 200 and one["apiVersion"] == version
+        assert one["id"] == name and "desiredState" in one
+        status, lst = _get(f"{master}/api/{version}/pods?namespace=default")
+        assert status == 200 and lst["kind"] == "PodList"
+        for wire in (one, lst):
+            obj = port_scheme.decode_from_wire(wire)
+            assert json.loads(port_scheme.encode(obj, version)) == wire
+            assert port_scheme.encode(obj, version) == \
+                ref_scheme.encode(ref_scheme.decode_from_wire(wire), version)
 
 
 def test_expired_watch_raises_410_and_the_reflector_relists(master):

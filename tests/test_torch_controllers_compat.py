@@ -463,3 +463,46 @@ def test_machines_with_a_cloud_is_refused(port, tmp_path):
                     tmp_path, "x")
     assert proc.wait(timeout=30) == 2
     assert "mutually exclusive" in (tmp_path / "x_manager.log").read_text()
+
+
+def test_node_sync_keeps_pods_of_a_node_created_while_it_ran():
+    """The NodeController's status sync lists the nodes, writes each
+    one's conditions, then sweeps pods bound to a node that is gone. A
+    node created (and a pod bound to it) while the writes ran is missing
+    from that first list: the port lists the nodes again before it
+    deletes; the reference's sweep deletes the pod as an orphan."""
+    from kubernetes_tpu.apiserver.master import Master as RefMaster
+    from kubernetes_tpu.client.client import Client as RefClient
+    from kubernetes_tpu.client.client import InProcessTransport as RefIPT
+    from kubernetes_tpu.controllers.node import NodeController as RefNC
+    from kubernetes_tpu_torch.apiserver.master import Master as PortMaster
+    from kubernetes_tpu_torch.client.client import Client as PortClient
+    from kubernetes_tpu_torch.client.client import InProcessTransport as PortIPT
+    from kubernetes_tpu_torch.controllers.node import NodeController as PortNC
+
+    survived = {}
+    for name, Master, Client, IPT, NC in (
+            ("ref", RefMaster, RefClient, RefIPT, RefNC),
+            ("port", PortMaster, PortClient, PortIPT, PortNC)):
+        api = __import__(NC.__module__.replace("controllers.node", "api.types"),
+                         fromlist=["Pod"])
+        client = Client(IPT(Master()))
+        client.nodes().create(api.Node(metadata=api.ObjectMeta(name="n0")))
+        nc = NC(client)
+        check = nc._check_one
+
+        def late_node(node, check=check, client=client, api=api):
+            check(node)
+            if not client.nodes().list(field_selector="metadata.name=n1"
+                                       ).items:
+                client.nodes().create(
+                    api.Node(metadata=api.ObjectMeta(name="n1")))
+                client.pods("default").create(api.Pod(
+                    metadata=api.ObjectMeta(name="late", namespace="default"),
+                    spec=api.PodSpec(host="n1", containers=[
+                        api.Container(name="c", image="i")])))
+        nc._check_one = late_node
+        nc.sync_node_status()
+        survived[name] = [p.metadata.name
+                          for p in client.pods("default").list().items]
+    assert survived == {"ref": [], "port": ["late"]}

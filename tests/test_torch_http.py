@@ -2,9 +2,8 @@
 tests/test_http.py, through the port's ``HTTPTransport``: REST routes,
 chunked watch streaming, the hand-rolled request-line and header parser,
 authentication and ABAC, CORS, the read-only port and its rate limiter,
-the encode-once watch fan-out with its lag bound, and ``bindings:batch``.
-``test_v1beta1_flat_encoding`` is left out: the port serves v1 alone
-until the legacy wire is ported (ROADMAP Queue 1 item 13).
+the encode-once watch fan-out with its lag bound, ``bindings:batch``, and
+the legacy v1beta1 wire's flat encoding.
 
 The slow-watcher case is the reference's with one change that makes it
 deterministic: the "fast" watcher reads each event before the next
@@ -17,10 +16,7 @@ import json
 
 from test_torch_twin import port_twin
 
-globals().update(port_twin("test_http", {
-    "TestUnversionedEndpoints::test_v1beta1_flat_encoding":
-        "the legacy v1beta1 wire is not ported (ROADMAP Queue 1 item 13)",
-}))
+globals().update(port_twin("test_http"))
 
 
 def _wait_watchers(srv, n, timeout=10.0):

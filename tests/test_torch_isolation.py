@@ -86,6 +86,33 @@ def test_walk_covers_the_controller_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_kubectl_slice():
+    mods = set(_modules())
+    for m in ("api.v1beta1", "api.v1beta2", "client.clientauth",
+              "client.clientcmd", "kubectl", "kubectl.cmd",
+              "kubectl.describe", "kubectl.generators", "kubectl.printers",
+              "kubectl.resource", "kubectl.scale", "util.stream",
+              "cmd.kubectl", "cmd.version_change", "cmd.gendocs",
+              "cmd.genman"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
+def test_kubectl_imports_no_torch_and_no_numpy():
+    """kubectl runs as a process many times a session: its modules reach
+    neither the models nor the kernels."""
+    code = ("import sys\n"
+            "import kubernetes_tpu_torch.cmd.kubectl\n"
+            "import kubernetes_tpu_torch.cmd.version_change\n"
+            "import kubernetes_tpu_torch.cmd.genman\n"
+            "print(sorted(m for m in ('torch', 'numpy')\n"
+            "             if m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 # series the storage tier and the worker fleet register: the vet's
 # registry universe over the port holds each, so a gate may name it
 _STORAGE_SERIES = ("store_wal_records_total", "store_wal_group_commits_total",
