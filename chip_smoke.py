@@ -116,7 +116,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    tpu-batch --prewarm --metrics-port``) runs in a thread, lists and
    watches over the v1 wire, builds the kernel and solves one exemplar
    wave off its loop; once ``compile_prewarm_ready 1`` reads on
-   /metrics and its caches hold the cluster, 3,000 pending pods are
+   /metrics and its caches hold the cluster, 2,000 pending pods are
    created from 4 threads. Fails unless every pod reads back bound from
    the apiserver, no node is over capacity and no host port doubled,
    each wave launched commit_solve once and the plain version never ran,
@@ -149,7 +149,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    counts and messages, each with the constructed dominant reason;
 9c. the binary with ``--algorithm tpu-batch --pipeline --trace
    --flightrec --prewarm`` against a fresh apiserver process seeded as in
-   phase 9; 3,000 pending, 60 oversized and 60 with a node selector no
+   phase 9; 2,000 pending, 60 oversized and 60 with a node selector no
    node matches. Fails unless every other pod binds to a valid host, the
    pipeline's waves counter equals its committed waves, a FailedScheduling
    event of each kind carries the breakdown line (summing to 5,000, the
@@ -183,11 +183,11 @@ and holds the kernel against its plain PyTorch version. Phases:
    which the serial scheduler cannot look up) and its 1,500 and 2,100-node
    waves == ``solve_serial`` (``gangs`` where the wave has them); (b)
    north_star's 5,000 nodes, 10,000 bound pods and 8 services with its
-   first 128 pending pods == ``solve_serial`` (half of
+   first 64 pending pods == ``solve_serial`` (a quarter of
    ``_ORACLE_NS_PODS``, the largest count the oracle takes in 60 s on a
    build host's CPU); (c) phase 4c's preemption waves without gangs and
    its 1,500-node wave == ``preempt_serial``, node and victim set; (d)
-   128 of phase 7e's unschedulable pods (the same four kinds) once its
+   64 of phase 7e's unschedulable pods (the same four kinds) once its
    10,000 pending are bound where the kernel
    put them: ``explain_wave`` on the card count-identical to
    ``explain_serial``. Each compared wave is one counted launch of
@@ -251,20 +251,20 @@ and holds the kernel against its plain PyTorch version. Phases:
    no labels), the scheduler binary in a thread. The NodeController
    registers the 5,000 nodes and writes their conditions (nodes/s
    logged); north_star's 8 services and 10,000 residents are seeded;
-   40 RCs ``rc-{a}-{v}`` of 150 (app ``app-{a}``, the ``v = 0``
-   templates with host port ``7000 + a``) are created, and the
-   ReplicationManager's 6,000 pods bind (pods/s from the first RC
+   20 RCs ``rc-{a}-{v}`` of 100 (4 apps ``app-{a}`` of 5 versions, the
+   ``v = 0`` templates with host port ``7000 + a``) are created, and the
+   ReplicationManager's 2,000 pods bind (pods/s from the first RC
    create to the last bind); the inventory is rewritten without 100
    instances: their nodes and pods go, the RCs recreate what they lost
    and it binds on the 4,900 left (seconds to recover); ``rc-0-1``
-   scales to 100 and ``rc-1-1`` to 400. Each step waits until every RC
+   scales to 60 and ``rc-1-1`` to 300. Each step waits until every RC
    stands at its count, bound, nothing on a departed node. Fails unless
    each wave launched commit_solve once, equals the plain version and
    ``solve(encode_snapshot(...))`` of the encoder's own state, no node
    is over capacity, no host port doubled, the scale-down took only its
-   RC's pods and the manager exits 0 on SIGTERM; replicas created beyond
-   the targets (the reference's racing syncs) are logged, as are the
-   full and delta encodes.
+   RC's pods, the manager exits 0 on SIGTERM and no replica was created
+   beyond the targets (the reference's racing syncs create some; the
+   port syncs one RC at a time); the full and delta encodes are logged.
 16. an operator's kubectl session feeding the card: the apiserver and
    the controller manager (no cloud) as processes, the binary in a
    thread, kubectl as processes over a kubeconfig it writes itself
@@ -272,17 +272,36 @@ and holds the kernel against its plain PyTorch version. Phases:
    ``api-versions`` prints v1, v1beta1, v1beta2; ``cluster-info``,
    ``version``, one request through ``proxy --once``). north_star's
    5,000 nodes go in as one v1beta1 MinionList file and its 8 services
-   as a v1beta2 List, both by ``kubectl create -f``; its first 3,000
+   as a v1beta2 List, both by ``kubectl create -f``; its first 1,500
    pending pods as a v1beta1 PodList, under a v1beta1 watch: each reads
    back bound in v1beta1 (``desiredState.host``) as in v1, and the
    legacy field selector ``DesiredState.Host=`` lists none. Then the 50
    nodes with the most free CPU are cordoned, ``run-container web`` of
-   1,000 is resized to 2,000 (every pod bound, none on a cordoned
+   500 is resized to 1,000 (every pod bound, none on a cordoned
    node), ``small`` (10) is rolled to ``small-v2``, a 64-CPU pod is
    described with its FailedScheduling breakdown, and everything is
    stopped and deleted again. Fails on any kubectl exit but 0, unless
    each wave launched commit_solve once and equals the plain version
    and ``solve(encode_snapshot(...))`` of the encoder's state.
+17. kubectl drain and the kubelets: (a) at the reference's fragment
+   storm's width, the apiserver process with north_star's 5,000 nodes, 8
+   services and first 8,000 residents, the binary in a thread; 8 nodes
+   drained by kubectl processes; 500 pods created while the binary's
+   loop is held, the port's kube-descheduler started as a process
+   (``--period 1 --qps 1``): it declines with ``pending_work``, which
+   releases the binary; then it migrates. Fails unless every drained
+   node ends empty, no pod moved twice or was lost, every placement
+   fits, no migration came before the decline, no score regression and
+   a fragmentation gauge that never rises. (b) The apiserver and the
+   controller manager as processes, the binary in a thread, 4 kubelet
+   processes with the process runtime (5 CPUs, 8Gi): an RC of 120 pods
+   behind a service runs as process groups under the native pause
+   sandbox (built by g++ into ``kubernetes_tpu_torch/kubelet/_build``;
+   the phase prints it), the endpoints name all 120; ``kubectl drain
+   node-0`` and the descheduler move its pods, its runtime ends with no
+   live process, and all 120 run again on the other nodes. Each wave of
+   both launched commit_solve once and equals the plain version and
+   ``solve(encode_snapshot(...))`` of the encoder's state.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -291,8 +310,8 @@ device and nvcc, and exits non-zero without printing a result when either
 the device or the port's package is missing. A record of every number
 goes to ``chiprun_out/chip_smoke.json``, the apiservers' and the
 binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log``,
-``phase12_*.log``, ``phase14*.log``, ``phase15_*.log`` and
-``phase16_*.log``.
+``phase12_*.log``, ``phase14*.log``, ``phase15_*.log``,
+``phase16_*.log`` and ``phase17*.log``.
 """
 
 from __future__ import annotations
@@ -4864,17 +4883,38 @@ class _LifeWatch(_BindWatch):
     was first seen (``seen``), its labels, its hosts and first bind (pods),
     when its conditions were first written (nodes, ``conds``) and when it
     was deleted (``deleted``; a relist marks what it no longer lists);
-    ``events`` counts what it saw."""
+    ``events`` counts what it saw. With ``count_by`` (a label's name) it
+    keeps, for each value of that label, how many objects carrying it are
+    alive (``alive_by``) and the most that ever were at once
+    (``peak_by``)."""
 
     def __init__(self, url: str, resource: str = "pods",
-                 want=lambda obj: True):
+                 want=lambda obj: True, count_by: str = ""):
         self.resource, self.want = resource, want
         self.seen: dict = {}
         self.labels: dict = {}
         self.conds: dict = {}
         self.deleted: dict = {}
         self.events = 0
+        self.count_by = count_by
+        self.alive_by: dict = {}
+        self.peak_by: dict = {}
+        self.peak_at: dict = {}
         super().__init__(url, names=None)
+
+    def _count(self, name: str, step: int) -> None:
+        key = self.labels[name].get(self.count_by)
+        if self.count_by and key is not None:
+            n = self.alive_by[key] = self.alive_by.get(key, 0) + step
+            if n > self.peak_by.get(key, 0):
+                self.peak_by[key] = n
+                self.peak_at[key] = (time.perf_counter(), name,
+                                     self.relists, self.resumes)
+
+    def _gone(self, name: str, t: float) -> None:
+        if name in self.seen and name not in self.deleted:
+            self._count(name, -1)
+        self.deleted.setdefault(name, t)
 
     def _resource(self):
         return (self.client.pods("") if self.resource == "pods"
@@ -4886,8 +4926,13 @@ class _LifeWatch(_BindWatch):
         name, t = obj.metadata.name, time.perf_counter()
         self.events += 1
         if kind == "DELETED":
-            self.deleted.setdefault(name, t)
+            self.labels.setdefault(name, dict(obj.metadata.labels))
+            self._gone(name, t)
             return
+        if name not in self.seen and name not in self.deleted:
+            self.labels.setdefault(name, dict(obj.metadata.labels))
+            self.seen[name] = t
+            self._count(name, 1)
         self.seen.setdefault(name, t)
         self.labels.setdefault(name, dict(obj.metadata.labels))
         if self.resource == "pods":
@@ -4898,14 +4943,16 @@ class _LifeWatch(_BindWatch):
             self.conds.setdefault(name, t)
 
     def _relist(self) -> str:
+        # what the list no longer holds is gone before what it newly holds
+        # is counted, so that a pod replaced while the watch was down does
+        # not count twice in ``alive_by``
         lst = self._resource().list()
-        listed = set()
-        for obj in lst.items:
-            self._see(obj)
-            listed.add(obj.metadata.name)
+        listed = {obj.metadata.name for obj in lst.items}
         t = time.perf_counter()
         for name in set(self.seen) - listed:
-            self.deleted.setdefault(name, t)
+            self._gone(name, t)
+        for obj in lst.items:
+            self._see(obj)
         return lst.metadata.resource_version
 
     def alive(self) -> set:
@@ -5027,9 +5074,10 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
     ``solve(encode_snapshot(...))`` of the encoder's own state, every
     failed bind is of a pod deleted since, no node is over capacity and
     no host port doubled, the scale-down took only pre-existing pods of
-    its RC, and the manager exits 0 on SIGTERM. Replicas created beyond
-    the targets (the reference's watch and periodic syncs racing, without
-    expectations) are counted, not failed. ``keep_rows`` returns the
+    its RC, the manager exits 0 on SIGTERM, and the RCs created exactly
+    the pods their counts and the shrink needed (the reference's watch
+    and periodic syncs of one RC race, and create beyond the targets; the
+    port runs one sync of an RC at a time). ``keep_rows`` returns the
     waves with their states (for the CPU tests' check against the JAX
     package)."""
     import gc
@@ -5040,7 +5088,6 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
 
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.http import HTTPTransport
-    from kubernetes_tpu_torch.cmd import scheduler as cmd
     from kubernetes_tpu_torch.models.fixtures import build_cluster
     from kubernetes_tpu_torch.ops import commit_solver
 
@@ -5080,7 +5127,8 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
         client = Client(HTTPTransport(url))
         nodes_w = _LifeWatch(url, "nodes")
         pods_w = _LifeWatch(url, "pods",
-                            want=lambda p: "rc" in p.metadata.labels)
+                            want=lambda p: "rc" in p.metadata.labels,
+                            count_by="rc")
         watches += [nodes_w, pods_w]
 
         # ---- (1) the NodeController registers the inventory -------------
@@ -5119,22 +5167,9 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
         # ---- (2) seed services and residents; the binary -----------------
         seed_s = _seed_cluster(client, [], existing, services, seeders, tag)
         _log(f"     {tag}: {elapsed()} residents and services seeded")
-        mport = _free_port()
-        argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
-                "--wave-period", str(wave_period), "--metrics-port",
-                str(mport), "--device", _device_type(dev)]
-
-        def on_built(sched):
-            if wave_size is not None:
-                sched.wave_size = wave_size
-            wl(sched)
-
-        thread = threading.Thread(
-            target=lambda: result.update(rc=cmd.scheduler_server(
-                argv, ready, stop, on_built=on_built)), daemon=True,
-            name="phase15-binary")
-        thread.start()
-        murl = f"http://127.0.0.1:{mport}"
+        thread, murl = _start_binary("phase15", url, dev, wl, result, stop,
+                                     ready, wave_size=wave_size,
+                                     wave_period=wave_period)
         wait(lambda: "rc" in result or "compile_prewarm_ready 1" in
              _wait_http(murl + "/metrics", None,
                         f"{tag}: the scheduler binary").splitlines(),
@@ -5351,12 +5386,31 @@ def _controller_phase(dev, n_nodes=5_000, apps=8, versions=5, replicas=250,
                           count_launches, launches, plain_calls, gone=gone)
     needed = (sum(replicas for _ in rcs) + steps["shrink"]["rc_pods_lost"]
               + sum(max(0, n - replicas) for _n, n in scale))
+    # a replica beyond its target: more of an RC's pods alive at once than
+    # the most it ever asked for (deletions come before the replacements
+    # in the watch, and no kubelet fails a pod here)
+    cap = {n: max(replicas, dict(scale).get(n, 0)) for n in targets}
+    beyond = {n: pods_w.peak_by.get(n, 0) - cap[n] for n in targets
+              if pods_w.peak_by.get(n, 0) > cap[n]}
+    if beyond:
+        seen = {n: [(round(pods_w.seen[p] - t_first, 3),
+                     round(pods_w.deleted[p] - t_first, 3)
+                     if p in pods_w.deleted else None, p)
+                    for p in pods_w.seen
+                    if pods_w.labels[p].get("rc") == n] for n in beyond}
+        raise AssertionError(
+            f"{tag}: replicas beyond their targets {beyond}; at their "
+            f"peaks (s, pod, relists, resumes): "
+            f"{ {n: (round(pods_w.peak_at[n][0] - t_first, 3), *pods_w.peak_at[n][1:]) for n in beyond} }; "
+            f"their pods deleted (seen s, deleted s, name): "
+            f"{ {n: [x for x in v if x[1] is not None] for n, v in seen.items()} }; "
+            f"last seen: { {n: sorted(v)[-3:] for n, v in seen.items()} }")
     out = {
         "nodes": n_nodes, "existing": len(existing), "services": len(services),
         "rcs": len(rcs), "replicas": replicas, "steps": steps,
         "seed_s": seed_s, "prewarm_s": wl.sched.prewarm_s,
         "created": len(pods_w.seen), "needed": needed,
-        "over_created": len(pods_w.seen) - needed,
+        "over_created": sum(beyond.values()),
         "deleted": len(gone), "watch_resumes": pods_w.resumes,
         "watch_relists": pods_w.relists,
         "encodes": {k: sum(r.get("encode_path") == k for r in rows)
@@ -5511,7 +5565,6 @@ def _kubectl_phase(dev, n_nodes=5_000, n_legacy=3_000, web=(1_000, 2_000),
     from kubernetes_tpu_torch.api.quantity import Quantity
     from kubernetes_tpu_torch.client.client import Client
     from kubernetes_tpu_torch.client.http import HTTPTransport
-    from kubernetes_tpu_torch.cmd import scheduler as cmd
     from kubernetes_tpu_torch.models.fixtures import build_cluster
     from kubernetes_tpu_torch.ops import commit_solver
     from kubernetes_tpu_torch.scheduler.predicates import (
@@ -5625,22 +5678,9 @@ def _kubectl_phase(dev, n_nodes=5_000, n_legacy=3_000, web=(1_000, 2_000),
             "seed_s": seed_s}
         _log(f"     {tag}: {elapsed()} {n_nodes} v1beta1 minions and "
              f"{len(services)} v1beta2 services created, residents seeded")
-        mport = _free_port()
-        argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
-                "--wave-period", str(wave_period), "--metrics-port",
-                str(mport), "--device", _device_type(dev)]
-
-        def on_built(sched):
-            if wave_size is not None:
-                sched.wave_size = wave_size
-            wl(sched)
-
-        thread = threading.Thread(
-            target=lambda: result.update(rc=cmd.scheduler_server(
-                argv, ready, stop, on_built=on_built)), daemon=True,
-            name="phase16-binary")
-        thread.start()
-        murl = f"http://127.0.0.1:{mport}"
+        thread, murl = _start_binary("phase16", url, dev, wl, result, stop,
+                                     ready, wave_size=wave_size,
+                                     wave_period=wave_period)
         wait(lambda: "compile_prewarm_ready 1" in _wait_http(
             murl + "/metrics", None, f"{tag}: the scheduler binary"
         ).splitlines(), "the binary's prewarm", 600.0, poll_s=0.2)
@@ -5957,6 +5997,794 @@ def _log_kubectl(k: dict) -> None:
          f"{k['phase_s']:.1f} s")
 
 
+class _PathWatch(_LifeWatch):
+    """Pods through ``_LifeWatch``'s resuming watch, with the hosts each
+    was bound to in order (``path``: a bind, then each migration's
+    target), the uids seen under each name (``uids``), the wall time of
+    each pod's last host change (``moved_at``), when each was first seen
+    Running where it is bound (``running``: a status whose host is the
+    pod's and whose containers all started after its last host change, so
+    the Running that a migration carries over from the source node does
+    not count), and the pods seen Failed with the status's message
+    (``failed``)."""
+
+    def __init__(self, url: str):
+        self.path: dict = {}
+        self.uids: dict = {}
+        self.moved_at: dict = {}
+        self.running: dict = {}
+        self.failed: dict = {}
+        super().__init__(url, "pods")
+
+    def _see(self, obj, kind: str = "") -> None:
+        super()._see(obj, kind)
+        if kind == "DELETED":
+            return
+        name, host, st = obj.metadata.name, obj.spec.host, obj.status
+        self.uids.setdefault(name, set()).add(obj.metadata.uid)
+        if host:
+            path = self.path.setdefault(name, [])
+            if not path or path[-1] != host:
+                path.append(host)
+                self.moved_at[name] = time.time()
+                self.running.pop(name, None)
+        if st.phase == "Failed":
+            self.failed[name] = st.message
+        if not host or st.phase != "Running" or st.host != host:
+            return
+        since = self.moved_at.get(name, 0.0) if len(self.path[name]) > 1 \
+            else 0.0
+        started = [cs.state.running.started_at for cs in
+                   st.container_statuses if cs.state.running is not None]
+        if len(started) == len(obj.spec.containers) and all(
+                s is not None and s.timestamp() >= since - 1.0
+                for s in started):
+            self.running.setdefault(name, time.perf_counter())
+
+    def on(self, hosts) -> set:
+        """The live pods whose last host is in ``hosts``."""
+        hosts = set(hosts)
+        return {n for n in self.alive() if self.path.get(n)
+                and self.path[n][-1] in hosts}
+
+
+def _kubectl_for(url: str, work: str, tag: str, times: list):
+    """``_kubectl_runner`` over a kubeconfig in ``work`` that points at
+    ``url`` (written by kubectl's own ``config`` commands)."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "KUBERNETES_AUTH_PATH"}
+    env.update(KUBECONFIG=os.path.join(work, "kubeconfig"), HOME=work)
+    kubectl = _kubectl_runner(env, tag, times)
+    kubectl("config", "set-cluster", "local", f"--server={url}")
+    kubectl("config", "set-context", "c", "--cluster=local")
+    kubectl("config", "use-context", "c")
+    return kubectl
+
+
+def _defrag_metrics(murl: str) -> dict:
+    """The descheduler process's defrag series from its ``/metrics``."""
+    code, body = _http_get(murl + "/metrics")
+    if code != 200:
+        raise AssertionError(f"the descheduler's /metrics answered {code}")
+    out = {k: _metric_value(body, f"defrag_{k}", 0.0) for k in (
+        "waves_total", "migrations_total", "conflicts_total",
+        "nodes_drained_total", "nodes_emptied_total", "wave_seconds_total",
+        "score_regressions_total", "fragmentation_score")}
+    out["declined"] = {r: _metric_value(
+        body, f'defrag_declined_total{{reason="{r}"}}', 0.0)
+        for r in ("rate_limited", "pending_work", "error")}
+    return out
+
+
+class _DefragSampler:
+    """``_defrag_metrics`` of a descheduler every ``period_s`` s, in a
+    thread of its own, into ``samples`` (each with its time ``t``)."""
+
+    def __init__(self, murl: str, period_s: float = 0.2):
+        import threading
+
+        self.murl, self.samples = murl, []
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(period_s,),
+                                       daemon=True, name="defrag-sampler")
+        self.thread.start()
+
+    def _run(self, period_s: float) -> None:
+        while not self._stop.is_set():
+            try:
+                m = _defrag_metrics(self.murl)
+                m["t"] = time.perf_counter()
+                self.samples.append(m)
+            except (OSError, AssertionError):
+                pass
+            self._stop.wait(period_s)
+
+    def last(self) -> dict:
+        if not self.samples:
+            return {"waves_total": 0.0, "migrations_total": 0.0,
+                    "declined": {"pending_work": 0.0}}
+        return self.samples[-1]
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.thread.join(timeout=10)
+
+
+def _check_defrag(samples, tag: str) -> dict:
+    """The descheduler's series over a run: no score regression, and the
+    fragmentation gauge never rising once a wave has set it -> the
+    gauge's values, in order, without repeats."""
+    scores: list = []
+    for m in samples:
+        if m["score_regressions_total"]:
+            raise AssertionError(f"{tag}: defrag_score_regressions_total "
+                                 f"{m['score_regressions_total']}")
+        if m["waves_total"] >= 1:
+            if scores and m["fragmentation_score"] > scores[-1]:
+                raise AssertionError(f"{tag}: the fragmentation gauge rose "
+                                     f"from {scores[-1]} to "
+                                     f"{m['fragmentation_score']}")
+            if not scores or m["fragmentation_score"] != scores[-1]:
+                scores.append(m["fragmentation_score"])
+    return scores
+
+
+def _runtime_procs(root: str) -> dict:
+    """pid -> (process group, working directory, argv[0]) of the live
+    processes (zombies left out) working under ``root``: the pods' sandbox
+    and container processes of the process runtimes rooted there."""
+    out = {}
+    root = os.path.realpath(root)
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            cwd = os.readlink(f"/proc/{d}/cwd")
+            with open(f"/proc/{d}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+            with open(f"/proc/{d}/cmdline", "rb") as fh:
+                argv0 = fh.read().split(b"\0")[0].decode()
+            pgid = os.getpgid(int(d))
+        except OSError:
+            continue
+        if state != "Z" and (cwd == root or cwd.startswith(root + os.sep)):
+            out[int(d)] = (pgid, cwd, argv0)
+    return out
+
+
+def _kill_runtime_procs(root: str) -> int:
+    """SIGKILL the process group of every process working under ``root``
+    -> how many processes there were."""
+    import signal
+
+    procs = _runtime_procs(root)
+    for pgid in {g for g, _c, _e in procs.values()}:
+        try:
+            os.killpg(pgid, signal.SIGKILL)
+        except OSError:
+            pass
+    return len(procs)
+
+
+def _gated(sched, gate, stop) -> None:
+    """Hold ``sched``'s wave loop before each wave until ``gate`` is set
+    (or ``stop``): pods created meanwhile wait unbound."""
+    inner = sched.schedule_wave
+
+    def schedule_wave(timeout=None):
+        while not gate.is_set() and not stop.is_set():
+            gate.wait(0.05)
+        return inner(timeout)
+    sched.schedule_wave = schedule_wave
+
+
+def _start_binary(tag: str, url: str, dev, wl, result: dict, stop, ready,
+                  on_built=None, wave_size=None, wave_period=1.0):
+    """The scheduler binary (``--algorithm tpu-batch --prewarm
+    --wave-period``) in a thread of this process, its waves recorded by
+    ``wl`` (and ``on_built(sched)`` after) -> (thread, metrics URL)."""
+    import threading
+
+    from kubernetes_tpu_torch.cmd import scheduler as cmd
+
+    mport = _free_port()
+    argv = ["--master", url, "--algorithm", "tpu-batch", "--prewarm",
+            "--wave-period", str(wave_period), "--metrics-port",
+            str(mport), "--device", _device_type(dev)]
+
+    def built(sched):
+        if wave_size is not None:
+            sched.wave_size = wave_size
+        wl(sched)
+        if on_built is not None:
+            on_built(sched)
+
+    thread = threading.Thread(
+        target=lambda: result.update(rc=cmd.scheduler_server(
+            argv, ready, stop, on_built=built)), daemon=True,
+        name=f"{tag}-binary")
+    thread.start()
+    return thread, f"http://127.0.0.1:{mport}"
+
+
+def _descheduler_phase(dev, n_nodes=5_000, n_residents=8_000, n_drain=8,
+                       n_extra=500, seeders=8, wave_size=None,
+                       extra_waves=2, count_launches=True,
+                       keep_rows=False) -> dict:
+    """Phase 17 (a): ``kubectl drain`` emptying nodes through the
+    descheduler, at the reference's fragment-storm width. The port's
+    kube-apiserver as a process; north_star's ``n_nodes`` nodes, its 8
+    services and its first ``n_residents`` residents seeded and bound;
+    the scheduler binary (``--algorithm tpu-batch --prewarm
+    --wave-period 1``) in a thread, its waves recorded with the
+    encoder's state. ``kubectl drain`` of ``n_drain`` nodes that hold
+    residents, as processes; once the binary's node poll has dropped
+    them, ``n_extra`` of north_star's pending pods are created while the
+    binary's loop is held before its next wave, and the port's
+    kube-descheduler starts as a process (``--period 1 --qps 1
+    --metrics-port``). Its waves decline with ``pending_work``; the
+    first decline releases the binary, which binds the pods; then the
+    descheduler migrates. Once every drained node is empty, the phase
+    waits for ``extra_waves`` more waves and stops it. Fails unless every
+    drained node ends with no pod, a watch of pods saw each pod's host
+    change at most once after its bind, the pods (names and uids) before
+    the first migration are the pods after the last, every placement fits
+    and none is on a cordoned node, no migration came before the first
+    ``pending_work`` decline, ``defrag_score_regressions_total`` stays 0
+    and the fragmentation gauge never rises (sampled every 0.2 s), the
+    descheduler exits 0 on SIGTERM, and each of the binary's waves
+    launched commit_solve once and equals the plain version and
+    ``solve(encode_snapshot(...))`` of the encoder's state (a pod moved
+    since reads back where the descheduler put it)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    tag = "phase 17 (a)"
+    t_phase = time.perf_counter()
+
+    def elapsed() -> str:
+        return f"{time.perf_counter() - t_phase:.1f} s in,"
+    nodes, existing, pending, services = build_cluster(n_nodes, n_extra)
+    residents = existing[:n_residents]
+    holding = sorted({p.spec.host for p in residents})
+    drained = holding[::max(1, len(holding) // n_drain)][:n_drain]
+    extra = {p.metadata.name for p in pending}
+    work = tempfile.mkdtemp(prefix="phase17a-")
+    kubectl_s: list = []
+    wl = _WaveLog(keep_state=True)
+    gate = threading.Event()
+    procs: list = []
+    watches: list = []
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = sampler = None
+    steps: dict = {}
+    try:
+        api_proc, url = _start_apiserver("phase17a")
+        procs.append(api_proc)
+        client = Client(HTTPTransport(url))
+        wait = _waiter(tag, procs, result, elapsed, 300.0)
+        seed_s = _seed_cluster(client, nodes, residents, services, seeders,
+                               tag)
+        _log(f"     {tag}: {elapsed()} {n_nodes} nodes, {len(services)} "
+             f"services and {n_residents} residents seeded")
+        thread, murl = _start_binary(
+            "phase17a", url, dev, wl, result, stop, ready,
+            on_built=lambda s: _gated(s, gate, stop), wave_size=wave_size)
+        wait(lambda: "compile_prewarm_ready 1" in _wait_http(
+            murl + "/metrics", None, f"{tag}: the scheduler binary"
+        ).splitlines(), "the binary's prewarm", 600.0, poll_s=0.2)
+        f = wl.sched.factory
+        wait(lambda: (len(f.node_store) == n_nodes
+                      and len(f.scheduled_pods) == n_residents
+                      and len(f.service_store) == len(services)),
+             "the scheduler's caches to hold the cluster")
+        pods_w = _PathWatch(url)
+        watches.append(pods_w)
+        kubectl = _kubectl_for(url, work, tag, kubectl_s)
+
+        # ---- drain ----------------------------------------------------------
+        drain_out: list = []
+        t_drain = time.perf_counter()
+        _parallel(8, drained,
+                  lambda n: drain_out.append(kubectl("drain", n)))
+        drain_s = time.perf_counter() - t_drain
+        want = sorted(f"node/{n} cordoned\nnode/{n} draining (pods migrate "
+                      f"on the next descheduler wave)\n" for n in drained)
+        if sorted(drain_out) != want:
+            raise AssertionError(f"{tag}: drain printed "
+                                 f"{sorted(drain_out)[:1]}")
+        on_drained0 = len(pods_w.on(drained))
+        wait(lambda: not {n.metadata.name for n in f.node_store.list()}
+             & set(drained), "the scheduler's nodes to drop the drained")
+        _log(f"     {tag}: {elapsed()} {n_drain} nodes drained by kubectl "
+             f"({on_drained0} pods on them), the binary's nodes without "
+             f"them")
+
+        # ---- pending work, then the descheduler -----------------------------
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t_first = time.perf_counter()
+        _parallel(seeders, pending, lambda p: client.pods().create(p))
+        dport = _free_port()
+        dsched, dsched_ready_s = _spawn(
+            "phase17a_descheduler", "kubernetes_tpu_torch.cmd.descheduler",
+            ["--master", url, "--period", "1", "--qps", "1",
+             "--metrics-port", dport], "kube-descheduler running")
+        procs.append(dsched)
+        durl = f"http://127.0.0.1:{dport}"
+        sampler = _DefragSampler(durl)
+        wait(lambda: sampler.last()["declined"]["pending_work"] >= 1,
+             "the descheduler's pending_work decline")
+        at_gate = _defrag_metrics(durl)
+        if at_gate["migrations_total"] or at_gate["waves_total"]:
+            raise AssertionError(f"{tag}: the descheduler solved before "
+                                 f"the pending pods were bound: {at_gate}")
+        t_gate = time.perf_counter()
+        gate.set()
+        wait(lambda: extra <= set(pods_w.first),
+             f"the binds of {n_extra} pods",
+             progress=lambda: f"{len(extra & set(pods_w.first))} bound")
+        t_bound = max(pods_w.first[n] for n in extra)
+        t_bound_wall = time.time() - (time.perf_counter() - t_bound)
+        waves_at_bound = sampler.last()["waves_total"]
+        before = {(p.metadata.name, p.metadata.uid)
+                  for p in client.pods("").list().items}
+        wait(lambda: not pods_w.on(drained), "the drained nodes to empty",
+             progress=lambda: f"{len(pods_w.on(drained))} pods left on "
+                              f"them, {sampler.last()}")
+        t_empty = time.perf_counter()
+        waves_at_empty = _defrag_metrics(durl)["waves_total"]
+        wait(lambda: sampler.last()["waves_total"] >= waves_at_empty
+             + extra_waves, f"{extra_waves} more descheduler waves")
+        final_m = _defrag_metrics(durl)
+        dsched.send_signal(signal.SIGTERM)
+        dsched_rc = dsched.wait(timeout=30)
+        sampler.stop()
+        final = client.pods("").list().items
+        final_nodes = client.nodes().list().items
+        svcs = f.service_store.list()
+        launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
+        _log(f"     {tag}: {elapsed()} {n_extra} pods bound, the drained "
+             f"nodes empty, {int(final_m['waves_total'])} descheduler "
+             f"waves, {int(final_m['migrations_total'])} migrations")
+    except BaseException:
+        _abort_children(procs, "phase17a")
+        raise
+    finally:
+        gate.set()
+        if sampler is not None:
+            sampler.stop()
+        for w in watches:
+            w.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        for p in procs:
+            _stop_process(p)
+        shutil.rmtree(work, ignore_errors=True)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the binary returned "
+                             f"{result.get('rc')}")
+    if dsched_rc != 0:
+        raise AssertionError(f"{tag}: the descheduler exited {dsched_rc} "
+                             f"on SIGTERM")
+
+    # ---- the checks, after the run -----------------------------------------
+    t_check = time.perf_counter()
+    after = {(p.metadata.name, p.metadata.uid) for p in final}
+    if after != before:
+        raise AssertionError(f"{tag}: pods before the migrations "
+                             f"{len(before)}, after {len(after)}; "
+                             f"{len(before - after)} lost, e.g. "
+                             f"{sorted(before - after)[:1]}")
+    twice = [n for n, path in pods_w.path.items() if len(path) > 2]
+    if twice or any(len(u) != 1 for u in pods_w.uids.values()):
+        raise AssertionError(f"{tag}: {len(twice)} pods moved more than "
+                             f"once, e.g. {twice[:1]}")
+    left = [p.metadata.name for p in final if p.spec.host in drained]
+    if left:
+        raise AssertionError(f"{tag}: {len(left)} pods left on drained "
+                             f"nodes, e.g. {left[0]}")
+    _check_placements(final, final_nodes, tag)
+    if sorted(n.metadata.name for n in final_nodes
+              if n.spec.unschedulable) != sorted(drained):
+        raise AssertionError(f"{tag}: the cordoned nodes are not the "
+                             f"drained ones")
+    scores = _check_defrag(sampler.samples, tag)
+    moved = {n for n, path in pods_w.path.items() if len(path) == 2}
+    move_t = sorted(pods_w.moved_at[n] for n in moved)
+    if len(moved) != final_m["migrations_total"] or not moved:
+        raise AssertionError(f"{tag}: the watch saw {len(moved)} pods move, "
+                             f"the descheduler counts "
+                             f"{final_m['migrations_total']} migrations")
+    rows = [r for r in wl.rows if r["order"]]
+    checks = _check_waves(rows, final, extra, svcs, dev, tag,
+                          count_launches, launches, plain_calls, gone=moved)
+    waves = final_m["waves_total"]
+    out = {
+        "nodes": n_nodes, "residents": n_residents,
+        "services": len(services), "drained": drained, "extra": n_extra,
+        "seed_s": seed_s, "prewarm_s": wl.sched.prewarm_s,
+        "drain_s": drain_s, "on_drained": on_drained0,
+        "kubectl_runs": len(kubectl_s),
+        "kubectl_median_s": statistics.median(kubectl_s),
+        "descheduler_ready_s": dsched_ready_s,
+        "gate_s": t_gate - t_first, "bind_s": t_bound - t_gate,
+        "pods_per_s": n_extra / (t_bound - t_gate),
+        "drain_to_empty_s": t_empty - t_drain,
+        "bound_to_empty_s": t_empty - t_bound,
+        "migrations": len(moved),
+        "mandatory": sum(1 for n in moved if pods_w.path[n][0] in drained),
+        # from the last bind (no pending work left) to the last move
+        "migrations_per_s": len(moved) / (move_t[-1] - t_bound_wall),
+        "migrations_per_wave": len(moved) / max(
+            waves - waves_at_bound, 1),
+        "descheduler": {k: v for k, v in final_m.items()},
+        "wave_cpu_s": final_m["wave_seconds_total"] / max(waves, 1),
+        "scores": scores,
+        "encodes": {k: sum(r.get("encode_path") == k for r in rows)
+                    for k in ("full", "delta", "replay")},
+        "waves": _wave_rows(rows, t_first), "launches": launches,
+        "plain_calls": plain_calls, **checks,
+        "checks_s": time.perf_counter() - t_check,
+        "phase_s": time.perf_counter() - t_phase}
+    if keep_rows:
+        out["rows"], out["svcs"] = rows, svcs
+    return out
+
+
+def _kubelet_phase(dev, kubelets=4, replicas=120, node_cpu="5",
+                   node_memory="8Gi", wave_size=None, count_launches=True,
+                   keep_rows=False) -> dict:
+    """Phase 17 (b): kubelets running the pods ``commit_solve`` placed,
+    and a drain moving them. The port's kube-apiserver and
+    kube-controller-manager (no cloud) as processes, the scheduler binary
+    (``--algorithm tpu-batch --prewarm --wave-period 1``) in a thread,
+    and ``kubelets`` kubelets as processes (``python -m
+    kubernetes_tpu_torch.cmd.kubelet --register-node --container-runtime
+    process``, ``node_cpu`` and ``node_memory`` each, each with its own
+    root directory and port). A service ``web`` and an RC of ``replicas``
+    pods behind it (100m and 64Mi, ``sleep 3600``: density.go's 30 a node
+    at the defaults, which leave every node above the descheduler's
+    700-permille source line, so that only node-0's pods move). Fails
+    unless every pod binds and reaches Running through
+    its kubelet's status, each runtime holds a sandbox and a container
+    process for each of its pods (the process table: processes working
+    under the runtime's root) and the sandboxes are the native pause
+    binary, the endpoints name every pod with its IP, and no pod is ever
+    Failed (no kubelet rejects a bound pod). Then ``kubectl drain
+    node-0`` and the port's kube-descheduler as a process (``--period 1
+    --qps 1``): node-0's pods move, node-0's runtime ends with no live
+    process, every pod is Running again through the kubelet of its new
+    node, the endpoints name every pod again, no pod is lost or moved
+    twice, and each of the binary's waves launched commit_solve once and
+    equals the plain version and ``solve(encode_snapshot(...))`` of the
+    encoder's state. Every process the runtimes started is killed at the
+    end."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.kubelet import process_runtime
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    tag = "phase 17 (b)"
+    t_phase = time.perf_counter()
+
+    def elapsed() -> str:
+        return f"{time.perf_counter() - t_phase:.1f} s in,"
+    names = [f"node-{i}" for i in range(kubelets)]
+    work = os.path.realpath(tempfile.mkdtemp(prefix="phase17b-"))
+    roots = {n: os.path.join(work, n) for n in names}
+    labels = {"app": "web"}
+    rc = api.ReplicationController(
+        metadata=api.ObjectMeta(name="web", namespace="default"),
+        spec=api.ReplicationControllerSpec(
+            replicas=replicas, selector=dict(labels),
+            template=api.PodTemplateSpec(
+                metadata=api.ObjectMeta(labels=dict(labels)),
+                spec=api.PodSpec(containers=[api.Container(
+                    name="web", image="busybox",
+                    command=["sleep", "3600"],
+                    ports=[api.ContainerPort(container_port=8080)],
+                    resources=api.ResourceRequirements(limits={
+                        "cpu": Quantity("100m"),
+                        "memory": Quantity("64Mi")}))]))))
+    svc = api.Service(
+        metadata=api.ObjectMeta(name="web", namespace="default"),
+        spec=api.ServiceSpec(port=80, container_port=8080,
+                             selector=dict(labels)))
+    kubectl_s: list = []
+    wl = _WaveLog(keep_state=True)
+    procs: list = []
+    watches: list = []
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = sampler = None
+    killed = 0
+    try:
+        api_proc, url = _start_apiserver("phase17b")
+        procs.append(api_proc)
+        client = Client(HTTPTransport(url))
+        wait = _waiter(tag, procs, result, elapsed, 300.0)
+        mgr, _s = _spawn(
+            "phase17b_manager", "kubernetes_tpu_torch.cmd.controller_manager",
+            ["--master", url], "kube-controller-manager running")
+        procs.append(mgr)
+        kl_ports = {}
+        spawned = []
+        t0 = time.perf_counter()
+
+        def start_kubelet(n):
+            kl_ports[n] = port = _free_port()
+            spawned.append(_spawn(
+                f"phase17b_kubelet_{n}", "kubernetes_tpu_torch.cmd.kubelet",
+                ["--api-servers", url, "--hostname-override", n,
+                 "--register-node", "--container-runtime", "process",
+                 "--root-dir", roots[n], "--port", port,
+                 "--address", "127.0.0.1", "--node-cpu", node_cpu,
+                 "--node-memory", node_memory, "--sync-frequency", "2"],
+                f"kubelet {n} serving on")[0])
+        _parallel(kubelets, names, start_kubelet)
+        procs += spawned
+        kubelets_ready_s = time.perf_counter() - t0
+        thread, murl = _start_binary("phase17b", url, dev, wl, result, stop,
+                                     ready, wave_size=wave_size)
+        wait(lambda: "compile_prewarm_ready 1" in _wait_http(
+            murl + "/metrics", None, f"{tag}: the scheduler binary"
+        ).splitlines(), "the binary's prewarm", 600.0, poll_s=0.2)
+        f = wl.sched.factory
+        wait(lambda: len(f.node_store) == kubelets,
+             f"the scheduler's nodes to hold the {kubelets} registered")
+        pods_w = _PathWatch(url)
+        watches.append(pods_w)
+        _log(f"     {tag}: {elapsed()} {kubelets} kubelets registered "
+             f"their nodes, the binary warm")
+
+        # ---- the RC behind a service ------------------------------------
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        client.services().create(svc)
+        t_first = time.perf_counter()
+        client.replication_controllers().create(rc)
+
+        def web_pods() -> set:
+            return {n for n in pods_w.alive()
+                    if pods_w.labels[n].get("app") == "web"}
+
+        def all_running() -> bool:
+            pods = web_pods()
+            return len(pods) == replicas and all(
+                n in pods_w.running for n in pods)
+
+        def endpoints_full() -> bool:
+            try:
+                eps = client.endpoints("default").get("web").endpoints
+            except Exception:
+                return False
+            pods = {p.metadata.name: p for p in client.pods().list(
+                label_selector="app=web").items}
+            refs = {(e.target_ref.name if e.target_ref else "", e.ip)
+                    for e in eps}
+            return len(eps) == replicas and refs == {
+                (n, p.status.pod_ip) for n, p in pods.items()} and all(
+                p.status.pod_ip for p in pods.values())
+
+        def runtimes_hold() -> dict:
+            return {n: len(_runtime_procs(roots[n])) for n in names}
+
+        wait(all_running, f"{replicas} pods Running",
+             progress=lambda: f"{len(web_pods())} created, "
+                              f"{len(set(pods_w.first) & web_pods())} bound, "
+                              f"{len(set(pods_w.running) & web_pods())} "
+                              f"Running")
+        t_running = time.perf_counter()
+        up = {n: pods_w.running[n] - pods_w.first[n] for n in web_pods()}
+        wait(endpoints_full, "the endpoints to name every pod", 120.0)
+        t_endpoints = time.perf_counter()
+        per_node = {n: len(pods_w.on([n]) & web_pods()) for n in names}
+        held = runtimes_hold()
+        if held != {n: 2 * per_node[n] for n in names}:
+            raise AssertionError(f"{tag}: the runtimes hold {held} "
+                                 f"processes for {per_node} pods")
+        sandboxes = sorted({e for n in names
+                            for _g, _c, e in _runtime_procs(
+                                roots[n]).values()
+                            if e != "sleep"})
+        native = [e for e in sandboxes
+                  if os.path.dirname(e) in (process_runtime.BUILD_DIR,
+                                            os.path.join(_ROOT, "native",
+                                                         "pause"))]
+        if native != sandboxes or len(sandboxes) != 1:
+            raise AssertionError(f"{tag}: the sandboxes are {sandboxes}, "
+                                 f"not the native pause binary")
+        _log(f"     {tag}: {elapsed()} {replicas} pods Running on "
+             f"{per_node}, {sum(held.values())} runtime processes, "
+             f"sandbox {sandboxes[0]}, endpoints full")
+
+        # ---- drain node-0 -----------------------------------------------
+        kubectl = _kubectl_for(url, work, tag, kubectl_s)
+        moving = pods_w.on([names[0]]) & web_pods()
+        t_drain = time.perf_counter()
+        kubectl("drain", names[0])
+        dport = _free_port()
+        dsched, _s = _spawn(
+            "phase17b_descheduler", "kubernetes_tpu_torch.cmd.descheduler",
+            ["--master", url, "--period", "1", "--qps", "1",
+             "--metrics-port", dport], "kube-descheduler running")
+        procs.append(dsched)
+        sampler = _DefragSampler(f"http://127.0.0.1:{dport}")
+        wait(lambda: not pods_w.on([names[0]]),
+             f"{names[0]}'s pods to move",
+             progress=lambda: f"{len(pods_w.on([names[0]]))} left")
+        t_moved = time.perf_counter()
+        wait(lambda: not _runtime_procs(roots[names[0]]),
+             f"{names[0]}'s runtime to stop its processes", 60.0)
+        t_empty = time.perf_counter()
+        wait(all_running, f"{replicas} pods Running again",
+             progress=lambda: f"{len(set(pods_w.running) & web_pods())} "
+                              f"Running")
+        t_again = time.perf_counter()
+        wait(endpoints_full, "the endpoints to name every pod again", 120.0)
+        per_node_after = {n: len(pods_w.on([n]) & web_pods()) for n in names}
+        held_after = runtimes_hold()
+        if held_after != {n: 2 * per_node_after[n] for n in names}:
+            raise AssertionError(f"{tag}: after the drain the runtimes "
+                                 f"hold {held_after} processes for "
+                                 f"{per_node_after} pods")
+        served = {}
+        for n in names:
+            code, body = _http_get(f"http://127.0.0.1:{kl_ports[n]}/pods")
+            items = json.loads(body)["items"] if code == 200 else None
+            served[n] = sorted(
+                (p["metadata"]["name"], p["status"]["phase"])
+                for p in items) if items is not None else None
+        want = {n: sorted((p, "Running") for p in pods_w.on([n])
+                          & web_pods()) for n in names}
+        if served != want:
+            raise AssertionError(f"{tag}: the kubelets' /pods differ from "
+                                 f"the bindings")
+        final_m = _defrag_metrics(f"http://127.0.0.1:{dport}")
+        dsched.send_signal(signal.SIGTERM)
+        dsched_rc = dsched.wait(timeout=30)
+        sampler.stop()
+        final = client.pods("").list().items
+        final_nodes = client.nodes().list().items
+        events = client.events("default").list().items
+        svcs = f.service_store.list()
+        launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
+        _log(f"     {tag}: {elapsed()} {names[0]} drained: {len(moving)} "
+             f"pods moved to {per_node_after}, its runtime empty, every "
+             f"pod Running again")
+    except BaseException:
+        _abort_children(procs, "phase17b")
+        raise
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        for w in watches:
+            w.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        for p in procs:
+            _stop_process(p)
+        killed = _kill_runtime_procs(work)
+        shutil.rmtree(work, ignore_errors=True)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the binary returned "
+                             f"{result.get('rc')}")
+    if dsched_rc != 0:
+        raise AssertionError(f"{tag}: the descheduler exited {dsched_rc} "
+                             f"on SIGTERM")
+
+    # ---- the checks, after the run -----------------------------------------
+    t_check = time.perf_counter()
+    web = {p.metadata.name for p in final
+           if p.metadata.labels.get("app") == "web"}
+    if len(web) != replicas or set(pods_w.seen) != web:
+        raise AssertionError(f"{tag}: {len(pods_w.seen)} pods seen, "
+                             f"{len(web)} left of the RC's {replicas}")
+    twice = [n for n, path in pods_w.path.items() if len(path) > 2]
+    if twice or any(len(u) != 1 for u in pods_w.uids.values()):
+        raise AssertionError(f"{tag}: {len(twice)} pods moved more than "
+                             f"once, e.g. {twice[:1]}")
+    moved = {n for n, path in pods_w.path.items() if len(path) == 2}
+    if moved != moving:
+        raise AssertionError(f"{tag}: {len(moved)} pods moved, "
+                             f"{len(moving)} were on {names[0]}")
+    rejected = [e.reason for e in events if e.reason in (
+        "HostPortConflict", "NodeSelectorMismatching", "ExceededCapacity")]
+    if pods_w.failed or rejected:
+        raise AssertionError(f"{tag}: pods Failed {pods_w.failed}, "
+                             f"kubelet rejections {rejected[:3]}")
+    _check_placements(final, final_nodes, tag)
+    scores = _check_defrag(sampler.samples, tag)
+    rows = [r for r in wl.rows if r["order"]]
+    checks = _check_waves(rows, final, web, svcs, dev, tag,
+                          count_launches, launches, plain_calls, gone=moved)
+    up_after = [pods_w.running[n] - t_moved for n in moved]
+    out = {
+        "kubelets": kubelets, "replicas": replicas,
+        "kubelets_ready_s": kubelets_ready_s,
+        "prewarm_s": wl.sched.prewarm_s, "sandbox": sandboxes[0],
+        "per_node": per_node, "per_node_after": per_node_after,
+        "runtime_processes": sum(held.values()),
+        "bind_to_running_s": {"median": statistics.median(up.values()),
+                              "max": max(up.values())},
+        "running_s": t_running - t_first,
+        "endpoints_s": t_endpoints - t_first,
+        "moved": len(moved), "drain_to_moved_s": t_moved - t_drain,
+        "drain_to_empty_s": t_empty - t_drain,
+        "drain_to_running_s": t_again - t_drain,
+        "moved_running_after_s": max(up_after) if up_after else None,
+        "descheduler": final_m, "scores": scores,
+        "killed_at_end": killed,
+        "waves": _wave_rows(rows, t_first), "launches": launches,
+        "plain_calls": plain_calls, **checks,
+        "checks_s": time.perf_counter() - t_check,
+        "phase_s": time.perf_counter() - t_phase}
+    if keep_rows:
+        out["rows"], out["svcs"] = rows, svcs
+    return out
+
+
+def _log_descheduler(a: dict, b: dict) -> None:
+    d = a["descheduler"]
+    _log(f"[17] (a) the descheduler at the fragment storm's width: "
+         f"{a['nodes']} nodes, {a['residents']} residents; kubectl drain of "
+         f"{len(a['drained'])} nodes ({a['on_drained']} pods on them) "
+         f"{a['drain_s']:.3f} s ({a['kubectl_runs']} kubectl processes, "
+         f"median {a['kubectl_median_s']:.3f} s); {a['extra']} pods held "
+         f"pending {a['gate_s']:.3f} s until the descheduler declined "
+         f"(pending_work), then bound in {a['bind_s']:.3f} s "
+         f"({a['pods_per_s']:.1f} pods/s)")
+    _log(f"     {a['migrations']} migrations ({a['mandatory']} off the "
+         f"drained nodes) at {a['migrations_per_s']:.1f} /s after the "
+         f"last bind, {a['migrations_per_wave']:.1f} a wave, "
+         f"{int(d['waves_total'])} waves ({a['wave_cpu_s']:.3f} CPU s a "
+         f"wave), declines {d['declined']}, {int(d['conflicts_total'])} "
+         f"conflicts; the drained nodes empty {a['drain_to_empty_s']:.3f} "
+         f"s after the drain ({a['bound_to_empty_s']:.3f} s after the last "
+         f"bind); fragmentation score {a['scores']}, no regression; "
+         f"no pod moved twice or lost")
+    _log(f"     {len(a['waves'])} waves, {a['launches']} commit_solve "
+         f"launches, {a['plain_calls']} plain-version calls; every wave == "
+         f"the plain version (max abs err {a['max_abs_err']}) and == "
+         f"solve(encode_snapshot) of the encoder's state; checks "
+         f"{a['checks_s']:.1f} s, phase {a['phase_s']:.1f} s")
+    _log(f"     (b) {b['kubelets']} kubelet processes (ready "
+         f"{b['kubelets_ready_s']:.3f} s), an RC of {b['replicas']}: "
+         f"Running on {b['per_node']} {b['running_s']:.3f} s after the RC "
+         f"(bind to Running median {b['bind_to_running_s']['median']:.3f} "
+         f"s, max {b['bind_to_running_s']['max']:.3f}), endpoints full at "
+         f"{b['endpoints_s']:.3f} s; {b['runtime_processes']} runtime "
+         f"processes; sandbox {b['sandbox']}")
+    _log(f"     kubectl drain node-0: {b['moved']} pods moved in "
+         f"{b['drain_to_moved_s']:.3f} s, node-0's runtime empty at "
+         f"{b['drain_to_empty_s']:.3f} s, all Running again at "
+         f"{b['drain_to_running_s']:.3f} s on {b['per_node_after']}; "
+         f"{len(b['waves'])} waves, {b['launches']} launches, "
+         f"{b['plain_calls']} plain calls, every wave exact; "
+         f"{b['killed_at_end']} runtime processes killed at the end; phase "
+         f"{b['phase_s']:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6100,13 +6928,14 @@ def main() -> int:
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
 
-    # Phases 9, 9c, 10b, 11, 12, 14 (a) and 15 run below their functions'
-    # default depths (pending pods; phase 11's compared pods; phase 15's
-    # replicas), so that phases 15 and 16 fit in the script's time limit
-    # with room for a slower host.
+    # Phases 9, 9c, 10b, 11, 12, 14 (a), 15 and 16 run below their
+    # functions' default depths (pending pods; phase 11's compared pods;
+    # phase 15's replicas; phase 16's legacy pods and RC), so that phases
+    # 15, 16 and 17 fit in the script's time limit with room for a slower
+    # host.
 
     # 9. the scheduler binary against an apiserver process, over HTTP
-    record["binary"] = bp = _binary_phase(dev, n_pending=3_000)
+    record["binary"] = bp = _binary_phase(dev, n_pending=2_000)
     _log_binary(bp)
 
     # 9b. the binary's fallback to the serial scheduler
@@ -6114,7 +6943,7 @@ def main() -> int:
     _log_fallback(record["fallback"])
 
     # 9c. the binary with the pipelined loop, tracing and the recorder
-    record["pipeline_binary"] = _pipeline_binary_phase(dev, n_pending=3_000)
+    record["pipeline_binary"] = _pipeline_binary_phase(dev, n_pending=2_000)
     _log_pipeline_binary(record["pipeline_binary"])
 
     # 10. the solver daemon: four clients coalescing at north_star width
@@ -6126,7 +6955,7 @@ def main() -> int:
     _log_daemon_binary(record["daemon_binary"])
 
     # 11. the serial oracle against the kernel's decisions
-    record["oracle"] = _oracle_phase(dev, ns_pods=128, n_extra=128)
+    record["oracle"] = _oracle_phase(dev, ns_pods=64, n_extra=64)
     _log_oracle(record["oracle"])
 
     # 12. the binaries under KTPU_RACE=1 and KTPU_DEBUG=1
@@ -6145,12 +6974,20 @@ def main() -> int:
     _log_fleet(fl, du)
 
     # 15. the controller manager and the inventory cloud feeding the card
-    record["controllers"] = cm = _controller_phase(dev, replicas=150)
+    record["controllers"] = cm = _controller_phase(
+        dev, apps=4, replicas=100, scale=(("rc-0-1", 60), ("rc-1-1", 300)))
     _log_controller(cm)
 
     # 16. an operator's kubectl session, in the legacy wire, feeding it
-    record["kubectl"] = kc = _kubectl_phase(dev)
+    record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=1_500,
+                                            web=(500, 1_000))
     _log_kubectl(kc)
+
+    # 17. kubectl drain through the descheduler at the fragment storm's
+    # width; kubelets running the pods the card placed, and a drain
+    da, kb = _descheduler_phase(dev), _kubelet_phase(dev)
+    record["descheduler"] = {"drain": da, "kubelets": kb}
+    _log_descheduler(da, kb)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -6175,15 +7012,18 @@ def main() -> int:
     # The default entry's launches include phase 13 (b)'s (the mesh
     # crossover's one launch through solve(snap, mesh=)), phase 14's (one
     # a wave of the binary against the fleet and the durable apiserver),
-    # phase 15's (one a wave of the RCs' pods) and phase 16's (one a wave
-    # of the kubectl session's pods), each wave held against the plain
-    # version too.
+    # phase 15's (one a wave of the RCs' pods), phase 16's (one a wave
+    # of the kubectl session's pods) and phase 17's (one a wave of the
+    # pods held pending for the descheduler, and of the kubelets' RC),
+    # each wave held against the plain version too.
     entries = (("commit_solve", dict(ns, max_abs_err=max(
                     ns["max_abs_err"], bp["max_abs_err"], fl["max_abs_err"],
                     du["max_abs_err"], cm["max_abs_err"],
-                    kc["max_abs_err"])),
+                    kc["max_abs_err"], da["max_abs_err"],
+                    kb["max_abs_err"])),
                 bp["launches"] + ms["launches"] + fl["launches"]
-                + du["launches"] + cm["launches"] + kc["launches"]),
+                + du["launches"] + cm["launches"] + kc["launches"]
+                + da["launches"] + kb["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

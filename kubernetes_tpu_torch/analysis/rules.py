@@ -15,7 +15,10 @@ that finding — see engine.py for the waiver grammar.
 from __future__ import annotations
 
 import ast
+import io
 import re
+import sys
+import tokenize
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from kubernetes_tpu_torch.analysis.engine import (FileContext, Rule, Violation,
@@ -510,6 +513,42 @@ _PY311_KWARGS: Dict[str, Tuple[str, ...]] = {
 }
 
 
+def _quote_of(token: str) -> str:
+    """The opening quote of a string or f-string-start token: one quote
+    character, or three for a triple-quoted string."""
+    body = token.lstrip("rRbBuUfF")
+    q = body[:1]
+    return q * 3 if body.startswith(q * 3) else q
+
+
+def _pep701_quote(source: str) -> Optional[Tuple[int, int]]:
+    """Where a string or f-string inside an f-string's replacement field
+    opens with a quote that would close an enclosing f-string on python
+    3.10, as ``(line, col)``; None if there is none. Python >= 3.12
+    tokenizes f-strings (PEP 701), and ``ast.parse(feature_version=
+    (3, 10))`` accepts the nested form there, so the tokens are the
+    check. Before 3.12 the parse already refuses it."""
+    if sys.version_info < (3, 12):
+        return None
+    enclosing: List[str] = []
+    try:
+        for tok in tokenize.generate_tokens(io.StringIO(source).readline):
+            if tok.type == tokenize.FSTRING_END:
+                if enclosing:
+                    enclosing.pop()
+                continue
+            if tok.type not in (tokenize.FSTRING_START, tokenize.STRING):
+                continue
+            quote = _quote_of(tok.string)
+            if any(quote.startswith(outer) for outer in enclosing):
+                return tok.start
+            if tok.type == tokenize.FSTRING_START:
+                enclosing.append(quote)
+    except (tokenize.TokenError, SyntaxError):
+        return None
+    return None
+
+
 @register
 class Py310CompatRule(Rule):
     """The whole tree must parse and run on Python 3.10.
@@ -543,6 +582,17 @@ class Py310CompatRule(Rule):
                                   f"importer)",
                           span=(e.lineno or 1, e.lineno or 1))
             yield v
+            return
+        nested = _pep701_quote(ctx.source)
+        if nested is not None:
+            line, col = nested
+            yield Violation(rule=self.id, path=ctx.rel, line=line, col=col,
+                            message="does not parse as python 3.10: a "
+                                    "string inside an f-string reuses its "
+                                    "quote (PEP 701, python >= 3.12; the "
+                                    "PR 1 class: one SyntaxError silently "
+                                    "mutes every importer)",
+                            span=(line, line))
             return
         if ctx.tree is None:
             return

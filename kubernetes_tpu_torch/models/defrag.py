@@ -1,7 +1,7 @@
 """kube-defrag — dense consolidation waves over the resident planes.
 
 Port of ``kubernetes_tpu/models/defrag.py``, whole (numpy; the
-descheduler loop that drives it is ROADMAP Queue 1 item 14).
+descheduler loop that drives it is ``descheduler/controller.py``).
 
 The descheduler's solve: score cluster fragmentation from the same
 per-node free vectors the batch solver already encodes, select movable

@@ -1,9 +1,9 @@
 """Probe primitives (ref: pkg/probe/{exec,http,tcp}).
 
-Port of ``kubernetes_tpu/probe/__init__.py``'s HTTP and TCP probers,
-what the scheduler binary's deep ``/healthz`` probes its apiserver and its
-solver daemon with; the exec prober comes with the kubelet (ROADMAP Queue
-1 item 15).
+Port of ``kubernetes_tpu/probe/__init__.py``: the HTTP and TCP probers
+(the scheduler binary's deep ``/healthz`` probes its apiserver and its
+solver daemon with them, the kubelet its containers) and the exec prober
+the kubelet runs in a container.
 
 Each prober returns one of SUCCESS / FAILURE / UNKNOWN
 (ref: pkg/probe/probe.go Result).
@@ -14,13 +14,14 @@ from __future__ import annotations
 import socket
 import urllib.error
 import urllib.request
-from typing import Tuple
+from typing import List, Tuple
 
 SUCCESS = "success"
 FAILURE = "failure"
 UNKNOWN = "unknown"
 
-__all__ = ["SUCCESS", "FAILURE", "UNKNOWN", "probe_http", "probe_tcp"]
+__all__ = ["SUCCESS", "FAILURE", "UNKNOWN", "probe_http", "probe_tcp",
+           "probe_exec"]
 
 
 def probe_http(host: str, port: int, path: str = "/",
@@ -47,3 +48,13 @@ def probe_tcp(host: str, port: int, timeout: float = 1.0) -> Tuple[str, str]:
             return SUCCESS, ""
     except OSError as e:
         return FAILURE, str(e)
+
+
+def probe_exec(runtime, container_id: str, cmd: List[str]) -> Tuple[str, str]:
+    """ref: pkg/probe/exec/exec.go — exit code 0 is success. ``runtime`` is
+    the kubelet's ContainerRuntime seam."""
+    try:
+        code, output = runtime.exec_in_container(container_id, cmd)
+    except Exception as e:
+        return UNKNOWN, str(e)
+    return (SUCCESS if code == 0 else FAILURE), output

@@ -251,7 +251,14 @@ class BindingREST:
 
 
 class PodStatusREST:
-    """PUT pods/{name}/status — status-only update sub-resource."""
+    """PUT pods/{name}/status — status-only update sub-resource.
+
+    A status that names a host other than the one the pod is bound to is
+    refused (409), in the same transaction as the write: a kubelet whose
+    sync of a pod was under way when the descheduler migrated the pod
+    away would otherwise write its own host back into ``status.host``
+    after the new node's kubelet wrote its status, and the pod would stay
+    bound to one node with the status of another."""
 
     def __init__(self, pod_registry: GenericRegistry):
         self.pods = pod_registry
@@ -260,6 +267,12 @@ class PodStatusREST:
         key = self.pods.key(ctx, pod.metadata.name)
 
         def set_status(current: api.Pod) -> api.Pod:
+            host = current.spec.host
+            if pod.status.host and host and pod.status.host != host:
+                raise errors.new_conflict(
+                    "Pod", pod.metadata.name,
+                    f"pod {pod.metadata.name} is bound to host {host!r}, "
+                    f"not {pod.status.host!r}")
             current.status = pod.status
             return current
 

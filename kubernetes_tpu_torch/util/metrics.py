@@ -605,8 +605,8 @@ class DefragMetrics:
     so emptying nodes IS the objective). Under an active descheduler it
     must never trend up — the ``fragmentation_score_monotone_under_defrag``
     SLO rule rides directly on this gauge. In the port the wave itself
-    is ``models/defrag.py``; the descheduler loop that writes this family
-    is ROADMAP Queue 1 item 14."""
+    is ``models/defrag.py``; the loop that writes this family is
+    ``descheduler/controller.py``."""
 
     _singleton = None
 

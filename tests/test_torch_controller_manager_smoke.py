@@ -6,8 +6,8 @@ thread: the NodeController registers 40 inventory nodes and writes their
 conditions, north_star's residents and services are seeded, 4 RCs of 50
 are created, the inventory loses 4 instances (their nodes and pods go,
 the RCs recreate what they lost), then one RC scales down and one up.
-The phase checks every RC at its count and bound, nothing on a departed
-node, each wave against the plain version and solve(encode_snapshot(...))
+The phase checks every RC at its count and bound, no replica created
+beyond the counts, nothing on a departed node, each wave against the plain version and solve(encode_snapshot(...))
 of the encoder's state; here each wave's bindings are also held against
 the JAX package's ``batch_solver.solve`` of the same state, its objects
 carried over the v1 wire. At 40 nodes the host-port templates are left
@@ -42,7 +42,7 @@ def test_controller_phase_feeds_the_scheduler():
     assert steps["shrink"]["rc_pods_lost"] > 0
     assert steps["shrink"]["created"] >= steps["shrink"]["rc_pods_lost"]
     assert steps["scale"]["taken_from"] == ["rc-0-1"]
-    assert c["over_created"] >= 0
+    assert c["over_created"] == 0
     assert c["encodes"]["full"] >= 2   # the first wave and the node deletes
     assert c["encodes"]["delta"] > 0
     rows, svcs = c["rows"], _to_ref(c["svcs"])

@@ -506,3 +506,124 @@ def test_node_sync_keeps_pods_of_a_node_created_while_it_ran():
         survived[name] = [p.metadata.name
                           for p in client.pods("default").list().items]
     assert survived == {"ref": [], "port": ["late"]}
+
+
+class _CountingPodControl:
+    """Counts creates; each goes through the package's own PodControl."""
+
+    def __init__(self, inner):
+        self.inner, self.created = inner, 0
+        self._lock = __import__("threading").Lock()
+
+    def create_replica(self, ns, rc, *name):
+        with self._lock:
+            self.created += 1
+        self.inner.create_replica(ns, rc, *name)
+
+    def delete_pod(self, ns, name):
+        self.inner.delete_pod(ns, name)
+
+
+def test_two_syncs_of_one_rc_create_its_shortfall_once(pkgs):
+    """The watch thread's sync and the periodic resync's can run on one
+    RC at once. Here each sync waits after its list of the RC's pods
+    until the other has listed too (a barrier of two, which gives up
+    after a second if only one arrives):
+    the reference's two syncs each see no pods and each create the RC's
+    count; the port runs one sync of an RC at a time, so the second lists
+    after the first's creates and makes none."""
+    import threading
+
+    created = {}
+    for P in pkgs:
+        c = P.client()
+        c.replication_controllers().create(_rc(P, "web", 6, {"app": "web"}))
+        rc = c.replication_controllers().get("web")
+        barrier = threading.Barrier(2, timeout=1.0)
+        pods = c.pods
+
+        class _Pods:
+            def __init__(self, ns):
+                self.inner = pods(ns)
+
+            def list(self, **kw):
+                out = self.inner.list(**kw)
+                try:
+                    barrier.wait()
+                except threading.BrokenBarrierError:
+                    pass
+                return out
+
+            def __getattr__(self, name):
+                return getattr(self.inner, name)
+
+        c.pods = _Pods
+        control = _CountingPodControl(P.controllers.PodControl(c))
+        mgr = P.controllers.ReplicationManager(c, pod_control=control)
+        threads = [threading.Thread(target=mgr.sync, args=(rc,))
+                   for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        del c.pods
+        active = [p for p in c.pods().list(label_selector="app=web").items]
+        created[P.name] = (control.created, len(active))
+    assert created == {"kubernetes_tpu": (12, 12),
+                       "kubernetes_tpu_torch": (6, 6)}
+
+
+class _LateCreate:
+    """The third create's answer is lost (a reset connection) and the
+    apiserver commits it only later, when ``land`` is called: what a
+    loaded apiserver does with a request it accepted late."""
+
+    def __init__(self, inner):
+        self.inner, self.n, self.held = inner, 0, None
+        self._lock = __import__("threading").Lock()
+
+    def create_replica(self, ns, rc, *name):
+        with self._lock:
+            self.n += 1
+            k = self.n
+        if k == 3:
+            self.held = (ns, rc, name)
+            raise ConnectionResetError("the answer was lost")
+        self.inner.create_replica(ns, rc, *name)
+
+    def delete_pod(self, ns, name):
+        self.inner.delete_pod(ns, name)
+
+    def land(self):
+        ns, rc, name = self.held
+        try:
+            self.inner.create_replica(ns, rc, *name)
+        except Exception as e:
+            return getattr(e, "code", repr(e))
+        return 201
+
+
+def test_a_create_that_lands_late_makes_no_extra_replica(pkgs):
+    """One create of an RC's sync goes unanswered and lands after the
+    next sync listed the RC's pods. The reference's next sync creates the
+    missing pod again under a new name, and the late one makes a replica
+    beyond the count; the port's sends the unanswered create again under
+    its name, so the late one is refused as a duplicate (409)."""
+    out = {}
+    for P in pkgs:
+        c = P.client()
+        c.replication_controllers().create(_rc(P, "web", 6, {"app": "web"}))
+        control = _LateCreate(P.controllers.PodControl(c))
+        mgr = P.controllers.ReplicationManager(c, pod_control=control)
+        rc = c.replication_controllers().get("web")
+        with pytest.raises(ConnectionResetError):
+            mgr.sync(rc)
+        # (the creates not yet started when one failed are cancelled)
+        assert len(c.pods().list(label_selector="app=web").items) < 6
+        mgr.sync(c.replication_controllers().get("web"))
+        assert len(c.pods().list(label_selector="app=web").items) == 6
+        landed = control.land()
+        out[P.name] = (len(c.pods().list(label_selector="app=web").items),
+                       landed)
+    assert out == {"kubernetes_tpu": (7, 201),
+                   "kubernetes_tpu_torch": (6, 409)}

@@ -97,6 +97,58 @@ def test_walk_covers_the_kubectl_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_kubelet_slice():
+    mods = set(_modules())
+    for m in ("descheduler", "descheduler.controller", "cmd.descheduler",
+              "kubelet", "kubelet.config", "kubelet.envvars", "kubelet.gc",
+              "kubelet.kubelet", "kubelet.pod_workers",
+              "kubelet.process_runtime", "kubelet.runtime", "kubelet.server",
+              "kubelet.stats", "kubelet.status", "volume", "volume.plugins",
+              "cmd.kubelet", "cluster"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
+# builds each binary of the kubelet slice from its flags, with jax and
+# the reference package unimportable, then names the port's modules it
+# loaded; the master it is given has nothing listening
+_BINARIES = r"""
+import importlib.abc, json, os, sys, tempfile
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu"):
+            raise ImportError("refused import of " + name)
+sys.meta_path.insert(0, Refuse())
+from kubernetes_tpu_torch.cmd import descheduler, kubelet
+master = "http://127.0.0.1:9"
+d = descheduler.build_descheduler(descheduler.build_parser().parse_args(
+    ["--master", master, "--max-moves", "7"]))
+assert d.config.defrag.max_moves == 7
+root = tempfile.mkdtemp()
+kl, pod_config, sources, server = kubelet.build_kubelet(
+    kubelet.build_parser().parse_args(
+        ["--api-servers", master, "--hostname-override", "n0",
+         "--root-dir", root, "--port", "0",
+         "--container-runtime", "process"]))
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith("kubernetes_tpu_torch."))))
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_kubelet_slice_binaries_build_without_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _BINARIES], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for m in ("descheduler.controller", "models.defrag", "kubelet.kubelet",
+              "kubelet.process_runtime", "kubelet.server",
+              "volume.plugins"):
+        assert f"kubernetes_tpu_torch.{m}" in loaded, m
+
+
 def test_kubectl_imports_no_torch_and_no_numpy():
     """kubectl runs as a process many times a session: its modules reach
     neither the models nor the kernels."""
