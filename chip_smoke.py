@@ -22,8 +22,11 @@ scheduler binary against the apiserver's storage tier and worker fleet
 (a kube-store and two apiserver workers sharing a segment, each killed
 under load, then a durable apiserver alone, killed), the controller
 manager's replication controllers binding through it on nodes its node
-controller registered from an inventory cloud, and an operator's
-kubectl session putting nodes and pods in through the legacy wire —
+controller registered from an inventory cloud, an operator's kubectl
+session putting nodes and pods in through the legacy wire, kubectl
+drain through the descheduler and kubelets running what the card
+placed, and a soak through kube-proxy to backends the card placed, with
+the dns, logging and monitoring addons and the port's deploy script —
 and holds the kernel against its plain PyTorch version. Phases:
 
 1. torch version, the card's name and power limit;
@@ -116,7 +119,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    tpu-batch --prewarm --metrics-port``) runs in a thread, lists and
    watches over the v1 wire, builds the kernel and solves one exemplar
    wave off its loop; once ``compile_prewarm_ready 1`` reads on
-   /metrics and its caches hold the cluster, 2,000 pending pods are
+   /metrics and its caches hold the cluster, 1,000 pending pods are
    created from 4 threads. Fails unless every pod reads back bound from
    the apiserver, no node is over capacity and no host port doubled,
    each wave launched commit_solve once and the plain version never ran,
@@ -149,7 +152,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    counts and messages, each with the constructed dominant reason;
 9c. the binary with ``--algorithm tpu-batch --pipeline --trace
    --flightrec --prewarm`` against a fresh apiserver process seeded as in
-   phase 9; 2,000 pending, 60 oversized and 60 with a node selector no
+   phase 9; 1,000 pending, 20 oversized and 20 with a node selector no
    node matches. Fails unless every other pod binds to a valid host, the
    pipeline's waves counter equals its committed waves, a FailedScheduling
    event of each kind carries the breakdown line (summing to 5,000, the
@@ -197,7 +200,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    ``KTPU_RACE=1`` (1 us switch interval, locksmith armed) and
    ``KTPU_DEBUG=1`` (the self-checks), the scheduler with ``--algorithm
    tpu-batch --pipeline`` under the zone anti-affinity Policy: 500 nodes,
-   1,000 pending from 4 threads, then 100 deletes and 200 creates at a
+   500 pending from 4 threads, then 50 deletes and 100 creates at a
    higher priority. Fails unless every pod binds within capacity, both
    exit cleanly, neither printed a locksmith report, a failed check or a
    fallback to serial, and /metrics shows the waves solved on the card
@@ -230,7 +233,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    apiserver workers on one port (``--store-server --reuse-port
    --share-seg --share-worker i``) and the scheduler binary in a thread
    (``--algorithm tpu-batch --prewarm``): north_star seeded through the
-   port, then 2,000 pending from 4 threads that resend through the
+   port, then 1,000 pending from 4 threads that resend through the
    outages; once a watch has seen a third bound the kube-store is
    SIGKILLed between two waves and respawned, once two thirds, worker 0.
    Every pod bound exactly once within capacity, every acknowledged
@@ -251,13 +254,13 @@ and holds the kernel against its plain PyTorch version. Phases:
    no labels), the scheduler binary in a thread. The NodeController
    registers the 5,000 nodes and writes their conditions (nodes/s
    logged); north_star's 8 services and 10,000 residents are seeded;
-   20 RCs ``rc-{a}-{v}`` of 100 (4 apps ``app-{a}`` of 5 versions, the
+   20 RCs ``rc-{a}-{v}`` of 50 (4 apps ``app-{a}`` of 5 versions, the
    ``v = 0`` templates with host port ``7000 + a``) are created, and the
-   ReplicationManager's 2,000 pods bind (pods/s from the first RC
+   ReplicationManager's 1,000 pods bind (pods/s from the first RC
    create to the last bind); the inventory is rewritten without 100
    instances: their nodes and pods go, the RCs recreate what they lost
    and it binds on the 4,900 left (seconds to recover); ``rc-0-1``
-   scales to 60 and ``rc-1-1`` to 300. Each step waits until every RC
+   scales to 30 and ``rc-1-1`` to 150. Each step waits until every RC
    stands at its count, bound, nothing on a departed node. Fails unless
    each wave launched commit_solve once, equals the plain version and
    ``solve(encode_snapshot(...))`` of the encoder's own state, no node
@@ -272,12 +275,12 @@ and holds the kernel against its plain PyTorch version. Phases:
    ``api-versions`` prints v1, v1beta1, v1beta2; ``cluster-info``,
    ``version``, one request through ``proxy --once``). north_star's
    5,000 nodes go in as one v1beta1 MinionList file and its 8 services
-   as a v1beta2 List, both by ``kubectl create -f``; its first 1,500
+   as a v1beta2 List, both by ``kubectl create -f``; its first 750
    pending pods as a v1beta1 PodList, under a v1beta1 watch: each reads
    back bound in v1beta1 (``desiredState.host``) as in v1, and the
    legacy field selector ``DesiredState.Host=`` lists none. Then the 50
    nodes with the most free CPU are cordoned, ``run-container web`` of
-   500 is resized to 1,000 (every pod bound, none on a cordoned
+   250 is resized to 500 (every pod bound, none on a cordoned
    node), ``small`` (10) is rolled to ``small-v2``, a 64-CPU pod is
    described with its FailedScheduling breakdown, and everything is
    stopped and deleted again. Fails on any kubectl exit but 0, unless
@@ -302,6 +305,27 @@ and holds the kernel against its plain PyTorch version. Phases:
    live process, and all 120 run again on the other nodes. Each wave of
    both launched commit_solve once and equals the plain version and
    ``solve(encode_snapshot(...))`` of the encoder's state.
+18. the service path and the deploy script: (a) the shape
+   ``kubernetes_tpu_torch/deploy/inventory-up.sh`` deploys, each server
+   a process started by its hyperkube name (apiserver and controller
+   manager over an inventory of north_star's 5,000 instances, each at a
+   loopback address of its own; 4 kubelets with the process runtime on
+   instances labelled ``role=serving`` by kubectl; kube-proxy; the dns
+   and monitoring addons; the logging addon by its module), the binary
+   in a thread: 120 RCs of one hostnames backend each (host network,
+   its own port), placed by the card behind the service ``hostnames``.
+   Fails unless every backend runs on a serving node and the endpoints
+   name it, a 10 s soak of 4 clients through kube-proxy has no error
+   and reaches all 120, 48 deletes over 20 s under the clients (errors
+   recorded) settle into a second clean soak, every wave launched
+   commit_solve once over the 5,000 nodes and is exact, every service
+   resolves through the dns process (a deleted one NXDOMAIN within 5
+   s), the logging process returns every start line within 20 s and the
+   monitoring process scrapes the 4 kubelets of 5,000 nodes. (b) The
+   script itself under bash on a 2-instance inventory: its fixed ports
+   free first, the cluster healthy, a kubectl pod placed by its
+   ``tpu-batch`` scheduler process (which holds the card) and Running,
+   the addons answering, and nothing left after SIGTERM.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -311,7 +335,7 @@ the device or the port's package is missing. A record of every number
 goes to ``chiprun_out/chip_smoke.json``, the apiservers' and the
 binaries' output to ``chiprun_out/phase9*.log``, ``phase10b_*.log``,
 ``phase12_*.log``, ``phase14*.log``, ``phase15_*.log``,
-``phase16_*.log`` and ``phase17*.log``.
+``phase16_*.log``, ``phase17*.log`` and ``phase18*.log``.
 """
 
 from __future__ import annotations
@@ -2119,8 +2143,9 @@ class _WaveLog:
         def _commit_wave(placed, assumed=None, tctx=None, preempt_t0=None):
             outcomes, bound = commit(placed, assumed, tctx, preempt_t0)
             row["placed"] = [(p.metadata.name, h) for p, h, _v in placed]
-            row["bound_names"] = [p.metadata.name for (p, _h, _v), e
-                                  in zip(placed, outcomes) if not e]
+            row["acked"] = [(p.metadata.name, h) for (p, h, _v), e
+                            in zip(placed, outcomes) if not e]
+            row["bound_names"] = [n for n, _h in row["acked"]]
             row["errors"] = [repr(e) for e in outcomes if e]
             return outcomes, bound
 
@@ -2128,8 +2153,8 @@ class _WaveLog:
             before = {k: h.sum() for k, h in hist.items()}
             gc0 = dict(gc_acc)
             row.clear()
-            row.update(order=[], nodes=[], placed=[], bound_names=[],
-                       errors=[], launches=0, copy_s=0.0)
+            row.update(order=[], nodes=[], placed=[], acked=[],
+                       bound_names=[], errors=[], launches=0, copy_s=0.0)
             t_w = time.perf_counter()
             n = wave(timeout)
             r = dict(row, bound=n, wave_s=time.perf_counter() - t_w,
@@ -2233,14 +2258,19 @@ def _check_waves(rows, final, names, svcs, dev, tag: str,
         raise AssertionError(f"{tag}: the plain version ran")
     by_name = {p.metadata.name: p for p in final}
     acked = {}
-    for r in rows:
-        ok = set(r["bound_names"])
-        acked.update((n, h) for n, h in r["placed"] if n in ok)
+    wave_of = {}
+    for k, r in enumerate(rows):
+        acked.update(r["acked"])
+        wave_of.update((n, k) for n, _h in r["acked"])
     wrong = [n for n, h in acked.items()
              if n not in gone and by_name[n].spec.host != h]
     if wrong:
-        raise AssertionError(f"{tag}: {len(wrong)} acknowledged binds do "
-                             f"not read back, e.g. {wrong[0]}")
+        n = wrong[0]
+        raise AssertionError(
+            f"{tag}: {len(wrong)} acknowledged binds do not read back, "
+            f"e.g. {n}: acknowledged on {acked[n]} in wave {wave_of[n]} "
+            f"of {len(rows)}, reads back on {by_name[n].spec.host!r} "
+            f"(resourceVersion {by_name[n].metadata.resource_version})")
     unacked = [n for n in names if n not in gone and by_name[n].spec.host
                and n not in acked]
     if unacked:
@@ -6648,7 +6678,11 @@ def _kubelet_phase(dev, kubelets=4, replicas=120, node_cpu="5",
                                  f"{per_node_after} pods")
         served = {}
         for n in names:
-            code, body = _http_get(f"http://127.0.0.1:{kl_ports[n]}/pods")
+            # a kubelet builds /pods with every pod's status from its
+            # runtime: with ~50 pods just started on a loaded host that
+            # took over the default 10 s once on the H100 machine
+            code, body = _http_get(f"http://127.0.0.1:{kl_ports[n]}/pods",
+                                   timeout=60.0)
             items = json.loads(body)["items"] if code == 200 else None
             served[n] = sorted(
                 (p["metadata"]["name"], p["status"]["phase"])
@@ -6784,6 +6818,997 @@ def _log_descheduler(a: dict, b: dict) -> None:
          f"{b['killed_at_end']} runtime processes killed at the end; phase "
          f"{b['phase_s']:.1f} s")
 
+
+
+# ---- phase 18: the service path, the addons and the deploy script ---------
+
+# a hostnames backend (test/soak/serve_hostnames' container): binds its
+# port, retrying while a deleted predecessor still holds it, prints one
+# start line, and answers every connection with its RC's name
+_BACKEND = """\
+import socket, sys, time
+name, port = sys.argv[1], int(sys.argv[2])
+s = socket.socket()
+s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+t0 = time.monotonic()
+while True:
+    try:
+        s.bind(("127.0.0.1", port))
+        break
+    except OSError:
+        if time.monotonic() - t0 > 10:
+            raise
+        time.sleep(0.1)
+s.listen(128)
+print("hostnames backend %s serving on %d" % (name, port), flush=True)
+while True:
+    c, _ = s.accept()
+    try:
+        c.settimeout(5)
+        c.recv(64)
+        c.sendall(name.encode())
+    except OSError:
+        pass
+    c.close()
+"""
+
+
+def _listening_ports(pid: int) -> set:
+    """The TCP ports process ``pid`` listens on: its socket inodes
+    (/proc/<pid>/fd) matched against the LISTEN rows of
+    /proc/<pid>/net/tcp."""
+    inodes = set()
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            link = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            inodes.add(link[8:-1])
+    ports = set()
+    with open(f"/proc/{pid}/net/tcp") as fh:
+        next(fh)
+        for line in fh:
+            f = line.split()
+            if f[3] == "0A" and f[9] in inodes:
+                ports.add(int(f[1].rsplit(":", 1)[1], 16))
+    return ports
+
+
+def _port_free(addr: str, port: int, kind: str = "tcp") -> bool:
+    """Whether a server could bind ``addr:port`` now (TCP with
+    SO_REUSEADDR, as the servers bind: a closed connection's TIME_WAIT
+    does not hold the port, a listener does)."""
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM if kind == "udp"
+                      else socket.SOCK_STREAM)
+    if kind != "udp":
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        s.bind((addr, port))
+        return True
+    except OSError:
+        return False
+    finally:
+        s.close()
+
+
+def _below_ephemeral() -> range:
+    """The ports above the deploy script's fixed ones (10053-10252) and
+    below the kernel's ephemeral range, which no client connection of
+    the run takes."""
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+        return range(10_300, int(fh.read().split()[0]))
+
+
+def _free_fixed_ports(n: int, addrs, seed: int, taken=()) -> list:
+    """``n`` TCP ports of ``_below_ephemeral()`` free on every address of
+    ``addrs`` (so that no client connection takes one while a backend is
+    away), drawn from a seeded start. Fails naming an address that
+    refuses every bind."""
+    lo, hi = _below_ephemeral().start, _below_ephemeral().stop
+    start = random.Random(seed).randrange(lo, hi)
+    out: list = []
+    for k in range(hi - lo):
+        p = lo + (start - lo + k) % (hi - lo)
+        if p in taken or p in out:
+            continue
+        if all(_port_free(a, p) for a in addrs):
+            out.append(p)
+            if len(out) == n:
+                return out
+    bad = [a for a in addrs if not _port_free(a, 0)]
+    raise AssertionError(f"no {n} free ports on {list(addrs)}"
+                         + (f": {bad[0]} refuses a bind" if bad else ""))
+
+
+def _dns_query(addr, name: str, qtype: int = 1, txid: int = 0x1234):
+    """One RFC 1035 query over UDP -> (rcode, A address or None,
+    seconds)."""
+    import socket
+    import struct
+
+    q = struct.pack(">HHHHHH", txid, 0x0100, 1, 0, 0, 0)
+    for label in name.split("."):
+        q += bytes([len(label)]) + label.encode()
+    q += b"\x00" + struct.pack(">HH", qtype, 1)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.settimeout(5)
+    try:
+        t0 = time.perf_counter()
+        s.sendto(q, addr)
+        resp, _ = s.recvfrom(512)
+        dt = time.perf_counter() - t0
+    finally:
+        s.close()
+    rtxid, flags, _qd, an = struct.unpack(">HHHH", resp[:8])
+    if rtxid != txid:
+        raise AssertionError(f"DNS answer for txid {rtxid}, sent {txid}")
+    ip = None
+    if an:
+        pos = 12
+        while resp[pos] != 0:
+            pos += 1 + resp[pos]
+        pos += 5
+        (rdlen,) = struct.unpack(">H", resp[pos + 10: pos + 12])
+        if rdlen == 4:
+            ip = socket.inet_ntoa(resp[pos + 12: pos + 16])
+    return flags & 0xF, ip, dt
+
+
+class _Soak:
+    """``clients`` threads connecting to 127.0.0.1:``port`` for
+    ``seconds``, one new TCP connection a request (``who``, then the
+    answer up to EOF): every answer's name in ``seen``, each request's
+    seconds, and the failures (a refused or reset connection, a timeout,
+    or an empty answer: the proxy closed it without a backend) with the
+    first few reasons."""
+
+    def __init__(self, port: int, seconds: float, clients: int = 4):
+        import threading
+
+        self.port, self.seconds = port, seconds
+        self.seen: set = set()
+        self.lat: list = []
+        self.errors = 0
+        self.reasons: list = []
+        self._lock = threading.Lock()
+        self.threads = [threading.Thread(target=self._run, daemon=True,
+                                         name=f"soak-{k}")
+                        for k in range(clients)]
+
+    def _one(self) -> str:
+        import socket
+
+        with socket.create_connection(("127.0.0.1", self.port),
+                                      timeout=5) as s:
+            s.sendall(b"who")
+            data = b""
+            while True:
+                chunk = s.recv(64)
+                if not chunk:
+                    return data.decode()
+                data += chunk
+
+    def _run(self) -> None:
+        end = time.monotonic() + self.seconds
+        while time.monotonic() < end:
+            t0 = time.perf_counter()
+            try:
+                name, why = self._one(), "empty answer"
+            except OSError as e:
+                name, why = "", repr(e)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.lat.append(dt)
+                if name:
+                    self.seen.add(name)
+                else:
+                    self.errors += 1
+                    if len(self.reasons) < 5:
+                        self.reasons.append(why)
+
+    def run(self) -> "_Soak":
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def join(self) -> dict:
+        for t in self.threads:
+            t.join()
+        wall = time.perf_counter() - self.t0
+        lat = sorted(self.lat)
+        pct = (lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]
+               if lat else None)
+        return {"requests": len(lat), "errors": self.errors,
+                "reasons": self.reasons, "names": len(self.seen),
+                "requests_per_s": len(lat) / wall, "p50_s": pct(0.50),
+                "p99_s": pct(0.99), "seconds": wall}
+
+
+class _EndpointsPoll:
+    """The Endpoints ``name`` read over HTTP every ``period_s`` s in a
+    thread of its own: when each pod was first named (``first``) and the
+    latest set of (pod, ip, port) (``now``)."""
+
+    def __init__(self, url: str, name: str, period_s: float = 0.1):
+        import threading
+
+        from kubernetes_tpu_torch.client.client import Client
+        from kubernetes_tpu_torch.client.http import HTTPTransport
+
+        self.client = Client(HTTPTransport(url))
+        self.name = name
+        self.first: dict = {}
+        self.now: set = set()
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, args=(period_s,),
+                                       daemon=True, name="endpoints-poll")
+        self.thread.start()
+
+    def _run(self, period_s: float) -> None:
+        while not self._stop.is_set():
+            try:
+                eps = self.client.endpoints("default").get(
+                    self.name).endpoints
+                t = time.perf_counter()
+                now = {(e.target_ref.name if e.target_ref else "", e.ip,
+                        e.port) for e in eps}
+                for n, _ip, _p in now:
+                    self.first.setdefault(n, t)
+                self.now = now
+            except Exception:  # not created yet, or a transient error
+                pass
+            self._stop.wait(period_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.thread.join(timeout=10)
+
+
+def _backend_rc(name: str, port: int):
+    """RC ``name`` of one hostnames backend: labels ``app=hostnames`` and
+    its own ``rc``, nodeSelector ``role=serving``, 100m and 64Mi, host
+    network, ``port`` as its container and host port."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.api.quantity import Quantity
+
+    labels = {"app": "hostnames", "rc": name}
+    return api.ReplicationController(
+        metadata=api.ObjectMeta(name=name, namespace="default"),
+        spec=api.ReplicationControllerSpec(
+            replicas=1, selector=dict(labels),
+            template=api.PodTemplateSpec(
+                metadata=api.ObjectMeta(labels=dict(labels)),
+                spec=api.PodSpec(
+                    host_network=True, node_selector={"role": "serving"},
+                    containers=[api.Container(
+                        name="hostnames", image="serve_hostname",
+                        command=[sys.executable, "-c", _BACKEND, name,
+                                 str(port)],
+                        ports=[api.ContainerPort(container_port=port,
+                                                 host_port=port)],
+                        resources=api.ResourceRequirements(limits={
+                            "cpu": Quantity("100m"),
+                            "memory": Quantity("64Mi")}))]))))
+
+
+def _runtime_procs_after(root: str, timeout_s: float) -> dict:
+    """``_runtime_procs(root)`` once it is empty, or after ``timeout_s``
+    (a process killed a moment ago may not have exited yet)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        left = _runtime_procs(root)
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.05)
+
+
+def _hyperkube(tag: str, server: str, args, ready: str, env=None):
+    """``python -m kubernetes_tpu_torch.cmd.hyperkube server args`` as a
+    process of its own (``_spawn``)."""
+    return _spawn(tag, "kubernetes_tpu_torch.cmd.hyperkube",
+                  [server, *args], ready, env=env)
+
+
+def _service_phase(dev, n_nodes=5_000, kubelets=4, backends=120,
+                   churn=(4, 12, 5.0), soak_s=10.0, clients=4,
+                   wave_size=None, count_launches=True,
+                   keep_rows=False) -> dict:
+    """Phase 18 (a): the service path on an inventory cluster, the shape
+    ``kubernetes_tpu_torch/deploy/inventory-up.sh`` deploys, each server
+    a process of its own started by its hyperkube name: ``apiserver`` and
+    ``controller-manager`` with ``--cloud-provider inventory`` over
+    north_star's ``n_nodes`` instances, each at a loopback address of its
+    own (127.0.x.y, x >= 1, so that an addon's dial to a node without a
+    kubelet is refused at once); ``kubelets`` of them (127.0.1.1, ...)
+    run a ``kubelet`` (process runtime, 5 CPUs and 8Gi, one port free on
+    every address) and are labelled ``role=serving`` by ``kubectl
+    label`` processes; ``proxy`` (in-memory rule table), ``dns``,
+    ``monitoring`` and ``logging`` (``python -m``: hyperkube's table has
+    no such name); the scheduler binary (``--algorithm tpu-batch
+    --prewarm --wave-period 1``) in a thread. north_star's 8 services,
+    then ``backends`` RCs ``hn-000``... of one replica each (host
+    network, nodeSelector ``role=serving``, each its own free port as
+    container and host port, the ``_BACKEND`` command) behind the
+    service ``hostnames``. Gates: every backend binds to a serving node
+    and runs; the endpoints name each at 127.0.0.1 and its port; a soak
+    of ``clients`` threads through the proxy's port of ``hostnames`` for
+    ``soak_s`` has no error and reaches every backend; ``churn`` =
+    (rounds, pods, period): that many backend pods deleted each period,
+    each of its own RC, while the clients go on (errors recorded, not
+    gated), then, settled, a second soak as the first; every wave
+    launched commit_solve once over all ``n_nodes`` nodes and equals the
+    plain version and ``solve(encode_snapshot(...))`` of the encoder's
+    state (``_check_waves``), the plain version never ran; every
+    service resolves through the dns process to the portal IP the
+    apiserver reports, an unknown name and a deleted service answer
+    NXDOMAIN (the latter within 5 s); the logging process returns each
+    live backend's start line within 20 s; the monitoring process shows
+    ``n_nodes`` nodes and the ``kubelets`` serving ones scraped. At the
+    end every process the phase or the runtimes started is stopped."""
+    import shutil
+    import tempfile
+    import threading
+
+    from kubernetes_tpu_torch.addons.logging import (LogAggregator,
+                                                     http_kubelet_log_fetcher)
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.models.fixtures import build_cluster
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    tag = "phase 18 (a)"
+    t_phase = time.perf_counter()
+
+    def elapsed() -> str:
+        return f"{time.perf_counter() - t_phase:.1f} s in,"
+    _nodes, _existing, _pending, services = build_cluster(n_nodes, 0)
+    names = [f"node-{i:05d}" for i in range(n_nodes)]
+    addrs = {n: f"127.0.{1 + k // 250}.{1 + k % 250}"
+             for k, n in enumerate(names)}
+    serving = names[:kubelets]
+    rounds, per_round, period_s = churn
+    rc_names = [f"hn-{k:03d}" for k in range(backends)]
+    work = os.path.realpath(tempfile.mkdtemp(prefix="phase18a-"))
+    roots = {n: os.path.join(work, n) for n in serving}
+    inventory = os.path.join(work, "inventory.json")
+    with open(inventory, "w") as fh:
+        json.dump({"zone": {"failure_domain": "z0", "region": "local"},
+                   "instances": [{
+                       "name": n, "addresses": [addrs[n]],
+                       "cpu": "5" if n in roots else "16",
+                       "memory": "8Gi" if n in roots else "64Gi"}
+                       for n in names]}, fh)
+    env = dict(os.environ, KTPU_CLOUD_INVENTORY=inventory)
+    kl_port = _free_fixed_ports(1, [addrs[n] for n in serving], 18)[0]
+    ports = _free_fixed_ports(backends, ["127.0.0.1"], 1_800,
+                              taken={kl_port})
+    wl = _WaveLog(keep_state=True)
+    procs: dict = {}
+    watches: list = []
+    stop, ready = threading.Event(), threading.Event()
+    result: dict = {}
+    thread = ep_poll = None
+    kubectl_s: list = []
+    killed = 0
+    try:
+        port = _free_port()
+        procs["apiserver"], _s = _hyperkube(
+            "phase18a_apiserver", "apiserver",
+            ["--port", port, "--cloud-provider", "inventory"],
+            "kube-apiserver listening on", env=env)
+        url = f"http://127.0.0.1:{port}"
+        _wait_http(url + "/healthz", procs["apiserver"], f"{tag}: the "
+                   f"apiserver", 120.0)
+        client = Client(HTTPTransport(url))
+        wait = _waiter(tag, list(procs.values()), result, elapsed, 300.0)
+        nodes_w = _LifeWatch(url, "nodes")
+        pods_w = _PathWatch(url)
+        watches += [nodes_w, pods_w]
+        t0 = time.perf_counter()
+        procs["manager"], _s = _hyperkube(
+            "phase18a_manager", "controller-manager",
+            ["--master", url, "--cloud-provider", "inventory",
+             "--node-sync-period", "1"], "kube-controller-manager running",
+            env=env)
+        wait = _waiter(tag, list(procs.values()), result, elapsed, 300.0)
+        wait(lambda: len(nodes_w.conds) >= n_nodes,
+             f"the registration of {n_nodes} nodes with their conditions",
+             progress=lambda: f"{len(nodes_w.seen)} registered, "
+                              f"{len(nodes_w.conds)} with conditions")
+        registered_s = time.perf_counter() - t0
+        got = {n.metadata.name: [a.address for a in n.status.addresses]
+               for n in client.nodes().list().items}
+        if got != {n: [a] for n, a in addrs.items()}:
+            raise AssertionError(f"{tag}: the registered nodes and their "
+                                 f"addresses are not the inventory's")
+        kubectl = _kubectl_for(url, work, tag, kubectl_s)
+        for n in serving:
+            kubectl("label", "nodes", n, "role=serving")
+        spawned: dict = {}
+
+        def start_kubelet(n):
+            spawned[n] = _hyperkube(
+                f"phase18a_kubelet_{n}", "kubelet",
+                ["--api-servers", url, "--hostname-override", n,
+                 "--container-runtime", "process", "--root-dir", roots[n],
+                 "--address", addrs[n], "--port", kl_port, "--node-cpu",
+                 "5", "--node-memory", "8Gi", "--sync-frequency", "2"],
+                f"kubelet {n} serving on")[0]
+        _parallel(kubelets, serving, start_kubelet)
+        procs.update((f"kubelet {n}", p) for n, p in spawned.items())
+        _log(f"     {tag}: {elapsed()} {n_nodes} nodes registered "
+             f"({registered_s:.3f} s), {kubelets} labelled role=serving, "
+             f"their kubelets serving on port {kl_port}")
+
+        # ---- the addons, the proxy and the binary ------------------------
+        for svc in services:
+            client.services(svc.metadata.namespace).create(svc)
+        dns_port, mon_port, log_port = (_free_port() for _ in range(3))
+        procs["proxy"], _s = _hyperkube(
+            "phase18a_proxy", "proxy", ["--master", url],
+            "kube-proxy running")
+        procs["dns"], _s = _hyperkube(
+            "phase18a_dns", "dns", ["--master", url, "--port", dns_port],
+            "cluster-dns serving")
+        procs["monitoring"], _s = _hyperkube(
+            "phase18a_monitoring", "monitoring",
+            ["--master", url, "--port", mon_port, "--kubelet-port",
+             kl_port], "cluster-monitoring on")
+        procs["logging"], _s = _spawn(
+            "phase18a_logging", "kubernetes_tpu_torch.cmd.logging",
+            ["--master", url, "--port", log_port, "--kubelet-port",
+             kl_port], "cluster-logging on")
+        wait = _waiter(tag, list(procs.values()), result, elapsed, 300.0)
+        proxy_pid = procs["proxy"].pid
+        wait(lambda: len(_listening_ports(proxy_pid)) == len(services),
+             f"the proxy's {len(services)} service ports")
+        before = _listening_ports(proxy_pid)
+        thread, murl = _start_binary("phase18a", url, dev, wl, result, stop,
+                                     ready, wave_size=wave_size)
+        wait(lambda: "compile_prewarm_ready 1" in _wait_http(
+            murl + "/metrics", None, f"{tag}: the scheduler binary"
+        ).splitlines(), "the binary's prewarm", 600.0, poll_s=0.2)
+        f = wl.sched.factory
+        wait(lambda: len(f.node_store) == n_nodes and len(
+            f.service_store) == len(services),
+             "the scheduler's caches to hold the cluster")
+        _log(f"     {tag}: {elapsed()} proxy, dns, monitoring and logging "
+             f"up, the binary warm")
+
+        # ---- the backends behind hostnames ------------------------------
+        client.services().create(api.Service(
+            metadata=api.ObjectMeta(name="hostnames", namespace="default"),
+            spec=api.ServiceSpec(port=80, container_port=0,
+                                 selector={"app": "hostnames"})))
+        wait(lambda: len(_listening_ports(proxy_pid)) == len(services) + 1,
+             "the proxy's port of hostnames")
+        (proxy_port,) = _listening_ports(proxy_pid) - before
+        ep_poll = _EndpointsPoll(url, "hostnames")
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        port_of = dict(zip(rc_names, ports))
+        t_first = time.perf_counter()
+        _parallel(4, rc_names, lambda r: client.replication_controllers()
+                  .create(_backend_rc(r, port_of[r])))
+
+        def backend_pods() -> dict:
+            """rc -> its live pod."""
+            out = {}
+            for n in pods_w.alive():
+                lab = pods_w.labels[n]
+                if lab.get("app") == "hostnames":
+                    out[lab["rc"]] = n
+            return out
+
+        def settled() -> bool:
+            pods = backend_pods()
+            want = {(n, "127.0.0.1", port_of[r]) for r, n in pods.items()}
+            return (len(pods) == backends
+                    and all(n in pods_w.running for n in pods.values())
+                    and ep_poll.now == want)
+
+        def answering() -> bool:
+            """Each backend answers its name on its own port."""
+            import socket
+            for r, p in port_of.items():
+                try:
+                    with socket.create_connection(("127.0.0.1", p),
+                                                  timeout=2) as s:
+                        s.sendall(b"who")
+                        if s.recv(64).decode() != r:
+                            return False
+                except OSError:
+                    return False
+            return True
+
+        wait(settled, f"{backends} backends Running and in the endpoints",
+             progress=lambda: f"{len(backend_pods())} created, {len(
+                 set(pods_w.running) & set(backend_pods().values()))} "
+                              f"Running, {len(ep_poll.now)} endpoints")
+        t_running = time.perf_counter()
+        wait(answering, "every backend to answer on its port", 60.0)
+        first_pods = backend_pods()
+        per_node = {n: len(pods_w.on([n]) & set(first_pods.values()))
+                    for n in serving}
+        if sum(per_node.values()) != backends:
+            raise AssertionError(f"{tag}: backends on {per_node}, not all "
+                                 f"on the serving nodes")
+        _log(f"     {tag}: {elapsed()} {backends} backends Running on "
+             f"{per_node}, the endpoints name each "
+             f"({t_running - t_first:.3f} s after the first RC)")
+
+        # ---- the steady soak, the churn, the settled soak ----------------
+        steady = _Soak(proxy_port, soak_s, clients).run().join()
+        _log(f"     {tag}: {elapsed()} steady soak: {steady}")
+        if steady["errors"] or steady["names"] != backends:
+            raise AssertionError(f"{tag}: the steady soak had "
+                                 f"{steady['errors']} errors "
+                                 f"{steady['reasons']} and reached "
+                                 f"{steady['names']} of {backends} backends")
+        rng = random.Random(18)
+        victims = rng.sample(rc_names, rounds * per_round)
+        deleted: dict = {}
+        soak = _Soak(proxy_port, rounds * period_s, clients).run()
+        t_churn = time.perf_counter()
+        for k in range(rounds):
+            while time.perf_counter() < t_churn + k * period_s:
+                time.sleep(0.01)
+            pods = backend_pods()
+            for r in victims[k * per_round:(k + 1) * per_round]:
+                deleted[r] = (pods[r], time.perf_counter())
+                client.pods().delete(pods[r])
+        churn_rec = soak.join()
+        wait(settled, "the replacements Running and in the endpoints",
+             progress=lambda: f"{len(ep_poll.now)} endpoints")
+        t_settled = time.perf_counter()
+        wait(answering, "every backend to answer on its port again", 60.0)
+        pods = backend_pods()
+        to_replacement = sorted(ep_poll.first[pods[r]] - t_del
+                                for r, (_n, t_del) in deleted.items())
+        _log(f"     {tag}: {elapsed()} churn: {len(deleted)} deleted, "
+             f"{churn_rec['errors']} errors in the window, endpoints name "
+             f"each replacement {to_replacement[0]:.3f}-"
+             f"{to_replacement[-1]:.3f} s after its delete")
+        settled_rec = _Soak(proxy_port, soak_s, clients).run().join()
+        _log(f"     {tag}: {elapsed()} settled soak: {settled_rec}")
+        if settled_rec["errors"] or settled_rec["names"] != backends:
+            raise AssertionError(f"{tag}: the settled soak had "
+                                 f"{settled_rec['errors']} errors "
+                                 f"{settled_rec['reasons']} and reached "
+                                 f"{settled_rec['names']} of {backends} "
+                                 f"backends")
+        launches = commit_solver.solve_commit.launches
+        plain_calls = commit_solver.solve_commit_reference.calls
+        svcs = f.service_store.list()
+        final = client.pods("").list().items
+        final_nodes = client.nodes().list().items
+
+        # ---- logging: every live backend's start line --------------------
+        t0 = time.perf_counter()
+        live = backend_pods()
+        want_lines = {n: f"hostnames backend {r} serving on {port_of[r]}"
+                      for r, n in live.items()}
+        lurl = (f"http://127.0.0.1:{log_port}/logs?q=hostnames+backend"
+                f"&limit=100000")
+
+        def logged() -> bool:
+            code, body = _http_get(lurl)
+            have = {(e["pod"], e["line"]) for e in json.loads(body)[
+                "entries"]} if code == 200 else set()
+            return set(want_lines.items()) <= have
+        wait(logged, "the logging process to return every start line", 20.0,
+             poll_s=0.2)
+        logging_s = time.perf_counter() - t0
+        agg = LogAggregator(client, fetch=http_kubelet_log_fetcher(kl_port),
+                            period_s=3600.0)
+        try:
+            agg.node_store.replace(client.nodes().list().items)
+            agg.pod_store.replace(client.pods("").list().items)
+            t0 = time.perf_counter()
+            lines = agg.collect_once()
+            collect_s = time.perf_counter() - t0
+        finally:
+            agg._httpd.server_close()
+
+        # ---- monitoring ---------------------------------------------------
+        def scraped() -> bool:
+            code, body = _http_get(f"http://127.0.0.1:{mon_port}/metrics")
+            return code == 200 and (
+                _metric_value(body, "cluster_nodes", -1.0) == n_nodes
+                and _metric_value(body, "cluster_nodes_scraped", -1.0)
+                == kubelets)
+        wait(scraped, "the monitoring process to scrape the kubelets", 60.0,
+             poll_s=0.5)
+        model = json.loads(_http_get(
+            f"http://127.0.0.1:{mon_port}/api/v1/model")[1])
+        up = sorted(n for n, e in model["nodes"].items() if e["up"])
+        if up != serving or len(model["nodes"]) != n_nodes:
+            raise AssertionError(f"{tag}: the monitoring model has "
+                                 f"{len(model['nodes'])} nodes, up {up}")
+
+        # ---- dns ---------------------------------------------------------
+        daddr = ("127.0.0.1", dns_port)
+        portal = {s.metadata.name: s.spec.portal_ip
+                  for s in client.services().list().items}
+        if len(portal) != len(services) + 1:
+            raise AssertionError(f"{tag}: {len(portal)} services")
+        lat: list = []
+        for k in range(10):
+            for svc, ip in sorted(portal.items()):
+                rcode, got_ip, dt = _dns_query(
+                    daddr, f"{svc}.default.cluster.local", txid=k)
+                lat.append(dt)
+                if rcode != 0 or got_ip != ip:
+                    raise AssertionError(f"{tag}: {svc} resolved to "
+                                         f"{rcode} {got_ip}, not {ip}")
+        if _dns_query(daddr, "ghost.default.cluster.local")[0] != 3:
+            raise AssertionError(f"{tag}: an unknown name is not NXDOMAIN")
+        gone_svc = services[-1].metadata.name
+        client.services().delete(gone_svc)
+        t0 = time.perf_counter()
+        while _dns_query(daddr, f"{gone_svc}.default.cluster.local")[0] != 3:
+            if time.perf_counter() - t0 > 5.0:
+                raise AssertionError(f"{tag}: {gone_svc} still resolves 5 s "
+                                     f"after its delete")
+            time.sleep(0.05)
+        nx_s = time.perf_counter() - t0
+        lat.sort()
+        _log(f"     {tag}: {elapsed()} dns, logging and monitoring checked")
+    except BaseException:
+        _abort_children(procs.values(), "phase18a")
+        raise
+    finally:
+        if ep_poll is not None:
+            ep_poll.stop()
+        for w in watches:
+            w.stop()
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=60)
+        for p in procs.values():
+            _stop_process(p)
+        killed = _kill_runtime_procs(work)
+        left = _runtime_procs_after(work, 10.0)
+        shutil.rmtree(work, ignore_errors=True)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the binary returned "
+                             f"{result.get('rc')}")
+    running = [k for k, p in procs.items() if p.poll() is None]
+    if running or left:
+        raise AssertionError(f"{tag}: left running: {running}, "
+                             f"{len(left)} runtime processes")
+
+    # ---- the checks, after the run -----------------------------------------
+    t_check = time.perf_counter()
+    gone = {n for n, _t in deleted.values()}
+    web = {n for n, lab in pods_w.labels.items()
+           if lab.get("app") == "hostnames"}
+    by_name = {p.metadata.name: p for p in final}
+    lost = [n for n in web if n not in by_name and n not in gone]
+    if lost or len(web) != backends + len(gone):
+        raise AssertionError(f"{tag}: {len(web)} backend pods seen for "
+                             f"{backends} RCs and {len(gone)} deletes, "
+                             f"lost {lost[:3]}")
+    off = [n for n in web if n not in gone and by_name[n].spec.host
+           not in serving]
+    if off or pods_w.failed:
+        raise AssertionError(f"{tag}: pods off the serving nodes {off[:3]}, "
+                             f"Failed {pods_w.failed}")
+    _check_placements(final, final_nodes, tag)
+    rows = [r for r in wl.rows if r["order"]]
+    wide = [len(r["nodes"]) for r in rows if len(r["nodes"]) != n_nodes]
+    if wide:
+        raise AssertionError(f"{tag}: waves over {wide} nodes, not "
+                             f"{n_nodes}")
+    checks = _check_waves(rows, final, web, svcs, dev, tag, count_launches,
+                          launches, plain_calls, gone=gone)
+    restarts = sum(cs.restart_count for p in final
+                   if p.metadata.name in web
+                   for cs in p.status.container_statuses)
+    out = {
+        "nodes": n_nodes, "kubelets": kubelets, "backends": backends,
+        "kubelet_port": kl_port, "registered_s": registered_s,
+        "prewarm_s": wl.sched.prewarm_s, "per_node": per_node,
+        "running_s": t_running - t_first,
+        "steady": steady, "churn": dict(
+            churn_rec, deleted=len(deleted), rounds=rounds,
+            per_round=per_round, period_s=period_s,
+            to_replacement_s={
+                "median": statistics.median(to_replacement),
+                "max": to_replacement[-1], "min": to_replacement[0]},
+            settled_after_s=t_settled - t_churn),
+        "settled": settled_rec, "restarts": restarts,
+        "dns": {"queries": len(lat), "p50_s": lat[len(lat) // 2],
+                "p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                "deleted_nxdomain_s": nx_s},
+        "logging": {"all_start_lines_s": logging_s,
+                    "collect_pass_s": collect_s, "collect_pass_lines": lines,
+                    "nodes": n_nodes},
+        "monitoring": {"nodes": len(model["nodes"]), "up": up},
+        "kubectl_runs": len(kubectl_s), "killed_at_end": killed,
+        "waves": _wave_rows(rows, t_first), "launches": launches,
+        "plain_calls": plain_calls, **checks,
+        "checks_s": time.perf_counter() - t_check,
+        "phase_s": time.perf_counter() - t_phase}
+    if keep_rows:
+        out["rows"], out["svcs"] = rows, svcs
+    return out
+
+
+def _children(pid: int) -> set:
+    """Every live descendant of process ``pid`` (/proc's parent links)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                rest = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if rest[0] != "Z":
+            parent[int(d)] = int(rest[1])
+    out, frontier = set(), {pid}
+    while frontier:
+        frontier = {c for c, p in parent.items() if p in frontier} - out
+        out |= frontier
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return fh.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has an NVIDIA device file open."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+# the fixed ports of kubernetes_tpu_torch/deploy/inventory-up.sh (as of
+# cluster/inventory-up.sh:81 and :87-91): each kubelet's, the dns addon's
+# (UDP), the monitoring and the logging addons'
+_SCRIPT_PORTS = ((10250, "tcp", "kubelet"), (10053, "udp", "dns"),
+                 (10251, "tcp", "monitoring"), (10252, "tcp", "logging"))
+
+
+def _deploy_script_phase(dev, instances=("127.0.1.11", "127.0.1.12"),
+                         deadline_s: float = 180.0) -> dict:
+    """Phase 18 (b): ``kubernetes_tpu_torch/deploy/inventory-up.sh``
+    itself, with bash, on a free apiserver port (and the one above it,
+    its kube-store's) and an inventory of one instance at each of
+    ``instances``. First the script's fixed ports must be free (the
+    kubelets' 10250 on each instance's address, 10053/udp, 10251, 10252
+    on 127.0.0.1), else the phase fails naming the port. The script runs
+    with ``python`` on its PATH naming this interpreter and ``TMPDIR``
+    this phase's directory, under which its kubelets keep their roots.
+    Gates: /healthz healthy; both nodes registered with their addresses;
+    a pod created by a kubectl process binds through the script's
+    ``tpu-batch`` scheduler process, which then holds the card (its
+    solve is a kernel launch: on ``cuda``, its default), and reaches
+    Running; the dns (an answer), monitoring and logging ports answer;
+    the pod deleted by kubectl stops; SIGTERM to the script then leaves
+    no process of the script's and none under its runtime roots."""
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+
+    tag = "phase 18 (b)"
+    t_phase = time.perf_counter()
+    for port, kind, what in _SCRIPT_PORTS:
+        for addr in (instances if what == "kubelet" else ("127.0.0.1",)):
+            if not _port_free(addr, port, kind):
+                raise AssertionError(f"{tag}: the script's {what} port "
+                                     f"{addr}:{port}/{kind} is taken")
+    port = next(p for p in reversed(_below_ephemeral()[:-1])
+                if _port_free("127.0.0.1", p)
+                and _port_free("127.0.0.1", p + 1))
+    url = f"http://127.0.0.1:{port}"
+    work = os.path.realpath(tempfile.mkdtemp(prefix="phase18b-"))
+    names = [f"inst-{k}" for k in range(len(instances))]
+    roots = [os.path.join(work, f"ktpu-{n}") for n in names]
+    inventory = os.path.join(work, "inventory.json")
+    with open(inventory, "w") as fh:
+        json.dump({"zone": {"failure_domain": "z0", "region": "local"},
+                   "instances": [{"name": n, "addresses": [a], "cpu": "8",
+                                  "memory": "16Gi"}
+                                 for n, a in zip(names, instances)]}, fh)
+    # ``python`` on the script's PATH is this interpreter (a wrapper, not
+    # a link: a virtual environment is found next to the path it is run
+    # by)
+    bindir = os.path.join(work, "bin")
+    os.makedirs(bindir)
+    with open(os.path.join(bindir, "python"), "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = dict(os.environ, TMPDIR=work,
+               PATH=bindir + os.pathsep + os.environ.get("PATH", ""))
+    script = os.path.join(_ROOT, "kubernetes_tpu_torch", "deploy",
+                          "inventory-up.sh")
+    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    log_path = os.path.join(_ROOT, "chiprun_out", "phase18b_script.log")
+    kubectl_s: list = []
+    proc = None
+    rec: dict = {"apiserver_port": port}
+    try:
+        with open(log_path, "wb") as log:
+            proc = subprocess.Popen(["bash", script, inventory, str(port)],
+                                    cwd=work, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        t0 = time.perf_counter()
+
+        def wait(cond, what, timeout_s=deadline_s):
+            deadline = time.monotonic() + timeout_s
+            while not cond():
+                if proc.poll() is not None:
+                    raise AssertionError(f"{tag}: the script exited "
+                                         f"{proc.returncode} waiting for "
+                                         f"{what} (chiprun_out/"
+                                         f"phase18b_script.log)")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag}: {what} not within "
+                                         f"{timeout_s:.0f} s (chiprun_out/"
+                                         f"phase18b_script.log)")
+                time.sleep(0.1)
+
+        def healthy() -> bool:
+            try:
+                code, body = _http_get(url + "/healthz", timeout=2.0)
+            except OSError:
+                return False
+            return code == 200 and json.loads(body).get("healthy") is True
+        wait(healthy, "a healthy /healthz")
+        rec["healthy_s"] = time.perf_counter() - t0
+        client = Client(HTTPTransport(url))
+
+        def registered() -> bool:
+            got = {n.metadata.name: [a.address for a in n.status.addresses]
+                   for n in client.nodes().list().items}
+            return got == {n: [a] for n, a in zip(names, instances)}
+        wait(registered, "both nodes registered with their addresses")
+        rec["registered_s"] = time.perf_counter() - t0
+        kubectl = _kubectl_for(url, work, tag, kubectl_s)
+        pod_file = os.path.join(work, "pod.json")
+        with open(pod_file, "w") as fh:
+            json.dump({"kind": "Pod", "apiVersion": "v1",
+                       "metadata": {"name": "hello", "namespace": "default"},
+                       "spec": {"containers": [{
+                           "name": "hello", "image": "busybox",
+                           "command": ["sleep", "3600"],
+                           "resources": {"limits": {
+                               "cpu": "100m", "memory": "64Mi"}}}]}}, fh)
+        t1 = time.perf_counter()
+        kubectl("create", "-f", pod_file)
+
+        def pod() -> api.Pod:
+            return client.pods().get("hello")
+        wait(lambda: pod().spec.host in names, "the pod's bind")
+        rec["bind_s"] = time.perf_counter() - t1
+        rec["host"] = pod().spec.host
+        sched = [p for p in _children(proc.pid) if
+                 "kubernetes_tpu_torch.cmd.scheduler" in _cmdline(p)]
+        holds = [p for p in sched if _holds_card(p)]
+        if len(sched) != 1 or (_device_type(dev) == "cuda" and not holds):
+            raise AssertionError(f"{tag}: scheduler processes {sched}, "
+                                 f"holding the card {holds}")
+        rec["scheduler_holds_card"] = bool(holds)
+        wait(lambda: pod().status.phase == api.PodRunning,
+             "the pod Running")
+        rec["running_s"] = time.perf_counter() - t1
+        rcode, _ip, dns_s = _dns_query(("127.0.0.1", 10053),
+                                       "kubernetes.default.cluster.local")
+        answers = {"dns_rcode": rcode, "dns_s": dns_s}
+        for what, p, path in (("monitoring", 10251, "/metrics"),
+                              ("logging", 10252, "/healthz")):
+            code, _b = _http_get(f"http://127.0.0.1:{p}{path}")
+            if code != 200:
+                raise AssertionError(f"{tag}: the {what} port answered "
+                                     f"{code}")
+            answers[what] = code
+        rec["addons"] = answers
+        kubectl("delete", "pods", "hello")
+        wait(lambda: not any(_runtime_procs(r) for r in roots
+                             if os.path.isdir(r)),
+             "the deleted pod's processes to stop", 60.0)
+        kids = _children(proc.pid)
+        rec["script_processes"] = len(kids)
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rec["script_rc"] = proc.wait(timeout=60)
+        deadline = time.monotonic() + 30.0
+        while any(os.path.exists(f"/proc/{k}") and _cmdline(k)
+                  for k in kids) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        rec["teardown_s"] = time.perf_counter() - t2
+        left = [k for k in kids if os.path.exists(f"/proc/{k}")
+                and _cmdline(k)]
+        under = {p for r in roots for p in _runtime_procs(r)}
+        if left or under:
+            raise AssertionError(f"{tag}: after SIGTERM, left "
+                                 f"{[_cmdline(k)[:80] for k in left]}, "
+                                 f"{len(under)} under the runtime roots")
+    finally:
+        if proc is not None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+        for r in roots:
+            if os.path.isdir(r):
+                _kill_runtime_procs(r)
+        shutil.rmtree(work, ignore_errors=True)
+    rec.update(kubectl_runs=len(kubectl_s),
+               phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
+def _log_service(a: dict, b: dict) -> None:
+    s, c, z = a["steady"], a["churn"], a["settled"]
+    _log(f"[18] (a) the service path: {a['nodes']} inventory nodes "
+         f"registered in {a['registered_s']:.3f} s, {a['kubelets']} "
+         f"kubelets, {a['backends']} backends Running on {a['per_node']} "
+         f"{a['running_s']:.3f} s after the first RC")
+    _log(f"     steady soak through kube-proxy: {s['requests']} requests, "
+         f"{s['requests_per_s']:.1f} /s, p50 {s['p50_s'] * 1e3:.3f} ms, p99 "
+         f"{s['p99_s'] * 1e3:.3f} ms, {s['errors']} errors, {s['names']} "
+         f"backends reached")
+    _log(f"     churn: {c['deleted']} pods deleted ({c['per_round']} every "
+         f"{c['period_s']} s), {c['errors']} errors of {c['requests']} "
+         f"requests in the window {c['reasons'][:2]}; endpoints name the "
+         f"replacement {c['to_replacement_s']['median']:.3f} s after the "
+         f"delete (median, max {c['to_replacement_s']['max']:.3f}); "
+         f"{a['restarts']} container restarts")
+    _log(f"     settled soak: {z['requests']} requests, "
+         f"{z['requests_per_s']:.1f} /s, p50 {z['p50_s'] * 1e3:.3f} ms, p99 "
+         f"{z['p99_s'] * 1e3:.3f} ms, {z['errors']} errors, {z['names']} "
+         f"backends reached")
+    d, lg = a["dns"], a["logging"]
+    _log(f"     dns: {d['queries']} queries p50 {d['p50_s'] * 1e3:.3f} ms "
+         f"p99 {d['p99_s'] * 1e3:.3f} ms, a deleted service NXDOMAIN after "
+         f"{d['deleted_nxdomain_s']:.3f} s; logging: every start line in "
+         f"{lg['all_start_lines_s']:.3f} s, one collect pass at "
+         f"{lg['nodes']} nodes {lg['collect_pass_s']:.3f} s; monitoring: "
+         f"{a['monitoring']['nodes']} nodes, up {a['monitoring']['up']}")
+    _log(f"     {len(a['waves'])} waves over {a['nodes']} nodes, "
+         f"{a['launches']} commit_solve launches, {a['plain_calls']} "
+         f"plain-version calls; every wave == the plain version (max abs "
+         f"err {a['max_abs_err']}) and == solve(encode_snapshot); "
+         f"{a['killed_at_end']} runtime processes killed at the end; "
+         f"phase {a['phase_s']:.1f} s")
+    _log(f"     (b) deploy/inventory-up.sh: healthy at "
+         f"{b['healthy_s']:.3f} s, 2 nodes registered at "
+         f"{b['registered_s']:.3f} s; a kubectl pod bound to {b['host']} "
+         f"in {b['bind_s']:.3f} s through the script's tpu-batch scheduler "
+         f"(holds the card: {b['scheduler_holds_card']}), Running at "
+         f"{b['running_s']:.3f} s; addons {b['addons']}; SIGTERM (rc "
+         f"{b['script_rc']}) stopped its {b['script_processes']} processes "
+         f"in {b['teardown_s']:.3f} s; phase {b['phase_s']:.1f} s")
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -6931,11 +7956,10 @@ def main() -> int:
     # Phases 9, 9c, 10b, 11, 12, 14 (a), 15 and 16 run below their
     # functions' default depths (pending pods; phase 11's compared pods;
     # phase 15's replicas; phase 16's legacy pods and RC), so that phases
-    # 15, 16 and 17 fit in the script's time limit with room for a slower
-    # host.
+    # 15-18 fit in the script's time limit with room for a slower host.
 
     # 9. the scheduler binary against an apiserver process, over HTTP
-    record["binary"] = bp = _binary_phase(dev, n_pending=2_000)
+    record["binary"] = bp = _binary_phase(dev, n_pending=1_000)
     _log_binary(bp)
 
     # 9b. the binary's fallback to the serial scheduler
@@ -6943,7 +7967,7 @@ def main() -> int:
     _log_fallback(record["fallback"])
 
     # 9c. the binary with the pipelined loop, tracing and the recorder
-    record["pipeline_binary"] = _pipeline_binary_phase(dev, n_pending=2_000)
+    record["pipeline_binary"] = _pipeline_binary_phase(dev, n_pending=1_000)
     _log_pipeline_binary(record["pipeline_binary"])
 
     # 10. the solver daemon: four clients coalescing at north_star width
@@ -6959,8 +7983,8 @@ def main() -> int:
     _log_oracle(record["oracle"])
 
     # 12. the binaries under KTPU_RACE=1 and KTPU_DEBUG=1
-    record["race"] = _race_binary_phase(dev, n_pending=1_000, n_deleted=100,
-                                        n_added=200)
+    record["race"] = _race_binary_phase(dev, n_pending=500, n_deleted=50,
+                                        n_added=100)
     _log_race_binary(record["race"])
 
     # 13. the device mesh: four node shards on this card
@@ -6969,18 +7993,18 @@ def main() -> int:
 
     # 14. the fleet: a kube-store and two apiserver workers killed under
     # the binary's load; then a durable apiserver alone, killed
-    fl, du = _fleet_phase(dev, n_pending=2_000), _durable_phase(dev)
+    fl, du = _fleet_phase(dev, n_pending=1_000), _durable_phase(dev)
     record["fleet"] = {"store_and_workers": fl, "durable_apiserver": du}
     _log_fleet(fl, du)
 
     # 15. the controller manager and the inventory cloud feeding the card
     record["controllers"] = cm = _controller_phase(
-        dev, apps=4, replicas=100, scale=(("rc-0-1", 60), ("rc-1-1", 300)))
+        dev, apps=4, replicas=50, scale=(("rc-0-1", 30), ("rc-1-1", 150)))
     _log_controller(cm)
 
     # 16. an operator's kubectl session, in the legacy wire, feeding it
-    record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=1_500,
-                                            web=(500, 1_000))
+    record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=750,
+                                            web=(250, 500))
     _log_kubectl(kc)
 
     # 17. kubectl drain through the descheduler at the fragment storm's
@@ -6988,6 +8012,12 @@ def main() -> int:
     da, kb = _descheduler_phase(dev), _kubelet_phase(dev)
     record["descheduler"] = {"drain": da, "kubelets": kb}
     _log_descheduler(da, kb)
+
+    # 18. the service path through kube-proxy to backends the card placed,
+    # with the dns, logging and monitoring addons; the deploy script
+    sa, sb = _service_phase(dev), _deploy_script_phase(dev)
+    record["service"] = {"path": sa, "deploy_script": sb}
+    _log_service(sa, sb)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -7013,17 +8043,18 @@ def main() -> int:
     # crossover's one launch through solve(snap, mesh=)), phase 14's (one
     # a wave of the binary against the fleet and the durable apiserver),
     # phase 15's (one a wave of the RCs' pods), phase 16's (one a wave
-    # of the kubectl session's pods) and phase 17's (one a wave of the
-    # pods held pending for the descheduler, and of the kubelets' RC),
-    # each wave held against the plain version too.
+    # of the kubectl session's pods), phase 17's (one a wave of the
+    # pods held pending for the descheduler, and of the kubelets' RC) and
+    # phase 18 (a)'s (one a wave of the hostnames backends and their
+    # replacements), each wave held against the plain version too.
     entries = (("commit_solve", dict(ns, max_abs_err=max(
                     ns["max_abs_err"], bp["max_abs_err"], fl["max_abs_err"],
                     du["max_abs_err"], cm["max_abs_err"],
                     kc["max_abs_err"], da["max_abs_err"],
-                    kb["max_abs_err"])),
+                    kb["max_abs_err"], sa["max_abs_err"])),
                 bp["launches"] + ms["launches"] + fl["launches"]
                 + du["launches"] + cm["launches"] + kc["launches"]
-                + da["launches"] + kb["launches"]),
+                + da["launches"] + kb["launches"] + sa["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

@@ -57,6 +57,7 @@ class ClusterConfig:
     batch_scheduler: bool = False   # tpu-batch wave scheduler instead of serial
     process_runtime: bool = False   # real local-process runtime (native pause)
     runtime_root: str = ""          # ProcessRuntime state dir ("" = tmpdir)
+    device: Optional[str] = None    # tpu-batch waves solve here (None = cuda)
 
 
 class _NodeHandle:
@@ -142,7 +143,8 @@ class Cluster:
         if self.config.batch_scheduler:
             from kubernetes_tpu_torch.scheduler.tpu_batch import BatchScheduler
             self._scheduler = BatchScheduler(
-                sched_config, self.scheduler_factory, self.client).run()
+                sched_config, self.scheduler_factory, self.client,
+                device=self.config.device).run()
         else:
             self._scheduler = Scheduler(sched_config).run()
         for handle in self.nodes.values():

@@ -66,14 +66,31 @@ class SimpleModeler:
         self.assumed.add(pod)
 
     def _prune_assumed(self) -> None:
-        """Drop assumed pods once seen in the queued or scheduled stores
-        (ref: modeler.go:90-139 listPods)."""
+        """Drop assumed pods once seen in the scheduled store, or queued
+        under another uid (the name was deleted and created again)
+        (ref: modeler.go:90-139 listPods). A queued copy with the
+        assumed pod's own uid is stale: a pod is assumed only once its
+        bind was acknowledged, and a relist that listed it before the
+        bind landed queues it again; that copy leaves the queue and the
+        assumption stays (the reference drops the assumption, so the
+        node's share of the pod is forgotten and the pod placed again)."""
         for pod in self.assumed.list():
             key = meta_namespace_key_func(pod)
-            if self.queued.get_by_key(key) is not None:
+            queued = self.queued.get_by_key(key)
+            if queued is not None and \
+                    queued.metadata.uid == pod.metadata.uid:
+                self.queued.delete(queued)
+                queued = None
+            if queued is not None or \
+                    self.scheduled.get_by_key(key) is not None:
                 self.assumed.delete(pod)
-            elif self.scheduled.get_by_key(key) is not None:
-                self.assumed.delete(pod)
+
+    def placed(self, pod: api.Pod) -> bool:
+        """Whether this pod (its uid) is bound as far as the modeler
+        knows: seen bound, or assumed after an acknowledged bind."""
+        key = meta_namespace_key_func(pod)
+        held = self.scheduled.get_by_key(key) or self.assumed.get_by_key(key)
+        return held is not None and held.metadata.uid == pod.metadata.uid
 
     def list(self, selector: Optional[labels_pkg.Selector] = None):
         self._prune_assumed()
@@ -403,8 +420,16 @@ class ConfigFactory:
         return frozen
 
     def _next_pod(self, timeout: Optional[float] = None) -> api.Pod:
-        """ref: factory.go:164-168 — blocking FIFO pop."""
-        return self.pod_queue.pop(timeout=timeout)
+        """ref: factory.go:164-168 — blocking FIFO pop. A pod the modeler
+        already holds as bound (a relist queued it again from a list
+        taken before its bind landed) is dropped, not scheduled twice."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = None if deadline is None else max(
+                0.0, deadline - time.monotonic())
+            pod = self.pod_queue.pop(timeout=left)
+            if not self.modeler.placed(pod):
+                return pod
 
     def _make_error_func(self):
         """ref: factory.go makeDefaultErrorFunc — backoff, re-fetch,

@@ -94,6 +94,7 @@ from datetime import timezone
 from typing import List, NamedTuple, Optional
 
 from kubernetes_tpu_torch.api import types as api
+from kubernetes_tpu_torch.client.cache import meta_namespace_key_func
 from kubernetes_tpu_torch.models import explain as explain_mod
 from kubernetes_tpu_torch.models import gang
 from kubernetes_tpu_torch.models import preempt as preempt_mod
@@ -371,17 +372,25 @@ class BatchScheduler:
 
     # -- wave assembly ------------------------------------------------------
     def _drain_wave(self, timeout: Optional[float]) -> List[api.Pod]:
-        pods: List[api.Pod] = [self.config.next_pod(timeout)]
+        """Up to ``wave_size`` pods from the queue, lingering
+        ``wave_linger_s`` for more. A pod the queue hands out again while
+        the wave drains (a relist re-adds every unbound pod, the popped
+        ones too) is one pod: its newer copy takes the first one's place.
+        Placed twice, it would take a second node's capacity in the solve
+        and lose its second bind."""
+        first = self.config.next_pod(timeout)
+        pods = {meta_namespace_key_func(first): first}
         deadline = time.monotonic() + self.wave_linger_s
         while len(pods) < self.wave_size:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
             try:
-                pods.append(self.config.next_pod(remaining))
+                pod = self.config.next_pod(remaining)
             except TimeoutError:
                 break
-        return pods
+            pods[meta_namespace_key_func(pod)] = pod
+        return list(pods.values())
 
     def _make_get_existing(self):
         """Lazy memoized existing-pod list: materialized only when

@@ -117,3 +117,89 @@ def test_http_watch_open_is_answered_when_the_store_resets():
         assert out and out[0] != "opened", out
     finally:
         srv.stop()
+
+
+class _Queue:
+    """``next_pod`` over a fixed sequence of pods, then a timeout: a
+    wave drain whose queue hands out a pod again (a relist re-adds every
+    unbound pod, the ones just popped too)."""
+
+    def __init__(self, pods):
+        self.pods = list(pods)
+
+    def next_pod(self, timeout=None):
+        if not self.pods:
+            raise TimeoutError
+        return self.pods.pop(0)
+
+
+def _drained(pkg: str, seq):
+    import importlib
+    import types
+
+    tb = importlib.import_module(f"{pkg}.scheduler.tpu_batch")
+    api = importlib.import_module(f"{pkg}.api.types")
+    pods = [api.Pod(metadata=api.ObjectMeta(
+        name=name, namespace="default", resource_version=str(rv)))
+        for name, rv in seq]
+    sched = object.__new__(tb.BatchScheduler)
+    sched.config = types.SimpleNamespace(next_pod=_Queue(pods).next_pod)
+    sched.wave_size, sched.wave_linger_s = 8, 1.0
+    return [(p.metadata.name, p.metadata.resource_version)
+            for p in sched._drain_wave(0)]
+
+
+def test_a_pod_queued_again_while_a_wave_drains_is_placed_once():
+    """ROADMAP Queue 3: the durable-kill phase's "acknowledged binds do
+    not read back". After the apiserver's respawn the
+    scheduler's reflector relists and re-adds every unbound pod to the
+    queue while a wave drains, so the wave held a pod twice; the solve
+    placed both copies, the first bind won, the second answered 409, and
+    the check, keying the wave's acknowledgements by name, took the
+    losing copy's host. The reference drains the pod twice; the port
+    keeps it once, its newer copy in the first one's place. (The check
+    now counts an acknowledgement per bind entry.)"""
+    seq = [("a", 1), ("b", 2), ("a", 3), ("c", 4)]
+    assert _drained("kubernetes_tpu", seq) == [
+        ("a", "1"), ("b", "2"), ("a", "3"), ("c", "4")]
+    assert _drained("kubernetes_tpu_torch", seq) == [
+        ("a", "3"), ("b", "2"), ("c", "4")]
+
+
+def _relisted(pkg: str):
+    """A wave's acknowledged bind of ``a`` is assumed, then a relist
+    whose list was taken before the bind landed queues ``a`` again with
+    ``q`` -> (the pods the modeler holds with their hosts, the pods the
+    queue then hands out)."""
+    import importlib
+
+    driver = importlib.import_module(f"{pkg}.scheduler.driver")
+    api = importlib.import_module(f"{pkg}.api.types")
+
+    def pod(name, host=""):
+        return api.Pod(metadata=api.ObjectMeta(
+            name=name, namespace="default", uid=f"uid-{name}"),
+            spec=api.PodSpec(host=host))
+    factory = driver.ConfigFactory(client=None)
+    factory.modeler.assume_pod(pod("a", "n1"))
+    factory.pod_queue.replace([pod("a"), pod("q")])
+    held = sorted((p.metadata.name, p.spec.host)
+                  for p in factory.modeler.list())
+    popped = []
+    while True:
+        try:
+            popped.append(factory._next_pod(0).metadata.name)
+        except TimeoutError:
+            return held, popped
+
+
+def test_a_relist_does_not_undo_an_acknowledged_bind():
+    """ROADMAP Queue 3, the same flake's other half: after the
+    apiserver's respawn the first wave bound pods that the unassigned
+    pods' relist, listed just before, queued again. The reference's
+    modeler takes a queued copy for a failed bind and drops the
+    assumption (the encoder forgets the pod's share of its node) and the
+    queue hands the pod out to be placed again (its bind answers 409);
+    the port keeps the assumption and drops the stale copy."""
+    assert _relisted("kubernetes_tpu") == ([], ["a", "q"])
+    assert _relisted("kubernetes_tpu_torch") == ([("a", "n1")], ["q"])

@@ -108,6 +108,32 @@ def test_walk_covers_the_kubelet_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_service_slice():
+    mods = set(_modules())
+    for m in ("proxy", "proxy.config", "proxy.proxier", "proxy.roundrobin",
+              "util.iptables", "cmd.proxy", "addons.dns", "addons.logging",
+              "cmd.dns", "cmd.logging", "cmd.monitoring", "cmd.standalone",
+              "cmd.hyperkube"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
+def test_every_reference_module_has_its_counterpart():
+    """The tree comparison: each module of the reference has one under
+    the port's own path, but the Pallas kernel's, whose counterpart is
+    ``commit_solve`` (``ops/commit_solver.py`` and its CUDA sources)."""
+    ref = os.path.join(ROOT, "kubernetes_tpu")
+    missing = []
+    for dirpath, dirnames, filenames in os.walk(ref):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for f in filenames:
+            rel = os.path.relpath(os.path.join(dirpath, f), ref)
+            if f.endswith(".py") and not os.path.exists(
+                    os.path.join(PORT, rel)):
+                missing.append(rel)
+    assert missing == ["ops/pallas_solver.py"]
+    assert os.path.exists(os.path.join(PORT, "ops", "commit_solver.py"))
+
+
 # builds each binary of the kubelet slice from its flags, with jax and
 # the reference package unimportable, then names the port's modules it
 # loaded; the master it is given has nothing listening
@@ -165,6 +191,40 @@ def test_kubectl_imports_no_torch_and_no_numpy():
     assert proc.stdout.strip() == "[]"
 
 
+def test_host_binaries_import_no_torch_and_no_numpy(tmp_path):
+    """kube-proxy, cluster-dns and cluster-logging are host code, and
+    hyperkube's kubectl too: each builds what its binary runs (the
+    master it is given has nothing listening) without reaching the
+    models or the kernels."""
+    code = (
+        "import json, os, sys\n"
+        "from kubernetes_tpu_torch.cmd import dns, hyperkube, logging, "
+        "proxy\n"
+        "from kubernetes_tpu_torch.addons.dns import DNSServer\n"
+        "from kubernetes_tpu_torch.addons.logging import LogAggregator\n"
+        "from kubernetes_tpu_torch.client.client import Client\n"
+        "from kubernetes_tpu_torch.client.http import HTTPTransport\n"
+        "master = 'http://127.0.0.1:9'\n"
+        "proxier, svc, ep = proxy.build_proxy(proxy.build_parser()"
+        ".parse_args(['--master', master]))\n"
+        "client = Client(HTTPTransport(master))\n"
+        "DNSServer(client)._sock.close()\n"
+        "LogAggregator(client)._httpd.server_close()\n"
+        "assert dns.build_parser().parse_args([]).port == 10053\n"
+        "assert logging.build_parser().parse_args([]).port == 10252\n"
+        "os.environ['KUBECONFIG'] = sys.argv[1]\n"
+        "assert hyperkube.main(['kubectl', 'config', 'set-cluster', 'c', "
+        "'--server=' + master]) == 0\n"
+        "print(json.dumps(sorted(m for m in ('torch', 'numpy')\n"
+        "                        if m in sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(tmp_path / "kubeconfig")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
 # series the storage tier and the worker fleet register: the vet's
 # registry universe over the port holds each, so a gate may name it
 _STORAGE_SERIES = ("store_wal_records_total", "store_wal_group_commits_total",
@@ -217,8 +277,16 @@ _REFERENCE_MODULE = re.compile(
     r"\bkubernetes_tpu\.[A-Za-z_]|(import|from)\s+kubernetes_tpu\b(?!_)")
 
 
+def _deploy_scripts():
+    deploy = os.path.join(PORT, "deploy")
+    return [os.path.join(deploy, f) for f in sorted(os.listdir(deploy))
+            if f.endswith(".sh")]
+
+
 def test_port_sources_carry_no_reference_import():
-    for path in _port_files() + [os.path.join(ROOT, "chip_smoke.py")]:
+    assert len(_deploy_scripts()) == 3
+    for path in _port_files() + [os.path.join(ROOT, "chip_smoke.py")] \
+            + _deploy_scripts():
         with open(path) as fh:
             text = fh.read()
         for bad in ("import jax", "from jax"):

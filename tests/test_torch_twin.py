@@ -80,8 +80,12 @@ def port_on_the_cpu(monkeypatch):
 
     def cpu_default(device=None):
         return real("cpu" if device is None else device)
-    for name in _DEVICE_USERS:
-        mod = importlib.import_module("kubernetes_tpu_torch." + name)
+    # every module imported before any is patched: a module first
+    # imported after ``batch_solver`` was patched would bind the CPU
+    # default as its own, and keep it past the case's undo
+    mods = [importlib.import_module("kubernetes_tpu_torch." + name)
+            for name in _DEVICE_USERS]
+    for mod in mods:
         monkeypatch.setattr(mod, "resolve_device", cpu_default)
 
 
@@ -133,3 +137,16 @@ def test_port_on_the_cpu_keeps_a_named_device(monkeypatch):
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batch_solver.resolve_device("cuda")
+
+
+def test_port_on_the_cpu_is_undone_whole(monkeypatch):
+    """After the case's undo, no module keeps the CPU default, the
+    importers of ``resolve_device`` included."""
+    import importlib
+
+    port_on_the_cpu(monkeypatch)
+    monkeypatch.undo()
+    from kubernetes_tpu_torch.models import batch_solver
+    for name in _DEVICE_USERS:
+        mod = importlib.import_module("kubernetes_tpu_torch." + name)
+        assert mod.resolve_device is batch_solver.resolve_device, name

@@ -1,8 +1,10 @@
 """The port's WebSocket watch (v1 and v1beta1 frames), ``/debug/pprof``,
-``/ui`` and kube-version-change (``cmd/version_change.py``) on the cases
-of tests/test_websocket_pprof.py and tests/test_ui_and_tools.py. Left
-out: the cases of binaries the port does not have yet
-(``cmd/hyperkube.py``, the deploy scripts; ROADMAP Queue 1 item 15e)."""
+``/ui``, kube-version-change (``cmd/version_change.py``), hyperkube's
+table and the deploy scripts on the cases of
+tests/test_websocket_pprof.py and tests/test_ui_and_tools.py. The deploy
+scripts' case reads the reference's two ``cluster/`` scripts as the
+port's own copies under ``kubernetes_tpu_torch/deploy/``; its ``hack/``
+scripts stay as they are. No case is left out."""
 
 import tracemalloc
 
@@ -10,12 +12,11 @@ import pytest
 
 from test_torch_twin import port_twin
 
-OTHER = "another binary of the reference (ROADMAP Queue 1 item 15e)"
-
 globals().update(port_twin("test_websocket_pprof"))
-globals().update(port_twin("test_ui_and_tools", {
-    "test_hyperkube_knows_version_change": OTHER,
-    "test_deploy_scripts_executable": OTHER,
+globals().update(port_twin("test_ui_and_tools", rename={
+    '"cluster/local-up.sh"': '"kubernetes_tpu_torch/deploy/local-up.sh"',
+    '"cluster/multi-process-up.sh"':
+        '"kubernetes_tpu_torch/deploy/multi-process-up.sh"',
 }))
 
 
