@@ -70,7 +70,9 @@ and holds the kernel against its plain PyTorch version. Phases:
 5. north_star through ``solve``: exactly one kernel launch and no call of
    the plain version, decisions and scores bit-identical to the plain
    version, every pod bound; kernel time (median of CUDA-event timed
-   runs), plain time, encode and wave seconds, pods/s;
+   runs), plain time, encode and wave seconds, pods/s; then the same
+   objects encoded again, every pod's rows a hit of the encoder's row
+   cache: its seconds, and its arrays equal to the first encode's;
 5b. affinity (5,000 x 5,000) with its Policy loaded from JSON through
    ``load_policy`` -> ``batch_policy_from``, the same checks;
 5c. gang (1,000 PodGroups of 8 on 2,000 nodes), the same checks after
@@ -326,6 +328,19 @@ and holds the kernel against its plain PyTorch version. Phases:
    free first, the cluster healthy, a kubectl pod placed by its
    ``tpu-batch`` scheduler process (which holds the card) and Running,
    the addons answering, and nothing left after SIGTERM.
+19. the conformance tools on the card: (a) the port's all-in-one
+   cluster (``cmd.standalone.standalone_server`` with ``--nodes 3
+   --algorithm tpu-batch --device cuda``) in a thread, and the port's e2e
+   driver (``tools/e2e.py --master``) at it: all nine suites pass (pods,
+   replication, services, events, secrets, watch, kubectl, guestbook,
+   update-demo, with kubectl processes and the ``examples/`` manifests),
+   each wave launched commit_solve once, equals the plain version and
+   ``solve(encode_snapshot(...))`` of the encoder's state, and the plain
+   version never ran; each suite's seconds. (b) The port's stress harness
+   (``tools/stress.run``, the tpu-batch scheduler on the card, 15 s, 4
+   writers): CLEAN (every survivor bound, a final write accepted, no
+   escaped loop exception), at least one launch, no plain call, every
+   wave equal to the plain version, the switch interval restored.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -1198,7 +1213,15 @@ def _batch_phase(dev, n_nodes=1_500, n_pods=120, n_global=6_801,
             "seconds": time.perf_counter() - t0}
 
 
-def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
+def _wave_phase(name: str, dev, kernel_runs: int,
+                reencode: bool = False) -> dict:
+    """One wave of ``name`` at full width through ``encode_snapshot`` and
+    ``solve``, held against the plain version. With ``reencode`` the same
+    objects are encoded a second time after the wave, every pod's rows a
+    hit of the encoder's row cache, and the two encodes' arrays must be
+    equal."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1268,6 +1291,27 @@ def _wave_phase(name: str, dev, kernel_runs: int) -> dict:
     elif not ((chosen >= 0) & (chosen < n_nodes) & (scores >= 0)).all():
         raise AssertionError(f"{name}: decision out of range")
 
+    if reencode:
+        # the row cache: every spec now holds its rows, so this encode
+        # walks no container; its arrays must be the first encode's
+        if not all("_ktpu_rows" in p.spec.__dict__
+                   for p in cluster[1] + cluster[2]):
+            raise AssertionError(f"{name}: a pod's spec holds no cached rows "
+                                 f"after the first encode")
+        t3 = time.perf_counter()
+        again = encode_snapshot(*cluster, policy=policy)
+        extra["reencode_s"] = time.perf_counter() - t3
+        for f in dataclasses.fields(snap):
+            a, b = getattr(snap, f.name), getattr(again, f.name)
+            if isinstance(a, np.ndarray):
+                same = a.dtype == b.dtype and np.array_equal(a, b)
+            else:
+                same = f.name == "policy" or a == b
+            if not same:
+                raise AssertionError(f"{name}: the cached re-encode's "
+                                     f"{f.name} differs from the first "
+                                     f"encode's")
+
     feasible_pairs = int(stats["feasible"].sum())
     preempt_pairs = int(stats["preempt_pairs"].sum())
     bound_ms, bound_by, nbytes, ops = _bound(ci, feasible_pairs,
@@ -1325,6 +1369,9 @@ def _priority_checks(cluster, snap, chosen, scores, names) -> dict:
 def _log_wave(tag: str, w: dict) -> None:
     pre = (f", {w['preempted_pods']} placed by preemption evicting "
            f"{w['victims']}" if "preempted_pods" in w else "")
+    again = (f"; the same objects re-encoded (every pod's rows cached) in "
+             f"{w['reencode_s']:.3f}s, arrays equal" if "reencode_s" in w
+             else "")
     _log(f"[{tag}] {w['shape']} {w['nodes']}x{w['pods']} "
          f"({w['resource_type']} planes, {w['bands']} bands{pre}): launches "
          f"{w['launches']}, state in {w['layout']} memory "
@@ -1334,7 +1381,7 @@ def _log_wave(tag: str, w: dict) -> None:
          f"({w['pods_per_s']:.1f} pods/s), kernel {w['kernel_ms']:.3f} ms "
          f"(runs {[round(t, 3) for t in w['kernel_ms_runs']]}), plain "
          f"{w['plain_ms']:.1f} ms, bound {w['bound_ms']:.4f} ms "
-         f"({w['bound_by']})")
+         f"({w['bound_by']}){again}")
 
 
 def _copy_snapshot(snap):
@@ -2123,6 +2170,7 @@ class _WaveLog:
             prep = prepare(pods)
             if prep is not None:
                 row["order"], row["nodes"] = prep[0], prep[1]
+                row["services"] = prep[2]
             return prep
 
         def _solve_snap(snap, n_pending, tctx=None):
@@ -2238,13 +2286,12 @@ def _check_waves(rows, final, names, svcs, dev, tag: str,
     wave's placements equal ``solve(encode_snapshot(...))`` of its state
     (the resident pods and those whose bind an earlier wave saw succeed,
     or the encoder's own pods where ``_WaveLog(keep_state=True)`` kept
-    them: ``existing``); every bind a wave saw succeed reads back where
-    it was placed, but for the pods of ``gone``, deleted since, and no
-    pod is bound without one. On the card the kernel alone is timed on
+    them: ``existing``; ``svcs`` the services, or None for each wave's
+    own as its admission listed them); every bind a wave saw succeed
+    reads back where it was placed, but for the pods of ``gone``, deleted
+    since, and no pod is bound without one. On the card the kernel alone is timed on
     each wave's inputs (``kernel_ms``). -> the checks' seconds and the
     largest difference from the plain version."""
-    import numpy as np
-
     from kubernetes_tpu_torch.models import batch_solver as bs
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
@@ -2279,18 +2326,7 @@ def _check_waves(rows, final, names, svcs, dev, tag: str,
     # each wave's decisions on ``dev`` against the plain version on the CPU
     # over the wave's own snapshot (bit-equal), and the kernel alone timed
     # on those inputs
-    t0 = time.perf_counter()
-    max_abs_err = 0
-    for k, r in enumerate(rows):
-        p_chosen, p_scores = bs.solve(r["snap"], device="cpu")
-        if not (np.array_equal(p_chosen, r["chosen"])
-                and np.array_equal(p_scores, r["scores"])):
-            raise AssertionError(f"{tag} wave {k}: decisions differ from "
-                                 f"the plain version")
-        max_abs_err = max(max_abs_err, *(
-            int(np.abs(np.asarray(a, np.int64) - b).max())
-            for a, b in ((p_chosen, r["chosen"]), (p_scores, r["scores"]))))
-    plain_check_s = time.perf_counter() - t0
+    max_abs_err, plain_check_s = _hold_against_plain(rows, tag)
     if _device_type(dev) == "cuda":
         from kubernetes_tpu_torch.tools.kernel_time import event_ms
         for r in rows:
@@ -2304,7 +2340,8 @@ def _check_waves(rows, final, names, svcs, dev, tag: str,
         state = r.get("existing")
         if state is None:
             state = residents + [by_name[n] for n in placed_before]
-        snap = encode_snapshot(r["nodes"], state, r["order"], svcs)
+        snap = encode_snapshot(r["nodes"], state, r["order"],
+                               r["services"] if svcs is None else svcs)
         chosen, _ = bs.solve(snap, device=dev)
         want = [(p.metadata.name, h) for p, h in
                 zip(r["order"], bs.decisions_to_names(snap, chosen)) if h]
@@ -2314,6 +2351,28 @@ def _check_waves(rows, final, names, svcs, dev, tag: str,
         placed_before += r["bound_names"]
     return {"replay_check_s": time.perf_counter() - t0,
             "plain_check_s": plain_check_s, "max_abs_err": max_abs_err}
+
+
+def _hold_against_plain(rows, tag: str):
+    """Each ``_WaveLog`` row's decisions against the plain version on the
+    CPU over the wave's own snapshot, bit for bit -> (the largest
+    difference, the check's seconds)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.models import batch_solver as bs
+
+    t0 = time.perf_counter()
+    max_abs_err = 0
+    for k, r in enumerate(rows):
+        p_chosen, p_scores = bs.solve(r["snap"], device="cpu")
+        if not (np.array_equal(p_chosen, r["chosen"])
+                and np.array_equal(p_scores, r["scores"])):
+            raise AssertionError(f"{tag} wave {k}: decisions differ from "
+                                 f"the plain version")
+        max_abs_err = max(max_abs_err, *(
+            int(np.abs(np.asarray(a, np.int64) - b).max())
+            for a, b in ((p_chosen, r["chosen"]), (p_scores, r["scores"]))))
+    return max_abs_err, time.perf_counter() - t0
 
 
 def _wave_rows(rows, t_first: float) -> list:
@@ -7810,6 +7869,214 @@ def _log_service(a: dict, b: dict) -> None:
          f"{b['script_rc']}) stopped its {b['script_processes']} processes "
          f"in {b['teardown_s']:.3f} s; phase {b['phase_s']:.1f} s")
 
+# ---- phase 19: the e2e suite driver and the stress harness ---------------
+
+def _logged_batch_schedulers(wl):
+    """For the rest of a ``with`` block, every ``BatchScheduler`` that
+    starts its loop is recorded by ``wl`` (a ``_WaveLog``) first: the
+    scheduler the port's cluster builds inside ``Cluster.start``."""
+    import contextlib
+
+    from kubernetes_tpu_torch.scheduler import tpu_batch
+
+    @contextlib.contextmanager
+    def scope():
+        cls = tpu_batch.BatchScheduler
+        run = cls.run
+
+        def run_logged(sched):
+            wl(sched)
+            return run(sched)
+        cls.run = run_logged
+        try:
+            yield
+        finally:
+            cls.run = run
+    return scope()
+
+
+def _join_loop(wl, tag: str) -> None:
+    """Wait for the recorded scheduler's wave loop to end (the cluster's
+    stop only asks it to), so that no wave runs past the counts."""
+    sched = wl.sched
+    if sched is None:
+        raise AssertionError(f"{tag}: the cluster ran no BatchScheduler")
+    if not sched.stop(timeout=60):
+        raise AssertionError(f"{tag}: the wave loop did not stop")
+
+
+def _e2e_phase(dev, count_launches: bool = True,
+               keep_rows: bool = False) -> dict:
+    """Phase 19 (a): an operator's e2e run against a port cluster that
+    solves on ``dev``. The port's all-in-one cluster
+    (``cmd.standalone.standalone_server`` with ``--nodes 3 --algorithm
+    tpu-batch --device``) runs in a thread of this process, and the port's
+    e2e driver (``tools/e2e.main`` with ``--master``) runs its nine suites
+    at it over HTTP, kubectl as processes. Fails unless every suite
+    passes, the cluster stops cleanly, each wave of its scheduler
+    launched commit_solve once and the plain version never ran
+    (``count_launches``), and each wave equals the plain version and
+    ``solve(encode_snapshot(...))`` of the encoder's state with the
+    wave's own services. -> each suite's seconds and the wave checks
+    (with ``keep_rows``, the waves' ``_WaveLog`` rows too)."""
+    import threading
+
+    from kubernetes_tpu_torch.client.client import Client
+    from kubernetes_tpu_torch.client.http import HTTPTransport
+    from kubernetes_tpu_torch.cmd import standalone
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.tools import e2e
+
+    tag = "phase 19 (a)"
+    t_phase = time.perf_counter()
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    wl = _WaveLog(keep_state=True)
+    ready, stop = threading.Event(), threading.Event()
+    result: dict = {}
+    argv = ["--address", "127.0.0.1", "--port", str(port), "--nodes", "3",
+            "--algorithm", "tpu-batch", "--device", _device_type(dev)]
+    thread = threading.Thread(
+        target=lambda: result.update(rc=standalone.standalone_server(
+            argv, ready, stop)), daemon=True, name="phase19-standalone")
+    timings: dict = {}
+    try:
+        with _logged_batch_schedulers(wl):
+            thread.start()
+            while not ready.wait(0.2):
+                if not thread.is_alive():
+                    raise AssertionError(f"{tag}: the standalone cluster "
+                                         f"exited with {result.get('rc')}")
+        _wait_http(url + "/healthz", None, f"{tag}: the standalone cluster")
+        up_s = time.perf_counter() - t_phase
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        t0 = time.perf_counter()
+        rc = e2e.main(["--master", url], timings)
+        e2e_s = time.perf_counter() - t0
+        client = Client(HTTPTransport(url))
+        final = client.pods("").list().items
+        final_nodes = client.nodes().list().items
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    _join_loop(wl, tag)
+    launches = commit_solver.solve_commit.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+    if rc != 0 or sorted(timings) != sorted(n for n, _f in e2e.SUITES):
+        raise AssertionError(f"{tag}: the e2e driver returned {rc}; suites "
+                             f"passed: {sorted(timings)}")
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"{tag}: the standalone cluster returned "
+                             f"{result.get('rc')}")
+
+    # ---- the checks, after the run -------------------------------------
+    rows = [r for r in wl.rows if r["order"]]
+    if not rows:
+        raise AssertionError(f"{tag}: no wave placed a pod")
+    names = {p.metadata.name for p in final}
+    gone = {n for r in rows for n, _h in r["acked"]} - names
+    _check_placements(final, final_nodes, tag)
+    checks = _check_waves(rows, final, names, None, dev, tag,
+                          count_launches, launches, plain_calls, gone=gone)
+    out = {"suites_s": timings, "e2e_s": e2e_s, "up_s": up_s,
+           "waves": _wave_rows(rows, t0), "launches": launches,
+           "plain_calls": plain_calls,
+           "pods_placed": sum(len(r["acked"]) for r in rows), **checks,
+           "phase_s": time.perf_counter() - t_phase}
+    if keep_rows:
+        out["rows"] = rows
+    return out
+
+
+def _stress_phase(dev, seconds: float = 15.0, writers: int = 4,
+                  count_launches: bool = True) -> dict:
+    """Phase 19 (b): the port's stress harness (``tools/stress.run``)
+    with the tpu-batch scheduler solving on ``dev``: ``seconds`` of
+    ``writers`` writers, the node flapper, the watch-fault injector and
+    two readers at a 10 us switch interval. Fails unless the run is CLEAN
+    (every survivor bound, a final write accepted, no escaped loop
+    exception, no unexpected thread error), the switch interval is back
+    where it was, every wave launched commit_solve once, at least one did,
+    and the plain version never ran (``count_launches``), and every
+    wave's decisions equal the plain version's on the CPU."""
+    import io
+
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.tools import stress
+
+    tag = "phase 19 (b)"
+    t_phase = time.perf_counter()
+    wl = _WaveLog()
+    out = io.StringIO()
+    interval = sys.getswitchinterval()
+    commit_solver.solve_commit.launches = 0
+    commit_solver.solve_commit_reference.calls = 0
+    with _logged_batch_schedulers(wl):
+        res = stress.run(seconds=seconds, writers=writers, batch=True,
+                         device=_device_type(dev), out=out)
+    _join_loop(wl, tag)
+    launches = commit_solver.solve_commit.launches
+    plain_calls = commit_solver.solve_commit_reference.calls
+    run_s = time.perf_counter() - t_phase
+    if not res["clean"]:
+        raise AssertionError(f"{tag}: the stress run is not CLEAN:\n"
+                             f"{out.getvalue()}")
+    if res["switch_interval"] != interval \
+            or sys.getswitchinterval() != interval:
+        raise AssertionError(f"{tag}: the switch interval is "
+                             f"{sys.getswitchinterval()}, was {interval}")
+    rows = [r for r in wl.rows if r["order"]]
+    if count_launches and (launches < 1 or plain_calls
+                           or launches != len(rows)
+                           or any(r["launches"] != 1 for r in rows)):
+        raise AssertionError(f"{tag}: {launches} launches over "
+                             f"{len(rows)} waves, {plain_calls} plain calls")
+    max_abs_err, plain_check_s = _hold_against_plain(rows, tag)
+    return {"seconds": seconds, "writers": writers,
+            "verdict": out.getvalue().strip().splitlines()[-1],
+            "churned": res["churned"], "survivors": res["survivors"],
+            "running": res["running"], "switch_interval": interval,
+            "restored": res["switch_interval"], "waves": len(rows),
+            "pods_placed": sum(len(r["acked"]) for r in rows),
+            "launches": launches, "plain_calls": plain_calls,
+            "max_abs_err": max_abs_err, "plain_check_s": plain_check_s,
+            "run_s": run_s, "phase_s": time.perf_counter() - t_phase}
+
+
+def _log_conformance(a: dict, b: dict) -> None:
+    suites = ", ".join(f"{n} {t:.3f} s" for n, t in a["suites_s"].items())
+    _log(f"[19] (a) the port's e2e driver at the port's standalone "
+         f"(3 nodes, tpu-batch on the card, up in {a['up_s']:.3f} s): all "
+         f"{len(a['suites_s'])} suites passed in {a['e2e_s']:.3f} s "
+         f"({suites})")
+    _log(f"     {len(a['waves'])} waves placed {a['pods_placed']} pods, "
+         f"{a['launches']} commit_solve launches, {a['plain_calls']} "
+         f"plain-version calls; every wave == the plain version (max abs "
+         f"err {a['max_abs_err']}) and == solve(encode_snapshot) of the "
+         f"encoder's state; phase {a['phase_s']:.1f} s")
+    _log(f"     (b) the stress harness, tpu-batch on the card, "
+         f"{b['seconds']:.0f} s x {b['writers']} writers: {b['verdict']}; "
+         f"{b['survivors']} survivors ({b['running']} Running at the "
+         f"verdict), {b['waves']} waves placed {b['pods_placed']} pods, "
+         f"{b['launches']} launches, {b['plain_calls']} plain calls, every "
+         f"wave == the plain version (max abs err {b['max_abs_err']}); "
+         f"switch interval restored to {b['restored']} s; phase "
+         f"{b['phase_s']:.1f} s")
+
+
+def _freeze_heap() -> None:
+    """Collect what the phases before left, then move every survivor to
+    the collector's permanent generation: a full collection in a later
+    phase walks only what that phase made. (Phases 15 and 16 paused
+    8-9 s each in full collections of the whole heap, every thread of
+    this process stopped, the in-process scheduler's among them.)"""
+    import gc
+
+    gc.collect()
+    gc.freeze()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -7907,7 +8174,7 @@ def main() -> int:
              f"{w['bands']} bands, {w['placed']} placed")
 
     # 5. north_star, the main path
-    ns = _wave_phase("north_star", dev, kernel_runs=7)
+    ns = _wave_phase("north_star", dev, kernel_runs=7, reencode=True)
     record["north_star"] = ns
     _log_wave("5", ns)
 
@@ -7936,19 +8203,23 @@ def main() -> int:
     else:
         _log("[6] binpack3 skipped: time budget spent")
 
+    _freeze_heap()
     # 7. the scheduler's wave loop at north_star width
     sc = _scheduler_phase(dev)
     record["scheduler"] = sc
     _log_scheduler(sc)
 
+    _freeze_heap()
     # 7p. the pipelined loop against the causal loop at north_star width
     record["pipeline"] = pp = _pipeline_phase(dev)
     _log_pipeline(pp)
 
+    _freeze_heap()
     # 7e. the unschedulability diagnosis on the card against the CPU
     record["explain"] = _explain_phase(dev)
     _log_explain(record["explain"])
 
+    _freeze_heap()
     # 8. the loop on the priority cluster: preemption with evict+bind
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
@@ -7958,66 +8229,86 @@ def main() -> int:
     # phase 15's replicas; phase 16's legacy pods and RC), so that phases
     # 15-18 fit in the script's time limit with room for a slower host.
 
+    _freeze_heap()
     # 9. the scheduler binary against an apiserver process, over HTTP
     record["binary"] = bp = _binary_phase(dev, n_pending=1_000)
     _log_binary(bp)
 
+    _freeze_heap()
     # 9b. the binary's fallback to the serial scheduler
     record["fallback"] = _fallback_phase(dev)
     _log_fallback(record["fallback"])
 
+    _freeze_heap()
     # 9c. the binary with the pipelined loop, tracing and the recorder
     record["pipeline_binary"] = _pipeline_binary_phase(dev, n_pending=1_000)
     _log_pipeline_binary(record["pipeline_binary"])
 
+    _freeze_heap()
     # 10. the solver daemon: four clients coalescing at north_star width
     record["daemon"] = dm = _daemon_phase(dev)
     _log_daemon(dm)
 
+    _freeze_heap()
     # 10b. the scheduler binary through a solver daemon process
     record["daemon_binary"] = _daemon_binary_phase(dev, n_pending=1_000)
     _log_daemon_binary(record["daemon_binary"])
 
+    _freeze_heap()
     # 11. the serial oracle against the kernel's decisions
     record["oracle"] = _oracle_phase(dev, ns_pods=64, n_extra=64)
     _log_oracle(record["oracle"])
 
+    _freeze_heap()
     # 12. the binaries under KTPU_RACE=1 and KTPU_DEBUG=1
     record["race"] = _race_binary_phase(dev, n_pending=500, n_deleted=50,
                                         n_added=100)
     _log_race_binary(record["race"])
 
+    _freeze_heap()
     # 13. the device mesh: four node shards on this card
     record["mesh"] = ms = _mesh_phase(dev)
     _log_mesh(ms)
 
+    _freeze_heap()
     # 14. the fleet: a kube-store and two apiserver workers killed under
     # the binary's load; then a durable apiserver alone, killed
     fl, du = _fleet_phase(dev, n_pending=1_000), _durable_phase(dev)
     record["fleet"] = {"store_and_workers": fl, "durable_apiserver": du}
     _log_fleet(fl, du)
 
+    _freeze_heap()
     # 15. the controller manager and the inventory cloud feeding the card
     record["controllers"] = cm = _controller_phase(
         dev, apps=4, replicas=50, scale=(("rc-0-1", 30), ("rc-1-1", 150)))
     _log_controller(cm)
 
+    _freeze_heap()
     # 16. an operator's kubectl session, in the legacy wire, feeding it
     record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=750,
                                             web=(250, 500))
     _log_kubectl(kc)
 
+    _freeze_heap()
     # 17. kubectl drain through the descheduler at the fragment storm's
     # width; kubelets running the pods the card placed, and a drain
     da, kb = _descheduler_phase(dev), _kubelet_phase(dev)
     record["descheduler"] = {"drain": da, "kubelets": kb}
     _log_descheduler(da, kb)
 
+    _freeze_heap()
     # 18. the service path through kube-proxy to backends the card placed,
     # with the dns, logging and monitoring addons; the deploy script
     sa, sb = _service_phase(dev), _deploy_script_phase(dev)
     record["service"] = {"path": sa, "deploy_script": sb}
     _log_service(sa, sb)
+
+    _freeze_heap()
+    # 19. the conformance tools: the e2e suites against a port cluster
+    # solving on the card; the stress harness with the card's scheduler
+    ea, eb = _e2e_phase(dev), _stress_phase(dev)
+    record["conformance"] = {"e2e": ea, "stress": eb}
+    _log_conformance(ea, eb)
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -8046,15 +8337,19 @@ def main() -> int:
     # of the kubectl session's pods), phase 17's (one a wave of the
     # pods held pending for the descheduler, and of the kubelets' RC) and
     # phase 18 (a)'s (one a wave of the hostnames backends and their
-    # replacements), each wave held against the plain version too.
+    # replacements) and phase 19's (one a wave of the e2e suites' pods,
+    # and of the stress harness's), each wave held against the plain
+    # version too.
     entries = (("commit_solve", dict(ns, max_abs_err=max(
                     ns["max_abs_err"], bp["max_abs_err"], fl["max_abs_err"],
                     du["max_abs_err"], cm["max_abs_err"],
                     kc["max_abs_err"], da["max_abs_err"],
-                    kb["max_abs_err"], sa["max_abs_err"])),
+                    kb["max_abs_err"], sa["max_abs_err"],
+                    ea["max_abs_err"], eb["max_abs_err"])),
                 bp["launches"] + ms["launches"] + fl["launches"]
                 + du["launches"] + cm["launches"] + kc["launches"]
-                + da["launches"] + kb["launches"] + sa["launches"]),
+                + da["launches"] + kb["launches"] + sa["launches"]
+                + ea["launches"] + eb["launches"]),
                ("commit_solve[int64 planes]", record["north_star_dec"],
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],

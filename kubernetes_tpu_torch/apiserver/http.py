@@ -1166,6 +1166,11 @@ class APIServer:
         self._httpd = ThreadingHTTPServer((host, port), _Handler,
                                           bind_and_activate=False)
         self._httpd.daemon_threads = True
+        # listen with the system's largest backlog, as Go's net.Listen
+        # does: socketserver's default of 5 drops the SYNs of a burst of
+        # new connections (a controller's parallel creates), and each
+        # dropped one waits a retransmit of 1 s or more to connect
+        self._httpd.request_queue_size = socket.SOMAXCONN
         if reuse_port:
             # several worker processes share one listen port; the kernel
             # load-balances accepts (the multi-worker topology kube-store

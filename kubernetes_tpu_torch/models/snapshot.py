@@ -23,6 +23,7 @@ preemption bands are encoded for the solver.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,6 +42,11 @@ from kubernetes_tpu_torch.scheduler.generic import (
 )
 
 __all__ = ["ClusterSnapshot", "encode_snapshot", "greedy_fit_accumulators"]
+
+# KTPU_DEBUG=1: recompute every _ktpu_rows cache hit from the object graph
+# and assert it matches — catches an in-place PodSpec mutation, which the
+# cache's correctness forbids (see container_rows and runtime/clone.py)
+_DEBUG_VERIFY_ROWS = os.environ.get("KTPU_DEBUG", "") not in ("", "0")
 
 
 def _fnv1a64_batch(keys: List[str]) -> np.ndarray:
@@ -186,21 +192,46 @@ def encode_snapshot(nodes: Sequence[api.Node],
     CPU = api.ResourceCPU
 
     def container_rows(pods):
-        # one traversal extracts each pod's (resource, value) rows and
-        # host ports, and collects the request-only dims
+        # one traversal a pod LIFETIME extracts its (resource, value) rows
+        # and host ports, cached on the spec object: a stored PodSpec's
+        # containers are never mutated in place (a change goes through
+        # runtime.clone.deep_clone, which drops undeclared attributes), and
+        # a live scheduler re-encodes the same reflector-store objects
+        # every wave. The request-only dims are wave-local and collected
+        # over the cached rows.
         limits, ports = [], []
-        for p in pods:
+
+        def derive(spec):
             lr, pr = [], []
-            for c in p.spec.containers:
+            for c in spec.containers:
                 for name, q in c.resources.limits.items():
                     lr.append((name, q.milli_value() if name == CPU
                                else q.int_value()))
-                    if name not in seen:
-                        seen.add(name)
-                        request_only.append(name)
                 for cp in c.ports:
                     if cp.host_port:
                         pr.append(cp.host_port)
+            return (lr, pr)
+
+        for p in pods:
+            spec = p.spec
+            cached = spec.__dict__.get("_ktpu_rows")
+            if cached is None:
+                cached = derive(spec)
+                spec.__dict__["_ktpu_rows"] = cached
+            elif _DEBUG_VERIFY_ROWS:
+                fresh = derive(spec)
+                assert fresh == cached, (
+                    f"_ktpu_rows cache stale for pod "
+                    f"{p.metadata.namespace}/{p.metadata.name}: cached "
+                    f"{cached!r} != recomputed {fresh!r} — a PodSpec was "
+                    f"mutated in place after encoding (mutations must go "
+                    f"through runtime.clone.deep_clone, which drops the "
+                    f"cache)")
+            lr, pr = cached
+            for name, _v in lr:
+                if name not in seen:
+                    seen.add(name)
+                    request_only.append(name)
             limits.append(lr)
             ports.append(pr)
         return limits, ports

@@ -41,7 +41,9 @@ solves in ``solve_jit``'s scan (kubernetes_tpu/models/batch_solver.py
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+import functools
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -358,151 +360,210 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
     nodes per pod (int64 [P]), ``fit`` and ``score_used``: the two usage
     planes after the wave, and ``preempt_pairs``: the (pod, node) pairs
     the preemption branch examined (nodes passing every filter but the
-    resource fit, of pods with no normal node that may preempt)."""
+    resource fit, of pods with no normal node that may preempt).
+
+    The loop is ``_plain_loop``. On the CPU it runs as one TorchScript
+    call of that same source, which takes the GIL once a wave: run eagerly,
+    each of its tens of ops a pod gives the GIL up and takes it back, and
+    in a process whose other threads are busy each take waits for them
+    (milliseconds an op at a 10 us switch interval). On CUDA it runs
+    eagerly, each op an asynchronous launch."""
     solve_commit_reference.calls += 1
-    P = ci.smask.shape[0]
-    R, N = ci.cap.shape
-    L, A = ci.affv.shape[0], ci.zone.shape[0]
-    B = ci.band.shape[0]
-    dev = ci.cap.device
-    rdt = ci.cap.dtype
-    gangs = bool(ci.flags & _GANGS)
-    # the mutable state, in the order the gang checkpoint copies it
-    state = [ci.fit0.clone(), ci.score0.clone(), ci.ports0.clone(),
-             ci.pds0.clone(), ci.counts0.clone(), ci.anchor0.clone(),
-             ci.has0 != 0, ci.ecap0.clone(), ci.ecnt0.clone()]
+    loop = _scripted_loop() if ci.cap.device.type == "cpu" else _plain_loop
+    chosen, win, feasible, pairs, fit, score_used = loop(
+        ci.smask, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc, ci.ports0,
+        ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv, ci.anchor0,
+        ci.has0, ci.zone, ci.ecap0, ci.ecnt0, ci.band, ci.req, ci.pod_ports,
+        ci.pod_pds, ci.pins, ci.tie_hi, ci.tie_lo, ci.gid, ci.member,
+        ci.zreq, ci.start, ci.prio, ci.canp, ci.flags, ci.w_lr, ci.w_spread,
+        ci.w_equal, list(ci.w_anti), ci.V, stats is not None)
+    if stats is not None:
+        stats.update(feasible=feasible, preempt_pairs=pairs, fit=fit,
+                     score_used=score_used)
+    return chosen, win
+
+
+@functools.cache
+def _scripted_loop():
+    """``_plain_loop`` compiled by TorchScript, once a process, on first
+    use (never at import)."""
+    with warnings.catch_warnings():
+        # TorchScript is deprecated for new models, not removed; the loop
+        # needs only its interpreter
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return torch.jit.script(_plain_loop)
+
+
+def _plain_loop(smask: torch.Tensor, cap: torch.Tensor, fit0: torch.Tensor,
+                score0: torch.Tensor, advx: torch.Tensor,
+                fitexc_u8: torch.Tensor, ports0: torch.Tensor,
+                pds0: torch.Tensor, counts0: torch.Tensor,
+                offl: torch.Tensor, sstat: torch.Tensor, affv: torch.Tensor,
+                anchor0: torch.Tensor, has0: torch.Tensor,
+                zone: torch.Tensor, ecap0: torch.Tensor,
+                ecnt0: torch.Tensor, band: torch.Tensor, req_all: torch.Tensor,
+                pod_ports: torch.Tensor, pod_pds: torch.Tensor,
+                pins: torch.Tensor, tie_hi: torch.Tensor,
+                tie_lo: torch.Tensor, gid: torch.Tensor,
+                member: torch.Tensor, zreq: torch.Tensor,
+                start: torch.Tensor, prio: torch.Tensor, canp: torch.Tensor,
+                flags: int, w_lr: int, w_spread: int, w_equal: int,
+                w_anti: List[int], V: int, want_stats: bool,
+                NEG: int = NEG, PREEMPT_BIG: int = PREEMPT_BIG,
+                PREEMPT_SCORE_BASE: int = PREEMPT_SCORE_BASE,
+                _USE_RESOURCES: int = _USE_RESOURCES,
+                _USE_PORTS: int = _USE_PORTS, _USE_DISK: int = _USE_DISK,
+                _USE_STATIC: int = _USE_STATIC, _GANGS: int = _GANGS):
+    """The plain version's loop over CommitInputs' planes -> (chosen,
+    win, feasible, preempt_pairs, fit, score_used); the last four are the
+    ``stats`` of ``solve_commit_reference`` (zeros unless ``want_stats``).
+    Written in the TorchScript subset: the CPU runs it compiled.
+    TorchScript reads no module-level int, so the module's constants come
+    in as the defaults of the parameters that bear their names."""
+    P = smask.shape[0]
+    R, N = cap.shape[0], cap.shape[1]
+    L, A = affv.shape[0], zone.shape[0]
+    B = band.shape[0]
+    dev = cap.device
+    rdt = cap.dtype
+    gangs = (flags & _GANGS) != 0
+    # the mutable state, in the order the gang checkpoint copies it:
+    # fit, score_used, ports, pds, counts, anchor, has_anchor, ecap, ecnt
+    state = [fit0.clone(), score0.clone(), ports0.clone(), pds0.clone(),
+             counts0.clone(), anchor0.clone(), has0 != 0, ecap0.clone(),
+             ecnt0.clone()]
     dims = torch.arange(R, device=dev)[:, None]
-    unconstrained = (ci.cap == 0) & (dims < 2)            # [R, N]
-    adv_extra = (ci.advx != 0) & (dims >= 2)              # [R, N]
-    fitexc = ci.fitexc != 0
-    labeled = ci.zone >= 0                                # [A, N]
-    safe_zone = ci.zone.clamp_min(0).to(torch.int64)
+    unconstrained = (cap == 0) & (dims < 2)                   # [R, N]
+    adv_extra = (advx != 0) & (dims >= 2)                     # [R, N]
+    fitexc = fitexc_u8 != 0
+    labeled = zone >= 0                                       # [A, N]
+    safe_zone = zone.clamp_min(0).to(torch.int64)
     chosen = torch.full((P,), NEG, dtype=torch.int32, device=dev)
     win = torch.full((P,), NEG, dtype=torch.int32, device=dev)
     feasible_count = torch.zeros(P, dtype=torch.int64, device=dev)
     preempt_pairs = torch.zeros(P, dtype=torch.int64, device=dev)
-    if stats is not None:
-        stats["feasible"] = feasible_count
-        stats["preempt_pairs"] = preempt_pairs
     if N == 0:
-        return chosen, win
+        return chosen, win, feasible_count, preempt_pairs, state[0], state[1]
     ten = torch.full((N,), 10, dtype=torch.int32, device=dev)
-    neg = torch.tensor(NEG, dtype=torch.int32, device=dev)
-    if B:
-        # leq_all[b, c]: band b falls under threshold band c
-        leq_all = ci.band[:, None] <= ci.band[None, :]
-        band_max = torch.full((B, N), 2**31 - 1, dtype=torch.int32,
-                              device=dev)
-    starts = ci.start.tolist() if gangs else []
+    neg = torch.full((), NEG, dtype=torch.int32, device=dev)
+    # leq_all[b, c]: band b falls under threshold band c
+    leq_all = band[:, None] <= band[None, :]
+    band_max = torch.full((B, N), 2147483647, dtype=torch.int32,
+                          device=dev)
+    no_band = torch.zeros(B, dtype=torch.bool, device=dev)
+    starts: List[bool] = start.tolist() if gangs else []
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     ckpt = state
     for p in range(P):
-        (fit, score_used, ports, pds, counts, anchor, has_anchor, ecap,
-         ecnt) = state
+        fit, score_used, ports, pds = state[0], state[1], state[2], state[3]
+        counts, anchor, has_anchor = state[4], state[5], state[6]
+        ecap, ecnt = state[7], state[8]
         if gangs and starts[p]:
             # a new scheduling unit: checkpoint the committed state
             ckpt = [t.clone() for t in state]
             failed = torch.zeros_like(failed)
-        req = ci.req[p]
-        g = ci.gid[p]
+        req = req_all[p]
+        g = gid[p]
         safe_g = g.clamp_min(0)
         in_group = g >= 0
-        feasible = ci.smask[p, :N] != 0
+        feasible = smask[p, :N] != 0
         if gangs:
             # the rest of an already-failed run places nowhere
             feasible = feasible & ~failed
-        if ci.flags & _USE_PORTS:
-            feasible = feasible & ~((ports & ci.pod_ports[p][:, None]) != 0
+        if (flags & _USE_PORTS) != 0:
+            feasible = feasible & ~((ports & pod_ports[p][:, None]) != 0
                                     ).any(dim=0)
-        if ci.flags & _USE_DISK:
-            feasible = feasible & ~((pds & ci.pod_pds[p][:, None]) != 0
+        if (flags & _USE_DISK) != 0:
+            feasible = feasible & ~((pds & pod_pds[p][:, None]) != 0
                                     ).any(dim=0)
-        if L:
+        if L > 0:
             # anchor-derived affinity (predicates.go:256-276): labels the
             # selector did not pin must equal the group's anchor values
             arow = anchor[safe_g]                              # [L]
-            need = (ci.pins[p] == -2) & (arow >= 0)            # [L]
-            dyn = (~need[:, None] | (ci.affv == arow[:, None])).all(dim=0)
+            need = (pins[p] == -2) & (arow >= 0)               # [L]
+            dyn = (~need[:, None] | (affv == arow[:, None])).all(dim=0)
             feasible = feasible & (~(in_group & has_anchor[safe_g]) | dyn)
         # every filter but the resources: the preemption branch re-checks
         # the fit with freed capacity against exactly this
         feasible_nores = feasible
-        if ci.flags & _USE_RESOURCES:
-            res_ok = (unconstrained | (ci.cap - fit >= req[:, None])).all(0)
-            feasible = feasible & (ci.zreq[p] | (~fitexc & res_ok))
+        if (flags & _USE_RESOURCES) != 0:
+            res_ok = (unconstrained | (cap - fit >= req[:, None])).all(0)
+            feasible = feasible & (zreq[p] | (~fitexc & res_ok))
         score = torch.zeros(N, dtype=torch.int32, device=dev)
-        if ci.w_lr:
-            n_dyn = 2 + (adv_extra & feasible[None, :]).any(dim=1).sum()
-            raw = calculate_score(score_used + req[:, None], ci.cap).sum(0)
+        if w_lr != 0:
+            n_dyn = (adv_extra & feasible[None, :]).any(dim=1).sum() + 2
+            raw = calculate_score(score_used + req[:, None], cap).sum(0)
             lr = torch.div(raw, n_dyn, rounding_mode="floor")
-            score = score + (lr * ci.w_lr).to(torch.int32)
-        if ci.w_spread:
+            score = score + (lr * w_lr).to(torch.int32)
+        if w_spread != 0:
             row = counts[safe_g]
-            max_count = torch.maximum(row.max(), ci.offl[safe_g])
+            max_count = torch.maximum(row.max(), offl[safe_g])
             spread = torch.where(in_group, spread_score(max_count, row), ten)
-            score = score + spread * ci.w_spread
-        if A:
+            score = score + spread * w_spread
+        if A > 0:
             # ServiceAntiAffinity (spreading.go:104-168): per-zone peers
             # over the FEASIBLE nodes; num counts every peer, off-list too;
             # a serviceless pod has no peers (spread of total 0 is 10)
             row = counts[safe_g] * in_group
-            num = row.sum() + ci.offl[safe_g] * in_group
+            num = row.sum() + offl[safe_g] * in_group
             on = row * feasible
             for a in range(A):
-                per_zone = torch.zeros(ci.V, dtype=torch.int32, device=dev)
+                per_zone = torch.zeros(V, dtype=torch.int32, device=dev)
                 per_zone.index_add_(0, safe_zone[a], on * labeled[a])
                 s = spread_score(num, per_zone[safe_zone[a]])
-                score = score + s * labeled[a] * ci.w_anti[a]
-        if ci.flags & _USE_STATIC:
-            score = score + ci.sstat
-        if ci.w_equal:
-            score = score + ci.w_equal
+                score = score + s * labeled[a] * w_anti[a]
+        if (flags & _USE_STATIC) != 0:
+            score = score + sstat
+        if w_equal != 0:
+            score = score + w_equal
         masked = torch.where(feasible, score, torch.full_like(score, NEG))
         top, any_f, best, cnt = masked_top_count(masked, NEG)
         best = best & feasible
-        k = u64_mod_small(ci.tie_hi[p], ci.tie_lo[p], cnt)
+        k = u64_mod_small(tie_hi[p], tie_lo[p], cnt)
         pick = torch.where(any_f, select_kth_true(best, k), neg)
         won = torch.where(any_f, top, neg)
         freed_sel = torch.zeros(R, dtype=rdt, device=dev)
-        if B:
+        evicted = no_band
+        if B > 0:
             # ---- preemption: lowest sufficient band prefix per node, the
             # fewest victims across nodes (batch_solver.py:676-732) ------
-            below = ci.band < ci.prio[p]                          # [B]
+            below = band < prio[p]                                # [B]
             leq = leq_all & below[:, None]                        # [B, B]
             freed = (ecap[:, None] * leq[:, :, None, None].to(rdt)
                      ).sum(0, dtype=rdt)                          # [B, R, N]
             ccost = (ecnt[:, None] * leq[:, :, None].to(torch.int32)
                      ).sum(0, dtype=torch.int32)                  # [B, N]
-            head = (ci.cap - fit)[None] + freed
+            head = (cap - fit)[None] + freed
             fits = (unconstrained[None] | (head >= req[None, :, None])
                     ).all(1)                                      # [B, N]
             fits = (fits & below[:, None] & feasible_nores[None]
                     & ~fitexc[None])
             # the smallest fitting band value; argmin takes the first slot
-            bidx = torch.argmin(torch.where(fits, ci.band[:, None],
+            bidx = torch.argmin(torch.where(fits, band[:, None],
                                             band_max), dim=0)     # [N]
             cost = ccost.gather(0, bidx[None])[0]
-            pmask = fits.any(0) & ci.canp[p]
-            masked_p = torch.where(pmask, PREEMPT_BIG - cost,
+            pmask = fits.any(0) & canp[p]
+            masked_p = torch.where(pmask, torch.neg(cost) + PREEMPT_BIG,
                                    torch.full_like(cost, NEG))
             _ptop, p_any, pbest, pcnt = masked_top_count(masked_p, NEG)
             pchosen = select_kth_true(
-                pbest & pmask, u64_mod_small(ci.tie_hi[p], ci.tie_lo[p], pcnt))
+                pbest & pmask, u64_mod_small(tie_hi[p], tie_lo[p], pcnt))
             did = ~any_f & p_any
             pick = torch.where(did, pchosen, pick)
             bsel = bidx[pick.clamp_min(0).to(torch.int64)]
-            won = torch.where(did, PREEMPT_SCORE_BASE - bsel.to(torch.int32),
-                              won)
+            won = torch.where(
+                did, torch.neg(bsel.to(torch.int32)) + PREEMPT_SCORE_BASE,
+                won)
             evicted = leq[:, bsel] & did                          # [B]
             freed_sel = torch.where(
                 did, freed[bsel, :, pick.clamp_min(0).to(torch.int64)],
                 freed_sel)
-            if stats is not None:
+            if want_stats:
                 preempt_pairs[p] = (feasible_nores.sum()
-                                    * (~any_f & ci.canp[p]))
+                                    * (~any_f & canp[p]))
         chosen[p] = pick
         win[p] = won
-        if stats is not None:
+        if want_stats:
             feasible_count[p] = feasible.sum()
         # commit the chosen row (an unplaced pod adds zeros at row 0); a
         # preemption's evicted bands leave both usages and the band planes
@@ -513,19 +574,18 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
         fit.index_add_(1, at, delta)
         score_used.index_add_(1, at, delta)
         ports.index_copy_(1, at, ports.index_select(1, at)
-                          | (ci.pod_ports[p] * on)[:, None])
+                          | (pod_ports[p] * on)[:, None])
         pds.index_copy_(1, at, pds.index_select(1, at)
-                        | (ci.pod_pds[p] * on)[:, None])
-        counts.index_add_(1, at, (ci.member[p].to(torch.int32)
+                        | (pod_pds[p] * on)[:, None])
+        counts.index_add_(1, at, (member[p].to(torch.int32)
                                   * on)[:, None])
-        if L:
+        if L > 0:
             # every group this commit gives its first peer is anchored at
             # the chosen node's values
-            newly = ci.member[p] & ~has_anchor & placed          # [G]
-            state[5] = torch.where(newly[:, None],
-                                   ci.affv[:, at].T, anchor)
+            newly = member[p] & ~has_anchor & placed          # [G]
+            state[5] = torch.where(newly[:, None], affv[:, at].T, anchor)
             state[6] = has_anchor | newly
-        if B:
+        if B > 0:
             ecap.index_copy_(2, at, torch.where(
                 evicted[:, None, None], torch.zeros((), dtype=rdt,
                                                     device=dev),
@@ -537,10 +597,11 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
         if gangs:
             # a failed member pins the state at the run's checkpoint
             failed = failed | ~placed
-            state = [torch.where(failed, c, t) for c, t in zip(ckpt, state)]
-    if stats is not None:
-        stats["fit"], stats["score_used"] = state[0], state[1]
-    return chosen, win
+            rolled: List[torch.Tensor] = []
+            for i in range(len(state)):
+                rolled.append(torch.where(failed, ckpt[i], state[i]))
+            state = rolled
+    return chosen, win, feasible_count, preempt_pairs, state[0], state[1]
 
 
 solve_commit_reference.calls = 0

@@ -544,12 +544,19 @@ class BatchScheduler:
         restore the last checkpoint and replay the changelog over it,
         O(missed events) — and only when the journal cannot cover the gap
         either (no checkpoint yet, window exceeded, node/service planes
-        changed) the full O(cluster) list sync, counted by reason
-        (encoder_resync_full_total). The resync token is taken BEFORE the
-        list it pairs with, so an event racing the list is re-delivered
-        rather than lost (re-applying an upsert or remove is a no-op)."""
-        if self._delta_token is not None:
-            d = self.config.modeler.delta(self._delta_token)
+        changed) the full list sync, O(cluster), counted by reason
+        (encoder_resync_full_total). A modeler without a changelog (no
+        ``delta`` or no ``token``) takes the full list sync every wave,
+        counted as ``no_changelog``, with no resync token and no
+        checkpoint. The resync token is taken BEFORE the list it pairs
+        with — ``get_existing``'s own pre-token where it records one,
+        else the modeler's token read before the list — so an event
+        racing the list is re-delivered rather than lost (re-applying an
+        upsert or remove is a no-op)."""
+        modeler = self.config.modeler
+        can_replay = hasattr(modeler, "delta") and hasattr(modeler, "token")
+        if self._delta_token is not None and hasattr(modeler, "delta"):
+            d = modeler.delta(self._delta_token)
             if d is not None:
                 upserted, removed, token = d
                 snap = self._encoder.encode_delta(nodes, upserted, removed,
@@ -558,16 +565,24 @@ class BatchScheduler:
                     self._delta_token = token
                     self._maybe_checkpoint(token)
                     return snap
-        snap, reason = self._replay_resync(nodes, pending, services,
-                                           get_existing)
-        if snap is not None:
-            return snap
-        existing = get_existing()
-        self._delta_token = get_existing.pre_token()
-        _wave_metrics().resyncs.inc()
+        reason = "no_changelog"
+        if can_replay:
+            snap, reason = self._replay_resync(nodes, pending, services,
+                                               get_existing)
+            if snap is not None:
+                return snap
+        if hasattr(modeler, "token"):
+            fallback_token = modeler.token()
+            existing = get_existing()
+            pre = getattr(get_existing, "pre_token", lambda: None)()
+            self._delta_token = pre if pre is not None else fallback_token
+            _wave_metrics().resyncs.inc()
+        else:
+            existing = get_existing()
         self._sx.resync_full.inc(reason)
         snap = self._encoder.encode(nodes, existing, pending, services)
-        self._maybe_checkpoint(self._delta_token)
+        if self._delta_token is not None:
+            self._maybe_checkpoint(self._delta_token)
         return snap
 
     def _maybe_checkpoint(self, token) -> None:

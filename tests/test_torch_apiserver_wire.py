@@ -530,3 +530,40 @@ def test_tls_round_trip_with_a_client_certificate(transport, server,
             bad.pods("default").list()
     finally:
         srv.stop()
+
+
+def test_a_burst_of_new_connections_is_queued_not_dropped():
+    """64 clients connect at once to an apiserver whose accept loop has
+    not started. The reference listens with socketserver's backlog of 5,
+    so its kernel queues 6 and drops the other SYNs (a connect then waits a
+    retransmit, 1 s or more: a controller's burst of creates, a 1 s health
+    probe timing out); the port listens with the system's backlog, as Go's
+    net.Listen does, and queues all 64 within half a second."""
+    import select
+    import socket
+    import time
+
+    out = {}
+    for name, srv_cls, master in (("reference", RefAPIServer, RefMaster),
+                                  ("port", PortAPIServer, PortMaster)):
+        srv = srv_cls(master())        # listening; start() would accept
+        socks = [socket.socket() for _ in range(64)]
+        try:
+            for s in socks:
+                s.setblocking(False)
+                s.connect_ex(("127.0.0.1", srv.port))
+            waiting, connected = set(socks), 0
+            deadline = time.monotonic() + 0.5
+            while waiting and time.monotonic() < deadline:
+                _r, done, _x = select.select(
+                    [], list(waiting), [], deadline - time.monotonic())
+                waiting.difference_update(done)
+                connected += sum(s.getsockopt(socket.SOL_SOCKET,
+                                              socket.SO_ERROR) == 0
+                                 for s in done)
+            out[name] = connected
+        finally:
+            for s in socks:
+                s.close()
+            srv._httpd.server_close()
+    assert out == {"reference": 6, "port": 64}

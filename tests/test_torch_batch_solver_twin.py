@@ -4,20 +4,15 @@
 
 Left out: the WaveRouter, the reference's host-versus-tunnel dispatch,
 which the port leaves out on purpose (ROADMAP, "Left out on purpose");
-two of its cases import jax themselves. And the ``_ktpu_rows`` row cache
-with its KTPU_DEBUG recompute, which come with that cache (ROADMAP, "Perf
-work")."""
+two of its cases import jax themselves."""
 
 import pytest
 
 from test_torch_twin import port_on_the_cpu, port_twin
 
-ROWS = "needs the _ktpu_rows row cache (ROADMAP Perf work, the host encode)"
-
 globals().update(port_twin("test_batch_solver", {
     "TestWaveRouter": "the WaveRouter is left out on purpose (ROADMAP); "
                       "two of its cases import jax",
-    "TestEncodeRowCacheDebug": ROWS,
 }))
 
 

@@ -627,3 +627,63 @@ def test_a_create_that_lands_late_makes_no_extra_replica(pkgs):
                        landed)
     assert out == {"kubernetes_tpu": (7, 201),
                    "kubernetes_tpu_torch": (6, 409)}
+
+
+class _ReadAfterDeletes:
+    """A client that watches an RC's pods and, once the surplus is gone,
+    reads the RC to resize it again: ``observed`` is its read, taken
+    right after the sync's last delete."""
+
+    def __init__(self, inner, rcs, deletes):
+        self.inner, self.rcs, self.left = inner, rcs, deletes
+        self.observed = None
+        self._lock = __import__("threading").Lock()
+
+    def create_replica(self, ns, rc, *name):
+        self.inner.create_replica(ns, rc, *name)
+
+    def delete_pod(self, ns, name):
+        self.inner.delete_pod(ns, name)
+        with self._lock:
+            self.left -= 1
+            if self.left == 0:
+                self.observed = self.rcs.get("web")
+
+
+def test_a_resize_read_after_the_deletes_conflicts_and_the_resizer_retries(
+        pkgs):
+    """The e2e suite's replication case resizes an RC of 3 to 1, waits
+    until one pod is left, then reads the RC and writes it with 0. Both
+    packages' syncs write the RC's status after their deletes (so the
+    status never counts a delete that has not happened), so that read can
+    come before the status write, and a bare update then fails with 409.
+    kubectl's Resizer reads again after a conflict and gets through."""
+    out = {}
+    for P in pkgs:
+        c = P.client()
+        rcs = c.replication_controllers()
+        rcs.create(_rc(P, "web", 3, {"app": "web"}))
+        mgr = P.controllers.ReplicationManager(c)
+        mgr.sync(rcs.get("web"))
+        rc = rcs.get("web")
+        assert rc.status.replicas == 3
+        rc.spec.replicas = 1
+        rcs.update(rc)
+        control = _ReadAfterDeletes(P.controllers.PodControl(c), rcs, 2)
+        P.controllers.ReplicationManager(c, pod_control=control).sync(
+            rcs.get("web"))
+        assert control.observed.status.replicas == 3  # before the write
+        resize = control.observed
+        resize.spec.replicas = 0
+        try:
+            rcs.update(resize)
+            code = 200
+        except Exception as e:
+            code = getattr(e, "code", repr(e))
+        left = (len(c.pods().list(label_selector="app=web").items),
+                rcs.get("web").status.replicas, code)
+        resizer = importlib.import_module(f"{P.name}.kubectl.scale").Resizer
+        resized = resizer(c).resize("default", "web", 0)
+        out[P.name] = left + (resized.spec.replicas,)
+    assert out == {"kubernetes_tpu": (1, 1, 409, 0),
+                   "kubernetes_tpu_torch": (1, 1, 409, 0)}

@@ -101,3 +101,64 @@ def test_derive_zone_counts_matches_reference():
     got = bs.derive_zone_counts(node_zone, counts, 5)
     want = ref_bs.derive_zone_counts(node_zone, counts, 5)
     assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _seeded_wave(k, seed):
+    rng = np.random.RandomState(seed)
+    nodes = [k.node(f"n{i}", cpu_m=int(rng.randint(2000, 8000)),
+                    extra={"gpu": "2"} if i % 3 == 0 else None)
+             for i in range(6)]
+    existing = [k.pod(f"e{i}", cpu_m=int(rng.randint(100, 900)),
+                      mem=int(rng.randint(1, 64)) << 20, host=f"n{i % 6}",
+                      host_ports=(9000 + i,) if i % 4 == 0 else ())
+                for i in range(10)]
+    pending = [k.pod(f"p{i}", cpu_m=int(rng.randint(100, 1500)),
+                     mem=int(rng.randint(1, 256)) << 20,
+                     host_ports=(9000 + i % 5,) if i % 3 == 0 else (),
+                     extra={"gpu": "1"} if i % 5 == 0 else None)
+               for i in range(12)]
+    return nodes, existing, pending, []
+
+
+def test_row_cache_encodes_equal_reference(monkeypatch):
+    """The ``_ktpu_rows`` row cache: a first encode (every row derived), a
+    re-encode of the same objects (every row a cache hit, recomputed and
+    checked under the debug gate) and a re-encode after ``deep_clone``
+    plus a change of limits and host ports on a third of the pods (the
+    clones derive afresh, the rest still hit) each equal the JAX
+    package's ``encode_snapshot`` of the same wave, bit for bit."""
+    from kubernetes_tpu.models import snapshot as ref_snapshot
+    from kubernetes_tpu.runtime.clone import deep_clone as ref_clone
+    from kubernetes_tpu_torch.models import snapshot
+    from kubernetes_tpu_torch.runtime.clone import deep_clone
+
+    monkeypatch.setattr(snapshot, "_DEBUG_VERIFY_ROWS", True)
+    monkeypatch.setattr(ref_snapshot, "_DEBUG_VERIFY_ROWS", True)
+    port, ref = _seeded_wave(PORT, 18), _seeded_wave(REF, 18)
+    assert not any("_ktpu_rows" in p.spec.__dict__
+                   for p in port[1] + port[2])
+    first = encode_snapshot(*port)
+    _assert_same(first, ref_encode(*ref), _snapshot_fields(), "first")
+    assert all("_ktpu_rows" in p.spec.__dict__ for p in port[1] + port[2])
+    _assert_same(encode_snapshot(*port), ref_encode(*ref),
+                 _snapshot_fields(), "cached")
+    _assert_same(encode_snapshot(*port), first, _snapshot_fields(),
+                 "cached against first")
+
+    def change(wave, clone, k):
+        pending = list(wave[2])
+        for j in range(0, len(pending), 3):
+            p = clone(pending[j])
+            c = p.spec.containers[0]
+            c.resources.limits["cpu"] = k.Q(f"{200 + 100 * j}m")
+            c.resources.limits["gpu"] = k.Q("1")
+            c.ports = [k.api.ContainerPort(container_port=80,
+                                           host_port=9100 + j)]
+            pending[j] = p
+        return wave[0], wave[1], pending, wave[3]
+    port, ref = change(port, deep_clone, PORT), change(ref, ref_clone, REF)
+    assert [("_ktpu_rows" in p.spec.__dict__) for p in port[2]] == [
+        j % 3 != 0 for j in range(len(port[2]))]
+    changed = encode_snapshot(*port)
+    _assert_same(changed, ref_encode(*ref), _snapshot_fields(), "changed")
+    assert not np.array_equal(changed.req, first.req)

@@ -117,6 +117,38 @@ def test_walk_covers_the_service_slice():
         assert f"kubernetes_tpu_torch.{m}" in mods, m
 
 
+def test_walk_covers_the_conformance_tools():
+    mods = set(_modules())
+    for m in ("tools.e2e", "tools.stress", "tools.vet"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
+
+
+# each Python tool of the reference's hack/: its counterpart in the port,
+# or the reason it has none
+_BENCHMARK = "the measuring harness, for the port's benchmark PR"
+_HACK_TOOLS = {
+    "e2e.py": ("tools/e2e.py", "the e2e suite driver"),
+    "stress.py": ("tools/stress.py", "the concurrency stress harness"),
+    "vet.py": ("tools/vet.py", "the vet"),
+    "embed-ui.py": ("ui/datafile.py", "the port's ui/datafile.py is "
+                    "generated from the same www/"),
+    "churn_mp.py": (None, _BENCHMARK),
+    "perfgate.py": (None, _BENCHMARK),
+    "fullgate.py": (None, _BENCHMARK),
+    "storebench.py": (None, _BENCHMARK),
+}
+
+
+def test_every_hack_tool_has_its_counterpart_or_a_reason():
+    hack = os.path.join(ROOT, "hack")
+    assert sorted(f for f in os.listdir(hack) if f.endswith(".py")) == \
+        sorted(_HACK_TOOLS)
+    for tool, (counterpart, reason) in _HACK_TOOLS.items():
+        assert reason
+        if counterpart is not None:
+            assert os.path.exists(os.path.join(PORT, counterpart)), tool
+
+
 def test_every_reference_module_has_its_counterpart():
     """The tree comparison: each module of the reference has one under
     the port's own path, but the Pallas kernel's, whose counterpart is
@@ -182,6 +214,22 @@ def test_kubectl_imports_no_torch_and_no_numpy():
             "import kubernetes_tpu_torch.cmd.kubectl\n"
             "import kubernetes_tpu_torch.cmd.version_change\n"
             "import kubernetes_tpu_torch.cmd.genman\n"
+            "print(sorted(m for m in ('torch', 'numpy')\n"
+            "             if m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_conformance_tools_import_no_torch_and_no_numpy():
+    """The e2e driver and the stress harness load no model at import:
+    the driver is host code through and through, and the harness reaches
+    the models only through the cluster it starts."""
+    code = ("import sys\n"
+            "import kubernetes_tpu_torch.tools.e2e\n"
+            "import kubernetes_tpu_torch.tools.stress\n"
             "print(sorted(m for m in ('torch', 'numpy')\n"
             "             if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -277,16 +325,21 @@ _REFERENCE_MODULE = re.compile(
     r"\bkubernetes_tpu\.[A-Za-z_]|(import|from)\s+kubernetes_tpu\b(?!_)")
 
 
-def _deploy_scripts():
-    deploy = os.path.join(PORT, "deploy")
-    return [os.path.join(deploy, f) for f in sorted(os.listdir(deploy))
-            if f.endswith(".sh")]
+def _shell_scripts():
+    out = []
+    for sub in ("deploy", "tools"):
+        d = os.path.join(PORT, sub)
+        out += [os.path.join(d, f) for f in sorted(os.listdir(d))
+                if f.endswith(".sh")]
+    return out
 
 
 def test_port_sources_carry_no_reference_import():
-    assert len(_deploy_scripts()) == 3
+    assert [os.path.basename(p) for p in _shell_scripts()] == [
+        "inventory-up.sh", "local-up.sh", "multi-process-up.sh",
+        "stress.sh", "test-cmd.sh"]
     for path in _port_files() + [os.path.join(ROOT, "chip_smoke.py")] \
-            + _deploy_scripts():
+            + _shell_scripts():
         with open(path) as fh:
             text = fh.read()
         for bad in ("import jax", "from jax"):
