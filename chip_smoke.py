@@ -216,9 +216,12 @@ and holds the kernel against its plain PyTorch version. Phases:
    each timed on the host clock, with ``shard_memory_report``'s bytes per
    device; (b) the crossover: the same wave through ``solve(snap,
    mesh=mesh)``, exactly one commit_solve launch and no sharded loop (the
-   phase's counted main path); (c) 33,152 nodes x 256 pods, beyond the
-   kernel's domain, through ``solve(snap, mesh=mesh)`` (one sharded loop)
-   == the single-device ``solve_scan``, and a preemption wave (phase 5e's
+   phase's counted main path); (c) 33,152 nodes x 256 pods, past the
+   narrow instances, through ``solve(snap, mesh=mesh)``: the crossover's
+   one launch of a large instance, no sharded loop, == the single-device
+   ``solve_scan``; a wave beyond the kernel's domain at the same node
+   count (32 pods, 40 priority bands: more than its 32) through the
+   sharded loop == ``solve_scan``; and a preemption wave (phase 5e's
    generator, full nodes in two bands) and a zone anti-affinity wave
    (phase 4b's), 1,500 x 120 each, sharded == single-device, some pod
    placed by preemption; (d) a
@@ -228,7 +231,7 @@ and holds the kernel against its plain PyTorch version. Phases:
    with no reshard, no parity divergence; (e) a late-churn wave (10,000
    nodes, 1,500 free) on the executor's single-device layout: compacted
    (``plan_wave``) == the full solve, counted by
-   ``solverd_submesh_*``.
+   ``solverd_submesh_*``, the compacted wave one commit_solve launch.
 14. The fleet. (a) The reference's production topology: one kube-store
    process (``cmd.storeserver --shards 4 --data-dir``, a
    ``DurableStripedStore``), a share segment this script creates, two
@@ -341,6 +344,21 @@ and holds the kernel against its plain PyTorch version. Phases:
    writers): CLEAN (every survivor bound, a final write accepted, no
    escaped loop exception), at least one launch, no plain call, every
    wave equal to the plain version, the switch interval restored.
+20. the kernel's large-cluster instances (past 32,768 nodes, 31 service
+   groups or peer totals of 2^15; models/fixtures ``planet`` and
+   ``services64``): (a) planet (40,000 nodes x 10,000 pods, two services
+   of 40,000 peers each: int32 counts) and services64 (north_star with 64
+   services: 64 groups) through ``solve``, one launch of a large instance
+   each, bit-identical to the plain version on the card; kernel ms (CUDA
+   events), state layout, ptxas' report of the instance, bound; (b) phase
+   7's loop on the planet cluster, 3 waves of 1,024, one launch a wave,
+   no plain call, each wave held as phase 7 holds it; (c) the spread
+   device function against the plain version beyond 2^15: every count of
+   the totals 2^k - 1, 2^k and 2^k + 1 for k = 15..23, and 2^20 seeded
+   pairs below 2^24; (d) nine seeded large waves (64 and 1,024 groups,
+   33,000 nodes, peer totals past 2^15; zones, anchors, gangs, label
+   planes, preemption, int64 planes; both state layouts): kernel ==
+   plain version.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -449,9 +467,10 @@ def _inputs(snap, dev):
 
     host = bs.snapshot_to_host_inputs(snap)
     inp = bs.ship_inputs(host, dev)
-    if not commit_solver.eligible(inp, snap.policy, bs.peer_bound_of(snap)):
+    bound = bs.peer_bound_of(snap)
+    if not commit_solver.eligible(inp, snap.policy, bound):
         raise AssertionError("wave outside the kernel's domain")
-    return commit_solver.prepare(inp, snap.policy, snap.has_gangs)
+    return commit_solver.prepare(inp, snap.policy, snap.has_gangs, bound)
 
 
 def _layout(ci):
@@ -509,7 +528,9 @@ def _ptxas_report(log: str) -> dict:
     kernel instance, keyed by the instance's resource type, branch set,
     state layout and batching
     (``commit_solve<int32,pre,aff,anti,gang,static,shared,batch>`` with 0/1
-    flags) or the kernel's name."""
+    flags), a large-cluster instance by its resource and peer-count types
+    and layout (``commit_solve_large<int32,counts16,shared>``), as
+    ``commit_solver.instance_of`` names them, or the kernel's name."""
     import re
 
     out: dict = {}
@@ -531,12 +552,17 @@ def _ptxas_report(log: str) -> dict:
         if m and entry:
             flags = re.search(r"commit_solve_kernelI([ix])Lb([01])ELb([01])"
                               r"ELb([01])ELb([01])ELb([01])ELb([01])"
-                              r"ELb([01])E", entry)
+                              r"ELb([01])E(?:Lb([01])E([si]))?", entry)
             name = entry
             if flags:
                 res = "int32" if flags.group(1) == "i" else "int64"
-                name = (f"commit_solve<{res},"
-                        f"{','.join(flags.groups()[1:])}>")
+                if flags.group(9) == "1":
+                    counts = 16 if flags.group(10) == "s" else 32
+                    name = (f"commit_solve_large<{res},counts{counts},"
+                            f"{flags.group(7)}>")
+                else:
+                    name = (f"commit_solve<{res},"
+                            f"{','.join(flags.groups()[1:8])}>")
             elif "spread_eval" in entry:
                 name = "spread_eval"
             out[name] = f"{m.group(0)}; {frames.get(entry, '')}"
@@ -614,12 +640,14 @@ def _fuzz(dev) -> dict:
 
 def _ext_wave(rng: random.Random, n_nodes: int, n_pods: int, anti=0,
               aff=0, prefs=False, presence=False, gangs=False,
-              ghost=False):
+              ghost=False, n_services=3, peers=0):
     """A seeded wave and the BatchPolicy that uses the named extensions:
     ``anti`` zone anti-affinity labels (0-2), ``aff`` service-affinity
     labels (0-2), label preferences, label presence, gangs (some sized
     to oversubscribe the cluster), and an existing service peer on a host
-    that is not a node (``ghost``)."""
+    that is not a node (``ghost``). Pods pick among ``n_services``;
+    ``peers`` zero-request residents of the first are spread over the
+    nodes after the rest (``_zero_peers``)."""
     from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.api.quantity import Quantity
     from kubernetes_tpu_torch.models import gang
@@ -643,7 +671,7 @@ def _ext_wave(rng: random.Random, n_nodes: int, n_pods: int, anti=0,
     services = [api.Service(
         metadata=api.ObjectMeta(name=f"svc-{s}", namespace="default"),
         spec=api.ServiceSpec(port=80, selector={"app": f"a{s}"}))
-        for s in range(3)]
+        for s in range(n_services)]
 
     def pod(name, host="", cpu=None, group=None):
         cpu = cpu if cpu is not None else rng.choice([0, 100, 250, 500, 900])
@@ -661,7 +689,7 @@ def _ext_wave(rng: random.Random, n_nodes: int, n_pods: int, anti=0,
         return api.Pod(
             metadata=api.ObjectMeta(
                 name=name, namespace="default", uid=f"uid-{name}",
-                labels=({"app": f"a{rng.randrange(3)}"}
+                labels=({"app": f"a{rng.randrange(n_services)}"}
                         if rng.random() < 0.8 else {}),
                 annotations=({gang.GANG_NAME_ANNOTATION: group}
                              if group else {})),
@@ -678,6 +706,7 @@ def _ext_wave(rng: random.Random, n_nodes: int, n_pods: int, anti=0,
     if ghost:
         existing.append(pod("ghost-peer", host="ghost"))
         existing[-1].metadata.labels = {"app": "a0"}
+    existing += _zero_peers(nodes, peers)
     pending = []
     while len(pending) < n_pods:
         if gangs and rng.random() < 0.6:
@@ -794,15 +823,31 @@ def _ext_fuzz(dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _zero_peers(nodes, n: int, prio=None):
+    """``n`` residents of service ``a0`` that request nothing, round robin
+    over ``nodes``: peer totals past 2^15 without filling a node."""
+    from kubernetes_tpu_torch.api import types as api
+
+    return [api.Pod(
+        metadata=api.ObjectMeta(name=f"z{i}", namespace="default",
+                                uid=f"uid-z{i}", labels={"app": "a0"}),
+        spec=api.PodSpec(host=nodes[i % len(nodes)].metadata.name,
+                         priority=prio,
+                         containers=[api.Container(name="c", image="i")]),
+        status=api.PodStatus(host=nodes[i % len(nodes)].metadata.name))
+        for i in range(n)]
+
+
 def _pre_wave(rng: random.Random, n_nodes: int, n_pods: int, n_bands: int,
-              wide=False, gangs=False, anti=0, aff=0):
+              wide=False, gangs=False, anti=0, aff=0, n_services=2, peers=0):
     """A seeded preemption wave and its BatchPolicy: nodes about full of
     resident pods at ``n_bands`` distinct priorities, then pending pods
     above every band, between bands, equal to one, below all, and some
     with PreemptionPolicy=Never. ``wide``: memory in decimal units beside
     binary ones, and one node of 1 TiB + 3 B, so the resource planes are
     int64. ``gangs``: some pending PodGroups; ``anti``/``aff``: zone
-    anti-affinity and service-affinity labels."""
+    anti-affinity and service-affinity labels; ``n_services`` and ``peers``
+    as in ``_ext_wave`` (the peers in the lowest band)."""
     from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.api.quantity import Quantity
     from kubernetes_tpu_torch.models import gang
@@ -823,7 +868,7 @@ def _pre_wave(rng: random.Random, n_nodes: int, n_pods: int, n_bands: int,
     services = [api.Service(
         metadata=api.ObjectMeta(name=f"svc-{s}", namespace="default"),
         spec=api.ServiceSpec(port=80, selector={"app": f"a{s}"}))
-        for s in range(2)]
+        for s in range(n_services)]
 
     def pod(name, prio, host="", cpu=None, never=False, group=None):
         cpu = cpu if cpu is not None else rng.choice([100, 250, 500, 900])
@@ -835,7 +880,7 @@ def _pre_wave(rng: random.Random, n_nodes: int, n_pods: int, n_bands: int,
         return api.Pod(
             metadata=api.ObjectMeta(
                 name=name, namespace="default", uid=f"uid-{name}",
-                labels=({"app": f"a{rng.randrange(2)}"}
+                labels=({"app": f"a{rng.randrange(n_services)}"}
                         if rng.random() < 0.7 else {}),
                 annotations=({gang.GANG_NAME_ANNOTATION: group}
                              if group else {})),
@@ -855,6 +900,7 @@ def _pre_wave(rng: random.Random, n_nodes: int, n_pods: int, n_bands: int,
                                 host=node.metadata.name,
                                 cpu=rng.choice([200, 300, 500])))
     rng.shuffle(existing)     # band slots in arrival order
+    existing += _zero_peers(nodes, peers, min(bands))
     top = max(bands)
     pending = []
     while len(pending) < n_pods:
@@ -1213,13 +1259,29 @@ def _batch_phase(dev, n_nodes=1_500, n_pods=120, n_global=6_801,
             "seconds": time.perf_counter() - t0}
 
 
-def _wave_phase(name: str, dev, kernel_runs: int,
-                reencode: bool = False) -> dict:
+def _timed_ms(dev, fn, runs: int):
+    """``kernel_time.event_ms`` on a card (CUDA events); on the CPU the
+    host clock around each call, the same (median, all, last result)."""
+    from kubernetes_tpu_torch.tools.kernel_time import event_ms
+
+    if _device_type(dev) == "cuda":
+        return event_ms(fn, runs)
+    times, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, out
+
+
+def _wave_phase(name: str, dev, kernel_runs: int, reencode: bool = False,
+                size=None, count_launches: bool = True) -> dict:
     """One wave of ``name`` at full width through ``encode_snapshot`` and
     ``solve``, held against the plain version. With ``reencode`` the same
     objects are encoded a second time after the wave, every pod's rows a
     hit of the encoder's row cache, and the two encodes' arrays must be
-    equal."""
+    equal. ``size`` (nodes, pending pods) builds the shape's cluster at
+    another size (a CPU run's; the priority shape has none)."""
     import dataclasses
 
     import numpy as np
@@ -1227,16 +1289,21 @@ def _wave_phase(name: str, dev, kernel_runs: int,
 
     from kubernetes_tpu_torch.models import batch_solver as bs
     from kubernetes_tpu_torch.models import gang
-    from kubernetes_tpu_torch.models.fixtures import FULL_SHAPES, build_shape
+    from kubernetes_tpu_torch.models.fixtures import (FULL_SHAPES,
+                                                      build_cluster,
+                                                      build_shape)
     from kubernetes_tpu_torch.models.policy import batch_policy_from
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
     from kubernetes_tpu_torch.scheduler.plugins import load_policy
-    from kubernetes_tpu_torch.tools.kernel_time import event_ms
 
     n_nodes, n_pods, kw, policy_json = FULL_SHAPES[name]
     t0 = time.perf_counter()
-    cluster = build_shape(name)
+    if size is None:
+        cluster = build_shape(name)
+    else:
+        n_nodes, n_pods = size
+        cluster = build_cluster(n_nodes, n_pods, **kw)
     build_s = time.perf_counter() - t0
     n_pods = len(cluster[2])
 
@@ -1248,24 +1315,24 @@ def _wave_phase(name: str, dev, kernel_runs: int,
               if policy_json else None)
     snap = encode_snapshot(*cluster, policy=policy)
     t1 = time.perf_counter()
-    chosen, scores = bs.solve(snap)
+    chosen, scores = bs.solve(snap, device=dev)
     names = bs.decisions_to_names(snap, chosen)
     t2 = time.perf_counter()
     launches = commit_solver.solve_commit.launches
-    if launches != 1:
+    if count_launches and launches != 1:
         raise AssertionError(f"{name}: the wave launched commit_solve "
                              f"{launches} times, want exactly 1")
-    if commit_solver.solve_commit_reference.calls:
+    if count_launches and commit_solver.solve_commit_reference.calls:
         raise AssertionError(f"{name}: the main path ran the plain version")
 
     # ---- the kernel against its plain version on the same inputs -------
     ci = _inputs(snap, dev)
     layout, dyn_bytes = _layout(ci)
-    kernel_ms, kernel_all, (kc, kw_) = event_ms(
-        lambda: commit_solver.solve_commit(ci), kernel_runs)
+    kernel_ms, kernel_all, (kc, kw_) = _timed_ms(
+        dev, lambda: commit_solver.solve_commit(ci), kernel_runs)
     stats: dict = {}
-    plain_ms, _, (pc, pw) = event_ms(
-        lambda: commit_solver.solve_commit_reference(ci, stats), 1)
+    plain_ms, _, (pc, pw) = _timed_ms(
+        dev, lambda: commit_solver.solve_commit_reference(ci, stats), 1)
     for got, want, what in ((kc, pc, "chosen"), (kw_, pw, "win")):
         if not torch.equal(got, want):
             i = int((got != want).nonzero()[0])
@@ -1327,6 +1394,9 @@ def _wave_phase(name: str, dev, kernel_runs: int,
         "solve_and_names_s": t2 - t1, "wave_s": wave_s,
         "pods_per_s": n_pods / wave_s, "bound_pods": bound,
         "launches": launches, "layout": layout,
+        "instance": commit_solver.instance_of(ci),
+        "groups": ci.counts0.shape[0], "count_bytes": ci.count_bytes,
+        "peer_bound": bs.peer_bound_of(snap),
         "dyn_shared_bytes": dyn_bytes, "kernel_ms": kernel_ms,
         "kernel_ms_runs": kernel_all, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
@@ -1399,12 +1469,17 @@ def _copy_snapshot(snap):
 
 def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
                      n_deleted=1_000, n_last=1_024, wave_size=1_024,
-                     plain_wave=1, count_launches=True) -> dict:
+                     plain_wave=1, count_launches=True, n_services=8,
+                     churn=True, plain_device="cpu") -> dict:
     """Phase 7: the scheduler's causal wave loop (BatchScheduler over the
     port's ConfigFactory and FakeClient) binds a north_star cluster wave
     by wave, then churn, then a node add. Each wave's bindings are held
     against solve(encode_snapshot(...)) of the same state on ``dev``, one
-    delta wave also against the plain version on the CPU."""
+    delta wave also against the plain version on ``plain_device`` (the
+    CPU). Phase 20 (b) runs it on the planet cluster (``n_services`` 2)
+    without the churn and the node add (``churn`` False), holding its
+    delta wave against the plain version on the card (a 40,000-node wave
+    of 1,024 pods takes the CPU's plain version about a minute)."""
     import gc
 
     import numpy as np
@@ -1412,6 +1487,7 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
     from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.api.quantity import Quantity
     from kubernetes_tpu_torch.models import batch_solver as bs
+    from kubernetes_tpu_torch.models import gang
     from kubernetes_tpu_torch.models.fixtures import build_cluster
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
     from kubernetes_tpu_torch.ops import commit_solver
@@ -1433,10 +1509,10 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
 
     t0 = time.perf_counter()
     nodes, existing, pending, services = build_cluster(
-        n_nodes, n_pending + n_churn + n_last)
-    first, churn, last = (pending[:n_pending],
-                          pending[n_pending:n_pending + n_churn],
-                          pending[n_pending + n_churn:])
+        n_nodes, n_pending + n_churn + n_last, n_services=n_services)
+    first, churn_pods, last = (pending[:n_pending],
+                               pending[n_pending:n_pending + n_churn],
+                               pending[n_pending + n_churn:])
     new_node = api.Node(
         metadata=api.ObjectMeta(name=f"node-{n_nodes:05d}", labels={
             "zone": f"z{n_nodes % 16}", "disk": "ssd"}),
@@ -1521,14 +1597,17 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
         commit_solver.solve_commit.launches = 0
         commit_solver.solve_commit_reference.calls = 0
         loop_bound, loop_s = drive("north_star")
-        fc.delete_bound(existing[:n_deleted])
-        deleted.update(f"default/{p.metadata.name}"
-                       for p in existing[:n_deleted])
-        fc.add_pending(churn)
-        churn_bound, churn_s = drive("churn")
-        fc.add_node(new_node)
-        fc.add_pending(last)
-        node_bound, node_s = drive("node added")
+        churn_bound = node_bound = 0
+        churn_s = node_s = None
+        if churn:
+            fc.delete_bound(existing[:n_deleted])
+            deleted.update(f"default/{p.metadata.name}"
+                           for p in existing[:n_deleted])
+            fc.add_pending(churn_pods)
+            churn_bound, churn_s = drive("churn")
+            fc.add_node(new_node)
+            fc.add_pending(last)
+            node_bound, node_s = drive("node added")
         launches = commit_solver.solve_commit.launches
         plain_calls = commit_solver.solve_commit_reference.calls
     finally:
@@ -1538,9 +1617,10 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
             raise AssertionError("the factory's threads did not stop")
 
     # ---- the checks, after the loop --------------------------------------
-    total = n_pending + n_churn + n_last
+    total = n_pending + (n_churn + n_last if churn else 0)
+    gone = n_deleted if churn else 0
     if len(fc.bind_log) != total or len(fc.bound()) != \
-            len(existing) - n_deleted + total:
+            len(existing) - gone + total:
         raise AssertionError(f"scheduler: {len(fc.bind_log)} of {total} "
                              f"pending pods bound")
     if count_launches and any(w["launches"] != 1 for w in waves):
@@ -1578,7 +1658,14 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
     full_check_s = time.perf_counter() - t0
     snap, w_chosen, w_scores, n_real = sched.kept[plain_wave]
     t0 = time.perf_counter()
-    p_chosen, p_scores = bs.solve(snap, device="cpu")
+    # the plain version itself (solve_scan), on a card too
+    p_chosen, p_scores = bs.solve_scan(
+        bs.ship_inputs(bs.snapshot_to_host_inputs(snap), plain_device),
+        snap.policy, snap.has_gangs)
+    p_chosen, p_scores = p_chosen.cpu().numpy(), p_scores.cpu().numpy()
+    if snap.has_gangs:
+        p_chosen = gang.apply_all_or_nothing(snap.pod_rid, p_chosen)
+        p_scores = np.where(p_chosen < 0, -1, p_scores)
     plain_s = time.perf_counter() - t0
     if not (np.array_equal(p_chosen, w_chosen)
             and np.array_equal(p_scores, w_scores)):
@@ -1595,14 +1682,15 @@ def _scheduler_phase(dev, n_nodes=5_000, n_pending=10_000, n_churn=2_000,
         "build_cluster_s": build_s, "reflector_sync_s": sync_s,
         "waves": waves, "launches": launches,
         "loop_pods_per_s": loop_bound / loop_s, "loop_s": loop_s,
-        "churn_pods_per_s": churn_bound / churn_s,
-        "node_add_pods_per_s": node_bound / node_s,
+        "churn_pods_per_s": churn_bound / churn_s if churn else None,
+        "node_add_pods_per_s": node_bound / node_s if churn else None,
         "full_encode_s": [w["encode_s"] for w in waves
                           if w["path"] == "full"],
         "delta_encode_s": [w["encode_s"] for w in split("north_star")[1:]
                            + split("churn")],
         "full_encode_check_s": full_check_s,
-        "plain_wave": plain_wave, "plain_cpu_s": plain_s,
+        "plain_wave": plain_wave, "plain_device": str(plain_device),
+        "plain_s": plain_s,
     }
 
 
@@ -3396,7 +3484,7 @@ def _log_scheduler(sc: dict) -> None:
              f"({w['gc_full']} full)")
     _log(f"     every wave == solve(encode_snapshot) of its state "
          f"({sc['full_encode_check_s']:.1f} s); wave {sc['plain_wave']} == "
-         f"plain version on the CPU ({sc['plain_cpu_s']:.1f} s)")
+         f"plain version on {sc['plain_device']} ({sc['plain_s']:.1f} s)")
 
 
 def _log_pipeline(pp: dict) -> None:
@@ -4014,6 +4102,7 @@ def _resident_view(prev: dict, host):
 
 def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
                 cap_nodes=33_152, cap_pods=256, cap_services=8,
+                beyond_pods=32, beyond_bands=40,
                 ext_nodes=1_500, ext_pods=120, churn_nodes=10_000,
                 churn_waves=5, churn_wave=256, late_nodes=10_000,
                 late_free=1_500, late_pods=256, count_launches=True) -> dict:
@@ -4021,13 +4110,16 @@ def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
     the ``mesh`` shape through the sharded loop == the single-device
     solve_scan == commit_solve's decisions; (b) the crossover: the same
     wave through ``solve(snap, mesh=...)``, one commit_solve launch and no
-    sharded loop (the counted main path); (c) waves beyond the kernel's
-    domain (33,152 nodes), a preemption wave (the priority cluster's
-    generator) and a zone anti-affinity wave (phase 4b's): sharded ==
-    single-device; (d) a MeshExecutor (dispatch shard, probe
-    all) serving an IncrementalEncoder churn, each wave == solve(); (e) a
-    late-churn wave that compacts (models/submesh.py) == the full solve,
-    counted by the submesh metrics."""
+    sharded loop (the counted main path); (c) the capacity wave (33,152
+    nodes, past the narrow instances) through the crossover: one launch
+    of a large instance, no sharded loop, == single-device; a wave beyond
+    the kernel's domain at the same node count (``beyond_bands`` priority
+    bands, more than its 32) through the sharded loop, a preemption wave
+    (the priority cluster's generator) and a zone anti-affinity wave
+    (phase 4b's): sharded == single-device; (d) a MeshExecutor (dispatch
+    shard, probe all) serving an IncrementalEncoder churn, each wave ==
+    solve(); (e) a late-churn wave that compacts (models/submesh.py) ==
+    the full solve, counted by the submesh metrics."""
     import numpy as np
     import torch
 
@@ -4136,31 +4228,67 @@ def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
                 "seconds": time.perf_counter() - t_part}
     out["launches"] = launches
 
-    # ---- (c) beyond the kernel's domain, preemption, anti-affinity -----
+    # ---- (c) the capacity wave, beyond the domain, preemption, zones ---
     t_part = time.perf_counter()
+
+    def through_mesh(snap_x, n_x):
+        """solve(snap_x, mesh=) with the mesh floor at the wave's nodes ->
+        (chosen, scores, seconds, launches, plain calls, sharded loops)."""
+        commit_solver.solve_commit.launches = 0
+        commit_solver.solve_commit_reference.calls = 0
+        sharded_commit.calls = 0
+        floor = pm.DEFAULT_MESH_MIN_NODES
+        pm.DEFAULT_MESH_MIN_NODES = min(floor, n_x)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            c, s = bs.solve(snap_x, mesh=mesh)
+        finally:
+            pm.DEFAULT_MESH_MIN_NODES = floor
+        return (c, s, time.perf_counter() - t0,
+                commit_solver.solve_commit.launches,
+                commit_solver.solve_commit_reference.calls,
+                sharded_commit.calls)
+
     cap = build_cluster(cap_nodes, cap_pods, n_services=cap_services)
     csnap = encode_snapshot(*cap)
     chost = bs.snapshot_to_host_inputs(csnap)
-    if commit_solver.eligible(chost, csnap.policy, bs.peer_bound_of(csnap)):
-        raise AssertionError("phase 13 (c): the capacity wave is inside "
+    cbound = bs.peer_bound_of(csnap)
+    if not commit_solver.eligible(chost, csnap.policy, cbound):
+        raise AssertionError("phase 13 (c): the capacity wave is outside "
                              "the kernel's domain")
-    sharded_commit.calls = 0
-    floor = pm.DEFAULT_MESH_MIN_NODES
-    pm.DEFAULT_MESH_MIN_NODES = min(floor, cap_nodes)
-    sync()
-    t0 = time.perf_counter()
-    try:
-        cc, cs = bs.solve(csnap, mesh=mesh)
-    finally:
-        pm.DEFAULT_MESH_MIN_NODES = floor
-    cap_sharded_s = time.perf_counter() - t0
-    if sharded_commit.calls != 1:
-        raise AssertionError("phase 13 (c): the capacity wave did not run "
-                             "the sharded loop once")
+    cap_instance = commit_solver.instance_for(chost, csnap.policy,
+                                              csnap.has_gangs,
+                                              peer_bound=cbound)
+    cc, cs, cap_s, cap_launches, cap_plain, cap_loops = through_mesh(
+        csnap, cap_nodes)
+    if cap_loops:
+        raise AssertionError("phase 13 (c): the capacity wave ran the "
+                             "sharded loop")
+    if count_launches and (cap_launches != 1 or cap_plain):
+        raise AssertionError(f"phase 13 (c): the capacity wave made "
+                             f"{cap_launches} commit_solve launches and "
+                             f"{cap_plain} plain calls, want 1 and 0")
     cg = single(chost, csnap.policy, csnap.has_gangs)
     same("(c) capacity", (cc, cs), cg)
     if (cc < 0).any():
         raise AssertionError("phase 13 (c): a capacity pod did not bind")
+    beyond, beyond_pol = _pre_wave(random.Random(1315), cap_nodes,
+                                   beyond_pods, beyond_bands)
+    bsnap = encode_snapshot(*beyond, policy=beyond_pol)
+    bhost = bs.snapshot_to_host_inputs(bsnap)
+    if bsnap.band_prio.shape[0] <= commit_solver.MAX_B or \
+            commit_solver.eligible(bhost, bsnap.policy,
+                                   bs.peer_bound_of(bsnap)):
+        raise AssertionError("phase 13 (c): the wave beyond the domain is "
+                             "inside it")
+    bc, bsc, beyond_s, _launches, _plain, beyond_loops = through_mesh(
+        bsnap, cap_nodes)
+    if beyond_loops != 1:
+        raise AssertionError("phase 13 (c): the wave beyond the domain did "
+                             "not run the sharded loop once")
+    bg = single(bhost, bsnap.policy, bsnap.has_gangs)
+    same("(c) beyond the domain", (bc, bsc), bg)
     pre = build_priority_cluster(ext_nodes, ext_pods)
     anti, anti_pol = _ext_wave(random.Random(1313), ext_nodes, ext_pods,
                                anti=1)
@@ -4181,10 +4309,17 @@ def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
     if not extra["preemption"]["by_preemption"]:
         raise AssertionError("phase 13 (c): no pod placed by preemption")
     out["c"] = {"nodes": cap_nodes, "pods": cap_pods,
-                "services": cap_services, "sharded_s": cap_sharded_s,
-                "single_s": cg[2],
-                "memory": pm.shard_memory_report(chost, mesh),
+                "services": cap_services, "groups": int(
+                    csnap.group_counts.shape[0]),
+                "instance": cap_instance, "launches": cap_launches,
+                "crossover_s": cap_s, "single_s": cg[2],
+                "beyond": {"nodes": cap_nodes, "pods": beyond_pods,
+                           "bands": int(bsnap.band_prio.shape[0]),
+                           "placed": int((bc >= 0).sum()),
+                           "sharded_s": beyond_s, "single_s": bg[2],
+                           "memory": pm.shard_memory_report(bhost, mesh)},
                 **extra, "seconds": time.perf_counter() - t_part}
+    out["launches"] += cap_launches
 
     # ---- (d) the executor over an IncrementalEncoder churn -------------
     t_part = time.perf_counter()
@@ -4245,10 +4380,19 @@ def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
     # parity probes that re-solve it on the full plane and the mesh
     timed_me = MeshExecutor(devices=[dev] * shards, dispatch="single",
                             probe="off", min_nodes=1)
+    commit_solver.solve_commit.launches = 0
+    commit_solver.solve_commit_reference.calls = 0
     sync()
     t0 = time.perf_counter()
     lfast = timed_me.solve(lhost, lsnap.policy, lsnap.has_gangs)
     late_s = time.perf_counter() - t0
+    # the compacted wave is inside the kernel's domain: one launch
+    late_launches = commit_solver.solve_commit.launches
+    late_plain = commit_solver.solve_commit_reference.calls
+    if count_launches and (late_launches != 1 or late_plain):
+        raise AssertionError(f"phase 13 (e): the compacted wave made "
+                             f"{late_launches} commit_solve launches and "
+                             f"{late_plain} plain calls, want 1 and 0")
     w0, k0 = sm_m.waves.value(), sm_m.parity_checks.value()
     kept0 = sm_m.nodes_kept.value()
     single_me = MeshExecutor(devices=[dev] * shards, dispatch="single",
@@ -4269,7 +4413,9 @@ def _mesh_phase(dev, shards=4, mesh_nodes=None, mesh_pods=None,
                 "kept": int(sm_m.nodes_kept.value() - kept0),
                 "placed": int((lgot[0] >= 0).sum()),
                 "compacted_s": late_s, "full_s": lfull[2],
+                "launches": late_launches,
                 "seconds": time.perf_counter() - t_part}
+    out["launches"] += late_launches
     return out
 
 
@@ -4286,10 +4432,15 @@ def _log_mesh(m: dict) -> None:
     _log(f"     (b) solve(snap, mesh=): {b['launches']} commit_solve "
          f"launch(es), {b['sharded_loops']} sharded loops, "
          f"{b['plain_calls']} plain calls ({b['seconds']:.2f}s)")
-    _log(f"     (c) {c['nodes']}x{c['pods']} beyond the kernel's domain: "
-         f"sharded {c['sharded_s']:.3f}s == single-device "
-         f"{c['single_s']:.3f}s, {c['memory']['total_bytes_per_device']} "
-         f"B per device; preemption {c['preemption']['nodes']}x"
+    bd = c["beyond"]
+    _log(f"     (c) {c['nodes']}x{c['pods']}, {c['groups']} groups, through "
+         f"the crossover: {c['launches']} launch of {c['instance']}, "
+         f"{c['crossover_s']:.3f}s == single-device {c['single_s']:.3f}s; "
+         f"{bd['nodes']}x{bd['pods']} with {bd['bands']} band slots, beyond "
+         f"the kernel's domain: sharded {bd['sharded_s']:.3f}s == "
+         f"single-device {bd['single_s']:.3f}s, "
+         f"{bd['memory']['total_bytes_per_device']} B per device, "
+         f"{bd['placed']} placed; preemption {c['preemption']['nodes']}x"
          f"{c['preemption']['pods']} ({c['preemption']['by_preemption']} "
          f"by preemption) sharded {c['preemption']['sharded_s']:.3f}s vs "
          f"{c['preemption']['single_s']:.3f}s; anti-affinity "
@@ -4305,8 +4456,8 @@ def _log_mesh(m: dict) -> None:
              f"{w['delta_planes']}, {w['placed']} placed, "
              f"{w['solve_s']:.3f}s")
     _log(f"     (e) late churn {e['nodes']}x{e['pods']}: compacted to "
-         f"{e['kept']} nodes, {e['placed']} placed, compacted "
-         f"{e['compacted_s']:.3f}s vs full "
+         f"{e['kept']} nodes, {e['placed']} placed, {e['launches']} "
+         f"commit_solve launch, compacted {e['compacted_s']:.3f}s vs full "
          f"{e['full_s']:.3f}s ({e['seconds']:.1f}s)")
 
 
@@ -8065,6 +8216,251 @@ def _log_conformance(a: dict, b: dict) -> None:
          f"{b['phase_s']:.1f} s")
 
 
+# ---- phase 20: the large-cluster domain on the card ------------------------
+
+def _spread_samples(ks=range(15, 24), n_random: int = 1 << 20,
+                    seed: int = 2020, chunk: int = 1 << 21):
+    """(total, count) int64 numpy pairs beyond the narrow domain, in
+    chunks of at most ``chunk``: for each total 2^k - 1, 2^k and 2^k + 1
+    (k in ``ks``; 15..23 reach every power of two below 2^24), every count
+    0..total; then ``n_random`` seeded pairs, the total uniform in [2^15,
+    2^24), the count uniform in [0, total]."""
+    import numpy as np
+
+    for k in ks:
+        for total in ((1 << k) - 1, 1 << k, (1 << k) + 1):
+            for lo in range(0, total + 1, chunk):
+                count = np.arange(lo, min(lo + chunk, total + 1),
+                                  dtype=np.int64)
+                yield np.full_like(count, total), count
+    rng = np.random.default_rng(seed)
+    for lo in range(0, n_random, chunk):
+        n = min(chunk, n_random - lo)
+        total = rng.integers(1 << 15, 1 << 24, size=n, dtype=np.int64)
+        count = np.minimum((rng.random(n) * (total + 1)).astype(np.int64),
+                           total)
+        yield total, count
+
+
+def _f32_spread(total, count):
+    """The spread score's float32 expression in numpy (IEEE, as the
+    kernel's device function computes it): int(10 * (f32(total - count) /
+    f32(total))), 10 at total 0."""
+    import numpy as np
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        q = np.float32(total - count) / np.float32(total)
+        return np.where(total == 0, 10,
+                        (np.float32(10) * q).astype(np.int32))
+
+
+def _spread_beyond(dev, ks=range(15, 24), n_random: int = 1 << 20) -> dict:
+    """Phase 20 (c): the kernel's spread device function (``spread_eval``)
+    against the plain version (``ops/kernels.spread_score``, exact int64)
+    over ``_spread_samples``. The device function runs only on a card; on
+    the CPU the float32 expression it computes (``_f32_spread``) stands
+    in."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.ops import commit_solver
+    from kubernetes_tpu_torch.ops.kernels import spread_score
+
+    t0 = time.perf_counter()
+    pairs = bad = 0
+    for total, count in _spread_samples(ks, n_random):
+        t = torch.from_numpy(total).to(dev)
+        c = torch.from_numpy(count).to(dev)
+        want = spread_score(t, c)
+        if _device_type(dev) == "cuda":
+            got = commit_solver.spread_eval(t.to(torch.int32).contiguous(),
+                                            c.to(torch.int32).contiguous())
+        else:
+            got = torch.from_numpy(_f32_spread(total, count))
+        bad += int((got != want).sum())
+        pairs += total.size
+    if bad:
+        raise AssertionError(f"phase 20 (c): {bad} of {pairs} spread pairs "
+                             f"beyond 2^15 disagree with the plain version")
+    return {"pairs": pairs, "mismatches": 0, "ks": [min(ks), max(ks)],
+            "random_pairs": n_random, "seconds": time.perf_counter() - t0}
+
+
+# (family, seed, nodes, pods, keywords) of phase 20 (d): waves past the
+# narrow instances on one axis or more (64, 1,024 groups; 33,000 nodes;
+# peer totals past 2^15), through every branch the large instances hold:
+# zones, anchors (in dynamic shared memory), gangs, the label planes,
+# preemption, int64 planes; both state layouts
+_LARGE_CASES = [
+    ("ext", 700, 40, 120, dict(n_services=64, anti=2, aff=2, prefs=True,
+                               presence=True)),
+    ("ext", 701, 40, 150, dict(n_services=64, gangs=True, aff=1, anti=1)),
+    ("ext", 702, 60, 1_000, dict(n_services=2_000, aff=1, gangs=True)),
+    ("pre", 703, 33_000, 40, dict(n_bands=3, n_services=40, gangs=True,
+                                  anti=1, aff=1)),
+    ("ext", 704, 50, 80, dict(peers=33_000, anti=1, aff=1)),
+    ("ext", 705, 2_000, 60, dict(peers=33_000, gangs=True, prefs=True)),
+    ("pre", 706, 40, 60, dict(n_bands=5, n_services=48, gangs=True,
+                              anti=1)),
+    ("pre", 707, 30, 60, dict(n_bands=4, n_services=40, wide=True,
+                              aff=1)),
+    ("pre", 709, 40, 60, dict(n_bands=32, peers=33_000, wide=True)),
+]
+
+
+def _large_fuzz(dev, cases=None) -> dict:
+    """Phase 20 (d): seeded waves of ``_LARGE_CASES``, each in the
+    kernel's domain and past the narrow instances, kernel == plain version
+    bit for bit. ``cases`` defaults to ``_LARGE_CASES`` (a CPU run passes
+    smaller ones)."""
+    import torch
+
+    from kubernetes_tpu_torch.models.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    t0 = time.perf_counter()
+    seen = {"instances": {}, "pods": 0, "rolled_back_runs": 0,
+            "preempting": 0, "waves": []}
+    for family, seed, n_nodes, n_pods, kw in cases or _LARGE_CASES:
+        kw = dict(kw)
+        if family == "ext":
+            wave, policy = _ext_wave(random.Random(seed), n_nodes, n_pods,
+                                     **kw)
+        else:
+            wave, policy = _pre_wave(random.Random(seed), n_nodes, n_pods,
+                                     kw.pop("n_bands"), **kw)
+        snap = encode_snapshot(*wave, policy=policy)
+        ci = _inputs(snap, dev)
+        N, G = ci.cap.shape[1], ci.counts0.shape[0]
+        if not commit_solver.is_large(N, G, ci.count_bytes):
+            raise AssertionError(f"phase 20 (d) seed {seed}: not a large "
+                                 f"wave (N={N} G={G} "
+                                 f"{8 * ci.count_bytes}-bit counts)")
+        name = commit_solver.instance_of(ci)
+        seen["instances"][name] = seen["instances"].get(name, 0) + 1
+        got = commit_solver.solve_commit(ci)
+        want = commit_solver.solve_commit_reference(ci)
+        for g, w, what in zip(got, want, ("chosen", "win")):
+            if not torch.equal(g, w):
+                i = int((g != w).nonzero()[0])
+                raise AssertionError(
+                    f"phase 20 (d) seed {seed} {family} {kw}: {what} "
+                    f"differs at pod {i}: kernel {int(g[i])} vs plain "
+                    f"{int(w[i])}")
+        chosen = want[0].cpu().numpy()
+        if snap.has_gangs:
+            seen["rolled_back_runs"] += _rolled_back_runs(snap.pod_rid,
+                                                          chosen)
+        seen["preempting"] += int((want[1] <= -2).sum())
+        seen["pods"] += len(snap.pod_names)
+        seen["waves"].append({"seed": seed, "nodes": N, "groups": G,
+                              "count_bytes": ci.count_bytes,
+                              "bands": ci.band.shape[0],
+                              "instance": name,
+                              "placed": int((chosen >= 0).sum())})
+    seen["seconds"] = time.perf_counter() - t0
+    return seen
+
+
+def _large_phase(dev, shapes=("planet", "services64"), kernel_runs=3,
+                 sizes=None, loop_nodes=40_000, loop_waves=3,
+                 wave_size=1_024, spread_ks=range(15, 24),
+                 spread_random=1 << 20, large_cases=None,
+                 count_launches=True) -> dict:
+    """Phase 20: the kernel's large-cluster instances on the main paths.
+    (a) each of ``shapes`` (models/fixtures: ``planet``, 40,000 nodes and
+    40,000 peers a service; ``services64``, 64 service groups) through
+    ``solve``, one launch of a large instance, bit-identical to the plain
+    version on the card, with its kernel time, layout and bound; (b) the
+    scheduler's loop (phase 7's driver) on the planet cluster, waves of
+    ``wave_size``, each launching commit_solve once and held as phase 7
+    holds its waves, the plain version never run; (c) the spread device
+    function beyond 2^15 (``_spread_beyond``); (d) seeded large waves
+    through every branch (``_large_fuzz``). ``sizes`` maps a shape to
+    (nodes, pods) for a CPU run."""
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    tag = "phase 20"
+    t_phase = time.perf_counter()
+    out: dict = {"waves": {}}
+    for name in shapes:
+        w = _wave_phase(name, dev, kernel_runs, size=(sizes or {}).get(name),
+                        count_launches=count_launches)
+        if count_launches and not w["instance"].startswith(
+                "commit_solve_large<"):
+            raise AssertionError(f"{tag} (a) {name}: took {w['instance']}, "
+                                 f"not a large instance")
+        out["waves"][name] = w
+    t0 = time.perf_counter()
+    # the instances the loop's waves launch, apart from (a)'s
+    launched = commit_solver.solve_commit.instances
+    before = set(launched)
+    launched.clear()
+    try:
+        sc = _scheduler_phase(dev, n_nodes=loop_nodes,
+                              n_pending=loop_waves * wave_size, n_churn=0,
+                              n_deleted=0, n_last=0, wave_size=wave_size,
+                              plain_wave=1, count_launches=count_launches,
+                              n_services=2, churn=False, plain_device=dev)
+        sc["instances"] = sorted(launched)
+    finally:
+        launched.update(before)
+    if len(sc["waves"]) != loop_waves:
+        raise AssertionError(f"{tag} (b): {len(sc['waves'])} waves, want "
+                             f"{loop_waves}")
+    # the driver raised unless every wave's bindings were equal
+    sc["max_abs_err"] = 0
+    sc["seconds"] = time.perf_counter() - t0
+    out["loop"] = sc
+    out["spread"] = _spread_beyond(dev, spread_ks, spread_random)
+    out["seeded"] = sd = _large_fuzz(dev, large_cases)
+    if count_launches and not any(",1>" in k for k in sd["instances"]):
+        raise AssertionError(f"{tag} (d): no seeded wave kept its state on "
+                             f"chip ({sorted(sd['instances'])})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _log_large(lg: dict, ptxas: dict) -> None:
+    for tag, (name, w) in zip(("20 (a)", "      "), lg["waves"].items()):
+        _log(f"[{tag}] {name} {w['nodes']}x{w['pods']}: {w['groups']} "
+             f"groups, peer bound {w['peer_bound']}, "
+             f"{8 * w['count_bytes']}-bit counts, {w['instance']}, state in "
+             f"{w['layout']} memory ({w['dyn_shared_bytes']} B dynamic "
+             f"shared), launches {w['launches']}, bound {w['bound_pods']}, "
+             f"encode {w['encode_s']:.3f}s, wave {w['wave_s']:.3f}s "
+             f"({w['pods_per_s']:.1f} pods/s), kernel "
+             f"{w['kernel_ms']:.3f} ms (runs "
+             f"{[round(t, 3) for t in w['kernel_ms_runs']]}), plain "
+             f"{w['plain_ms']:.1f} ms (max abs err {w['max_abs_err']}), "
+             f"bound {w['bound_ms']:.4f} ms ({w['bound_by']})")
+        _log(f"       ptxas: {ptxas.get(w['instance'], 'not reported')}")
+    sc = lg["loop"]
+    _log(f"[20 (b)] the loop on the planet cluster: {sc['nodes']} nodes, "
+         f"{sc['existing']} existing, {sc['pending']} pending in waves of "
+         f"{sc['wave_size']}: {len(sc['waves'])} waves, {sc['launches']} "
+         f"commit_solve launches ({', '.join(sc['instances'])}), 0 plain "
+         f"calls; loop {sc['loop_pods_per_s']:.1f} pods/s "
+         f"({sc['loop_s']:.3f} s); encode paths "
+         f"{[w['path'] for w in sc['waves']]}, each wave == "
+         f"solve(encode_snapshot(...)) on the card, wave "
+         f"{sc['plain_wave']} == the plain version on "
+         f"{sc['plain_device']} ({sc['plain_s']:.1f} s); "
+         f"{sc['seconds']:.1f} s")
+    sp = lg["spread"]
+    _log(f"[20 (c)] spread device function == plain version on "
+         f"{sp['pairs']} pairs beyond 2^15 (every count of totals 2^k-1, "
+         f"2^k, 2^k+1 for k = {sp['ks'][0]}..{sp['ks'][1]}, and "
+         f"{sp['random_pairs']} seeded pairs below 2^24; "
+         f"{sp['seconds']:.2f}s)")
+    sd = lg["seeded"]
+    _log(f"[20 (d)] {len(sd['waves'])} seeded large waves ({sd['pods']} "
+         f"pods; {sd['rolled_back_runs']} gang runs rolled back, "
+         f"{sd['preempting']} pods placed by preemption; instances "
+         f"{sd['instances']}): kernel == plain version "
+         f"({sd['seconds']:.2f}s); phase {lg['phase_s']:.1f} s")
+
+
 def _freeze_heap() -> None:
     """Collect what the phases before left, then move every survivor to
     the collector's permanent generation: a full collection in a later
@@ -8224,10 +8620,12 @@ def main() -> int:
     record["priority_loop"] = pl = _preempt_loop_phase(dev)
     _log_preempt_loop(pl)
 
-    # Phases 9, 9c, 10b, 11, 12, 14 (a), 15 and 16 run below their
-    # functions' default depths (pending pods; phase 11's compared pods;
-    # phase 15's replicas; phase 16's legacy pods and RC), so that phases
-    # 15-18 fit in the script's time limit with room for a slower host.
+    # Phases 9, 9c, 10b, 11, 12, 14 (a), 15, 16, 18 (a) and 19 (b) run
+    # below their functions' default depths (pending pods; phase 11's
+    # compared pods; phase 15's replicas; phase 16's legacy pods, RC and
+    # cordons; phase 18 (a)'s backends, soaks and churn rounds; phase 19
+    # (b)'s seconds), so that phases 15-20 fit in the script's time limit
+    # with room for a slower host.
 
     _freeze_heap()
     # 9. the scheduler binary against an apiserver process, over HTTP
@@ -8285,8 +8683,8 @@ def main() -> int:
 
     _freeze_heap()
     # 16. an operator's kubectl session, in the legacy wire, feeding it
-    record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=750,
-                                            web=(250, 500))
+    record["kubectl"] = kc = _kubectl_phase(dev, n_legacy=300,
+                                            web=(100, 200), n_cordon=25)
     _log_kubectl(kc)
 
     _freeze_heap()
@@ -8299,16 +8697,25 @@ def main() -> int:
     _freeze_heap()
     # 18. the service path through kube-proxy to backends the card placed,
     # with the dns, logging and monitoring addons; the deploy script
-    sa, sb = _service_phase(dev), _deploy_script_phase(dev)
+    sa, sb = (_service_phase(dev, backends=60, churn=(2, 12, 5.0),
+                             soak_s=5.0),
+              _deploy_script_phase(dev))
     record["service"] = {"path": sa, "deploy_script": sb}
     _log_service(sa, sb)
 
     _freeze_heap()
     # 19. the conformance tools: the e2e suites against a port cluster
     # solving on the card; the stress harness with the card's scheduler
-    ea, eb = _e2e_phase(dev), _stress_phase(dev)
+    ea, eb = _e2e_phase(dev), _stress_phase(dev, seconds=8.0)
     record["conformance"] = {"e2e": ea, "stress": eb}
     _log_conformance(ea, eb)
+
+    _freeze_heap()
+    # 20. the large-cluster domain: planet and services64 through solve,
+    # the loop at planet width, the spread function past 2^15, and seeded
+    # large waves through every branch
+    record["large"] = lg = _large_phase(dev)
+    _log_large(lg, record["ptxas"])
     record["total_s"] = time.perf_counter() - t_start
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -8354,7 +8761,18 @@ def main() -> int:
                 record["north_star_dec"]["launches"]),
                ("commit_solve[preemption]", record["priority"],
                 sum(w["launches"] for w in pl["waves"])),
-               ("commit_solve[batched]", batched, dm["batched_launches"]))
+               ("commit_solve[batched]", batched, dm["batched_launches"]),
+               # the large-cluster instances (phase 20): planet's with
+               # int32 counts over 40,000 nodes (its wave in (a) and the
+               # loop's waves in (b), each held against the plain version
+               # too), services64's with 64 groups
+               ("commit_solve[large: planet]",
+                dict(lg["waves"]["planet"], max_abs_err=max(
+                    lg["waves"]["planet"]["max_abs_err"],
+                    lg["loop"]["max_abs_err"])),
+                lg["waves"]["planet"]["launches"] + lg["loop"]["launches"]),
+               ("commit_solve[large: services64]", lg["waves"]["services64"],
+                lg["waves"]["services64"]["launches"]))
     kernels = {"kernels": [{
         "name": name, "route": "cuda",
         "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cuh",

@@ -27,8 +27,9 @@ common scaling), narrows to int32 when every accumulator fits and keeps
 int64 otherwise, and packs port and PD sets into uint32 bitmask words.
 ``ship_inputs`` moves the wave to a torch device. ``solve_device`` runs
 the hand-written CUDA kernel (ops/commit_solver) for waves inside its
-domain, int64 and preemption waves included, and ``solve_scan`` for the
-rest, as the reference sends the latter to ``solve_jit``.
+domain, int64, preemption and large-cluster waves included (up to 65,536
+nodes, 1,024 service groups, peer totals below 2^24), and ``solve_scan``
+for the rest, as the reference sends both of these to ``solve_jit``.
 
 ``solve(..., mesh=)`` sends waves at or above the mesh node floor
 through the device mesh (parallel/mesh.py).
@@ -298,23 +299,26 @@ def solve_scan(inp: SolverInputs, pol: Optional[BatchPolicy] = None,
 def solve_device(inp: SolverInputs, pol: Optional[BatchPolicy],
                  gangs: bool, peer_bound: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compiled-solve dispatch: a wave inside the kernel's domain
-    (commit_solver.eligible) runs the CUDA kernel — on a CPU tensor its
-    plain version — and every other wave runs ``solve_scan`` on the same
-    device, as the reference sends it to ``solve_jit`` (a wave over
-    commit_solver.MAX_N nodes, MAX_G groups or MAX_B bands). ``gangs``
-    turns on the checkpoint and rollback of PodGroup runs."""
+    """Compiled-solve dispatch, the one every main path takes: a wave
+    inside the kernel's domain (commit_solver.eligible) runs the CUDA
+    kernel — on a CPU tensor its plain version — and every other wave runs
+    ``solve_scan`` on the same device, as the reference sends it to
+    ``solve_jit`` (a wave over commit_solver.MAX_N nodes, MAX_G groups,
+    MAX_B bands or peer totals of MAX_COUNT, or wider than 8 resources,
+    port or PD words, 4 labels or 64 zones). ``gangs`` turns on the
+    checkpoint and rollback of PodGroup runs."""
     pol = pol or BatchPolicy()
     if commit_solver.eligible(inp, pol, peer_bound):
         return commit_solver.solve_commit(
-            commit_solver.prepare(inp, pol, gangs))
+            commit_solver.prepare(inp, pol, gangs, peer_bound))
     return solve_scan(inp, pol, gangs)
 
 
 def peer_bound_of(source) -> int:
     """Largest initial per-group peer total — the kernel-domain bound on
-    the spread arithmetic. ``source`` carries a numpy ``group_counts``
-    [G, N+1] array (a ClusterSnapshot)."""
+    the spread arithmetic. ``source`` carries a ``group_counts`` [G, N+1]
+    array (a ClusterSnapshot, numpy SolverInputs) or tensor (shipped
+    SolverInputs; read back from its device)."""
     gc = source.group_counts
     if gc.shape[0] == 0 or gc.shape[1] == 0:
         return 0

@@ -12,8 +12,13 @@ before a storm of high-priority pods. ``FULL_SHAPES`` mirrors
 device-mesh shape, is the node-sharded solve's), plus
 ``north_star_dec``: north_star with every pending pod's memory written in
 decimal units (``M``), as many manifests do, which makes the memory
-column's gcd 2^8 and the wave's resource planes int64. ``build_shape``
-builds any of them.
+column's gcd 2^8 and the wave's resource planes int64; and two shapes
+past the narrow kernel's limits, which its large-cluster instances take:
+``planet``, the JAX package's largest record (``CHURN_MP_r18_planetshape
+.json``: 40,000 nodes) with two services, so its 80,000 residents give
+each 40,000 peers (counts past 2^15), and ``services64``, north_star with
+64 services (64 service groups in the wave). ``build_shape`` builds any
+of them.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ FULL_SHAPES = {
     "mesh": (10_000, 2_048, {}, None),
     "north_star_dec": (5_000, 10_000, {"decimal_memory": True}, None),
     "priority": (2_000, 1_000, {"fill_per_node": 4}, None),
+    "planet": (40_000, 10_000, {"n_services": 2}, None),
+    "services64": (5_000, 10_000, {"n_services": 64}, None),
 }
 
 def affinity_policy() -> Policy:

@@ -1,4 +1,4 @@
-"""Active sub-meshing — per-wave node-axis compaction for the plain scan.
+"""Active sub-meshing — per-wave node-axis compaction of a wave's solve.
 
 Port of ``kubernetes_tpu/models/submesh.py``. The sequential-commit loop
 does O(N) vector work per pod step. Late-churn waves see a cluster where
@@ -6,7 +6,10 @@ most nodes are full: a node that cannot place ANY pod of the wave
 contributes nothing to the answer, only to the per-step arithmetic. This
 module drops those nodes before the loop and maps the decisions back,
 bit-identically. Its caller is the solver daemon's mesh executor
-(solver/mesh_exec.py), on its single-device layout.
+(solver/mesh_exec.py), on its single-device layout. The compacted wave
+goes through ``batch_solver.solve_device``: inside the kernel's domain it
+launches commit_solve (the reference runs its scan there), beyond it the
+plain ``solve_scan``.
 
 **The keep rule.** A node survives compaction iff any of:
 
@@ -66,7 +69,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.models.batch_solver import SolverInputs, solve_scan
+from kubernetes_tpu_torch.models.batch_solver import (
+    SolverInputs,
+    peer_bound_of,
+    solve_device,
+)
 
 __all__ = ["keep_mask", "padded_size", "plan_wave", "compact_inputs",
            "submesh_program", "remap_pod_host_idx", "SubmeshPlan",
@@ -247,7 +254,9 @@ def submesh_program(pol, gangs: bool, zone_bf16: bool = False):
         keep = as_tensor(np.asarray(keep_idx, np.int32)).to(dev)
         comp = compact_inputs(SolverInputs(**kw), keep,
                               as_tensor(np.asarray(valid, bool)).to(dev))
-        chosen, scores = solve_scan(comp, pol, gangs)
+        # the compacted wave is a wave like any other: inside the kernel's
+        # domain it launches commit_solve (batch_solver.solve_device)
+        chosen, scores = solve_device(comp, pol, gangs, peer_bound_of(comp))
         chosen = torch.where(
             chosen >= 0,
             keep.index_select(0, chosen.clamp_min(0).to(torch.int64)),

@@ -7,12 +7,14 @@ its body: the default filters and priorities, CheckNodeLabelPresence (in
 the static mask), CheckServiceAffinity anchors, NodeLabelPriority,
 ServiceAntiAffinity zones, and the gang checkpoint and rollback. Its
 domain is wider than the Pallas kernel's: waves with int64 resource
-planes and waves with priority bands (preemption), which the reference
-solves in ``solve_jit``'s scan (kubernetes_tpu/models/batch_solver.py
-:676-790), run here too, with the same decisions.
+planes, waves with priority bands (preemption), and large clusters (up to
+``MAX_N`` nodes, ``MAX_G`` service groups, peer totals below 2^24), which
+the reference solves in ``solve_jit``'s scan (kubernetes_tpu/models/
+batch_solver.py:398, :676-790), run here too, with the same decisions.
 
 - ``eligible`` is the kernel's domain: the reference's (:90-157), plus
-  int64 planes and up to ``MAX_B`` bands.
+  int64 planes, up to ``MAX_B`` bands, and the large-cluster limits,
+  which the kernel's large instances take (``is_large``).
 - ``prepare`` is the prolog (:599-733): the static feasibility mask (node
   selector, host pin, cordon and label presence, selector-pinned service
   affinity) and the per-pod and per-node planes, as torch ops on the
@@ -59,18 +61,25 @@ from kubernetes_tpu_torch.ops.kernels import (
     u64_mod_small,
 )
 
-__all__ = ["CommitInputs", "eligible", "launch_key", "layout_of",
-           "mask_pitch", "prepare", "shared_layout", "solve_commit",
+__all__ = ["CommitInputs", "count_bytes_for", "eligible", "is_large",
+           "launch_key", "layout_of", "mask_pitch", "prepare",
+           "shared_layout", "solve_commit",
            "solve_commit_batch", "solve_commit_reference", "spread_eval",
            "MAX_B", "MAX_N"]
 
 NEG = -1
 MAX_R = 8
 MAX_W = 8
-MAX_G = 31           # member bitmask must fit a non-negative int32
-MAX_N = 32640        # the reference's domain (counts below 2^15); the
-                     # kernel itself takes N <= 1024 * 32
-MAX_COUNT = 1 << 15
+MAX_G = 1024         # a 1,024-pod wave names at most this many groups
+MAX_N = 65536        # 1,024 threads of 64 nodes (the large instances)
+MAX_COUNT = 1 << 24  # peer totals: the spread score's float32 is exact
+                     # below (ops/kernels.spread_score)
+# The narrow instances' limits: 32 nodes a thread in a 32-bit mask, one
+# int32 of member bits, int16 peer counts. A wave past any of them takes
+# the large instances (csrc/commit_solve.cuh kLarge).
+NARROW_N = 1024 * 32
+NARROW_G = 31
+NARROW_COUNT = 1 << 15
 MAX_A = 4            # anti-affinity labels
 MAX_V = 64           # zones per anti-affinity label
 MAX_L = 4            # service-affinity labels
@@ -99,48 +108,82 @@ def mask_pitch(n_nodes: int) -> int:
 
 
 def state_bytes(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
-                res_bytes: int = 4) -> int:
+                res_bytes: int = 4, cnt_bytes: int = 2) -> int:
     """Bytes of one wave's packed node state: the [R, N] fit usage and the
     [B, R, N] evictable capacity in the resource type, the [Wp + Wd + B,
     N] int32 port words, PD words and evictable counts, and the [G, N]
-    int16 peer counts. Mirrors state_bytes in csrc/commit_solve.cuh."""
+    peer counts, int16 (``cnt_bytes`` 2) or int32 (4, a large wave whose
+    totals may reach 2^15). Mirrors state_bytes in csrc/commit_solve.cuh."""
     return (res_bytes * (R + B * R) * N + 4 * (Wp + Wd + B) * N
-            + 2 * G * N)
+            + cnt_bytes * G * N)
 
 
 def state_stride(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
-                 res_bytes: int = 4) -> int:
+                 res_bytes: int = 4, cnt_bytes: int = 2) -> int:
     """Bytes from one wave's packed state to the next in a batched launch
     (the global state and the gang checkpoint): ``state_bytes`` rounded up
     to 16, so every wave's planes are as aligned as the first wave's (an
     odd G * N leaves ``state_bytes`` 2 mod 4). Mirrors state_stride in
+    csrc/commit_solve.cuh, which only batched waves (int16 counts) take;
+    a large wave's one buffer is sized here too."""
+    return -(-state_bytes(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+             // 16) * 16
+
+
+def count_bytes_for(peer_bound: int, n_pods: int) -> int:
+    """Bytes of one peer count in the kernel's state: int16 while every
+    total (the initial peers plus a commit per pod) stays below 2^15, else
+    int32."""
+    return 2 if peer_bound + n_pods < NARROW_COUNT else 4
+
+
+def is_large(N: int, G: int, cnt_bytes: int = 2) -> bool:
+    """A wave past the narrow instances' limits, which the large
+    instances take. Mirrors is_large in csrc/commit_solve.cu."""
+    return N > NARROW_N or G > NARROW_G or cnt_bytes != 2
+
+
+def member_words(G: int) -> int:
+    """int32 words of member bits in a pod row: one per 32 groups, at
+    least one. Mirrors member_words in csrc/commit_solve.cuh."""
+    return -(-G // 32) if G > 32 else 1
+
+
+def anchor_bytes(G: int, L: int) -> int:
+    """Bytes of a large wave's anchor block in dynamic shared memory: the
+    [G, L] anchors, the [G] has-anchor flags and their gang checkpoint,
+    none without affinity labels. Mirrors anchor_bytes in
     csrc/commit_solve.cuh."""
-    return -(-state_bytes(N, R, Wp, Wd, G, B, res_bytes) // 16) * 16
+    return 4 * (2 * G * L + 2 * G) if L > 0 else 0
 
 
 def shared_layout(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
-                  res_bytes: int = 4) -> Tuple[bool, int]:
+                  res_bytes: int = 4, cnt_bytes: int = 2, L: int = 0
+                  ) -> Tuple[bool, int]:
     """Where the kernel keeps one wave's node state -> (on_chip, bytes of
     dynamic shared memory). The kernel always takes a two-row ring for the
-    static mask; the state (``state_bytes``) joins it when both fit a
-    block's shared memory, and otherwise lives in a global buffer of the
-    same packed layout. Mirrors shared_bytes in csrc/commit_solve.cu."""
-    ring = 2 * mask_pitch(N)
-    state = state_bytes(N, R, Wp, Wd, G, B, res_bytes)
-    on_chip = ring + state <= SMEM_PER_BLOCK - STATIC_SMEM
-    return on_chip, ring + (state if on_chip else 0)
+    static mask, and a large wave (``is_large``) its anchor block after
+    it; the state (``state_bytes``) joins them when all fit a block's
+    shared memory, and otherwise lives in a global buffer of the same
+    packed layout. Mirrors shared_bytes in csrc/commit_solve.cu."""
+    fixed = 2 * mask_pitch(N) + (anchor_bytes(G, L)
+                                 if is_large(N, G, cnt_bytes) else 0)
+    state = state_bytes(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+    on_chip = fixed + state <= SMEM_PER_BLOCK - STATIC_SMEM
+    return on_chip, fixed + (state if on_chip else 0)
 
 
 def _dims(ci: "CommitInputs"):
-    """(N, R, Wp, Wd, G, B, bytes per resource value) of a prepared wave."""
+    """(N, R, Wp, Wd, G, B, bytes per resource value, bytes per peer
+    count) of a prepared wave."""
     R, N = ci.cap.shape
     return (N, R, ci.ports0.shape[0], ci.pds0.shape[0], ci.counts0.shape[0],
-            ci.band.shape[0], ci.cap.element_size())
+            ci.band.shape[0], ci.cap.element_size(), ci.count_bytes)
 
 
 def layout_of(ci: "CommitInputs") -> Tuple[bool, int]:
     """``shared_layout`` of one prepared wave."""
-    return shared_layout(*_dims(ci))
+    return shared_layout(*_dims(ci), L=ci.affv.shape[0])
 
 
 class CommitInputs(NamedTuple):
@@ -152,8 +195,10 @@ class CommitInputs(NamedTuple):
 
     smask: torch.Tensor       # [P, mask_pitch(N)] uint8 static
                               # feasibility; columns N.. are 0
-    podrow: Optional[torch.Tensor]  # [P, RW+Wp+Wd+7+L] int32, RW the int32
-                                    # words of R requests; None if G > 31
+    podrow: Optional[torch.Tensor]  # [P, RW+Wp+Wd+6+MW+L] int32, RW the
+                                    # int32 words of R requests, MW those
+                                    # of the member bits (member_words);
+                                    # None if G > MAX_G
     cap: torch.Tensor         # [R, N] resource type
     fit0: torch.Tensor        # [R, N] greedy-fitting usage
     score0: torch.Tensor      # [R, N] all-pods usage
@@ -194,16 +239,19 @@ class CommitInputs(NamedTuple):
     w_equal: int
     w_anti: Tuple[int, ...]   # weight per anti-affinity label (A of them)
     V: int                    # zone codes are < V
+    count_bytes: int = 2      # the kernel's peer counts: int16, or int32
+                              # where a total may reach 2^15
 
 
 def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
     """True when the wave is in the kernel's domain: the reference's
-    (pallas_solver.eligible) whole domain — R and port/PD words <= 8, G <=
-    31 groups, N <= 32,640 nodes, A <= 4 anti-affinity labels of V <= 64
-    zones, L <= 4 service-affinity labels, the snapshot encoded for this
-    policy's labels, spread counts below 2^15, gang waves — and beyond it
-    int64 resource planes and preemption waves of at most MAX_B bands,
-    which the reference runs in its scan. The reference also refuses a
+    (pallas_solver.eligible) whole domain — R and port/PD words <= 8, A <=
+    4 anti-affinity labels of V <= 64 zones, L <= 4 service-affinity
+    labels, the snapshot encoded for this policy's labels, gang waves —
+    and beyond it what the reference runs in its scan: int64 resource
+    planes, preemption waves of at most MAX_B bands, up to MAX_N = 65,536
+    nodes (the reference: 32,640), MAX_G = 1,024 groups (31), and peer
+    totals below 2^24 (2^15). The reference also refuses a
     wave whose planes overflow its TPU core's memory; the kernel keeps its
     state in global memory when shared memory is too small
     (``shared_layout``), so it has no such budget. ``inp`` is a
@@ -230,8 +278,8 @@ def eligible(inp, pol: Optional[BatchPolicy], peer_bound: int) -> bool:
         L = inp.node_aff_vals.shape[1]
         if not (0 < L <= MAX_L and L == len(pol.affinity_labels)):
             return False
-    # spread and anti-affinity totals stay below 2^15: initial peers plus
-    # every wave commit
+    # spread and anti-affinity totals (and every zone sum) stay below
+    # 2^24: initial peers plus every wave commit
     return peer_bound + inp.req.shape[0] < MAX_COUNT
 
 
@@ -240,12 +288,16 @@ def _u32_as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
+def prepare(inp, pol: BatchPolicy, gangs: bool = False,
+            peer_bound: Optional[int] = None) -> CommitInputs:
     """The prolog: SolverInputs (tensors on one device) -> CommitInputs on
     the same device. ``gangs`` turns on the checkpoint and rollback of
     PodGroup runs (``inp.gang_start`` marks each unit's first pod). The
     band planes are kept only where preemption can happen: bands present
-    and the resource filter on (the reference's ``enable_p``)."""
+    and the resource filter on (the reference's ``enable_p``).
+    ``peer_bound`` (batch_solver.peer_bound_of) sizes the kernel's peer
+    counts (``count_bytes_for``); None reads it off ``inp.group_counts``,
+    which on a card waits for the device."""
     N, R = inp.cap.shape
     P = inp.req.shape[0]
     dev = inp.cap.device
@@ -289,10 +341,17 @@ def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
     zreq = (inp.req == 0).all(dim=1)
     start = (inp.gang_start.to(torch.bool) if gangs
              else torch.ones(P, dtype=torch.bool, device=dev))
+    if peer_bound is None:
+        gc = inp.group_counts
+        peer_bound = int(gc.sum(1).max()) if gc.numel() else 0
     podrow = None
     if G <= MAX_G:
-        bits = (member.to(torch.int64) << torch.arange(
-            G, device=dev)[None, :]).sum(dim=1)
+        # bit g % 32 of word g // 32; a word is uint32 carried as int32
+        words = member_words(G)
+        padded = torch.zeros((P, words * 32), dtype=torch.int64, device=dev)
+        padded[:, :G] = member.to(torch.int64)
+        bits = _u32_as_i32((padded.view(P, words, 32) << torch.arange(
+            32, device=dev)).sum(dim=2))
         # a gang run starts where a unit start is followed by a member of
         # the same run: only there does the kernel checkpoint its state
         run_head = start & torch.cat([~start[1:], start.new_zeros(1)])
@@ -302,7 +361,7 @@ def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
         podrow = torch.cat([
             req.contiguous().view(i32), inp.pod_ports, inp.pod_pds,
             _u32_as_i32(tie_hi)[:, None], _u32_as_i32(tie_lo)[:, None],
-            gid.to(i32)[:, None], bits.to(i32)[:, None],
+            gid.to(i32)[:, None], bits,
             zreq.to(i32)[:, None], unit[:, None], prio[:, None], pins],
             dim=1).contiguous()
     flags = ((_USE_RESOURCES if pol.use_resources else 0)
@@ -347,7 +406,8 @@ def prepare(inp, pol: BatchPolicy, gangs: bool = False) -> CommitInputs:
         flags=flags, w_lr=int(pol.w_lr), w_spread=int(pol.w_spread),
         w_equal=int(pol.w_equal),
         w_anti=tuple(int(w) for _label, w in pol.anti_affinity),
-        V=int(inp.zone_counts0.shape[2]) if A else 0)
+        V=int(inp.zone_counts0.shape[2]) if A else 0,
+        count_bytes=count_bytes_for(peer_bound, P))
 
 
 def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
@@ -609,7 +669,7 @@ solve_commit_reference.calls = 0
 
 _SIGNATURES = {
     "kgpu_commit_solve_batch": (ctypes.c_int, [ctypes.c_void_p] * 24
-                                + [ctypes.c_int] * 22
+                                + [ctypes.c_int] * 23
                                 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_void_p]),
     "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
@@ -630,10 +690,12 @@ def _check_launch(lib, rc: int, what: str) -> None:
 
 def _row_words(ci: CommitInputs) -> int:
     """int32 words of one pod row: the requests in the resource type, the
-    port and PD words, the fixed fields and the pinned affinity codes."""
+    port and PD words, the fixed fields, the member words and the pinned
+    affinity codes."""
     R = ci.cap.shape[0]
     return (R * ci.cap.element_size() // 4 + ci.ports0.shape[0]
-            + ci.pds0.shape[0] + _ROW_FIXED + ci.affv.shape[0])
+            + ci.pds0.shape[0] + _ROW_FIXED - 1
+            + member_words(ci.counts0.shape[0]) + ci.affv.shape[0])
 
 
 def _check(ci: CommitInputs) -> None:
@@ -682,6 +744,9 @@ def _check(ci: CommitInputs) -> None:
     if len(ci.w_anti) != A:
         raise ValueError(f"CommitInputs.w_anti: want {A} weights, got "
                          f"{len(ci.w_anti)}")
+    if ci.count_bytes not in (2, 4):
+        raise ValueError(f"CommitInputs.count_bytes: want 2 or 4, got "
+                         f"{ci.count_bytes}")
 
 
 # the kernel's input planes, in the order of its C interface
@@ -694,10 +759,11 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
     """One launch of the kernel over ``batch`` waves shaped and flagged
     like ``ci``, one block each; ``planes`` are the ``_KERNEL_PLANES`` as
     [batch, ...] stacks (or ``ci``'s own for one wave) -> (chosen, win)
-    int32 [batch, P] on the card. Raises when the launch is refused."""
+    int32 [batch, P] on the card. A large wave (``is_large``) launches
+    alone. Raises when the launch is refused."""
     dev = ci.smask.device
     P = ci.smask.shape[0]
-    N, R, Wp, Wd, G, B, res_bytes = _dims(ci)
+    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
     L, A = ci.affv.shape[0], ci.zone.shape[0]
     if (ci.podrow is None or N > MAX_N or R > MAX_R or Wp > MAX_W
             or Wd > MAX_W or G > MAX_G or L > MAX_L or A > MAX_A
@@ -706,12 +772,15 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
             f"wave outside the kernel's domain (N={N} R={R} Wp={Wp} "
             f"Wd={Wd} G={G} L={L} A={A} V={ci.V} B={B}); dispatch it with "
             f"eligible()")
+    if batch > 1 and is_large(N, G, cnt_bytes):
+        raise ValueError("a large wave launches alone (solve_commit_batch "
+                         "launches such waves one by one)")
     lib = _lib()
     on_chip, dyn_bytes = layout_of(ci)
     # the packed state planes (the kernel's layout, used when they do not
     # fit on chip) and the gang checkpoint, one more copy of them; one of
     # each per wave
-    nbytes = batch * state_stride(N, R, Wp, Wd, G, B, res_bytes)
+    nbytes = batch * state_stride(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
     gstate = (None if on_chip else
               torch.empty(nbytes, dtype=torch.uint8, device=dev))
     ckpt = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
@@ -724,8 +793,8 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
     w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
     rc = lib.kgpu_commit_solve_batch(
         *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B, res_bytes,
-        _row_words(ci), ci.flags, ci.w_lr, ci.w_spread, ci.w_equal, *w_anti,
-        int(on_chip), dyn_bytes, batch, stream)
+        cnt_bytes, _row_words(ci), ci.flags, ci.w_lr, ci.w_spread,
+        ci.w_equal, *w_anti, int(on_chip), dyn_bytes, batch, stream)
     _check_launch(lib, rc, "commit_solve")
     solve_commit.launches += 1
     solve_commit.instances.add(instance_of(ci, batch))
@@ -736,19 +805,22 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
 
 def _instance_name(res_bytes: int, N: int, R: int, Wp: int, Wd: int,
                    G: int, B: int, L: int, A: int, gang: bool, static: bool,
-                   batch: int) -> str:
+                   batch: int, cnt_bytes: int = 2) -> str:
     """Mirrors the dispatch of kgpu_commit_solve_batch in
-    csrc/commit_solve.cu: int32 waves without bands take the narrow
-    instances, the others the wide ones (extensions on, decided at run
-    time)."""
-    on_chip, _ = shared_layout(N, R, Wp, Wd, G, B, res_bytes)
+    csrc/commit_solve.cu: a large wave takes the large instances, int32
+    waves without bands the narrow ones, the others the wide ones
+    (extensions on, decided at run time)."""
+    on_chip, _ = shared_layout(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes, L)
+    res = "int32" if res_bytes == 4 else "int64"
+    if is_large(N, G, cnt_bytes):
+        return (f"commit_solve_large<{res},counts{8 * cnt_bytes},"
+                f"{int(on_chip)}>")
     if res_bytes == 4 and B == 0:
         pre, aff, anti = False, L > 0, A > 0
     else:
         pre, aff, anti, static = res_bytes == 4 or B > 0, True, True, True
     bits = ",".join(str(int(f)) for f in (pre, aff, anti, gang, static,
                                           on_chip, batch > 1))
-    res = "int32" if res_bytes == 4 else "int64"
     return f"commit_solve<{res},{bits}>"
 
 
@@ -756,14 +828,16 @@ def instance_of(ci: CommitInputs, batch: int = 1) -> str:
     """The kernel instance a launch of ``batch`` waves shaped and flagged
     like ``ci`` takes, named as ptxas' report names it:
     ``commit_solve<int32|int64,pre,aff,anti,gang,static,shared,batch>``
-    with 0/1 flags."""
-    N, R, Wp, Wd, G, B, res_bytes = _dims(ci)
+    with 0/1 flags, or for a large wave (one a launch)
+    ``commit_solve_large<int32|int64,counts16|counts32,shared>``."""
+    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
     return _instance_name(res_bytes, N, R, Wp, Wd, G, B, ci.affv.shape[0],
                           ci.zone.shape[0], bool(ci.flags & _GANGS),
-                          bool(ci.flags & _USE_STATIC), batch)
+                          bool(ci.flags & _USE_STATIC), batch, cnt_bytes)
 
 
-def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1) -> str:
+def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1,
+                 peer_bound: int = 0) -> str:
     """``instance_of`` the wave ``prepare`` would make of host (numpy)
     SolverInputs, read off their shapes without preparing them."""
     N, R = inp.cap.shape
@@ -772,15 +846,20 @@ def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1) -> str:
         inp.node_pds.shape[1], inp.group_counts.shape[0],
         inp.band_prio.shape[0] if pol.use_resources else 0,
         inp.node_aff_vals.shape[1] if pol.has_affinity else 0,
-        len(pol.anti_affinity), gangs, bool(pol.label_prefs), batch)
+        len(pol.anti_affinity), gangs, bool(pol.label_prefs), batch,
+        count_bytes_for(peer_bound, inp.req.shape[0]))
 
 
 def solve_commit(ci: CommitInputs):
     """Solve one wave -> (chosen[P], win[P]) int32: chosen node index or -1,
     the winning score, -1, or for a preempting placement
     PREEMPT_SCORE_BASE - its band slot. A CUDA wave launches the kernel (or
-    raises); a CPU wave runs the plain version."""
+    raises); a CPU wave runs the plain version. ``solve_commit.calls``
+    counts the calls, on either device."""
     _check(ci)
+    # through the module's own reference, which a test's stand-in for
+    # ``solve_commit`` does not replace
+    _solve_commit.calls += 1
     dev = ci.smask.device
     if dev.type == "cpu":
         return solve_commit_reference(ci)
@@ -793,8 +872,8 @@ def solve_commit(ci: CommitInputs):
 
 def launch_key(ci: CommitInputs) -> tuple:
     """What a batched launch fixes: waves with equal keys (every shape,
-    the resource type, the policy flags and weights) run as blocks of one
-    launch."""
+    the resource and peer-count types, the policy flags and weights) run
+    as blocks of one launch."""
     return (tuple(ci.smask.shape), _dims(ci), ci.affv.shape[0],
             ci.zone.shape[0], ci.V, ci.flags, ci.w_lr, ci.w_spread,
             ci.w_equal, tuple(ci.w_anti), ci.podrow is None)
@@ -816,8 +895,9 @@ def solve_commit_batch(cis):
     axis; each launch counts once in ``solve_commit.launches``, and a
     launch of two or more waves (the batched instances) in
     ``solve_commit_batch.launches`` too. A key with one wave takes the
-    single-wave instance. On the CPU it is the plain version, wave by
-    wave."""
+    single-wave instance, and a large wave (``is_large``, which has no
+    batched instance) launches alone. On the CPU each wave goes through
+    ``solve_commit``, the plain version."""
     cis = list(cis)
     for ci in cis:
         _check(ci)
@@ -829,12 +909,16 @@ def solve_commit_batch(cis):
             raise ValueError(f"solve_commit_batch: waves on {dev} and "
                              f"{ci.smask.device}")
     if dev.type == "cpu":
-        return [solve_commit_reference(ci) for ci in cis]
+        return [solve_commit(ci) for ci in cis]
     if dev.type != "cuda":
         raise ValueError(f"solve_commit_batch runs on cuda or cpu, not {dev}")
     groups: dict = {}
     for i, ci in enumerate(cis):
-        groups.setdefault(launch_key(ci), []).append(i)
+        N, _R, _Wp, _Wd, G, _B, _rb, cnt_bytes = _dims(ci)
+        # a large wave has no batched instance: a launch each
+        key = (launch_key(ci), i) if is_large(N, G, cnt_bytes) \
+            else launch_key(ci)
+        groups.setdefault(key, []).append(i)
     out: list = [None] * len(cis)
     for idx in groups.values():
         chosen, win = launch_stacked(
@@ -847,7 +931,9 @@ def solve_commit_batch(cis):
 solve_commit_batch.launches = 0
 
 
+_solve_commit = solve_commit
 solve_commit.launches = 0
+solve_commit.calls = 0
 # the instances this process has launched (instance_of), a set
 solve_commit.instances = set()
 

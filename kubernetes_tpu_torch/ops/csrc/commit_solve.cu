@@ -23,13 +23,21 @@ __global__ void spread_eval_kernel(const int* __restrict__ total,
   }
 }
 
-// Bytes of dynamic shared memory a wave takes: the two-row mask ring, and
-// the packed state planes when they live on chip. Mirrors
-// commit_solver.shared_layout.
-long long shared_bytes(int N, int pitch, int R, int Wp, int Wd, int G, int B,
-                       int res_bytes, int on_chip) {
-  return 2LL * pitch +
-         (on_chip ? state_bytes(N, R, Wp, Wd, G, B, res_bytes) : 0);
+// A wave the narrow instances cannot take: more nodes than 32 a thread,
+// more than 31 groups, or int32 peer counts. Mirrors
+// commit_solver.is_large.
+bool is_large(int N, int G, int cnt_bytes) {
+  return N > kThreads * kMaxChunk || G > kMaxG || cnt_bytes != 2;
+}
+
+// Bytes of dynamic shared memory a wave takes: the two-row mask ring, the
+// anchor block of a large-cluster wave, and the packed state planes when
+// they live on chip. Mirrors commit_solver.shared_layout.
+long long shared_bytes(int N, int pitch, int R, int Wp, int Wd, int G, int L,
+                       int B, int res_bytes, int cnt_bytes, int on_chip) {
+  return 2LL * pitch + (is_large(N, G, cnt_bytes) ? anchor_bytes(G, L) : 0) +
+         (on_chip ? state_bytes(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+                  : 0);
 }
 
 }  // namespace
@@ -42,8 +50,10 @@ extern "C" {
 // gang checkpoint (gang waves only; null otherwise), one per wave, and the
 // outputs. ``B`` is the number of priority bands (0: no preemption),
 // ``res_bytes`` the resource type's size (4: int32, 8: int64),
-// ``dyn_bytes`` the dynamic shared memory the wrapper reckoned for one
-// wave's layout; it must agree. Returns a cudaError_t (0 = launched).
+// ``cnt_bytes`` the peer counts' (2: int16, 4: int32, which a total of
+// 2^15 or more needs), ``dyn_bytes`` the dynamic shared memory the wrapper
+// reckoned for one wave's layout; it must agree. A large-cluster wave
+// (is_large) launches alone. Returns a cudaError_t (0 = launched).
 int kgpu_commit_solve_batch(
     const void* smask, const void* podrow, const void* cap, const void* fit0,
     const void* off, const void* advx, const void* fitexc, const void* ports0,
@@ -52,19 +62,23 @@ int kgpu_commit_solve_batch(
     const void* has0, const void* zone, const void* ecap0, const void* ecnt0,
     const void* band, const void* bord, void* gstate, void* ck, void* chosen,
     void* win, int P, int N, int pitch, int R, int Wp, int Wd, int G, int L,
-    int A, int V, int B, int res_bytes, int row, int flags, int w_lr,
-    int w_spread, int w_equal, int w_anti0, int w_anti1, int w_anti2,
-    int w_anti3, int on_chip, long long dyn_bytes, int batch, void* stream) {
-  if (batch < 1 || batch > kMaxBatch || P < 0 || N < 0 ||
-      N > kThreads * kMaxChunk || R < 0 || R > kMaxR ||
-      Wp < 0 || Wp > kMaxW || Wd < 0 || Wd > kMaxW || G < 0 || G > kMaxG ||
-      L < 0 || L > kMaxL || A < 0 || A > kMaxA || V < 0 || V > kMaxV ||
-      B < 0 || B > kMaxB || (res_bytes != 4 && res_bytes != 8) ||
-      row != R * (res_bytes / 4) + Wp + Wd + kRowFixed + L ||
+    int A, int V, int B, int res_bytes, int cnt_bytes, int row, int flags,
+    int w_lr, int w_spread, int w_equal, int w_anti0, int w_anti1,
+    int w_anti2, int w_anti3, int on_chip, long long dyn_bytes, int batch,
+    void* stream) {
+  const bool large = is_large(N, G, cnt_bytes);
+  if (batch < 1 || batch > (large ? 1 : kMaxBatch) || P < 0 || N < 0 ||
+      N > kThreads * kMaxLargeChunk || R < 0 || R > kMaxR ||
+      Wp < 0 || Wp > kMaxW || Wd < 0 || Wd > kMaxW || G < 0 ||
+      G > kMaxLargeG || L < 0 || L > kMaxL || A < 0 || A > kMaxA || V < 0 ||
+      V > kMaxV || B < 0 || B > kMaxB || (res_bytes != 4 && res_bytes != 8) ||
+      (cnt_bytes != 2 && cnt_bytes != 4) ||
+      row != R * (res_bytes / 4) + Wp + Wd + kRowFixed - 1 +
+                 member_words(G) + L ||
       pitch % 16 != 0 || pitch < N || pitch >= N + 16 ||
       (!on_chip && !gstate) || ((flags & kGangs) && !ck) ||
-      dyn_bytes !=
-          shared_bytes(N, pitch, R, Wp, Wd, G, B, res_bytes, on_chip))
+      dyn_bytes != shared_bytes(N, pitch, R, Wp, Wd, G, L, B, res_bytes,
+                                cnt_bytes, on_chip))
     return (int)cudaErrorInvalidValue;
   const Planes a{(const uint8_t*)smask, (const int*)podrow, cap, fit0, off,
                  (const uint8_t*)advx, (const uint8_t*)fitexc,
@@ -79,6 +93,12 @@ int kgpu_commit_solve_batch(
                 {w_anti0, w_anti1, w_anti2, w_anti3}};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool gangs = (flags & kGangs) != 0;
+  if (large) {
+    const bool cnt32 = cnt_bytes == 4;
+    return res_bytes == 4
+               ? launch_large_i32(cnt32, on_chip != 0, a, s, dyn_bytes, 1, st)
+               : launch_large_i64(cnt32, on_chip != 0, a, s, dyn_bytes, 1, st);
+  }
   // one wave takes the instances without the batch offsets
   const bool many = batch > 1;
   if (res_bytes == 4 && B == 0) {

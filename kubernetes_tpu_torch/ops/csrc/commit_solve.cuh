@@ -15,19 +15,28 @@
 // scores, selects the k-th best node by the pod's FNV-1a hash, and commits
 // one node row; later pods see every earlier commit.
 //
-// Its domain is wider than the Pallas kernel's, which turns two kinds of
-// wave away to the reference's XLA scan (pallas_solver.py:108-117); this
-// kernel solves them with the scan's decisions
-// (kubernetes_tpu/models/batch_solver.py:676-790):
+// Its domain is wider than the Pallas kernel's, which turns these waves
+// away to the reference's XLA scan (pallas_solver.py:90-157; the scan is
+// solve_jit, kubernetes_tpu/models/batch_solver.py:398, :676-790); this
+// kernel solves them with the scan's decisions:
 // - int64 resource planes (Res = long long): the resource filter, the
 //   LeastRequested division and the commit run in 64 bits;
 // - preemption waves (kPre, B > 0 priority bands): a pod that finds no
 //   node may evict, on one node, every resident pod of the bands up to a
-//   threshold below its priority (models/preempt.py has the rule).
+//   threshold below its priority (models/preempt.py has the rule);
+// - large clusters (kLarge): up to 65,536 nodes, 1,024 service groups and
+//   peer totals below 2^24. Each thread owns up to 64 nodes, one bit each
+//   in a 64-bit mask; the pod row carries ceil(G/32) words of member bits;
+//   the peer counts are int32 (Cnt = int) where a total may reach 2^15,
+//   else int16; the affinity anchors live in dynamic shared memory after
+//   the mask ring, sized by the wave's G and L. These instances fix every
+//   extension on (kPre, kAff, kAnti, kGang, kStatic), decide them at run
+//   time as the int64 instances do, and launch one wave at a time.
 //
 // Design. One launch per wave, one block of 1024 threads on one SM; the pod
 // loop runs inside the kernel. Thread t owns a CONTIGUOUS chunk of
-// ceil(N/1024) nodes (at most 32, one bit each in a 32-bit mask), so the
+// ceil(N/1024) nodes (at most 32, one bit each in a 32-bit mask; 64 in a
+// 64-bit mask in the kLarge instances), so the
 // k-th best node in node order is found by a block exclusive scan of
 // per-thread best counts — this replaces the TPU kernel's triangular-matmul
 // prefix ranks. Only the owner ever reads or writes a node's mutable state
@@ -49,7 +58,8 @@
 // the 227 KB a block may have: the [R, N] fit usage and [B, R, N] evictable
 // capacity in the resource type, the [Wp + Wd + B, N] int32 port words, PD
 // words and evictable counts, and the [G, N] peer counts as int16 (every
-// count stays below 2^15, the kernel's domain). The all-pods usage is not a
+// count stays below 2^15; int32 in the kLarge instances whose totals reach
+// it). The all-pods usage is not a
 // plane of its own: every commit and every rollback moves it with the fit
 // usage, so it is fit + off, where off = score0 - fit0 is a read-only
 // input. A wave whose state does not fit (e.g. 32,640 nodes, or 32 bands)
@@ -130,10 +140,12 @@ namespace kgpu {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxChunk = 32;
+constexpr int kMaxChunk = 32;  // nodes a thread owns (kLarge: 64)
+constexpr int kMaxLargeChunk = 64;
 constexpr int kMaxR = 8;
 constexpr int kMaxW = 8;
-constexpr int kMaxG = 31;
+constexpr int kMaxG = 31;        // groups: one member word, static anchors
+constexpr int kMaxLargeG = 1024; // kLarge: a member word per 32 groups
 constexpr int kMaxA = 4;   // anti-affinity labels
 constexpr int kMaxV = 64;  // zones per anti-affinity label
 constexpr int kMaxL = 4;   // service-affinity labels
@@ -142,6 +154,7 @@ constexpr int kMaxBatch = 1024;  // waves in one batched launch
 constexpr int kRowFixed = 7;  // tie_hi tie_lo gid member zreq unit prio
 // longest pod row: int64 requests take two words each
 constexpr int kMaxRow = 2 * kMaxR + 2 * kMaxW + kRowFixed + kMaxL;
+constexpr int kMaxLargeRow = kMaxRow - 1 + kMaxLargeG / 32;
 constexpr int kPreemptBig = 1 << 30;  // preemption selects on this - cost
 constexpr int kPreemptScoreBase = -2;  // a preempting pod scores this - slot
 // Resource dimensions the filter and the score unroll; the rest run in a
@@ -199,58 +212,74 @@ struct Planes {
 
 // Bytes of the packed state: [R + B*R, N] resource-type planes (fit usage,
 // evictable capacity), [Wp + Wd + B, N] int32 planes (port words, PD words,
-// evictable counts), [G, N] int16 peer counts. Mirrors
+// evictable counts), [G, N] peer counts of cnt_bytes each (int16, or int32
+// in a kLarge instance whose totals may reach 2^15). Mirrors
 // commit_solver.state_bytes.
 __host__ __device__ inline long long state_bytes(int N, int R, int Wp,
                                                  int Wd, int G, int B,
-                                                 int res_bytes) {
+                                                 int res_bytes,
+                                                 int cnt_bytes = 2) {
   return (long long)res_bytes * (R + B * R) * N + 4LL * (Wp + Wd + B) * N +
-         2LL * G * N;
+         (long long)cnt_bytes * G * N;
 }
 
 // Bytes from one wave's packed state to the next in a batched launch (the
 // global state and the gang checkpoint): state_bytes rounded up to 16, so
 // every wave's planes are as aligned as the first wave's (an odd G * N
-// leaves state_bytes 2 mod 4). Mirrors commit_solver.state_stride.
+// leaves state_bytes 2 mod 4). Batched waves count peers in int16 (a
+// kLarge wave launches alone). Mirrors commit_solver.state_stride.
 __host__ __device__ inline long long state_stride(int N, int R, int Wp,
                                                   int Wd, int G, int B,
                                                   int res_bytes) {
   return (state_bytes(N, R, Wp, Wd, G, B, res_bytes) + 15) / 16 * 16;
 }
 
+// int32 words of member bits in a pod row: one per 32 groups, at least one.
+__host__ __device__ inline int member_words(int G) {
+  return G > 32 ? (G + 31) / 32 : 1;
+}
+
+// Bytes of a kLarge instance's anchor block in dynamic shared memory, after
+// the mask ring: the [G, L] anchor values, the [G] has-anchor flags, and
+// their gang checkpoint; none without affinity labels. Mirrors
+// commit_solver.anchor_bytes.
+__host__ __device__ inline long long anchor_bytes(int G, int L) {
+  return L > 0 ? 4LL * (2 * G * L + 2 * G) : 0;
+}
+
 // The packed state's planes, in order; plane k of a group starts at k * N.
-template <class Res>
+template <class Res, class Cnt>
 struct State {
   Res* fit;     // [R, N]
   Res* ecap;    // [B, R, N]
   int* ports;   // [Wp, N]
   int* pds;     // [Wd, N]
   int* ecnt;    // [B, N]
-  short* counts;  // [G, N]
+  Cnt* counts;  // [G, N]
 };
 
-template <class Res>
-__device__ __forceinline__ State<Res> state_of(unsigned char* base,
-                                               const Shape& s, int B) {
-  State<Res> st;
+template <class Res, class Cnt>
+__device__ __forceinline__ State<Res, Cnt> state_of(unsigned char* base,
+                                                    const Shape& s, int B) {
+  State<Res, Cnt> st;
   st.fit = reinterpret_cast<Res*>(base);
   st.ecap = st.fit + s.R * s.N;
   st.ports = reinterpret_cast<int*>(st.ecap + B * s.R * s.N);
   st.pds = st.ports + s.Wp * s.N;
   st.ecnt = st.pds + s.Wd * s.N;
-  st.counts = reinterpret_cast<short*>(st.ecnt + B * s.N);
+  st.counts = reinterpret_cast<Cnt*>(st.ecnt + B * s.N);
   return st;
 }
 
 // Copy this thread's columns [n0, n0+own) of every state plane between two
 // packed layouts: the gang checkpoint and rollback. Out of line, because
 // inlined in the pod loop it would hold registers across the loop.
-template <class Res>
+template <class Res, class Cnt>
 __device__ __noinline__ void copy_owned(unsigned char* dst,
                                         unsigned char* src, const Shape& s,
                                         int B, int n0, int own) {
-  const State<Res> d = state_of<Res>(dst, s, B);
-  const State<Res> c = state_of<Res>(src, s, B);
+  const State<Res, Cnt> d = state_of<Res, Cnt>(dst, s, B);
+  const State<Res, Cnt> c = state_of<Res, Cnt>(src, s, B);
   const int N = s.N;
   for (int k = 0; k < s.R + B * s.R; ++k)
     for (int j = 0; j < own; ++j) d.fit[k * N + n0 + j] = c.fit[k * N + n0 + j];
@@ -287,6 +316,16 @@ __device__ __forceinline__ unsigned least_requested(Res c, Res tot) {
   return (unsigned)((U)((c - tot) * 10) / (U)c);
 }
 
+// A thread's node mask: 32 bits, or 64 in the kLarge instances.
+__device__ __forceinline__ int mask_popc(unsigned m) { return __popc(m); }
+__device__ __forceinline__ int mask_popc(unsigned long long m) {
+  return __popcll(m);
+}
+__device__ __forceinline__ int mask_ffs(unsigned m) { return __ffs(m); }
+__device__ __forceinline__ int mask_ffs(unsigned long long m) {
+  return __ffsll((long long)m);
+}
+
 // Request r of the pod row: one word, or for int64 two (low word first).
 template <class Res, class RowPtr>
 __device__ __forceinline__ Res req_of(RowPtr row, int r) {
@@ -319,10 +358,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Start fetching pod q's static-mask row into mask slot q & 1 and its pod
-// row into row slot q % 3; every thread copies its pieces (16 bytes of the
-// mask, or one word of the pod row) and later waits for them itself. The
-// pod row takes three slots because the committing thread still reads pod
-// q-2's row while the others start fetching pod q's.
+// row into row slot q % 3 (slots of kRowCap words); every thread copies its
+// pieces (16 bytes of the mask, or one word of the pod row) and later waits
+// for them itself. The pod row takes three slots because the committing
+// thread still reads pod q-2's row while the others start fetching pod q's.
+template <int kRowCap>
 __device__ __forceinline__ void fetch_pod(unsigned char* ring, int* rows,
                                           const uint8_t* smask,
                                           const int* podrow, int q,
@@ -335,7 +375,7 @@ __device__ __forceinline__ void fetch_pod(unsigned char* ring, int* rows,
   // the last threads of the block, which the mask leaves idle first
   const int w = (int)threadIdx.x - (kThreads - s.row);
   if (w >= 0)
-    cp_async4(rows + (q % 3) * kMaxRow + w, podrow + (size_t)q * s.row + w);
+    cp_async4(rows + (q % 3) * kRowCap + w, podrow + (size_t)q * s.row + w);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
@@ -384,21 +424,22 @@ __device__ __forceinline__ int preempt_cost(int n, int N, int kstar,
   return cost;
 }
 
+template <class Mask>
 struct PreemptBest {
-  int top;        // this thread's best kPreemptBig - cost, or -1
-  unsigned best;  // bit j: node n0 + j reaches it
+  int top;    // this thread's best kPreemptBig - cost, or -1
+  Mask best;  // bit j: node n0 + j reaches it
 };
 
 // The preemption pass over this thread's nodes that pass every filter but
 // the resource fit (``cand``) and are not pre-exceeded.
-template <class Res>
-__device__ __noinline__ PreemptBest preempt_pass(
-    unsigned cand, int n0, const Shape& s, int nb, const int* bval,
+template <class Res, class Mask>
+__device__ __noinline__ PreemptBest<Mask> preempt_pass(
+    Mask cand, int n0, const Shape& s, int nb, const int* bval,
     const int* bord, const Res* cap, const uint8_t* fitexc, const Res* fit,
     const Res* ecap, const int* ecnt, const int* row) {
-  PreemptBest pb{-1, 0u};
+  PreemptBest<Mask> pb{-1, 0u};
   while (cand) {
-    const int j = __ffs(cand) - 1;
+    const int j = mask_ffs(cand) - 1;
     cand &= cand - 1;
     const int n = n0 + j;
     if (fitexc[n]) continue;
@@ -407,9 +448,9 @@ __device__ __noinline__ PreemptBest preempt_pass(
     const int v = kPreemptBig - preempt_cost(n, s.N, k, bord, ecnt);
     if (v > pb.top) {
       pb.top = v;
-      pb.best = 1u << j;
+      pb.best = (Mask)1 << j;
     } else if (v == pb.top) {
-      pb.best |= 1u << j;
+      pb.best |= (Mask)1 << j;
     }
   }
   return pb;
@@ -421,11 +462,13 @@ __device__ __noinline__ PreemptBest preempt_pass(
 // kAnti = ServiceAntiAffinity zones (A > 0), kGang = gang checkpoint and
 // rollback, kStatic = the NodeLabelPriority plane; kShared = the state lives
 // in dynamic shared memory (else in gstate); kBatch = block b solves wave b
-// of [batch, ...] stacks. The host picks the instance; the wide-domain
-// instances set kAff, kAnti and kStatic and let L, A and kUseStatic decide
-// at run time.
+// of [batch, ...] stacks; kLarge = the large-cluster domain (64-bit node
+// masks, member words, anchors in dynamic shared memory) with peer counts
+// of type Cnt. The host picks the instance; the wide-domain instances set
+// kAff, kAnti and kStatic and let L, A and kUseStatic decide at run time.
 template <class Res, bool kPre, bool kAff, bool kAnti, bool kGang,
-          bool kStatic, bool kShared, bool kBatch>
+          bool kStatic, bool kShared, bool kBatch, bool kLarge = false,
+          class Cnt = short>
 __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     const uint8_t* __restrict__ smask,   // [P, pitch] static feasibility
     const int* __restrict__ podrow,      // [P, row] packed pod rows
@@ -450,6 +493,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     unsigned char* __restrict__ gstate,  // packed state (global layout only)
     unsigned char* __restrict__ ck,      // packed gang checkpoint (kGang)
     int* __restrict__ chosen, int* __restrict__ win, const Shape s) {
+  static_assert(kLarge || std::is_same_v<Cnt, short>,
+                "int32 peer counts are the kLarge instances' alone");
+  static_assert(!(kLarge && kBatch), "kLarge waves launch one at a time");
   // A batched launch runs one wave per block, every wave of one shape: each
   // plane is a [batch, ...] stack, and block b reads and writes item b. The
   // offsets are taken once here.
@@ -496,6 +542,10 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   const int B = kPre ? s.B : 0;
   // requests take one int32 word each, or two in int64
   constexpr int kReqWords = sizeof(Res) / 4;
+  // a thread's node mask, its pod-row slots, and the row's member words
+  using Mask = std::conditional_t<kLarge, unsigned long long, unsigned>;
+  constexpr int kRowCap = kLarge ? kMaxLargeRow : kMaxRow;
+  const int Mw = kLarge ? member_words(s.G) : 1;
 
   __shared__ unsigned sh_adv[kWarps];
   __shared__ int sh_cmax[kWarps];
@@ -503,25 +553,36 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   __shared__ int sh_top[kWarps];
   __shared__ int sh_cnt[kWarps];
   __shared__ int sh_zone[kMaxA * kMaxV];  // the pod's feasible peers per zone
-  __shared__ int sh_anchor[kMaxG * kMaxL];
-  __shared__ int sh_has[kMaxG];
-  __shared__ int sh_ck_anchor[kMaxG * kMaxL];
-  __shared__ int sh_ck_has[kMaxG];
+  // the anchors and their checkpoint (kLarge: in dynamic shared memory)
+  __shared__ int sh_anchor[kLarge ? 1 : kMaxG * kMaxL];
+  __shared__ int sh_has[kLarge ? 1 : kMaxG];
+  __shared__ int sh_ck_anchor[kLarge ? 1 : kMaxG * kMaxL];
+  __shared__ int sh_ck_has[kLarge ? 1 : kMaxG];
   __shared__ int sh_w_anti[kMaxA];
-  __shared__ int sh_rows[3 * kMaxRow];  // pod-row ring
+  __shared__ int sh_rows[3 * kRowCap];  // pod-row ring
   __shared__ int sh_bval[kPre ? kMaxB : 1];  // band values, ascending
   __shared__ int sh_bord[kPre ? kMaxB : 1];  // their slots
-  // [2, pitch] mask ring, then the packed state when it lives on chip
+  // [2, pitch] mask ring, then (kLarge) the anchor block, then the packed
+  // state when it lives on chip
   extern __shared__ __align__(16) unsigned char dsm[];
   unsigned char* const ring = dsm;
-  unsigned char* const base = kShared ? dsm + 2 * s.pitch : gstate;
-  const State<Res> st = state_of<Res>(base, s, B);
+  int* const anchors =
+      kLarge ? reinterpret_cast<int*>(dsm + 2 * s.pitch) : sh_anchor;
+  int* const has = kLarge ? anchors + s.G * L : sh_has;
+  int* const ck_anchors = kLarge ? has + s.G : sh_ck_anchor;
+  int* const ck_has = kLarge ? ck_anchors + s.G * L : sh_ck_has;
+  // kLarge without affinity labels keeps no anchor block (anchor_bytes)
+  const bool use_has = !kLarge || L > 0;
+  unsigned char* const base =
+      kShared ? dsm + 2 * s.pitch + (kLarge ? anchor_bytes(s.G, L) : 0)
+              : gstate;
+  const State<Res, Cnt> st = state_of<Res, Cnt>(base, s, B);
   Res* const fit = st.fit;
   Res* const ecap = st.ecap;
   int* const ports = st.ports;
   int* const pds = st.pds;
   int* const ecnt = st.ecnt;
-  short* const counts = st.counts;
+  Cnt* const counts = st.counts;
 
   // copy the owned columns of the state in; only this thread touches them
   for (int j = 0; j < own; ++j) {
@@ -530,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     for (int w = 0; w < s.Wp; ++w) ports[w * N + n] = ports0[w * N + n];
     for (int w = 0; w < s.Wd; ++w) pds[w * N + n] = pds0[w * N + n];
     for (int g = 0; g < s.G; ++g)
-      counts[g * N + n] = (short)counts0[g * N + n];
+      counts[g * N + n] = (Cnt)counts0[g * N + n];
     if constexpr (kPre) {
       for (int k = 0; k < B * s.R; ++k) ecap[k * N + n] = ecap0[k * N + n];
       for (int b = 0; b < B; ++b) ecnt[b * N + n] = ecnt0[b * N + n];
@@ -538,8 +599,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   }
   const int GL = s.G * L;
   if constexpr (kAff) {
-    for (int i = t; i < GL; i += kThreads) sh_anchor[i] = anchor0[i];
-    for (int i = t; i < s.G; i += kThreads) sh_has[i] = has0[i];
+    for (int i = t; i < GL; i += kThreads) anchors[i] = anchor0[i];
+    if (use_has)
+      for (int i = t; i < s.G; i += kThreads) has[i] = has0[i];
   }
   if constexpr (kAnti) {
     for (int i = t; i < A * s.V; i += kThreads) sh_zone[i] = 0;
@@ -551,7 +613,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       sh_bval[t] = band[bord[t]];
     }
   }
-  if (s.P > 0) fetch_pod(ring, sh_rows, smask, podrow, 0, s);
+  if (s.P > 0) fetch_pod<kRowCap>(ring, sh_rows, smask, podrow, 0, s);
   cp_async_wait_all();
   __syncthreads();
 
@@ -560,29 +622,30 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
   const bool use_disk = s.flags & kUseDisk;
   const bool use_static = kStatic && (s.flags & kUseStatic);
   // podrow layout: req[R] (in kReqWords words each) | ports[Wp] | pds[Wd] |
-  // tie_hi tie_lo | gid | member bits | zero-request flag | unit | priority |
-  // pinned affinity codes[L]
+  // tie_hi tie_lo | gid | member bits[Mw] | zero-request flag | unit |
+  // priority | pinned affinity codes[L]
   const int o_ports = s.R * kReqWords;
   const int o_pds = o_ports + s.Wp;
   const int o_tie = o_pds + s.Wd;
   const int o_gid = o_tie + 2;
-  const int o_member = o_gid + 1;
-  const int o_zreq = o_gid + 2;
-  const int o_unit = o_gid + 3;
-  const int o_prio = o_gid + 4;
-  const int o_pins = o_gid + 5;
+  const int o_member = o_gid + 1;  // Mw words
+  const int o_zreq = o_member + Mw;
+  const int o_unit = o_zreq + 1;
+  const int o_prio = o_zreq + 2;
+  const int o_pins = o_zreq + 3;
 
   bool failed = false;  // a member of the current gang run found no node
   for (int p = 0; p < s.P; ++p) {
     // the next pod's mask row and pod row stream in while this pod runs
-    if (p + 1 < s.P) fetch_pod(ring, sh_rows, smask, podrow, p + 1, s);
+    if (p + 1 < s.P)
+      fetch_pod<kRowCap>(ring, sh_rows, smask, podrow, p + 1, s);
     const unsigned char* srow = ring + (p & 1) * s.pitch;
     // The on-chip anti-affinity instance reads the pod row again at each
     // use: holding its words in registers across the zone pass spills there
     // (64 registers a thread); the others keep them.
     using RowPtr = std::conditional_t<kAnti && kShared, const volatile int*,
                                       const int*>;
-    const RowPtr row = sh_rows + (p % 3) * kMaxRow;
+    const RowPtr row = sh_rows + (p % 3) * kRowCap;
     const int gid = row[o_gid];
     const bool zreq = row[o_zreq] != 0;
     // block-uniform: does the pod hold a host port or a PD at all?
@@ -600,11 +663,12 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       if (unit & kStart) failed = false;
       was_failed = failed;
       if (unit & kCheckpoint) {
-        copy_owned<Res>(ck, base, s, B, n0, own);
+        copy_owned<Res, Cnt>(ck, base, s, B, n0, own);
         // the same thread copies back on rollback: no barrier needed here
         if constexpr (kAff) {
-          for (int i = t; i < GL; i += kThreads) sh_ck_anchor[i] = sh_anchor[i];
-          for (int i = t; i < s.G; i += kThreads) sh_ck_has[i] = sh_has[i];
+          for (int i = t; i < GL; i += kThreads) ck_anchors[i] = anchors[i];
+          if (use_has)
+            for (int i = t; i < s.G; i += kThreads) ck_has[i] = has[i];
         }
       }
     }
@@ -612,9 +676,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     // l was not pinned by the selector and the group's anchor has a value
     unsigned need = 0;
     if constexpr (kAff) {
-      if (gid >= 0 && sh_has[gid]) {
+      if (use_has && gid >= 0 && has[gid]) {
         for (int l = 0; l < L; ++l)
-          if (row[o_pins + l] == -2 && sh_anchor[gid * L + l] >= 0)
+          if (row[o_pins + l] == -2 && anchors[gid * L + l] >= 0)
             need |= 1u << l;
       }
     }
@@ -622,8 +686,8 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     // ---- filter (and the per-pod reductions it feeds) -------------------
     // Every word a node's verdict needs is loaded before any is tested, so
     // the loads of one node overlap instead of forming a chain.
-    unsigned feas = 0;  // bit j: node n0 + j is feasible
-    unsigned nres = 0;  // bit j: ... passes every filter but the resources
+    Mask feas = 0;      // bit j: node n0 + j is feasible
+    Mask nres = 0;      // bit j: ... passes every filter but the resources
     unsigned adv = 0;   // bit r: a feasible node advertises extra dim r
     int cmax = 0;       // max peers of the pod's group over owned nodes
     int csum = 0;       // all peers of the pod's group over owned nodes
@@ -635,7 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       if constexpr (kGang) ok &= !failed;
       if constexpr (kAff) {
         for (int l = 0; l < L; ++l)
-          if ((need >> l) & 1u) ok &= affv[l * N + n] == sh_anchor[gid * L + l];
+          if ((need >> l) & 1u) ok &= affv[l * N + n] == anchors[gid * L + l];
       }
       bool res_ok = true;  // the resource fit, kept apart only for kPre
       if (check_res) {
@@ -666,11 +730,11 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
           ok &= (pds[w * N + n] & row[o_pds + w]) == 0;
       }
       if constexpr (kPre) {
-        nres |= (unsigned)ok << j;
+        nres |= (Mask)ok << j;
         ok &= res_ok;
       }
       if (ok) {
-        feas |= 1u << j;
+        feas |= (Mask)1 << j;
         for (int r = 2; r < s.R; ++r)
           if (advx[r * N + n]) adv |= 1u << r;
       }
@@ -679,13 +743,13 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     // spread max, and for anti-affinity the total and the per-zone sums
     // over the feasible nodes
     if (gid >= 0) {
-      const short* crow = counts + gid * N;
+      const Cnt* crow = counts + gid * N;
       for (int j = 0; j < own; ++j) {
         const int c = crow[n0 + j];
         cmax = max(cmax, c);
         if constexpr (kAnti) {
           csum += c;
-          if (!c || !((feas >> j) & 1u)) continue;
+          if (!c || !((feas >> j) & 1)) continue;
           for (int a = 0; a < A; ++a) {
             const int z = zone[a * N + n0 + j];
             if (z >= 0) atomicAdd(&sh_zone[a * s.V + z], c);
@@ -721,9 +785,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
 
     // ---- score: per-thread max and the owned nodes that reach it ------
     int lmax = -1;
-    unsigned lbest = 0;
+    Mask lbest = 0;
     for (int j = 0; j < own; ++j) {
-      if (!((feas >> j) & 1u)) continue;
+      if (!((feas >> j) & 1)) continue;
       const int n = n0 + j;
       int sc = 0;
       if (s.w_lr) {
@@ -760,9 +824,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       sc += s.w_equal;
       if (sc > lmax) {
         lmax = sc;
-        lbest = 1u << j;
+        lbest = (Mask)1 << j;
       } else if (sc == lmax) {
-        lbest |= 1u << j;
+        lbest |= (Mask)1 << j;
       }
     }
     int top = __reduce_max_sync(kFull, lmax);
@@ -776,7 +840,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
     }
 
     // ---- select: rank of the k-th best node in node order -------------
-    const int mine = (top >= 0 && lmax == top) ? __popc(lbest) : 0;
+    const int mine = (top >= 0 && lmax == top) ? mask_popc(lbest) : 0;
     int incl = mine;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -802,9 +866,18 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
 
     // the owner's commit of a placement at node n; a preemption's evicted
     // ranks [0, kstar] leave both usages and the band planes
-    int* const anchors = sh_anchor;
-    int* const has = sh_has;
     const int* const border = sh_bord;
+    // group g gains a peer at node n
+    auto join = [&](int g, int n) {
+      counts[g * N + n] += 1;
+      if constexpr (kAff) {
+        // the group's first peer anchors it at this node's values
+        if (use_has && !has[g]) {
+          for (int l = 0; l < L; ++l) anchors[g * L + l] = affv[l * N + n];
+          has[g] = 1;
+        }
+      }
+    };
     auto commit = [&](int n, int kstar) {
       if constexpr (kPre) {
         for (int r = 0; r < s.R; ++r) {
@@ -823,16 +896,19 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       }
       for (int w = 0; w < s.Wp; ++w) ports[w * N + n] |= row[o_ports + w];
       for (int w = 0; w < s.Wd; ++w) pds[w * N + n] |= row[o_pds + w];
-      const unsigned member = (unsigned)row[o_member];
-      for (int g = 0; g < s.G; ++g) {
-        if (!((member >> g) & 1u)) continue;
-        counts[g * N + n] += 1;
-        if constexpr (kAff) {
-          // the group's first peer anchors it at this node's values
-          if (!has[g]) {
-            for (int l = 0; l < L; ++l) anchors[g * L + l] = affv[l * N + n];
-            has[g] = 1;
+      if constexpr (kLarge) {
+        for (int wi = 0; wi < Mw; ++wi) {
+          unsigned bits = (unsigned)row[o_member + wi];
+          while (bits) {
+            join(wi * 32 + __ffs(bits) - 1, n);
+            bits &= bits - 1;
           }
+        }
+      } else {
+        const unsigned member = (unsigned)row[o_member];
+        for (int g = 0; g < s.G; ++g) {
+          if (!((member >> g) & 1u)) continue;
+          join(g, n);
         }
       }
     };
@@ -847,15 +923,16 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
         int nb = 0;  // bands strictly below the pod's priority
         while (nb < B && sh_bval[nb] < prio) ++nb;
         const int* prow = const_cast<const int*>(row);
-        const PreemptBest pb = preempt_pass<Res>(
-            nb ? nres : 0u, n0, s, nb, sh_bval, sh_bord, cap, fitexc, fit,
-            ecap, ecnt, prow);
+        const PreemptBest<Mask> pb = preempt_pass<Res, Mask>(
+            nb ? nres : (Mask)0, n0, s, nb, sh_bval, sh_bord, cap, fitexc,
+            fit, ecap, ecnt, prow);
         int ptop = __reduce_max_sync(kFull, pb.top);
         if (lane == 0) sh_top[warp] = ptop;
         __syncthreads();
         ptop = -1;
         for (int i = 0; i < kWarps; ++i) ptop = max(ptop, sh_top[i]);
-        const int pmine = (ptop >= 0 && pb.top == ptop) ? __popc(pb.best) : 0;
+        const int pmine =
+            (ptop >= 0 && pb.top == ptop) ? mask_popc(pb.best) : 0;
         int pincl = pmine;
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
@@ -874,9 +951,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
           const int k = (int)(tie_hash() % (unsigned long long)ptotal);
           const int excl = pbefore + pincl - pmine;
           if (k >= excl && k < excl + pmine) {
-            unsigned m = pb.best;
+            Mask m = pb.best;
             for (int i = 0; i < k - excl; ++i) m &= m - 1;
-            const int n = n0 + __ffs(m) - 1;
+            const int n = n0 + mask_ffs(m) - 1;
             const int kstar = preempt_rank<Res>(n, s, nb, sh_bval, sh_bord,
                                                 cap, fit, ecap, prow);
             // report the threshold group's first slot
@@ -894,10 +971,11 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       if constexpr (kGang) {
         if (!was_failed && !(unit & kStart)) {
           // ---- gang rollback: pin the state at the run's checkpoint ----
-          copy_owned<Res>(base, ck, s, B, n0, own);
+          copy_owned<Res, Cnt>(base, ck, s, B, n0, own);
           if constexpr (kAff) {
-            for (int i = t; i < GL; i += kThreads) sh_anchor[i] = sh_ck_anchor[i];
-            for (int i = t; i < s.G; i += kThreads) sh_has[i] = sh_ck_has[i];
+            for (int i = t; i < GL; i += kThreads) anchors[i] = ck_anchors[i];
+            if (use_has)
+              for (int i = t; i < s.G; i += kThreads) has[i] = ck_has[i];
           }
         }
         failed = true;
@@ -914,9 +992,9 @@ __global__ void __launch_bounds__(kThreads, 1) commit_solve_kernel(
       const int excl = before + incl - mine;
       if (k >= excl && k < excl + mine) {
         // ---- commit: the owner updates its node row --------------------
-        unsigned m = lbest;
+        Mask m = lbest;
         for (int i = 0; i < k - excl; ++i) m &= m - 1;  // drop lower best bits
-        const int n = n0 + __ffs(m) - 1;
+        const int n = n0 + mask_ffs(m) - 1;
         commit(n, -1);
         chosen[p] = n;
         win[p] = top;
@@ -938,12 +1016,14 @@ using Launch = int (*)(const Planes&, const Shape&, long long, int,
 // block may opt in to, raise the dynamic limit, launch. Returns a
 // cudaError_t (0 = launched).
 template <class Res, bool kPre, bool kAff, bool kAnti, bool kGang,
-          bool kStatic, bool kShared, bool kBatch>
+          bool kStatic, bool kShared, bool kBatch, bool kLarge = false,
+          class Cnt = short>
 int launch_one(const Planes& a, const Shape& s, long long dyn_bytes,
                int batch, cudaStream_t stream) {
   if (!kBatch && batch != 1) return (int)cudaErrorInvalidValue;
-  const auto kernel = &commit_solve_kernel<Res, kPre, kAff, kAnti, kGang,
-                                           kStatic, kShared, kBatch>;
+  const auto kernel =
+      &commit_solve_kernel<Res, kPre, kAff, kAnti, kGang, kStatic, kShared,
+                           kBatch, kLarge, Cnt>;
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
@@ -997,12 +1077,26 @@ constexpr std::array<Launch, 4> wide_table() {
           wide_instance<Res, kPre, kBatch, 3>()};
 }
 
+// The large-cluster instances of one (Res, Cnt): index bit 0 kShared.
+// Every extension is on (preemption, anchors, zones, gangs, the label
+// plane) and decided at run time by B, L, A and the flags; one wave a
+// launch.
+template <class Res, class Cnt>
+constexpr std::array<Launch, 2> large_table() {
+  return {&launch_one<Res, true, true, true, true, true, false, false, true,
+                      Cnt>,
+          &launch_one<Res, true, true, true, true, true, true, false, true,
+                      Cnt>};
+}
+
 // Defined one per source file, so the instances compile in parallel:
 // commit_solve_i32_shared.cu, commit_solve_i32_global.cu (``which``: the
 // narrow index), commit_solve_preempt.cu (int32 with preemption) and
 // commit_solve_i64.cu (int64, ``pre`` picks preemption; ``which``: the wide
 // index) take ``batch`` = 1; their kBatch twins, commit_solve_batch_*.cu,
-// any ``batch``.
+// any ``batch``. commit_solve_large_i32.cu and commit_solve_large_i64.cu
+// hold the large-cluster instances (``cnt32`` picks int32 peer counts;
+// ``which``: the large index), ``batch`` = 1.
 int launch_i32_shared(int which, const Planes& a, const Shape& s,
                       long long dyn_bytes, int batch, cudaStream_t stream);
 int launch_i32_global(int which, const Planes& a, const Shape& s,
@@ -1021,6 +1115,10 @@ int launch_batch_i32_preempt(int which, const Planes& a, const Shape& s,
                              long long dyn_bytes, int batch,
                              cudaStream_t stream);
 int launch_batch_i64(bool pre, int which, const Planes& a, const Shape& s,
+                     long long dyn_bytes, int batch, cudaStream_t stream);
+int launch_large_i32(bool cnt32, int which, const Planes& a, const Shape& s,
+                     long long dyn_bytes, int batch, cudaStream_t stream);
+int launch_large_i64(bool cnt32, int which, const Planes& a, const Shape& s,
                      long long dyn_bytes, int batch, cudaStream_t stream);
 
 }  // namespace kgpu

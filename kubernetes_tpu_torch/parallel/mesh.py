@@ -36,7 +36,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.models.batch_solver import SolverInputs, solve_scan
+from kubernetes_tpu_torch.models.batch_solver import (
+    SolverInputs,
+    peer_bound_of,
+    solve_device,
+)
 from kubernetes_tpu_torch.ops import commit_solver
 
 __all__ = ["Mesh", "MeshUnavailable", "default_devices", "make_mesh",
@@ -359,8 +363,10 @@ def sharded_program(mesh: Mesh, pol, gangs: bool):
     (chosen, scores)``, int32 [P] tensors on the first shard's device,
     with ``resident`` and ``wave`` tuples (RESIDENT_FIELDS / WAVE_FIELDS
     order) of per-shard tuples as ``place_plane`` lays them out. One shard
-    runs the plain single-device loop (``batch_solver.solve_scan``), more
-    run the sharded loop (``sharded_scan.solve_shards``)."""
+    is the single-device solve (``batch_solver.solve_device``: the
+    commit_solve kernel for a wave inside its domain, else the plain
+    ``solve_scan``), more run the sharded loop
+    (``sharded_scan.solve_shards``)."""
     from kubernetes_tpu_torch.parallel import sharded_scan
 
     def run(resident, wave):
@@ -370,7 +376,8 @@ def sharded_program(mesh: Mesh, pol, gangs: bool):
             kw.update({f: planes[s] for f, planes in zip(WAVE_FIELDS, wave)})
             shards.append(SolverInputs(**kw))
         if len(shards) == 1:
-            return solve_scan(shards[0], pol, gangs)
+            return solve_device(shards[0], pol, gangs,
+                                peer_bound_of(shards[0]))
         return sharded_scan.solve_shards(shards, pol, gangs)
 
     return run
@@ -398,16 +405,14 @@ def solve_sharded(inp: SolverInputs, mesh: Optional[Mesh] = None,
       ``batch_solver.solve_device``: one launch of the commit_solve kernel
       on a card (its plain version on the CPU). Sharding the node axis
       would put a cross-shard reduction inside every pod step; the
-      kernel's whole state for a 32,640-node wave fits one SM.
-    - **a wave beyond it** (more than 32,640 nodes, 31 services or 32
-      bands) runs the sharded loop over the mesh: the capacity path.
+      kernel's state for a 65,536-node wave lives in one SM's shared
+      memory and L2.
+    - **a wave beyond it** (more than 65,536 nodes, 1,024 service groups
+      or 32 bands, peer totals from 2^24, or wider than 8 resources or 4
+      labels) runs the sharded loop over the mesh: the capacity path.
 
     ``peer_bound`` (batch_solver.peer_bound_of) gates kernel eligibility;
     None computes it from the inputs."""
-    from kubernetes_tpu_torch.models.batch_solver import (
-        peer_bound_of,
-        solve_device,
-    )
     from kubernetes_tpu_torch.models.policy import BatchPolicy
 
     p = pol or BatchPolicy(w_lr=w_lr, w_spread=w_spread, w_equal=w_equal)

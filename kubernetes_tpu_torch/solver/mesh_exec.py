@@ -178,8 +178,10 @@ class MeshExecutor:
     def eligible(self, inp, pol, gangs: bool) -> bool:
         """Kernel-vs-mesh, the daemon half: waves below the node floor,
         and on a CUDA mesh the waves inside the commit_solve kernel's
-        domain, keep the daemon's coalesced single-device path (one
-        kernel launch). Everything else takes the mesh executor."""
+        domain (``commit_solver.eligible``: up to 65,536 nodes, 1,024
+        groups and 32 bands, peer totals below 2^24), keep the daemon's
+        coalesced single-device path (one kernel launch). Everything else
+        takes the mesh executor."""
         if int(inp.cap.shape[0]) < self.min_nodes:
             return False
         from kubernetes_tpu_torch.models.batch_solver import peer_bound_of

@@ -20,9 +20,11 @@ solved by ONE device call and fanned back out per requester:
 - the padded waves inside the kernel's domain run as ONE launch of the
   commit_solve kernel, one block (one SM of the card's 132) per wave
   (``ops/commit_solver.solve_commit_batch``): the reference's
-  ``jit(vmap(solve_jit))`` batch axis becomes the grid. A wave outside
-  the domain runs ``solve_scan`` on the same device, one by one, as
-  ``batch_solver.solve_device`` sends it. Every decision is exact
+  ``jit(vmap(solve_jit))`` batch axis becomes the grid; a large-cluster
+  wave (over 32,768 nodes or 31 groups, or peer totals from 2^15) has no
+  batched instance and launches alone. A wave outside the domain goes
+  through ``batch_solver.solve_device`` on the same device, one by one,
+  which runs ``solve_scan`` for it. Every decision is exact
   integer (or IEEE float32) arithmetic, so a coalesced wave decides
   exactly as it would alone.
 
@@ -58,7 +60,7 @@ wave as a full frame.
 **The device mesh** (``mesh``, solver/mesh_exec.py): with ``mesh="on"``
 (or ``auto`` on a host with more than one CUDA device) a single-wave group
 at or above the executor's node floor that the kernel cannot take (on a
-card: more than 32,640 nodes, 31 services or 32 bands) solves through the
+card: more than 65,536 nodes, 1,024 groups or 32 bands) solves through the
 ``MeshExecutor``, from device-resident planes sharded over the node axis,
 with the delta wire's changed rows scattered onto them. ``on`` raises
 ``parallel.mesh.MeshUnavailable`` on a host with one device.
@@ -83,7 +85,7 @@ from kubernetes_tpu_torch.models.batch_solver import (
     resolve_device,
     ship_inputs,
     snapshot_to_host_inputs,
-    solve_scan,
+    solve_device,
 )
 from kubernetes_tpu_torch.models.policy import BatchPolicy
 from kubernetes_tpu_torch.models.snapshot import _pow2_pad, encode_snapshot
@@ -756,18 +758,19 @@ class SolverService:
         (numpy SolverInputs, every wave padded to one shape) -> (chosen,
         scores) int32 [k, P], one readback. The waves inside the kernel's
         domain run as one launch of ``solve_commit_batch``, one block
-        each; the others run ``solve_scan`` one by one. The padding adds
-        zero peers, so each wave's peer bound is its own. Overridable seam
-        (tests inject slow fakes to drive backpressure)."""
+        each; the others go through ``solve_device`` one by one, which
+        runs ``solve_scan`` for them. The padding adds zero peers, so each
+        wave's peer bound is its own. Overridable seam (tests inject slow
+        fakes to drive backpressure)."""
         k = int(stacked.cap.shape[0])
         items = [SolverInputs(*(c[i] for c in stacked)) for i in range(k)]
         shipped = [ship_inputs(it, self.device) for it in items]
+        bounds = [peer_bound_of(it) for it in items]
         kernel = [i for i in range(k)
-                  if commit_solver.eligible(items[i], pol,
-                                            peer_bound_of(items[i]))]
+                  if commit_solver.eligible(items[i], pol, bounds[i])]
         out: List[Optional[tuple]] = [None] * k
         if kernel:
-            cis = [commit_solver.prepare(shipped[i], pol, gangs)
+            cis = [commit_solver.prepare(shipped[i], pol, gangs, bounds[i])
                    for i in kernel]
             for i, res in zip(kernel,
                               commit_solver.solve_commit_batch(cis)):
@@ -775,7 +778,7 @@ class SolverService:
             self.batched_solves += 1
         for i in range(k):
             if out[i] is None:
-                out[i] = solve_scan(shipped[i], pol, gangs)
+                out[i] = solve_device(shipped[i], pol, gangs, bounds[i])
                 self.scan_waves += 1
         both = torch.stack([torch.stack([c for c, _ in out]),
                             torch.stack([s for _, s in out])]).cpu().numpy()
@@ -844,8 +847,8 @@ class SolverService:
             return False
         first = SolverInputs(*(c[0] for c in job.stacked))
         return commit_solver.instance_for(
-            first, job.pol, job.gangs, int(job.stacked.cap.shape[0])
-        ) in commit_solver.solve_commit.instances
+            first, job.pol, job.gangs, int(job.stacked.cap.shape[0]),
+            peer_bound_of(first)) in commit_solver.solve_commit.instances
 
     def _prewarm_boot(self) -> None:
         """--prewarm boot mode: queue the buckets implied by the declared

@@ -3,8 +3,9 @@
 alone, or the whole wave.
 
 Encodes the shape's wave (fixtures.FULL_SHAPES, under the shape's JSON
-Policy where it has one; ``north_star_dec`` takes the int64 instances and
-``priority`` the preemption branch). By default it prepares the kernel's inputs on
+Policy where it has one; ``north_star_dec`` takes the int64 instances,
+``priority`` the preemption branch, ``planet`` and ``services64`` the
+large-cluster instances). By default it prepares the kernel's inputs on
 the card and times ``solve_commit`` with CUDA events: one warm-up launch,
 then the median of ``--runs`` launches. With ``--wave`` it times the whole
 wave as a user runs it, on the host clock: encode_snapshot, solve and
@@ -117,10 +118,10 @@ def main() -> int:
     else:
         snap = encode_snapshot(*cluster, policy=policy)
         inp = bs.ship_inputs(bs.snapshot_to_host_inputs(snap), "cuda")
-        if not commit_solver.eligible(inp, snap.policy,
-                                      bs.peer_bound_of(snap)):
+        bound = bs.peer_bound_of(snap)
+        if not commit_solver.eligible(inp, snap.policy, bound):
             raise AssertionError("wave outside the kernel's domain")
-        ci = commit_solver.prepare(inp, snap.policy, snap.has_gangs)
+        ci = commit_solver.prepare(inp, snap.policy, snap.has_gangs, bound)
         if args.batch:
             # the planes are stacked once, outside the timed launches
             planes = commit_solver.stack_planes([ci] * args.batch)
@@ -135,6 +136,8 @@ def main() -> int:
         out.update({"kernel_ms": ms, "kernel_ms_runs": runs,
                     "resource_type": str(ci.cap.dtype).split(".")[-1],
                     "bands": ci.band.shape[0],
+                    "instance": commit_solver.instance_of(
+                        ci, args.batch or 1),
                     "layout": "shared" if on_chip else "global"})
     out["card"] = card_line()
     print(json.dumps(out))

@@ -380,8 +380,10 @@ def test_all_infeasible_policy_places_nothing():
 
 
 def test_wide_wave_takes_the_scan_and_matches():
-    # 40 services pad the group axis to 64 > the kernel's 31: the wave
-    # leaves the kernel's domain and solve_device takes solve_scan
+    # 40 services pad the group axis to 64: beyond the narrow instances'
+    # 31 groups, where the reference takes its scan (solve_jit), but inside
+    # the kernel's domain, whose large instances take it; solve_device
+    # sends it to the kernel's wrapper (the plain version on the CPU)
     def wave(k):
         nodes = [k.node(f"n{i}") for i in range(6)]
         svcs = [k.svc(f"s{j}", {"app": f"a{j}"}) for j in range(40)]
@@ -392,8 +394,10 @@ def test_wide_wave_takes_the_scan_and_matches():
     psnap = encode_snapshot(*wave(PORT))
     inp = bs.ship_inputs(bs.snapshot_to_host_inputs(psnap), "cpu")
     from kubernetes_tpu_torch.ops import commit_solver
-    assert not commit_solver.eligible(inp, psnap.policy,
-                                      bs.peer_bound_of(psnap))
+    assert commit_solver.eligible(inp, psnap.policy,
+                                  bs.peer_bound_of(psnap))
+    assert commit_solver.is_large(inp.cap.shape[0],
+                                  inp.group_counts.shape[0])
     jc, js = ref_bs.solve(ref_encode(*wave(REF)))
     pc, ps = bs.solve(psnap, device="cpu")
     assert np.array_equal(pc, np.asarray(jc))
@@ -401,6 +405,61 @@ def test_wide_wave_takes_the_scan_and_matches():
 
 
 # -- the device default, the policy and gang branches, what is refused -------
+
+# -- the kernel's large-cluster domain: waves the reference sends to its scan
+
+def _many_peers(k):
+    """64 nodes carrying 33,000 zero-request peers of one service (a total
+    past 2^15), and 200 pending pods of it and of a second service."""
+    nodes = [k.node(f"n{i}", cpu_m=8000, mem=32 << 30,
+                    labels={"zone": f"z{i % 4}"}) for i in range(64)]
+    svcs = [k.svc("a", {"app": "a"}), k.svc("b", {"app": "b"})]
+    existing = [k.pod(f"e{i}", host=f"n{i % 64}", labels={"app": "a"})
+                for i in range(33_000)]
+    pending = [k.pod(f"p{i}", cpu_m=100 + 50 * (i % 5), mem=64 << 20,
+                     labels={"app": "ab"[i % 3 == 0]},
+                     host_ports=(8080,) if i % 7 == 0 else ())
+               for i in range(200)]
+    return nodes, existing, pending, svcs
+
+
+LARGE_WAVES = {
+    # G = 64: 300 nodes x 500 pods over 64 services
+    "groups64": lambda k: k.build_cluster(300, 500, n_services=64),
+    # peer totals >= 2^15
+    "peers": _many_peers,
+    # N = 33,000 nodes x 32 pods (one resident a node)
+    "nodes33000": lambda k: k.build_cluster(33_000, 32,
+                                            existing_per_node=1),
+}
+
+
+@pytest.mark.parametrize("name", list(LARGE_WAVES))
+def test_large_domain_wave_matches_reference_scan(name):
+    """A wave beyond the narrow instances on one axis each (64 groups,
+    peer totals past 2^15, 33,000 nodes): the reference's solve sends it
+    to its scan (solve_jit); the port's solve keeps it in the kernel's
+    domain, through ``solve_commit`` (its plain version on the CPU), with
+    exactly the reference's decisions and scores."""
+    from kubernetes_tpu_torch.ops import commit_solver
+    psnap = encode_snapshot(*LARGE_WAVES[name](PORT))
+    host = bs.snapshot_to_host_inputs(psnap)
+    bound = bs.peer_bound_of(psnap)
+    N, G, P = host.cap.shape[0], host.group_counts.shape[0], \
+        host.req.shape[0]
+    assert commit_solver.eligible(host, psnap.policy, bound)
+    cnt = commit_solver.count_bytes_for(bound, P)
+    assert commit_solver.is_large(N, G, cnt)
+    assert {"groups64": G == 64, "peers": bound >= 1 << 15 and cnt == 4,
+            "nodes33000": N == 33_000}[name]
+    calls = commit_solver.solve_commit.calls
+    pc, ps = bs.solve(psnap, host=host, device="cpu")
+    assert commit_solver.solve_commit.calls == calls + 1
+    jc, js = ref_bs.solve(ref_encode(*LARGE_WAVES[name](REF)))
+    assert np.array_equal(pc, np.asarray(jc))
+    assert np.array_equal(ps, np.asarray(js))
+    assert (pc >= 0).any()
+
 
 def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():

@@ -109,9 +109,12 @@ def test_eligibility_agrees_with_reference():
     peers = ref_bs.peer_bound_of(snap)
     assert commit_solver.eligible(inp, pol, peers)
     assert pallas_solver.eligible(rinp, snap.policy, False, peers)
-    # the spread-count domain: peers plus commits must stay below 2^15
-    assert not commit_solver.eligible(inp, pol, 1 << 15)
+    # the spread-count domain: the JAX kernel's peers plus commits stay
+    # below 2^15, the port's below 2^24 (its large instances count in
+    # int32; the float32 spread score is exact below 2^24)
+    assert commit_solver.eligible(inp, pol, 1 << 15)
     assert not pallas_solver.eligible(rinp, snap.policy, False, 1 << 15)
+    assert not commit_solver.eligible(inp, pol, 1 << 24)
     # a policy whose planes the wave was not encoded with
     assert not commit_solver.eligible(inp, BatchPolicy(
         anti_affinity=(("zone", 1),)), peers)
@@ -156,6 +159,104 @@ def test_eligibility_at_the_affinity_label_limit(n_labels, inside):
                                           for a in range(n_labels)))
     snap = ref_encode(*_zoned_wave(3, n_labels), policy=pol)
     assert _eligible_both(snap) == (inside, inside)
+
+
+def _widened(inp, N=None, G=None, P=None):
+    """Host inputs whose node, group or pod axis is stretched to the given
+    length (zeros): ``eligible`` reads only the planes' shapes."""
+    N = inp.cap.shape[0] if N is None else N
+    G = inp.group_counts.shape[0] if G is None else G
+    P = inp.req.shape[0] if P is None else P
+    return inp._replace(
+        cap=np.zeros((N, inp.cap.shape[1]), inp.cap.dtype),
+        group_counts=np.zeros((G, N + 1), np.int32),
+        req=np.zeros((P, inp.req.shape[1]), inp.req.dtype))
+
+
+@pytest.mark.parametrize("axis,inside,outside", [
+    ("N", 65_536, 65_537),
+    ("G", 1_024, 2_048),
+    ("peers", (1 << 24) - 1, 1 << 24),
+])
+def test_eligibility_at_the_large_domain_bounds(axis, inside, outside):
+    # the kernel's large instances: up to 65,536 nodes (1,024 threads of
+    # 64), 1,024 groups (the most a 1,024-pod wave names), and peer_bound
+    # + P below 2^24
+    snap = ref_encode(*fuzz_wave(1))
+    host = ref_bs.snapshot_to_host_inputs(snap)
+    pol = BatchPolicy()
+    P = host.req.shape[0]
+    for value, want in ((inside, True), (outside, False)):
+        if axis == "peers":
+            got = commit_solver.eligible(host, pol, value - P)
+        else:
+            got = commit_solver.eligible(_widened(host, **{axis: value}),
+                                         pol, 0)
+        assert got is want, (axis, value)
+    assert commit_solver.MAX_N == 65_536 and commit_solver.MAX_G == 1_024
+
+
+@pytest.mark.parametrize("G", [8, 31, 32, 64, 1_024])
+def test_prepare_packs_member_words(G):
+    # bit g % 32 of member word g // 32, one word per 32 groups (one for
+    # G <= 32), between the gid and the zero-request flag
+    snap = ref_encode(*fuzz_wave(6))
+    _, _, _, _, inp, _ = _solve_all(snap)
+    P, N = inp.req.shape[0], inp.cap.shape[0]
+    rng = np.random.default_rng(G)
+    member = torch.from_numpy(rng.random((P, G)) < 0.3)
+    wide = inp._replace(
+        pod_group_member=member,
+        pod_gid=torch.from_numpy(rng.integers(-1, G, P).astype(np.int32)),
+        group_counts=torch.zeros((G, N + 1), dtype=torch.int32),
+        anchor_vals0=torch.zeros((G, 0), dtype=torch.int32),
+        has_anchor0=torch.zeros(G, dtype=torch.bool))
+    ci = commit_solver.prepare(wide, BatchPolicy(), peer_bound=0)
+    words = commit_solver.member_words(G)
+    assert words == (1 if G <= 32 else G // 32)
+    R = ci.cap.shape[0]
+    o_member = (R * ci.cap.element_size() // 4 + ci.ports0.shape[0]
+                + ci.pds0.shape[0] + 3)
+    assert ci.podrow.shape == (P, o_member + words + 3 + ci.affv.shape[0])
+    assert torch.equal(ci.podrow[:, o_member - 1], wide.pod_gid)
+    got = ci.podrow[:, o_member:o_member + words].to(torch.int64) & 0xFFFFFFFF
+    bits = (got[:, :, None] >> torch.arange(32)) & 1
+    assert torch.equal(bits.reshape(P, 32 * words)[:, :G].bool(), member)
+    assert not bits.reshape(P, 32 * words)[:, G:].any()
+    assert commit_solver.is_large(N, G) == (G > 31)
+
+
+def test_state_bytes_and_layout_with_int32_counts():
+    # a wave whose peer totals may reach 2^15 keeps int32 counts
+    assert commit_solver.count_bytes_for((1 << 15) - 11, 10) == 2
+    assert commit_solver.count_bytes_for((1 << 15) - 10, 10) == 4
+    N, R, Wp, Wd, G = 5_000, 2, 1, 1, 8
+    c16 = commit_solver.state_bytes(N, R, Wp, Wd, G)
+    c32 = commit_solver.state_bytes(N, R, Wp, Wd, G, 0, 4, 4)
+    assert c32 - c16 == 2 * G * N
+    assert commit_solver.state_stride(N, R, Wp, Wd, G, 0, 4, 4) == \
+        -(-c32 // 16) * 16
+    # north_star's widths with int32 counts take the large instance, whose
+    # state no longer fits on chip (250,016 B)
+    assert commit_solver.is_large(N, G, 4)
+    on_chip, nbytes = commit_solver.shared_layout(N, R, Wp, Wd, G, 0, 4, 4)
+    assert not on_chip and nbytes == 2 * commit_solver.mask_pitch(N)
+    # on 2,000 nodes it does (and no anchor block without labels)
+    n = 2_000
+    small = commit_solver.state_bytes(n, R, Wp, Wd, G, 0, 4, 4)
+    on_chip, nbytes = commit_solver.shared_layout(n, R, Wp, Wd, G, 0, 4, 4)
+    assert on_chip and nbytes == 2 * n + small
+    # with two affinity labels the anchor block follows the mask ring
+    on_chip, nbytes = commit_solver.shared_layout(n, R, Wp, Wd, G, 0, 4, 4,
+                                                  L=2)
+    assert on_chip and nbytes == 2 * n + 4 * (2 * G * 2 + 2 * G) + small
+    # 64 groups of int32 counts over 5,000 nodes: global memory
+    on_chip, nbytes = commit_solver.shared_layout(N, R, Wp, Wd, 64, 0, 4, 4)
+    assert not on_chip and nbytes == 2 * commit_solver.mask_pitch(N)
+    # the planet shape: 40,000 nodes, int32 counts, global memory
+    on_chip, nbytes = commit_solver.shared_layout(40_000, 2, 1, 1, 8, 0, 4,
+                                                  4)
+    assert not on_chip and nbytes == 80_000
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching():
@@ -311,7 +412,10 @@ def test_float32_spread_expression_is_spread_score():
     # round-to-nearest-even steps. numpy's float32 arithmetic is IEEE, so
     # it must equal the plain version's exact int64 emulation on every
     # pair; the chip smoke test checks the device function itself on all
-    # pairs below 2^15.
+    # pairs below 2^15, and on chip_smoke phase 20 (c)'s sample beyond it,
+    # which this test holds the float32 expression to as well: every count
+    # of the totals 2^k - 1, 2^k and 2^k + 1 for k = 15..23, and 2^20
+    # seeded pairs with totals in [2^15, 2^24).
     from kubernetes_tpu_torch.ops.kernels import spread_score
     limit = 1 << 12
     totals = np.arange(limit, dtype=np.int64)
@@ -329,6 +433,18 @@ def test_float32_spread_expression_is_spread_score():
     assert got.size == limit * (limit + 1) // 2
     mismatch = np.nonzero(got != want)[0]
     assert mismatch.size == 0, (total[mismatch[:5]], count[mismatch[:5]])
+    import chip_smoke
+    pairs = 0
+    for total, count in chip_smoke._spread_samples():
+        assert (total >= (1 << 15) - 1).all() and (total < 1 << 24).all()
+        assert (count >= 0).all() and (count <= total).all()
+        got = chip_smoke._f32_spread(total, count)
+        want = spread_score(torch.from_numpy(total),
+                            torch.from_numpy(count)).numpy()
+        mismatch = np.nonzero(got != want)[0]
+        assert mismatch.size == 0, (total[mismatch[:5]], count[mismatch[:5]])
+        pairs += total.size
+    assert pairs == sum(3 * (1 << k) + 3 for k in range(15, 24)) + (1 << 20)
 
 
 def test_ptxas_report_keys_each_instance_by_branch_set_and_layout():

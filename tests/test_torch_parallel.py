@@ -433,9 +433,11 @@ def test_chip_smoke_mesh_phase_runs_on_the_cpu_at_a_small_size():
     """chip_smoke's phase 13 on three CPU shards at a small size: (a) the
     sharded loop == single-device == commit_solve's plain version; (b) the
     crossover through solve(snap, mesh=) runs no sharded loop; (c) a wave
-    beyond the kernel's domain (40 services), a preemption and a zone
-    anti-affinity wave; (d) the executor's churn rides delta scatters; (e)
-    a late-churn wave compacts."""
+    of 40 services (64 groups) through the crossover to the kernel, a
+    wave of 40 priority bands beyond the kernel's domain through the
+    sharded loop, a preemption and a zone anti-affinity wave; (d) the
+    executor's churn rides delta scatters; (e) a late-churn wave
+    compacts."""
     import chip_smoke
     m = chip_smoke._mesh_phase(
         "cpu", shards=3, mesh_nodes=61, mesh_pods=40, cap_nodes=45,
