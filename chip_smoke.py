@@ -344,21 +344,30 @@ and holds the kernel against its plain PyTorch version. Phases:
    writers): CLEAN (every survivor bound, a final write accepted, no
    escaped loop exception), at least one launch, no plain call, every
    wave equal to the plain version, the switch interval restored.
-20. the kernel's large-cluster instances (past 32,768 nodes, 31 service
-   groups or peer totals of 2^15; models/fixtures ``planet`` and
-   ``services64``): (a) planet (40,000 nodes x 10,000 pods, two services
-   of 40,000 peers each: int32 counts) and services64 (north_star with 64
-   services: 64 groups) through ``solve``, one launch of a large instance
-   each, bit-identical to the plain version on the card; kernel ms (CUDA
-   events), state layout, ptxas' report of the instance, bound; (b) phase
+20. the kernel's cluster instances (a wave past 32,768 nodes, 31 service
+   groups or peer totals of 2^15 runs on a thread-block cluster of up to
+   16 SMs; models/fixtures ``planet`` and ``services64``): (a) planet
+   (40,000 nodes x 10,000 pods, two services of 40,000 peers each: int32
+   counts) and services64 (north_star with 64 services: 64 groups)
+   through ``solve``, one launch of a cluster instance each, bit-identical
+   to the plain version on the card; kernel ms (CUDA events), the
+   cluster's blocks, the slices' layout and a block's dynamic shared
+   memory, ptxas' report of the instance, bound; (b) phase
    7's loop on the planet cluster, 3 waves of 1,024, one launch a wave,
    no plain call, each wave held as phase 7 holds it; (c) the spread
    device function against the plain version beyond 2^15: every count of
    the totals 2^k - 1, 2^k and 2^k + 1 for k = 15..23, and 2^20 seeded
    pairs below 2^24; (d) nine seeded large waves (64 and 1,024 groups,
    33,000 nodes, peer totals past 2^15; zones, anchors, gangs, label
-   planes, preemption, int64 planes; both state layouts): kernel ==
-   plain version.
+   planes, preemption, int64 planes; both slice layouts): kernel ==
+   plain version, at the wrapper's cluster size and at a second one (2
+   blocks where the wrapper took more, else 4), so block boundaries fall
+   inside every branch.
+
+Phase 2 also prints whether the one-block instances' ptxas reports are
+those recorded in ``kubernetes_tpu_torch/tools/ptxas_reference.json``
+(or which differ), and fails if an instance's static shared memory
+passes the room the wrapper keeps for it.
 
 Each full shape and each wide seeded wave logs the state layout it took
 and its dynamic shared memory. Any mismatch or error exits non-zero. Run
@@ -528,9 +537,10 @@ def _ptxas_report(log: str) -> dict:
     kernel instance, keyed by the instance's resource type, branch set,
     state layout and batching
     (``commit_solve<int32,pre,aff,anti,gang,static,shared,batch>`` with 0/1
-    flags), a large-cluster instance by its resource and peer-count types
-    and layout (``commit_solve_large<int32,counts16,shared>``), as
-    ``commit_solver.instance_of`` names them, or the kernel's name."""
+    flags), a cluster instance by its resource and peer-count types and
+    slice layout (``commit_solve_large<int32,counts16,shared>``), as
+    ``commit_solver.instance_of`` names them (less the cluster's size, a
+    launch parameter), or the kernel's name."""
     import re
 
     out: dict = {}
@@ -552,22 +562,68 @@ def _ptxas_report(log: str) -> dict:
         if m and entry:
             flags = re.search(r"commit_solve_kernelI([ix])Lb([01])ELb([01])"
                               r"ELb([01])ELb([01])ELb([01])ELb([01])"
-                              r"ELb([01])E(?:Lb([01])E([si]))?", entry)
+                              r"ELb([01])E", entry)
+            large = re.search(r"commit_solve_cluster_kernelI([ix])([si])"
+                              r"Lb([01])E", entry)
             name = entry
             if flags:
                 res = "int32" if flags.group(1) == "i" else "int64"
-                if flags.group(9) == "1":
-                    counts = 16 if flags.group(10) == "s" else 32
-                    name = (f"commit_solve_large<{res},counts{counts},"
-                            f"{flags.group(7)}>")
-                else:
-                    name = (f"commit_solve<{res},"
-                            f"{','.join(flags.groups()[1:8])}>")
+                name = (f"commit_solve<{res},"
+                        f"{','.join(flags.groups()[1:8])}>")
+            elif large:
+                res = "int32" if large.group(1) == "i" else "int64"
+                counts = 16 if large.group(2) == "s" else 32
+                layout = "shared" if large.group(3) == "1" else "global"
+                name = f"commit_solve_large<{res},counts{counts},{layout}>"
             elif "spread_eval" in entry:
                 name = "spread_eval"
             out[name] = f"{m.group(0)}; {frames.get(entry, '')}"
             entry = None
     return out
+
+
+def _ptxas_of(report: dict, instance: str) -> str:
+    """ptxas' line for ``instance`` (``commit_solver.instance_of``'s name;
+    a cluster instance's without its size)."""
+    return report.get(re.sub(r",c\d+>$", ">", instance), "not reported")
+
+
+def _ptxas_against_reference(report: dict) -> str:
+    """The one-block instances' ptxas reports against the recorded ones
+    (``tools/ptxas_reference.json``): "same as the recorded reports", or
+    each instance whose report differs, is new or is missing."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "kubernetes_tpu_torch", "tools",
+                        "ptxas_reference.json")
+    with open(path) as fh:
+        want = json.load(fh)
+    got = {k: v for k, v in report.items() if k.startswith("commit_solve<")}
+    diff = [f"{k}: {want.get(k, 'missing')} -> {got.get(k, 'missing')}"
+            for k in sorted(set(want) | set(got)) if want.get(k) != got.get(k)]
+    if not diff:
+        return (f"the {len(got)} one-block instances: same as the recorded "
+                f"reports")
+    return (f"the one-block instances: {len(diff)} of {len(want)} differ "
+            f"from the recorded reports: " + "; ".join(diff))
+
+
+def _static_smem_within_reserve(report: dict) -> None:
+    """Each instance's static shared memory (ptxas' report) fits the room
+    the wrapper keeps for it when it sizes a block's dynamic shared memory
+    (``commit_solver.STATIC_SMEM``, ``CLUSTER_STATIC_SMEM``); else a wave
+    that the wrapper reckons fits would be refused at launch."""
+    from kubernetes_tpu_torch.ops import commit_solver
+
+    for name, line in report.items():
+        m = re.search(r"(\d+) bytes smem", line)
+        limit = (commit_solver.CLUSTER_STATIC_SMEM
+                 if name.startswith("commit_solve_large<")
+                 else commit_solver.STATIC_SMEM
+                 if name.startswith("commit_solve<") else None)
+        if m and limit is not None and int(m.group(1)) > limit:
+            raise AssertionError(f"{name}: {m.group(1)} B of static shared "
+                                 f"memory, past the {limit} B the wrapper "
+                                 f"keeps for it")
 
 
 def _spread_exhaustive(dev) -> dict:
@@ -8308,11 +8364,19 @@ _LARGE_CASES = [
 ]
 
 
+def _second_cluster(instance: str) -> int:
+    """The cluster size phase 20 (d) also runs a wave at: 2 blocks where
+    the wrapper's instance (``commit_solver.instance_of``) took more, else
+    4."""
+    return 2 if int(re.search(r",c(\d+)>$", instance).group(1)) > 2 else 4
+
+
 def _large_fuzz(dev, cases=None) -> dict:
     """Phase 20 (d): seeded waves of ``_LARGE_CASES``, each in the
-    kernel's domain and past the narrow instances, kernel == plain version
-    bit for bit. ``cases`` defaults to ``_LARGE_CASES`` (a CPU run passes
-    smaller ones)."""
+    kernel's domain and past the one-block instances, kernel == plain
+    version bit for bit, at the wrapper's cluster size and at
+    ``_second_cluster``'s. ``cases`` defaults to ``_LARGE_CASES`` (a CPU
+    run passes smaller ones)."""
     import torch
 
     from kubernetes_tpu_torch.models.snapshot import encode_snapshot
@@ -8337,16 +8401,19 @@ def _large_fuzz(dev, cases=None) -> dict:
                                  f"wave (N={N} G={G} "
                                  f"{8 * ci.count_bytes}-bit counts)")
         name = commit_solver.instance_of(ci)
-        seen["instances"][name] = seen["instances"].get(name, 0) + 1
-        got = commit_solver.solve_commit(ci)
+        second = _second_cluster(name)
         want = commit_solver.solve_commit_reference(ci)
-        for g, w, what in zip(got, want, ("chosen", "win")):
-            if not torch.equal(g, w):
-                i = int((g != w).nonzero()[0])
-                raise AssertionError(
-                    f"phase 20 (d) seed {seed} {family} {kw}: {what} "
-                    f"differs at pod {i}: kernel {int(g[i])} vs plain "
-                    f"{int(w[i])}")
+        for cluster in (None, second):
+            got = commit_solver.solve_commit(ci, _cluster=cluster)
+            took = commit_solver.instance_of(ci, cluster=cluster)
+            seen["instances"][took] = seen["instances"].get(took, 0) + 1
+            for g, w, what in zip(got, want, ("chosen", "win")):
+                if not torch.equal(g, w):
+                    i = int((g != w).nonzero()[0])
+                    raise AssertionError(
+                        f"phase 20 (d) seed {seed} {family} {kw} on "
+                        f"{took}: {what} differs at pod {i}: kernel "
+                        f"{int(g[i])} vs plain {int(w[i])}")
         chosen = want[0].cpu().numpy()
         if snap.has_gangs:
             seen["rolled_back_runs"] += _rolled_back_runs(snap.pod_rid,
@@ -8356,7 +8423,7 @@ def _large_fuzz(dev, cases=None) -> dict:
         seen["waves"].append({"seed": seed, "nodes": N, "groups": G,
                               "count_bytes": ci.count_bytes,
                               "bands": ci.band.shape[0],
-                              "instance": name,
+                              "instance": name, "second_cluster": second,
                               "placed": int((chosen >= 0).sum())})
     seen["seconds"] = time.perf_counter() - t0
     return seen
@@ -8367,17 +8434,18 @@ def _large_phase(dev, shapes=("planet", "services64"), kernel_runs=3,
                  wave_size=1_024, spread_ks=range(15, 24),
                  spread_random=1 << 20, large_cases=None,
                  count_launches=True) -> dict:
-    """Phase 20: the kernel's large-cluster instances on the main paths.
-    (a) each of ``shapes`` (models/fixtures: ``planet``, 40,000 nodes and
+    """Phase 20: the kernel's cluster instances on the main paths. (a)
+    each of ``shapes`` (models/fixtures: ``planet``, 40,000 nodes and
     40,000 peers a service; ``services64``, 64 service groups) through
-    ``solve``, one launch of a large instance, bit-identical to the plain
-    version on the card, with its kernel time, layout and bound; (b) the
+    ``solve``, one launch of a cluster instance, bit-identical to the
+    plain version on the card, with its kernel time, cluster size, layout
+    and bound; (b) the
     scheduler's loop (phase 7's driver) on the planet cluster, waves of
     ``wave_size``, each launching commit_solve once and held as phase 7
     holds its waves, the plain version never run; (c) the spread device
     function beyond 2^15 (``_spread_beyond``); (d) seeded large waves
-    through every branch (``_large_fuzz``). ``sizes`` maps a shape to
-    (nodes, pods) for a CPU run."""
+    through every branch at two cluster sizes (``_large_fuzz``).
+    ``sizes`` maps a shape to (nodes, pods) for a CPU run."""
     from kubernetes_tpu_torch.ops import commit_solver
 
     tag = "phase 20"
@@ -8414,9 +8482,12 @@ def _large_phase(dev, shapes=("planet", "services64"), kernel_runs=3,
     out["loop"] = sc
     out["spread"] = _spread_beyond(dev, spread_ks, spread_random)
     out["seeded"] = sd = _large_fuzz(dev, large_cases)
-    if count_launches and not any(",1>" in k for k in sd["instances"]):
-        raise AssertionError(f"{tag} (d): no seeded wave kept its state on "
-                             f"chip ({sorted(sd['instances'])})")
+    for layout in ("shared", "global"):
+        if count_launches and not any(f",{layout}," in k
+                                      for k in sd["instances"]):
+            raise AssertionError(f"{tag} (d): no seeded wave kept its "
+                                 f"slices in {layout} memory "
+                                 f"({sorted(sd['instances'])})")
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -8425,16 +8496,18 @@ def _log_large(lg: dict, ptxas: dict) -> None:
     for tag, (name, w) in zip(("20 (a)", "      "), lg["waves"].items()):
         _log(f"[{tag}] {name} {w['nodes']}x{w['pods']}: {w['groups']} "
              f"groups, peer bound {w['peer_bound']}, "
-             f"{8 * w['count_bytes']}-bit counts, {w['instance']}, state in "
-             f"{w['layout']} memory ({w['dyn_shared_bytes']} B dynamic "
-             f"shared), launches {w['launches']}, bound {w['bound_pods']}, "
+             f"{8 * w['count_bytes']}-bit counts, {w['instance']}: a "
+             f"cluster of {w['instance'].rsplit(',c', 1)[-1][:-1]} blocks, "
+             f"slices in {w['layout']} memory ({w['dyn_shared_bytes']} B "
+             f"dynamic shared a block), launches {w['launches']}, bound "
+             f"{w['bound_pods']}, "
              f"encode {w['encode_s']:.3f}s, wave {w['wave_s']:.3f}s "
              f"({w['pods_per_s']:.1f} pods/s), kernel "
              f"{w['kernel_ms']:.3f} ms (runs "
              f"{[round(t, 3) for t in w['kernel_ms_runs']]}), plain "
              f"{w['plain_ms']:.1f} ms (max abs err {w['max_abs_err']}), "
              f"bound {w['bound_ms']:.4f} ms ({w['bound_by']})")
-        _log(f"       ptxas: {ptxas.get(w['instance'], 'not reported')}")
+        _log(f"       ptxas: {_ptxas_of(ptxas, w['instance'])}")
     sc = lg["loop"]
     _log(f"[20 (b)] the loop on the planet cluster: {sc['nodes']} nodes, "
          f"{sc['existing']} existing, {sc['pending']} pending in waves of "
@@ -8456,8 +8529,9 @@ def _log_large(lg: dict, ptxas: dict) -> None:
     sd = lg["seeded"]
     _log(f"[20 (d)] {len(sd['waves'])} seeded large waves ({sd['pods']} "
          f"pods; {sd['rolled_back_runs']} gang runs rolled back, "
-         f"{sd['preempting']} pods placed by preemption; instances "
-         f"{sd['instances']}): kernel == plain version "
+         f"{sd['preempting']} pods placed by preemption; each at the "
+         f"wrapper's cluster size and at a second (2 blocks, else 4); "
+         f"instances {sd['instances']}): kernel == plain version "
          f"({sd['seconds']:.2f}s); phase {lg['phase_s']:.1f} s")
 
 
@@ -8504,6 +8578,9 @@ def main() -> int:
          f"{ {k: round(v, 1) for k, v in record['build_sources_s'].items()} })")
     for fn, use in record["ptxas"].items():
         _log(f"    ptxas: {fn}: {use}")
+    record["ptxas_reference"] = _ptxas_against_reference(record["ptxas"])
+    _log(f"    ptxas: {record['ptxas_reference']}")
+    _static_smem_within_reserve(record["ptxas"])
 
     # 3. exhaustive spread check
     record["spread"] = _spread_exhaustive(dev)
@@ -8762,10 +8839,10 @@ def main() -> int:
                ("commit_solve[preemption]", record["priority"],
                 sum(w["launches"] for w in pl["waves"])),
                ("commit_solve[batched]", batched, dm["batched_launches"]),
-               # the large-cluster instances (phase 20): planet's with
-               # int32 counts over 40,000 nodes (its wave in (a) and the
-               # loop's waves in (b), each held against the plain version
-               # too), services64's with 64 groups
+               # the cluster instances (phase 20): planet's with int32
+               # counts over 40,000 nodes (its wave in (a) and the loop's
+               # waves in (b), each held against the plain version too),
+               # services64's with 64 groups
                ("commit_solve[large: planet]",
                 dict(lg["waves"]["planet"], max_abs_err=max(
                     lg["waves"]["planet"]["max_abs_err"],
@@ -8775,7 +8852,9 @@ def main() -> int:
                 lg["waves"]["services64"]["launches"]))
     kernels = {"kernels": [{
         "name": name, "route": "cuda",
-        "source": "kubernetes_tpu_torch/ops/csrc/commit_solve.cuh",
+        "source": ("kubernetes_tpu_torch/ops/csrc/commit_solve_cluster.cuh"
+                   if name.startswith("commit_solve[large")
+                   else "kubernetes_tpu_torch/ops/csrc/commit_solve.cuh"),
         "replaces": "kubernetes_tpu/ops/pallas_solver.py:772",
         "launches": launches, "max_abs_err": w["max_abs_err"],
         "ms": w["kernel_ms"], "plain_ms": w["plain_ms"],

@@ -13,8 +13,12 @@ the reference solves in ``solve_jit``'s scan (kubernetes_tpu/models/
 batch_solver.py:398, :676-790), run here too, with the same decisions.
 
 - ``eligible`` is the kernel's domain: the reference's (:90-157), plus
-  int64 planes, up to ``MAX_B`` bands, and the large-cluster limits,
-  which the kernel's large instances take (``is_large``).
+  int64 planes, up to ``MAX_B`` bands, and the large-cluster limits. A
+  large wave (``is_large``) runs on a thread-block cluster of up to 16
+  SMs (``csrc/commit_solve_cluster.cuh``), each block owning a slice of
+  the nodes; ``cluster_for`` picks the cluster's size and where the
+  slices live, ``cluster_ranks`` and ``cluster_pick`` mirror its node
+  ownership and its three-layer rank of the best nodes.
 - ``prepare`` is the prolog (:599-733): the static feasibility mask (node
   selector, host pin, cordon and label presence, selector-pinned service
   affinity) and the per-pod and per-node planes, as torch ops on the
@@ -30,12 +34,15 @@ batch_solver.py:398, :676-790), run here too, with the same decisions.
   ``solve_commit.launches`` counts kernel launches and
   ``solve_commit_reference.calls`` calls of the plain version.
 - ``solve_commit_batch`` solves several waves of one shape in one launch,
-  one block (one SM) per wave: the counterpart of the batch axis the
+  one block (one SM) per wave (a large wave launches alone on its
+  cluster): the counterpart of the batch axis the
   reference's solver daemon puts on ``solve_jit`` with ``vmap``
   (kubernetes_tpu/solver/service.py:176-186). On the CPU it is the plain
   version, wave by wave.
-- ``shared_layout`` is where the kernel keeps a wave's node state: in the
-  block's shared memory when it fits, else in a global buffer.
+- ``shared_layout`` is where the one-block kernel keeps a wave's node
+  state: in the block's shared memory when it fits, else in a global
+  buffer; ``layout_of`` that of a prepared wave, on whichever kernel
+  takes it.
 - ``spread_eval`` runs the kernel's spread-score device function over
   arrays of (total, count), for checking it exhaustively on the card.
 """
@@ -61,9 +68,10 @@ from kubernetes_tpu_torch.ops.kernels import (
     u64_mod_small,
 )
 
-__all__ = ["CommitInputs", "count_bytes_for", "eligible", "is_large",
+__all__ = ["CommitInputs", "cluster_for", "cluster_pick", "cluster_ranks",
+           "count_bytes_for", "eligible", "is_large",
            "launch_key", "layout_of", "mask_pitch", "prepare",
-           "shared_layout", "solve_commit",
+           "shared_layout", "slice_nodes", "solve_commit",
            "solve_commit_batch", "solve_commit_reference", "spread_eval",
            "MAX_B", "MAX_N"]
 
@@ -71,12 +79,12 @@ NEG = -1
 MAX_R = 8
 MAX_W = 8
 MAX_G = 1024         # a 1,024-pod wave names at most this many groups
-MAX_N = 65536        # 1,024 threads of 64 nodes (the large instances)
+MAX_N = 65536        # the cluster instances' nodes
 MAX_COUNT = 1 << 24  # peer totals: the spread score's float32 is exact
                      # below (ops/kernels.spread_score)
-# The narrow instances' limits: 32 nodes a thread in a 32-bit mask, one
+# The one-block instances' limits: 32 nodes a thread in a 32-bit mask, one
 # int32 of member bits, int16 peer counts. A wave past any of them takes
-# the large instances (csrc/commit_solve.cuh kLarge).
+# the cluster instances (csrc/commit_solve_cluster.cuh).
 NARROW_N = 1024 * 32
 NARROW_G = 31
 NARROW_COUNT = 1 << 15
@@ -99,6 +107,14 @@ _ROW_FIXED = 7       # tie_hi, tie_lo, gid, member bits, zreq, unit, prio
 # instance); the kernel checks the real figures before it launches.
 SMEM_PER_BLOCK = 232_448
 STATIC_SMEM = 4_096
+# The cluster instances (csrc/commit_solve_cluster.cuh): C blocks of
+# THREADS a wave, C in CLUSTER_SIZES; the room kept for their static shared
+# arrays (9,744 B in ptxas' report); a thread owns at most MAX_ROWS nodes
+# of its block's slice.
+THREADS = 1024
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_STATIC_SMEM = 10_240
+MAX_ROWS = 32
 
 
 def mask_pitch(n_nodes: int) -> int:
@@ -125,7 +141,7 @@ def state_stride(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
     to 16, so every wave's planes are as aligned as the first wave's (an
     odd G * N leaves ``state_bytes`` 2 mod 4). Mirrors state_stride in
     csrc/commit_solve.cuh, which only batched waves (int16 counts) take;
-    a large wave's one buffer is sized here too."""
+    a cluster block's gang checkpoint region is sized here too."""
     return -(-state_bytes(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
              // 16) * 16
 
@@ -149,28 +165,144 @@ def member_words(G: int) -> int:
     return -(-G // 32) if G > 32 else 1
 
 
-def anchor_bytes(G: int, L: int) -> int:
-    """Bytes of a large wave's anchor block in dynamic shared memory: the
-    [G, L] anchors, the [G] has-anchor flags and their gang checkpoint,
-    none without affinity labels. Mirrors anchor_bytes in
-    csrc/commit_solve.cuh."""
-    return 4 * (2 * G * L + 2 * G) if L > 0 else 0
-
-
 def shared_layout(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
-                  res_bytes: int = 4, cnt_bytes: int = 2, L: int = 0
-                  ) -> Tuple[bool, int]:
-    """Where the kernel keeps one wave's node state -> (on_chip, bytes of
-    dynamic shared memory). The kernel always takes a two-row ring for the
-    static mask, and a large wave (``is_large``) its anchor block after
-    it; the state (``state_bytes``) joins them when all fit a block's
-    shared memory, and otherwise lives in a global buffer of the same
-    packed layout. Mirrors shared_bytes in csrc/commit_solve.cu."""
-    fixed = 2 * mask_pitch(N) + (anchor_bytes(G, L)
-                                 if is_large(N, G, cnt_bytes) else 0)
-    state = state_bytes(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+                  res_bytes: int = 4) -> Tuple[bool, int]:
+    """Where the one-block kernel keeps one wave's node state -> (on_chip,
+    bytes of dynamic shared memory). It always takes a two-row ring for
+    the static mask; the state (``state_bytes``, int16 counts) joins it
+    when both fit a block's shared memory, and otherwise lives in a global
+    buffer of the same packed layout. Mirrors shared_bytes in
+    csrc/commit_solve.cu. A large wave takes ``cluster_for``'s layout."""
+    fixed = 2 * mask_pitch(N)
+    state = state_bytes(N, R, Wp, Wd, G, B, res_bytes)
     on_chip = fixed + state <= SMEM_PER_BLOCK - STATIC_SMEM
     return on_chip, fixed + (state if on_chip else 0)
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def slice_nodes(N: int, C: int) -> int:
+    """Nodes of one block's slice on a cluster of C blocks: N / C rounded
+    up to 16; block b owns nodes [b S, b S + S) of [0, N). Mirrors
+    slice_nodes in csrc/commit_solve_cluster.cuh."""
+    return mask_pitch(-(-N // C))
+
+
+def slice_bytes(S: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
+                res_bytes: int = 4, cnt_bytes: int = 2) -> int:
+    """Bytes of one block's slice planes: the read-only cap and off [R, S]
+    in the resource type, then the packed state of S nodes. Mirrors
+    slice_bytes in csrc/commit_solve_cluster.cuh."""
+    return (2 * res_bytes * R * S
+            + state_bytes(S, R, Wp, Wd, G, B, res_bytes, cnt_bytes))
+
+
+def anchor_bytes(G: int, L: int) -> int:
+    """Bytes of a cluster block's anchor block in dynamic shared memory,
+    after the mask ring: the [G, L] anchors, the [G] has-anchor flags and
+    their gang checkpoint, rounded up to 16; none without affinity labels.
+    Mirrors anchor_bytes in csrc/commit_solve_cluster.cuh."""
+    return _round16(4 * (2 * G * L + 2 * G)) if L > 0 else 0
+
+
+def cluster_bytes(N: int, C: int, R: int, Wp: int, Wd: int, G: int,
+                  L: int = 0, B: int = 0, res_bytes: int = 4,
+                  cnt_bytes: int = 2, on_chip: bool = True) -> int:
+    """Dynamic shared memory of one block of a C-block cluster: the [2, S]
+    mask ring, the anchor block, and the slice planes when they live on
+    chip. Mirrors cluster_bytes in csrc/commit_solve_cluster.cuh."""
+    S = slice_nodes(N, C)
+    return (2 * S + anchor_bytes(G, L)
+            + (slice_bytes(S, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+               if on_chip else 0))
+
+
+def cluster_for(N: int, R: int, Wp: int, Wd: int, G: int, B: int = 0,
+                res_bytes: int = 4, cnt_bytes: int = 2, L: int = 0,
+                max_cluster: int = CLUSTER_SIZES[-1],
+                cluster: Optional[int] = None) -> Tuple[int, bool, int]:
+    """The thread-block cluster a large wave runs on -> (C, on_chip, bytes
+    of dynamic shared memory a block). C is the most blocks the card
+    schedules (``max_cluster``; 16 on an H100), or ``cluster`` where
+    given; the slices' planes live in each block's shared memory when
+    they fit it at that C, else in a global buffer (one region a block).
+    On the H100 every wave measured ran fastest at 16 blocks (PERF.md,
+    the cluster sweep): the slices shrink with C, and the cost of a
+    cluster barrier hardly grows. Mirrors what csrc/commit_solve.cu
+    checks (cluster_bytes)."""
+    if cluster is None:
+        sizes = [c for c in CLUSTER_SIZES if c <= max_cluster]
+        if not sizes:
+            raise RuntimeError("the card schedules no thread-block cluster "
+                               f"of {CLUSTER_SIZES[0]} or more blocks")
+        cluster = sizes[-1]
+    if cluster not in CLUSTER_SIZES \
+            or slice_nodes(N, cluster) > THREADS * MAX_ROWS:
+        raise ValueError(f"no cluster of {cluster} blocks for {N} nodes "
+                         f"(sizes {CLUSTER_SIZES}, at most "
+                         f"{THREADS * MAX_ROWS} nodes a block)")
+    args = (R, Wp, Wd, G, L, B, res_bytes, cnt_bytes)
+    on_chip = (cluster_bytes(N, cluster, *args, on_chip=True)
+               <= SMEM_PER_BLOCK - CLUSTER_STATIC_SMEM)
+    return cluster, on_chip, cluster_bytes(N, cluster, *args,
+                                           on_chip=on_chip)
+
+
+def cluster_ranks(best: np.ndarray, C: int) -> np.ndarray:
+    """The rank the cluster kernel gives each node of a [N] bool "best"
+    mask, -1 where it is not best: the sum of the counts of the blocks
+    before its own (layer 1), of the (row, warp) cells before its own in
+    the block, row-major (layer 2), and of the best lanes below its own
+    in its warp's ballot (layer 3). Local node j of a block is row j //
+    1024, warp j // 32 % 32, lane j % 32. Mirrors select_kth in
+    csrc/commit_solve_cluster.cuh."""
+    cells = _cells(best, C)                   # [C, rows, warps, lanes]
+    ballot = cells.astype(np.int64)
+    per_cell = ballot.sum(axis=3)             # popc of each ballot
+    per_block = per_cell.sum(axis=(1, 2))
+    before_block = np.cumsum(per_block) - per_block
+    flat = per_cell.reshape(C, -1)
+    before_cell = (np.cumsum(flat, axis=1) - flat).reshape(per_cell.shape)
+    below_lane = np.cumsum(ballot, axis=3) - ballot   # popc(b & lanemask_lt)
+    rank = (before_block[:, None, None, None] + before_cell[..., None]
+            + below_lane)
+    S = slice_nodes(len(best), C)
+    rank = np.where(cells, rank, -1).reshape(C, -1)[:, :S]
+    return rank.reshape(-1)[:len(best)]
+
+
+def cluster_pick(best: np.ndarray, C: int, k: int) -> int:
+    """The node the cluster kernel takes as the k-th best (0 <= k < the
+    number of best nodes), found as select_kth finds it: the block whose
+    count range holds k, then the (row, warp) cell, then the lane whose
+    popc(ballot & lanemask_lt) is what is left of k."""
+    cells = _cells(best, C)
+    per_cell = cells.sum(axis=3)
+    per_block = per_cell.sum(axis=(1, 2))
+    b = int(np.searchsorted(np.cumsum(per_block), k, side="right"))
+    k -= int(per_block[:b].sum())
+    flat = per_cell[b].reshape(-1)
+    cell = int(np.searchsorted(np.cumsum(flat), k, side="right"))
+    k -= int(flat[:cell].sum())
+    row, warp = divmod(cell, THREADS // 32)
+    lanes = np.flatnonzero(cells[b, row, warp])
+    return b * slice_nodes(len(best), C) + row * THREADS + warp * 32 \
+        + int(lanes[k])
+
+
+def _cells(best: np.ndarray, C: int) -> np.ndarray:
+    """A [N] mask laid out as the cluster kernel owns it: [C blocks, rows,
+    32 warps, 32 lanes], padded with False past N and past each slice."""
+    N = len(best)
+    S = slice_nodes(N, C)
+    rows = max(1, -(-S // THREADS))
+    padded = np.zeros(C * S, dtype=bool)
+    padded[:N] = best
+    out = np.zeros((C, rows * THREADS), dtype=bool)
+    out[:, :S] = padded.reshape(C, S)
+    return out.reshape(C, rows, THREADS // 32, 32)
 
 
 def _dims(ci: "CommitInputs"):
@@ -181,9 +313,20 @@ def _dims(ci: "CommitInputs"):
             ci.band.shape[0], ci.cap.element_size(), ci.count_bytes)
 
 
-def layout_of(ci: "CommitInputs") -> Tuple[bool, int]:
-    """``shared_layout`` of one prepared wave."""
-    return shared_layout(*_dims(ci), L=ci.affv.shape[0])
+def layout_of(ci: "CommitInputs", cluster: Optional[int] = None
+              ) -> Tuple[bool, int]:
+    """(on_chip, bytes of dynamic shared memory a block) of one prepared
+    wave, on the kernel that takes it: ``shared_layout`` for the one-block
+    instances, ``cluster_for`` for a large wave (at ``cluster`` blocks
+    where given, which also sends a wave of the one-block domain to the
+    cluster instances)."""
+    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
+    if cluster is None and not is_large(N, G, cnt_bytes):
+        return shared_layout(N, R, Wp, Wd, G, B, res_bytes)
+    _C, on_chip, nbytes = cluster_for(
+        N, R, Wp, Wd, G, B, res_bytes, cnt_bytes, ci.affv.shape[0],
+        _max_cluster(), cluster)
+    return on_chip, nbytes
 
 
 class CommitInputs(NamedTuple):
@@ -672,6 +815,11 @@ _SIGNATURES = {
                                 + [ctypes.c_int] * 23
                                 + [ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_void_p]),
+    "kgpu_commit_solve_cluster": (ctypes.c_int, [ctypes.c_void_p] * 24
+                                  + [ctypes.c_int] * 24
+                                  + [ctypes.c_longlong, ctypes.c_void_p]),
+    "kgpu_commit_solve_cluster_limit": (ctypes.c_int, [ctypes.c_int] * 3
+                                        + [ctypes.POINTER(ctypes.c_int)]),
     "kgpu_spread_eval": (ctypes.c_int, [ctypes.c_void_p] * 3
                          + [ctypes.c_longlong, ctypes.c_void_p]),
     "kgpu_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -755,15 +903,8 @@ _KERNEL_PLANES = ("smask", "podrow", "cap", "fit0", "off", "advx", "fitexc",
                   "anchor0", "has0", "zone", "ecap0", "ecnt0", "band", "bord")
 
 
-def launch_stacked(ci: CommitInputs, planes, batch: int):
-    """One launch of the kernel over ``batch`` waves shaped and flagged
-    like ``ci``, one block each; ``planes`` are the ``_KERNEL_PLANES`` as
-    [batch, ...] stacks (or ``ci``'s own for one wave) -> (chosen, win)
-    int32 [batch, P] on the card. A large wave (``is_large``) launches
-    alone. Raises when the launch is refused."""
-    dev = ci.smask.device
-    P = ci.smask.shape[0]
-    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
+def _check_domain(ci: CommitInputs) -> None:
+    N, R, Wp, Wd, G, B, _res_bytes, _cnt_bytes = _dims(ci)
     L, A = ci.affv.shape[0], ci.zone.shape[0]
     if (ci.podrow is None or N > MAX_N or R > MAX_R or Wp > MAX_W
             or Wd > MAX_W or G > MAX_G or L > MAX_L or A > MAX_A
@@ -772,15 +913,98 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
             f"wave outside the kernel's domain (N={N} R={R} Wp={Wp} "
             f"Wd={Wd} G={G} L={L} A={A} V={ci.V} B={B}); dispatch it with "
             f"eligible()")
-    if batch > 1 and is_large(N, G, cnt_bytes):
-        raise ValueError("a large wave launches alone (solve_commit_batch "
-                         "launches such waves one by one)")
+
+
+# the most blocks of a cluster the card schedules, once asked
+_card_cluster: Optional[int] = None
+
+
+def cluster_limit(lib=None) -> int:
+    """The largest thread-block cluster (16, 8, 4 or 2 blocks, each with
+    the most dynamic shared memory a block may have) the card schedules
+    for the cluster instances, asked once a process; raises if none."""
+    global _card_cluster
+    if _card_cluster is None:
+        lib = lib or _lib()
+        out = ctypes.c_int(0)
+        _check_launch(lib, lib.kgpu_commit_solve_cluster_limit(
+            4, 4, 1, ctypes.byref(out)), "cluster_limit")
+        if out.value < CLUSTER_SIZES[0]:
+            raise RuntimeError("the card schedules no thread-block cluster "
+                               "of the commit_solve cluster instances")
+        _card_cluster = out.value
+    return _card_cluster
+
+
+def _max_cluster() -> int:
+    """The cap on ``cluster_for``'s C when naming an instance or a layout:
+    the card's, once asked, else the largest size."""
+    return _card_cluster or CLUSTER_SIZES[-1]
+
+
+def launch_cluster(ci: CommitInputs, cluster: Optional[int] = None):
+    """One launch of the cluster kernel over one wave on a thread-block
+    cluster of ``cluster_for``'s C blocks (``cluster`` where given) ->
+    (chosen, win) int32 [P] on the card. Raises when the launch is
+    refused, a cluster of C blocks included: there is no smaller one to
+    fall back to."""
+    _check_domain(ci)
+    dev = ci.smask.device
+    P = ci.smask.shape[0]
+    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
+    lib = _lib()
+    C, on_chip, dyn_bytes = cluster_for(N, R, Wp, Wd, G, B, res_bytes,
+                                        cnt_bytes, L, cluster_limit(lib),
+                                        cluster)
+    S = slice_nodes(N, C)
+    # one region a block: the slice planes (global layout only) and the
+    # gang checkpoint of its state
+    gstate = (None if on_chip else torch.empty(
+        C * _round16(slice_bytes(S, R, Wp, Wd, G, B, res_bytes, cnt_bytes)),
+        dtype=torch.uint8, device=dev))
+    ckpt = (torch.empty(
+        C * state_stride(S, R, Wp, Wd, G, B, res_bytes, cnt_bytes),
+        dtype=torch.uint8, device=dev) if ci.flags & _GANGS else None)
+    chosen = torch.empty(P, dtype=torch.int32, device=dev)
+    win = torch.empty(P, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in ([getattr(ci, n) for n in _KERNEL_PLANES]
+                      + [gstate, ckpt, chosen, win])]
+    w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
+    rc = lib.kgpu_commit_solve_cluster(
+        *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B, res_bytes,
+        cnt_bytes, _row_words(ci), ci.flags, ci.w_lr, ci.w_spread,
+        ci.w_equal, *w_anti, C, int(on_chip), dyn_bytes, stream)
+    _check_launch(lib, rc, f"commit_solve on a cluster of {C} blocks "
+                  f"({dyn_bytes} B of dynamic shared memory a block)")
+    solve_commit.launches += 1
+    solve_commit.instances.add(instance_of(ci, cluster=C))
+    return chosen, win
+
+
+def launch_stacked(ci: CommitInputs, planes, batch: int):
+    """One launch of the one-block kernel over ``batch`` waves shaped and
+    flagged like ``ci``, one block each; ``planes`` are the
+    ``_KERNEL_PLANES`` as [batch, ...] stacks (or ``ci``'s own for one
+    wave) -> (chosen, win) int32 [batch, P] on the card. A large wave
+    (``is_large``) is refused: it runs on a cluster (``launch_cluster``).
+    Raises when the launch is refused."""
+    _check_domain(ci)
+    dev = ci.smask.device
+    P = ci.smask.shape[0]
+    N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
+    L, A = ci.affv.shape[0], ci.zone.shape[0]
+    if is_large(N, G, cnt_bytes):
+        raise ValueError("a large wave runs on a thread-block cluster "
+                         "(launch_cluster), one a launch")
     lib = _lib()
     on_chip, dyn_bytes = layout_of(ci)
     # the packed state planes (the kernel's layout, used when they do not
     # fit on chip) and the gang checkpoint, one more copy of them; one of
     # each per wave
-    nbytes = batch * state_stride(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes)
+    nbytes = batch * state_stride(N, R, Wp, Wd, G, B, res_bytes)
     gstate = (None if on_chip else
               torch.empty(nbytes, dtype=torch.uint8, device=dev))
     ckpt = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
@@ -805,16 +1029,20 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
 
 def _instance_name(res_bytes: int, N: int, R: int, Wp: int, Wd: int,
                    G: int, B: int, L: int, A: int, gang: bool, static: bool,
-                   batch: int, cnt_bytes: int = 2) -> str:
-    """Mirrors the dispatch of kgpu_commit_solve_batch in
-    csrc/commit_solve.cu: a large wave takes the large instances, int32
-    waves without bands the narrow ones, the others the wide ones
-    (extensions on, decided at run time)."""
-    on_chip, _ = shared_layout(N, R, Wp, Wd, G, B, res_bytes, cnt_bytes, L)
+                   batch: int, cnt_bytes: int = 2,
+                   cluster: Optional[int] = None) -> str:
+    """Mirrors the dispatch of csrc/commit_solve.cu: a large wave (or one
+    given a ``cluster``) takes the cluster instances, at cluster_for's C;
+    int32 waves without bands the narrow one-block instances, the others
+    the wide ones (extensions on, decided at run time)."""
     res = "int32" if res_bytes == 4 else "int64"
-    if is_large(N, G, cnt_bytes):
-        return (f"commit_solve_large<{res},counts{8 * cnt_bytes},"
-                f"{int(on_chip)}>")
+    if cluster is not None or is_large(N, G, cnt_bytes):
+        C, on_chip, _ = cluster_for(N, R, Wp, Wd, G, B, res_bytes,
+                                    cnt_bytes, L, _max_cluster(), cluster)
+        layout = "shared" if on_chip else "global"
+        return (f"commit_solve_large<{res},counts{8 * cnt_bytes},{layout},"
+                f"c{C}>")
+    on_chip, _ = shared_layout(N, R, Wp, Wd, G, B, res_bytes)
     if res_bytes == 4 and B == 0:
         pre, aff, anti = False, L > 0, A > 0
     else:
@@ -824,16 +1052,20 @@ def _instance_name(res_bytes: int, N: int, R: int, Wp: int, Wd: int,
     return f"commit_solve<{res},{bits}>"
 
 
-def instance_of(ci: CommitInputs, batch: int = 1) -> str:
+def instance_of(ci: CommitInputs, batch: int = 1,
+                cluster: Optional[int] = None) -> str:
     """The kernel instance a launch of ``batch`` waves shaped and flagged
     like ``ci`` takes, named as ptxas' report names it:
     ``commit_solve<int32|int64,pre,aff,anti,gang,static,shared,batch>``
-    with 0/1 flags, or for a large wave (one a launch)
-    ``commit_solve_large<int32|int64,counts16|counts32,shared>``."""
+    with 0/1 flags, or for a large wave (one a launch, or any wave given a
+    ``cluster``) ``commit_solve_large<int32|int64,counts16|counts32,
+    shared|global,cC>``, C the blocks of its cluster (a launch parameter:
+    ptxas names the instance without it)."""
     N, R, Wp, Wd, G, B, res_bytes, cnt_bytes = _dims(ci)
     return _instance_name(res_bytes, N, R, Wp, Wd, G, B, ci.affv.shape[0],
                           ci.zone.shape[0], bool(ci.flags & _GANGS),
-                          bool(ci.flags & _USE_STATIC), batch, cnt_bytes)
+                          bool(ci.flags & _USE_STATIC), batch, cnt_bytes,
+                          cluster)
 
 
 def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1,
@@ -850,12 +1082,15 @@ def instance_for(inp, pol: BatchPolicy, gangs: bool, batch: int = 1,
         count_bytes_for(peer_bound, inp.req.shape[0]))
 
 
-def solve_commit(ci: CommitInputs):
+def solve_commit(ci: CommitInputs, *, _cluster: Optional[int] = None):
     """Solve one wave -> (chosen[P], win[P]) int32: chosen node index or -1,
     the winning score, -1, or for a preempting placement
     PREEMPT_SCORE_BASE - its band slot. A CUDA wave launches the kernel (or
-    raises); a CPU wave runs the plain version. ``solve_commit.calls``
-    counts the calls, on either device."""
+    raises): a large wave on a thread-block cluster, the others on one
+    block. A CPU wave runs the plain version. ``solve_commit.calls``
+    counts the calls, on either device. ``_cluster`` runs a CUDA wave on
+    the cluster instances at that many blocks (2, 4, 8 or 16), for
+    checking and timing them at another size than the main path's."""
     _check(ci)
     # through the module's own reference, which a test's stand-in for
     # ``solve_commit`` does not replace
@@ -865,6 +1100,9 @@ def solve_commit(ci: CommitInputs):
         return solve_commit_reference(ci)
     if dev.type != "cuda":
         raise ValueError(f"solve_commit runs on cuda or cpu, not {dev}")
+    N, _R, _Wp, _Wd, G, _B, _rb, cnt_bytes = _dims(ci)
+    if _cluster is not None or is_large(N, G, cnt_bytes):
+        return launch_cluster(ci, _cluster)
     chosen, win = launch_stacked(
         ci, [getattr(ci, n) for n in _KERNEL_PLANES], 1)
     return chosen[0], win[0]
@@ -895,8 +1133,8 @@ def solve_commit_batch(cis):
     axis; each launch counts once in ``solve_commit.launches``, and a
     launch of two or more waves (the batched instances) in
     ``solve_commit_batch.launches`` too. A key with one wave takes the
-    single-wave instance, and a large wave (``is_large``, which has no
-    batched instance) launches alone. On the CPU each wave goes through
+    single-wave instance, and a large wave (``is_large``) launches alone
+    on a thread-block cluster. On the CPU each wave goes through
     ``solve_commit``, the plain version."""
     cis = list(cis)
     for ci in cis:
@@ -913,13 +1151,14 @@ def solve_commit_batch(cis):
     if dev.type != "cuda":
         raise ValueError(f"solve_commit_batch runs on cuda or cpu, not {dev}")
     groups: dict = {}
+    out: list = [None] * len(cis)
     for i, ci in enumerate(cis):
         N, _R, _Wp, _Wd, G, _B, _rb, cnt_bytes = _dims(ci)
-        # a large wave has no batched instance: a launch each
-        key = (launch_key(ci), i) if is_large(N, G, cnt_bytes) \
-            else launch_key(ci)
-        groups.setdefault(key, []).append(i)
-    out: list = [None] * len(cis)
+        if is_large(N, G, cnt_bytes):
+            # no batched instance: a cluster launch each
+            out[i] = launch_cluster(ci)
+        else:
+            groups.setdefault(launch_key(ci), []).append(i)
     for idx in groups.values():
         chosen, win = launch_stacked(
             cis[idx[0]], stack_planes([cis[i] for i in idx]), len(idx))

@@ -5,9 +5,11 @@ alone, or the whole wave.
 Encodes the shape's wave (fixtures.FULL_SHAPES, under the shape's JSON
 Policy where it has one; ``north_star_dec`` takes the int64 instances,
 ``priority`` the preemption branch, ``planet`` and ``services64`` the
-large-cluster instances). By default it prepares the kernel's inputs on
+cluster instances). By default it prepares the kernel's inputs on
 the card and times ``solve_commit`` with CUDA events: one warm-up launch,
-then the median of ``--runs`` launches. With ``--wave`` it times the whole
+then the median of ``--runs`` launches. With ``--cluster C`` the launches
+run on the cluster instances at C blocks (2, 4, 8 or 16), whatever
+instance the main path gives the wave. With ``--wave`` it times the whole
 wave as a user runs it, on the host clock: encode_snapshot, solve and
 decisions_to_names, one warm-up wave, then ``--runs`` waves. With
 ``--batch K`` it times one batched launch over K stacked copies of the
@@ -92,6 +94,9 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=0,
                     help="time one batched launch over this many copies "
                          "of the wave")
+    ap.add_argument("--cluster", type=int, default=None,
+                    help="launch on the cluster instances at this many "
+                         "blocks")
     args = ap.parse_args()
 
     import torch
@@ -128,16 +133,22 @@ def main() -> int:
             run = lambda: commit_solver.launch_stacked(  # noqa: E731
                 ci, planes, args.batch)
             out["batch"] = args.batch
+        elif args.cluster:
+            run = lambda: commit_solver.solve_commit(  # noqa: E731
+                ci, _cluster=args.cluster)
         else:
             run = lambda: commit_solver.solve_commit(ci)  # noqa: E731
         run()                                           # build and warm up
         ms, runs, _ = event_ms(run, args.runs)
-        on_chip, _ = commit_solver.layout_of(ci)
+        if args.cluster:
+            on_chip, _ = commit_solver.layout_of(ci, args.cluster)
+            instance = commit_solver.instance_of(ci, cluster=args.cluster)
+        else:
+            on_chip, _ = commit_solver.layout_of(ci)
+            instance = commit_solver.instance_of(ci, args.batch or 1)
         out.update({"kernel_ms": ms, "kernel_ms_runs": runs,
                     "resource_type": str(ci.cap.dtype).split(".")[-1],
-                    "bands": ci.band.shape[0],
-                    "instance": commit_solver.instance_of(
-                        ci, args.batch or 1),
+                    "bands": ci.band.shape[0], "instance": instance,
                     "layout": "shared" if on_chip else "global"})
     out["card"] = card_line()
     print(json.dumps(out))

@@ -236,27 +236,35 @@ def test_state_bytes_and_layout_with_int32_counts():
     assert c32 - c16 == 2 * G * N
     assert commit_solver.state_stride(N, R, Wp, Wd, G, 0, 4, 4) == \
         -(-c32 // 16) * 16
-    # north_star's widths with int32 counts take the large instance, whose
-    # state no longer fits on chip (250,016 B)
+    # north_star's widths with int32 counts take the cluster instances:
+    # 16 blocks of 320 nodes, each slice (cap, off and the state, 64 B a
+    # node) on chip after its [2, 320] mask ring
     assert commit_solver.is_large(N, G, 4)
-    on_chip, nbytes = commit_solver.shared_layout(N, R, Wp, Wd, G, 0, 4, 4)
-    assert not on_chip and nbytes == 2 * commit_solver.mask_pitch(N)
-    # on 2,000 nodes it does (and no anchor block without labels)
-    n = 2_000
-    small = commit_solver.state_bytes(n, R, Wp, Wd, G, 0, 4, 4)
-    on_chip, nbytes = commit_solver.shared_layout(n, R, Wp, Wd, G, 0, 4, 4)
-    assert on_chip and nbytes == 2 * n + small
+    S = commit_solver.slice_nodes(N, 16)
+    assert S == 320
+    sl = commit_solver.slice_bytes(S, R, Wp, Wd, G, 0, 4, 4)
+    assert sl == 2 * 4 * R * S + commit_solver.state_bytes(S, R, Wp, Wd, G,
+                                                           0, 4, 4)
+    assert commit_solver.cluster_for(N, R, Wp, Wd, G, 0, 4, 4) == \
+        (16, True, 2 * S + sl)
     # with two affinity labels the anchor block follows the mask ring
-    on_chip, nbytes = commit_solver.shared_layout(n, R, Wp, Wd, G, 0, 4, 4,
-                                                  L=2)
-    assert on_chip and nbytes == 2 * n + 4 * (2 * G * 2 + 2 * G) + small
-    # 64 groups of int32 counts over 5,000 nodes: global memory
-    on_chip, nbytes = commit_solver.shared_layout(N, R, Wp, Wd, 64, 0, 4, 4)
-    assert not on_chip and nbytes == 2 * commit_solver.mask_pitch(N)
-    # the planet shape: 40,000 nodes, int32 counts, global memory
-    on_chip, nbytes = commit_solver.shared_layout(40_000, 2, 1, 1, 8, 0, 4,
-                                                  4)
-    assert not on_chip and nbytes == 80_000
+    anchors = -(-4 * (2 * G * 2 + 2 * G) // 16) * 16
+    assert commit_solver.cluster_for(N, R, Wp, Wd, G, 0, 4, 4, L=2) == \
+        (16, True, 2 * S + anchors + sl)
+    # on two blocks (2,512 nodes each) the slices still fit
+    S = commit_solver.slice_nodes(N, 2)
+    assert commit_solver.cluster_for(N, R, Wp, Wd, G, 0, 4, 4,
+                                     cluster=2) == \
+        (2, True, 2 * S + commit_solver.slice_bytes(S, R, Wp, Wd, G, 0, 4,
+                                                    4))
+    # 64 groups of int32 counts on two blocks do not: global memory
+    assert commit_solver.cluster_for(N, R, Wp, Wd, 64, 0, 4, 4,
+                                     cluster=2) == (2, False, 2 * S)
+    # the planet shape: 40,000 nodes, int32 counts, 16 slices of 2,512
+    S = commit_solver.slice_nodes(40_000, 16)
+    assert S == 2_512
+    assert commit_solver.cluster_for(40_000, 2, 1, 1, 8, 0, 4, 4) == \
+        (16, True, 2 * S + commit_solver.slice_bytes(S, 2, 1, 1, 8, 0, 4, 4))
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_launching():

@@ -111,7 +111,8 @@ def test_chip_smoke_large_phase_runs_on_the_cpu_at_a_small_size():
         count_launches=False)
     s64 = lg["waves"]["services64"]
     assert s64["groups"] == 64 and s64["max_abs_err"] == 0
-    assert s64["instance"] == "commit_solve_large<int32,counts16,1>"
+    assert s64["instance"] == \
+        "commit_solve_large<int32,counts16,shared,c16>"
     assert lg["waves"]["planet"]["bound_pods"] == 200
     loop = lg["loop"]
     assert [w["path"] for w in loop["waves"]] == ["full", "delta", "delta"]
