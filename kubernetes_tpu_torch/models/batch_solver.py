@@ -50,6 +50,7 @@ from kubernetes_tpu_torch.models import gang
 from kubernetes_tpu_torch.models.policy import BatchPolicy
 from kubernetes_tpu_torch.models.snapshot import ClusterSnapshot
 from kubernetes_tpu_torch.ops import commit_solver
+from kubernetes_tpu_torch.util import tracing
 
 __all__ = ["SolverInputs", "snapshot_to_host_inputs", "snapshot_to_inputs",
            "ship_inputs", "solve_scan", "solve_device", "solve",
@@ -351,7 +352,8 @@ def solve(snap: ClusterSnapshot, host: Optional[SolverInputs] = None,
     first device, and shards the rest. Decisions are identical either
     way; the gang post-pass is applied here on both paths."""
     if host is None:
-        host = snapshot_to_host_inputs(snap)
+        with tracing.span("solve.host_inputs"):
+            host = snapshot_to_host_inputs(snap)
     has_gangs = snap.has_gangs
     if mesh is not None and int(host.cap.shape[0]) >= _mesh_min_nodes():
         from kubernetes_tpu_torch.parallel.mesh import solve_sharded
@@ -359,11 +361,13 @@ def solve(snap: ClusterSnapshot, host: Optional[SolverInputs] = None,
                                        gangs=has_gangs,
                                        peer_bound=peer_bound_of(snap))
     else:
-        inp = ship_inputs(host, resolve_device(device))
+        with tracing.span("solve.ship"):
+            inp = ship_inputs(host, resolve_device(device))
         chosen, scores = solve_device(inp, snap.policy, has_gangs,
                                       peer_bound_of(snap))
-        # one device -> host readback
-        both = torch.stack([chosen, scores]).cpu().numpy()
+        # one device -> host readback: the host waits here for the kernel
+        with tracing.span("solve.readback"):
+            both = torch.stack([chosen, scores]).cpu().numpy()
         chosen, scores = both[0], both[1]
     if has_gangs:
         chosen = gang.apply_all_or_nothing(snap.pod_rid, chosen)

@@ -40,6 +40,7 @@ from kubernetes_tpu_torch.scheduler.generic import (
     FNV64_PRIME,
     pod_tie_break_key,
 )
+from kubernetes_tpu_torch.util import tracing
 
 __all__ = ["ClusterSnapshot", "encode_snapshot", "greedy_fit_accumulators"]
 
@@ -181,12 +182,13 @@ def encode_snapshot(nodes: Sequence[api.Node],
     and must match what the serial oracle sees."""
     policy = policy or DEFAULT_BATCH_POLICY
     N, P, E = len(nodes), len(pending_pods), len(existing_pods)
-    node_index = {n.metadata.name: i for i, n in enumerate(nodes)}
 
     # -- capacities: R-dimensional planes -----------------------------------
     # scored dims (cpu, memory, node-advertised extras) first; dims only
     # requested by pods are appended: they constrain but never score
-    scored = _preds.resource_universe(nodes)
+    with tracing.span("encode.nodes", nodes=N):
+        node_index = {n.metadata.name: i for i, n in enumerate(nodes)}
+        scored = _preds.resource_universe(nodes)
     seen = set(scored)
     request_only: List[str] = []
     CPU = api.ResourceCPU
@@ -236,19 +238,22 @@ def encode_snapshot(nodes: Sequence[api.Node],
             ports.append(pr)
         return limits, ports
 
-    pend_limits, pend_ports = container_rows(pending_pods)
-    exist_limits, exist_ports = container_rows(existing_pods)
+    with tracing.span("encode.pending", pods=P):
+        pend_limits, pend_ports = container_rows(pending_pods)
+    with tracing.span("encode.residents", pods=E):
+        exist_limits, exist_ports = container_rows(existing_pods)
     resource_names = scored + sorted(request_only)
     R = len(resource_names)
     rindex = {name: r for r, name in enumerate(resource_names)}
-    cap = np.zeros((N, R), np.int64)
-    advertised = np.zeros((N, R), bool)
-    for i, n in enumerate(nodes):
-        for name, q in (n.spec.capacity or {}).items():
-            r = rindex.get(name)
-            if r is not None:
-                cap[i, r] = _preds.resource_value(name, q)
-                advertised[i, r] = True
+    with tracing.span("encode.nodes", nodes=N):
+        cap = np.zeros((N, R), np.int64)
+        advertised = np.zeros((N, R), bool)
+        for i, n in enumerate(nodes):
+            for name, q in (n.spec.capacity or {}).items():
+                r = rindex.get(name)
+                if r is not None:
+                    cap[i, r] = _preds.resource_value(name, q)
+                    advertised[i, r] = True
 
     # -- service selector vocabulary ----------------------------------------
     services = list(services)
@@ -267,128 +272,131 @@ def encode_snapshot(nodes: Sequence[api.Node],
             sv_ij.append((si, intern(svc_vocab, kv)))
 
     # -- pending pods: one Python pass pulls every field --------------------
-    port_vocab: Dict[int, int] = {}
-    sel_vocab: Dict[Tuple[str, str], int] = {}
-    pd_vocab: Dict[str, int] = {}
+    with tracing.span("encode.pending", pods=P):
+        port_vocab: Dict[int, int] = {}
+        sel_vocab: Dict[Tuple[str, str], int] = {}
+        pd_vocab: Dict[str, int] = {}
 
-    req = np.zeros((P, R), np.int64)
-    pod_host_idx = np.full(P, -1, np.int32)
-    pod_prio = np.zeros(P, np.int32)
-    pod_can_preempt = np.ones(P, bool)
-    pod_names: List[str] = []
-    pp_ij: List[Tuple[int, int]] = []   # (pod, port-vocab)
-    ps_ij: List[Tuple[int, int]] = []   # (pod, selector-vocab)
-    pg_ij: List[Tuple[int, int]] = []   # (pod, pd-vocab)
-    pf_ij: List[Tuple[int, int]] = []   # (pod, service-selector-vocab)
-    pod_ns = np.zeros(P, np.int32)
-    for j, p in enumerate(pending_pods):
-        meta, spec = p.metadata, p.spec
-        pod_names.append(f"{meta.namespace}/{meta.name}")
-        pod_ns[j] = intern(ns_codes, meta.namespace)
-        for kv in (meta.labels or {}).items():
-            t = svc_vocab.get(kv)
-            if t is not None:
-                pf_ij.append((j, t))
-        for name, val in pend_limits[j]:
-            req[j, rindex[name]] += val
-        for hp in pend_ports[j]:
-            pp_ij.append((j, intern(port_vocab, hp)))
-        for kv in (spec.node_selector or {}).items():
-            ps_ij.append((j, intern(sel_vocab, kv)))
-        for v in spec.volumes:
-            if v.source.gce_persistent_disk is not None:
-                pg_ij.append((j, intern(pd_vocab,
-                                        v.source.gce_persistent_disk.pd_name)))
-        if spec.host:
-            pod_host_idx[j] = node_index.get(spec.host, -2)
-        pod_prio[j] = api.pod_priority(p)
-        pod_can_preempt[j] = api.pod_can_preempt(p)
-    pod_rid, pod_run_start = gang.pod_run_ids(pending_pods)
-    tie = _fnv1a64_batch([pod_tie_break_key(p) for p in pending_pods])
-    tie_hi = (tie >> np.uint64(32)).astype(np.int64)
-    tie_lo = (tie & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        req = np.zeros((P, R), np.int64)
+        pod_host_idx = np.full(P, -1, np.int32)
+        pod_prio = np.zeros(P, np.int32)
+        pod_can_preempt = np.ones(P, bool)
+        pod_names: List[str] = []
+        pp_ij: List[Tuple[int, int]] = []   # (pod, port-vocab)
+        ps_ij: List[Tuple[int, int]] = []   # (pod, selector-vocab)
+        pg_ij: List[Tuple[int, int]] = []   # (pod, pd-vocab)
+        pf_ij: List[Tuple[int, int]] = []   # (pod, service-selector-vocab)
+        pod_ns = np.zeros(P, np.int32)
+        for j, p in enumerate(pending_pods):
+            meta, spec = p.metadata, p.spec
+            pod_names.append(f"{meta.namespace}/{meta.name}")
+            pod_ns[j] = intern(ns_codes, meta.namespace)
+            for kv in (meta.labels or {}).items():
+                t = svc_vocab.get(kv)
+                if t is not None:
+                    pf_ij.append((j, t))
+            for name, val in pend_limits[j]:
+                req[j, rindex[name]] += val
+            for hp in pend_ports[j]:
+                pp_ij.append((j, intern(port_vocab, hp)))
+            for kv in (spec.node_selector or {}).items():
+                ps_ij.append((j, intern(sel_vocab, kv)))
+            for v in spec.volumes:
+                if v.source.gce_persistent_disk is not None:
+                    pg_ij.append((j, intern(
+                        pd_vocab, v.source.gce_persistent_disk.pd_name)))
+            if spec.host:
+                pod_host_idx[j] = node_index.get(spec.host, -2)
+            pod_prio[j] = api.pod_priority(p)
+            pod_can_preempt[j] = api.pod_can_preempt(p)
+        pod_rid, pod_run_start = gang.pod_run_ids(pending_pods)
+        tie = _fnv1a64_batch([pod_tie_break_key(p) for p in pending_pods])
+        tie_hi = (tie >> np.uint64(32)).astype(np.int64)
+        tie_lo = (tie & np.uint64(0xFFFFFFFF)).astype(np.int64)
 
-    # pow-2 buckets on every vocabulary axis
-    K = _pow2_pad(len(port_vocab))
-    K2 = _pow2_pad(len(sel_vocab))
-    K3 = _pow2_pad(len(pd_vocab))
+        # pow-2 buckets on every vocabulary axis
+        K = _pow2_pad(len(port_vocab))
+        K2 = _pow2_pad(len(sel_vocab))
+        K3 = _pow2_pad(len(pd_vocab))
 
-    def scatter_true(pairs, rows, cols) -> np.ndarray:
-        out = np.zeros((rows, cols), bool)
-        if pairs:
-            idx = np.asarray(pairs, np.int64)
-            out[idx[:, 0], idx[:, 1]] = True
-        return out
+        def scatter_true(pairs, rows, cols) -> np.ndarray:
+            out = np.zeros((rows, cols), bool)
+            if pairs:
+                idx = np.asarray(pairs, np.int64)
+                out[idx[:, 0], idx[:, 1]] = True
+            return out
 
-    pod_ports = scatter_true(pp_ij, P, K)
-    pod_sel = scatter_true(ps_ij, P, K2)
-    pod_pds = scatter_true(pg_ij, P, K3)
+        pod_ports = scatter_true(pp_ij, P, K)
+        pod_sel = scatter_true(ps_ij, P, K2)
+        pod_pds = scatter_true(pg_ij, P, K3)
 
-    node_sel = np.zeros((N, K2), bool)
-    for i, n in enumerate(nodes):
-        for kv in (n.metadata.labels or {}).items():
-            k = sel_vocab.get(kv)
-            if k is not None:
-                node_sel[i, k] = True
+    with tracing.span("encode.nodes", nodes=N):
+        node_sel = np.zeros((N, K2), bool)
+        for i, n in enumerate(nodes):
+            for kv in (n.metadata.labels or {}).items():
+                k = sel_vocab.get(kv)
+                if k is not None:
+                    node_sel[i, k] = True
 
     # -- existing pods: one Python pass, then bulk accumulation -------------
-    e_host = np.full(E, N, np.int64)      # N = unknown/unassigned slot
-    e_req = np.zeros((E, R), np.int64)
-    e_prio = np.zeros(E, np.int32)
-    np_ij: List[Tuple[int, int]] = []     # (node, port-vocab)
-    nd_ij: List[Tuple[int, int]] = []     # (node, pd-vocab)
-    ef_ij: List[Tuple[int, int]] = []     # (pod, service-selector-vocab)
-    e_ns = np.full(E, -9, np.int32)       # unseen namespaces can't match
-    for e, p in enumerate(existing_pods):
-        meta = p.metadata
-        code = ns_codes.get(meta.namespace)
-        if code is not None:
-            e_ns[e] = code
-        for kv in (meta.labels or {}).items():
-            t = svc_vocab.get(kv)
-            if t is not None:
-                ef_ij.append((e, t))
-        i = node_index.get(p.status.host, -1)
-        e_prio[e] = api.pod_priority(p)
-        for name, val in exist_limits[e]:
-            e_req[e, rindex[name]] += val
-        if i < 0:
-            continue
-        for hp in exist_ports[e]:
-            k = port_vocab.get(hp)
-            if k is not None:
-                np_ij.append((i, k))
-        e_host[e] = i
-        for v in p.spec.volumes:
-            if v.source.gce_persistent_disk is not None:
-                k = pd_vocab.get(v.source.gce_persistent_disk.pd_name)
+    with tracing.span("encode.residents", pods=E):
+        e_host = np.full(E, N, np.int64)      # N = unknown/unassigned slot
+        e_req = np.zeros((E, R), np.int64)
+        e_prio = np.zeros(E, np.int32)
+        np_ij: List[Tuple[int, int]] = []     # (node, port-vocab)
+        nd_ij: List[Tuple[int, int]] = []     # (node, pd-vocab)
+        ef_ij: List[Tuple[int, int]] = []     # (pod, service-selector-vocab)
+        e_ns = np.full(E, -9, np.int32)       # unseen namespaces can't match
+        for e, p in enumerate(existing_pods):
+            meta = p.metadata
+            code = ns_codes.get(meta.namespace)
+            if code is not None:
+                e_ns[e] = code
+            for kv in (meta.labels or {}).items():
+                t = svc_vocab.get(kv)
+                if t is not None:
+                    ef_ij.append((e, t))
+            i = node_index.get(p.status.host, -1)
+            e_prio[e] = api.pod_priority(p)
+            for name, val in exist_limits[e]:
+                e_req[e, rindex[name]] += val
+            if i < 0:
+                continue
+            for hp in exist_ports[e]:
+                k = port_vocab.get(hp)
                 if k is not None:
-                    nd_ij.append((i, k))
+                    np_ij.append((i, k))
+            e_host[e] = i
+            for v in p.spec.volumes:
+                if v.source.gce_persistent_disk is not None:
+                    k = pd_vocab.get(v.source.gce_persistent_disk.pd_name)
+                    if k is not None:
+                        nd_ij.append((i, k))
 
-    node_ports = scatter_true(np_ij, N, K)
-    node_pds = scatter_true(nd_ij, N, K3)
+        node_ports = scatter_true(np_ij, N, K)
+        node_pds = scatter_true(nd_ij, N, K3)
 
-    on_node = e_host < N
-    score_used = np.zeros((N, R), np.int64)
-    np.add.at(score_used, e_host[on_node], e_req[on_node])
+        on_node = e_host < N
+        score_used = np.zeros((N, R), np.int64)
+        np.add.at(score_used, e_host[on_node], e_req[on_node])
 
-    fit_used, fit_exceeded = greedy_fit_accumulators(
-        cap, score_used, zip(e_host.tolist(), e_req))
+        fit_used, fit_exceeded = greedy_fit_accumulators(
+            cap, score_used, zip(e_host.tolist(), e_req))
 
-    # -- preemption emit gate: bands ship only when some pending pod sits
-    # strictly above some resident priority
-    band_vals = sorted({int(v) for v, on in zip(e_prio, on_node) if on})
-    if band_vals and P and \
-            int(pod_prio.max(initial=-(2**31))) > band_vals[0]:
-        B = _pow2_pad(len(band_vals), minimum=2)
-        band_prio = np.full(B, _preempt.BAND_EMPTY, np.int32)
-        band_prio[:len(band_vals)] = band_vals
-        evict_cap, evict_cnt = _preempt.derive_evict_planes(
-            e_host, e_prio, e_req, band_prio, N)
-    else:
-        band_prio = np.zeros(0, np.int32)
-        evict_cap = np.zeros((N, 0, R), np.int64)
-        evict_cnt = np.zeros((N, 0), np.int32)
+        # -- preemption emit gate: bands ship only when some pending pod sits
+        # strictly above some resident priority
+        band_vals = sorted({int(v) for v, on in zip(e_prio, on_node) if on})
+        if band_vals and P and \
+                int(pod_prio.max(initial=-(2**31))) > band_vals[0]:
+            B = _pow2_pad(len(band_vals), minimum=2)
+            band_prio = np.full(B, _preempt.BAND_EMPTY, np.int32)
+            band_prio[:len(band_vals)] = band_vals
+            evict_cap, evict_cnt = _preempt.derive_evict_planes(
+                e_host, e_prio, e_req, band_prio, N)
+        else:
+            band_prio = np.zeros(0, np.int32)
+            evict_cap = np.zeros((N, 0, R), np.int64)
+            evict_cnt = np.zeros((N, 0), np.int32)
 
     # -- service groups ----------------------------------------------------
     # group = (namespace, FIRST service whose selector matches the pod),
@@ -412,17 +420,20 @@ def encode_snapshot(nodes: Sequence[api.Node],
     group_ids: Dict[Tuple[int, int], int] = {}   # (ns_code, svc_idx) -> gid
     pod_gid = np.full(P, -1, np.int32)
     if S and P:
-        hits = feat_matrix(pf_ij, P) @ svc_req.astype(np.float32).T  # [P, S]
-        subset_pending = hits == req_cnt[None, :]
-        eligible = subset_pending & (req_cnt[None, :] > 0) & \
-            ((svc_ns[None, :] == -1) | (svc_ns[None, :] == pod_ns[:, None]))
-        has_svc = eligible.any(axis=1)
-        first_svc = np.argmax(eligible, axis=1)
-        for j in np.nonzero(has_svc)[0]:
-            key = (int(pod_ns[j]), int(first_svc[j]))
-            if key not in group_ids:
-                group_ids[key] = len(group_ids)
-            pod_gid[j] = group_ids[key]
+        with tracing.span("encode.pending", pods=P):
+            hits = (feat_matrix(pf_ij, P)
+                    @ svc_req.astype(np.float32).T)             # [P, S]
+            subset_pending = hits == req_cnt[None, :]
+            eligible = subset_pending & (req_cnt[None, :] > 0) & \
+                ((svc_ns[None, :] == -1)
+                 | (svc_ns[None, :] == pod_ns[:, None]))
+            has_svc = eligible.any(axis=1)
+            first_svc = np.argmax(eligible, axis=1)
+            for j in np.nonzero(has_svc)[0]:
+                key = (int(pod_ns[j]), int(first_svc[j]))
+                if key not in group_ids:
+                    group_ids[key] = len(group_ids)
+                pod_gid[j] = group_ids[key]
 
     G_real = len(group_ids)
     G = _pow2_pad(max(1, G_real))
@@ -436,87 +447,92 @@ def encode_snapshot(nodes: Sequence[api.Node],
         pod_group_member[:, :G_real] = subset_pending[:, g_si] & \
             (pod_ns[:, None] == g_ns[None, :])
         if E:
-            e_hits = feat_matrix(ef_ij, E) @ svc_req.astype(np.float32).T
-            member_exist = (e_hits == req_cnt[None, :])[:, g_si] & \
-                (e_ns[:, None] == g_ns[None, :])                 # [E, G_real]
-            for g in range(G_real):
-                mask = member_exist[:, g]
-                if mask.any():
-                    group_counts[g, :] = np.bincount(
-                        e_host[mask], minlength=N + 1).astype(np.int32)
-                    # the anchor is the first existing peer in list order
-                    a = int(e_host[int(np.argmax(mask))])
-                    if a < N:
-                        anchor_node[g] = a
-                    else:
-                        anchor_unknown[g] = True
+            with tracing.span("encode.residents", pods=E):
+                e_hits = feat_matrix(ef_ij, E) @ svc_req.astype(np.float32).T
+                member_exist = (e_hits == req_cnt[None, :])[:, g_si] & \
+                    (e_ns[:, None] == g_ns[None, :])             # [E, G_real]
+                for g in range(G_real):
+                    mask = member_exist[:, g]
+                    if mask.any():
+                        group_counts[g, :] = np.bincount(
+                            e_host[mask], minlength=N + 1).astype(np.int32)
+                        # the anchor is the first existing peer in list order
+                        a = int(e_host[int(np.argmax(mask))])
+                        if a < N:
+                            anchor_node[g] = a
+                        else:
+                            anchor_unknown[g] = True
 
     # cordon: spec.unschedulable is structural (the always-on Schedulable
     # predicate), folded into the static node mask before the policy's
     # CheckNodeLabelPresence
-    extra_ok = (node_extra_ok.copy() if node_extra_ok is not None
-                else np.ones(N, bool))
-    for i, n in enumerate(nodes):
-        if n.spec.unschedulable:
-            extra_ok[i] = False
-    if policy.label_presence:
+    with tracing.span("encode.nodes", nodes=N):
+        extra_ok = (node_extra_ok.copy() if node_extra_ok is not None
+                    else np.ones(N, bool))
         for i, n in enumerate(nodes):
-            lbls = n.metadata.labels or {}
-            for labels, presence in policy.label_presence:
-                if any((label in lbls) != presence for label in labels):
-                    extra_ok[i] = False
-                    break
+            if n.spec.unschedulable:
+                extra_ok[i] = False
+        if policy.label_presence:
+            for i, n in enumerate(nodes):
+                lbls = n.metadata.labels or {}
+                for labels, presence in policy.label_presence:
+                    if any((label in lbls) != presence for label in labels):
+                        extra_ok[i] = False
+                        break
 
-    # NodeLabelPriority: a static additive score per node
-    score_static = np.zeros(N, np.int32)
-    if policy.label_prefs:
-        for i, n in enumerate(nodes):
-            lbls = n.metadata.labels or {}
-            score_static[i] = sum(
-                10 * weight for label, presence, weight in policy.label_prefs
-                if (label in lbls) == presence)
+        # NodeLabelPriority: a static additive score per node
+        score_static = np.zeros(N, np.int32)
+        if policy.label_prefs:
+            for i, n in enumerate(nodes):
+                lbls = n.metadata.labels or {}
+                score_static[i] = sum(
+                    10 * weight
+                    for label, presence, weight in policy.label_prefs
+                    if (label in lbls) == presence)
 
-    # ServiceAffinity: per-label value codes and each group's anchor
-    L = len(policy.affinity_labels)
-    node_aff_vals = np.full((N, L), -1, np.int32)
-    pod_aff_static = np.full((P, L), -2, np.int32)
-    anchor_vals0 = np.full((G, L), -3, np.int32)
-    has_anchor0 = np.zeros(G, bool)
-    if L:
-        for li, label in enumerate(policy.affinity_labels):
-            vocab: Dict[str, int] = {}
+        # ServiceAffinity: per-label value codes and each group's anchor
+        L = len(policy.affinity_labels)
+        node_aff_vals = np.full((N, L), -1, np.int32)
+        pod_aff_static = np.full((P, L), -2, np.int32)
+        anchor_vals0 = np.full((G, L), -3, np.int32)
+        has_anchor0 = np.zeros(G, bool)
+        if L:
+            for li, label in enumerate(policy.affinity_labels):
+                vocab: Dict[str, int] = {}
+                for i, n in enumerate(nodes):
+                    v = (n.metadata.labels or {}).get(label)
+                    if v is not None:
+                        node_aff_vals[i, li] = intern(vocab, v)
+                for j, p in enumerate(pending_pods):
+                    v = (p.spec.node_selector or {}).get(label)
+                    if v is not None:
+                        pod_aff_static[j, li] = intern(vocab, v)
+            has_anchor0[:] = (anchor_node >= 0) | anchor_unknown
+            ok = anchor_node >= 0
+            anchor_vals0[ok] = node_aff_vals[anchor_node[ok]]
+            # a pod that consults an anchor on an unknown host fails its
+            # schedule() serially (predicates.go:238-324) and is requeued: an
+            # impossible pinned code makes exactly those pods infeasible
+            if anchor_unknown.any():
+                needs_anchor = ((pod_gid >= 0)
+                                & (pod_aff_static == -2).any(axis=1))
+                for j in np.nonzero(needs_anchor)[0]:
+                    if anchor_unknown[pod_gid[j]]:
+                        pod_aff_static[j, 0] = -100
+
+        # ServiceAntiAffinity: per-label zone codes
+        A = len(policy.anti_affinity)
+        node_zone = np.full((A, N), -1, np.int32)
+        for a, (label, _w) in enumerate(policy.anti_affinity):
+            vocab = {}
             for i, n in enumerate(nodes):
                 v = (n.metadata.labels or {}).get(label)
                 if v is not None:
-                    node_aff_vals[i, li] = intern(vocab, v)
-            for j, p in enumerate(pending_pods):
-                v = (p.spec.node_selector or {}).get(label)
-                if v is not None:
-                    pod_aff_static[j, li] = intern(vocab, v)
-        has_anchor0[:] = (anchor_node >= 0) | anchor_unknown
-        ok = anchor_node >= 0
-        anchor_vals0[ok] = node_aff_vals[anchor_node[ok]]
-        # a pod that consults an anchor on an unknown host fails its
-        # schedule() serially (predicates.go:238-324) and is requeued: an
-        # impossible pinned code makes exactly those pods infeasible
-        if anchor_unknown.any():
-            needs_anchor = (pod_gid >= 0) & (pod_aff_static == -2).any(axis=1)
-            for j in np.nonzero(needs_anchor)[0]:
-                if anchor_unknown[pod_gid[j]]:
-                    pod_aff_static[j, 0] = -100
-
-    # ServiceAntiAffinity: per-label zone codes
-    A = len(policy.anti_affinity)
-    node_zone = np.full((A, N), -1, np.int32)
-    for a, (label, _w) in enumerate(policy.anti_affinity):
-        vocab = {}
-        for i, n in enumerate(nodes):
-            v = (n.metadata.labels or {}).get(label)
-            if v is not None:
-                node_zone[a, i] = intern(vocab, v)
+                    node_zone[a, i] = intern(vocab, v)
+        node_names = [n.metadata.name for n in nodes]
 
     return ClusterSnapshot(
-        node_names=[n.metadata.name for n in nodes],
+        node_names=node_names,
         resource_names=resource_names,
         cap=cap, advertised=advertised,
         fit_used=fit_used, fit_exceeded=fit_exceeded,

@@ -67,6 +67,7 @@ from kubernetes_tpu_torch.ops.kernels import (
     spread_score,
     u64_mod_small,
 )
+from kubernetes_tpu_torch.util import tracing
 
 __all__ = ["CommitInputs", "cluster_for", "cluster_pick", "cluster_ranks",
            "count_bytes_for", "eligible", "is_large",
@@ -440,7 +441,14 @@ def prepare(inp, pol: BatchPolicy, gangs: bool = False,
     and the resource filter on (the reference's ``enable_p``).
     ``peer_bound`` (batch_solver.peer_bound_of) sizes the kernel's peer
     counts (``count_bytes_for``); None reads it off ``inp.group_counts``,
-    which on a card waits for the device."""
+    which on a card waits for the device. Traced as ``solve.prolog``: on
+    a card, the time to enqueue its ops."""
+    with tracing.span("solve.prolog"):
+        return _prepare(inp, pol, gangs, peer_bound)
+
+
+def _prepare(inp, pol: BatchPolicy, gangs: bool,
+             peer_bound: Optional[int]) -> CommitInputs:
     N, R = inp.cap.shape
     P = inp.req.shape[0]
     dev = inp.cap.device

@@ -29,6 +29,14 @@ Design constraints, in order:
    ``time.monotonic_ns()``, CLOCK_MONOTONIC on Linux — one clock per
    host, shared by every process — so spans from the apiserver and the
    scheduler land on one comparable axis.
+4. **Spans land on the device timeline.** ``torch.profiler``'s trace
+   keeps its own clock, which drifts against ``monotonic_ns`` over a
+   window, so no offset lays the ring's spans onto it. Instead, while
+   tracing is on and the profiler records in this process, every
+   ``span()`` also opens a ``record_function`` named ``ktpu.<name>``:
+   the profiler stamps it beside the kernels and copies it waits on.
+   The ring records the span as before. torch is never imported here;
+   a process that has not loaded it has no profiler to mirror into.
 
 Span context is ``(trace_id, span_id)``. Ambient context is a per-thread
 stack (``span()`` nests); crossing a thread or process boundary is
@@ -43,6 +51,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import uuid
@@ -50,9 +59,11 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["HEADER", "enabled", "enable", "disable", "span", "child_span",
            "start", "record", "current", "new_ctx", "wire", "parse",
-           "drain", "loss_peek", "chrome_trace", "NOP"]
+           "drain", "loss_peek", "chrome_trace", "NOP", "PROFILER_PREFIX"]
 
 HEADER = "X-KTPU-Trace"
+# the name prefix of a span's mirror in torch.profiler's trace
+PROFILER_PREFIX = "ktpu."
 
 # module-global fast-path flag: `span()` and friends read this before
 # touching any state, so disabled tracing costs one load + one branch
@@ -210,8 +221,20 @@ NOP = _NopSpan()
 _AMBIENT = object()  # sentinel: "use the thread's current span as parent"
 
 
+def _mirror(name: str):
+    """An entered ``torch.profiler.record_function`` named
+    ``ktpu.<name>`` while torch's profiler records in this process, else
+    None (design point 4)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(PROFILER_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
-    __slots__ = ("name", "attrs", "ctx", "psid", "_t0", "_pushed")
+    __slots__ = ("name", "attrs", "ctx", "psid", "_t0", "_pushed", "_rf")
 
     def __init__(self, name: str, parent, attrs: dict):
         self.name = name
@@ -226,10 +249,12 @@ class _Span:
         self.psid = psid
         self._t0 = 0
         self._pushed = False
+        self._rf = None
 
     def __enter__(self):
         _ctx_stack().append(self.ctx)
         self._pushed = True
+        self._rf = _mirror(self.name)
         self._t0 = time.monotonic_ns()
         return self
 
@@ -243,6 +268,9 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb):
         end = time.monotonic_ns()
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+            self._rf = None
         if self._pushed:
             st = _ctx_stack()
             if st and st[-1] == self.ctx:

@@ -5,16 +5,20 @@ Span nesting and parenting, the ring buffer's never-block and
 evict-oldest contract with its counted loss, the wire form read by either
 package's ``parse``, the Chrome-trace export equal to the reference's for
 the same shards, the disabled path's <1% overhead guard against the
-port's own encode, and the ``X-KTPU-Trace`` header of the port's
+port's own encode, the wave path's stage spans (``encode.*`` in
+``encode_snapshot``, ``solve.*`` in ``solve`` and the prolog) with their
+mirror into ``torch.profiler``'s trace, and the ``X-KTPU-Trace`` header of the port's
 ``HTTPTransport`` joining the JAX package's apiserver (served in this
 process with the reference's tracing on) to the port's trace. Every test
 leaves both packages' tracing disabled.
 """
 
+import dataclasses
 import json
 import threading
 import time
 
+import numpy as np
 import pytest
 
 from chip_smoke import _free_port
@@ -24,6 +28,7 @@ from kubernetes_tpu_torch.api import types as port_api
 from kubernetes_tpu_torch.api.quantity import Quantity
 from kubernetes_tpu_torch.client.client import Client
 from kubernetes_tpu_torch.client.http import HTTPTransport
+from kubernetes_tpu_torch.models import batch_solver
 from kubernetes_tpu_torch.models.snapshot import encode_snapshot
 from kubernetes_tpu_torch.util import tracing
 
@@ -52,7 +57,7 @@ def mk_node(name):
                                          "memory": Quantity("16Gi")}))
 
 
-def mk_pod(name):
+def mk_pod(name, host=""):
     return port_api.Pod(
         metadata=port_api.ObjectMeta(name=name, namespace="default",
                                      uid=f"uid-{name}",
@@ -60,7 +65,8 @@ def mk_pod(name):
         spec=port_api.PodSpec(containers=[port_api.Container(
             name="c", image="i",
             resources=port_api.ResourceRequirements(limits={
-                "cpu": Quantity("500m"), "memory": Quantity("512Mi")}))]))
+                "cpu": Quantity("500m"), "memory": Quantity("512Mi")}))]),
+        status=port_api.PodStatus(host=host))
 
 
 # -- spans: nesting and parenting --------------------------------------------
@@ -238,6 +244,113 @@ class TestWireForm:
         assert ref_tracing.parse(junk) is None
 
 
+# -- the wave path's stage spans --------------------------------------------
+
+STAGES = {"encode.nodes", "encode.pending", "encode.residents",
+          "solve.host_inputs", "solve.ship", "solve.prolog",
+          "solve.readback"}
+
+
+def _wave_objects(n_nodes=6, per_node=2, n_pending=9):
+    nodes = [mk_node(f"st-n{i}") for i in range(n_nodes)]
+    residents = [mk_pod(f"st-r{i}-{k}", host=f"st-n{i}")
+                 for i in range(n_nodes) for k in range(per_node)]
+    pending = [mk_pod(f"st-p{j}") for j in range(n_pending)]
+    return nodes, residents, pending
+
+
+def _wave(nodes, residents, pending):
+    snap = encode_snapshot(nodes, residents, pending, [])
+    chosen, scores = batch_solver.solve(snap, device="cpu")
+    return snap, chosen, scores
+
+
+class TestWavePathSpans:
+    def test_encode_and_solve_record_the_seven_stages(self):
+        objs = _wave_objects()
+        off_snap, off_chosen, off_scores = _wave(*objs)
+        fresh()
+        with tracing.span("wave") as wave:
+            snap, chosen, scores = _wave(*objs)
+        spans = tracing.drain()["spans"]
+        assert {s["name"] for s in spans} == STAGES | {"wave"}
+        counts = {"nodes": len(objs[0])}
+        pods = {"encode.residents": len(objs[1]),
+                "encode.pending": len(objs[2])}
+        for s in spans:
+            if s["name"] == "encode.nodes":
+                assert s["attrs"] == counts
+            elif s["name"] in pods:
+                assert s["attrs"] == {"pods": pods[s["name"]]}
+            elif s["name"] != "wave":
+                assert s["attrs"] == {}
+            if s["name"] != "wave":
+                # the caller's span is the ambient parent of every stage
+                assert s["psid"] == wave.ctx[1] and s["tid"] == wave.ctx[0]
+        # the stages of one encode do not overlap, and sit in its order
+        enc = sorted((s for s in spans if s["name"].startswith("encode.")),
+                     key=lambda s: s["t0"])
+        for a, b in zip(enc, enc[1:]):
+            assert a["t0"] + a["dur"] <= b["t0"]
+        assert [s["name"] for s in enc][:3] == [
+            "encode.nodes", "encode.pending", "encode.residents"]
+        # tracing changes nothing the wave computes
+        assert np.array_equal(chosen, off_chosen)
+        assert np.array_equal(scores, off_scores)
+        for f in dataclasses.fields(snap):
+            a, b = getattr(snap, f.name), getattr(off_snap, f.name)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+            else:
+                assert a == b, f.name
+
+    def test_tracing_off_allocates_no_span_and_records_nothing(
+            self, monkeypatch):
+        objs = _wave_objects()
+        fresh()
+        before = tracing.drain()["written"]
+        tracing.disable()
+
+        def no_span(*_a, **_k):
+            raise AssertionError("a span was built with tracing off")
+        monkeypatch.setattr(tracing, "_Span", no_span)
+        monkeypatch.setattr(tracing, "_mirror", no_span)
+        _wave(*objs)
+        tracing.enable("test", capacity=4096)   # the ring fresh() made
+        shard = tracing.drain()
+        assert shard["spans"] == [] and shard["written"] == before
+
+    def test_under_the_profiler_each_stage_is_a_ktpu_annotation(
+            self, tmp_path):
+        from torch.profiler import ProfilerActivity, profile, record_function
+        objs = _wave_objects()
+        fresh()
+        assert tracing._mirror("x") is None   # no profiler: no mirror
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("caller"):
+                _wave(*objs)
+        path = tmp_path / "prof.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+        (caller,) = [e for e in events if e["name"] == "caller"]
+        mirrored = [e for e in events
+                    if e["name"].startswith(tracing.PROFILER_PREFIX)]
+        assert {e["name"] for e in mirrored} == {
+            tracing.PROFILER_PREFIX + n for n in STAGES}
+        lo, hi = caller["ts"], caller["ts"] + caller["dur"]
+        for e in mirrored:
+            assert lo <= e["ts"] and e["ts"] + e["dur"] <= hi, e["name"]
+        # one mirror for each span the ring recorded
+        ring = tracing.drain()["spans"]
+        assert len(ring) == len(mirrored)
+        assert sorted(s["name"] for s in ring) == sorted(
+            e["name"][len(tracing.PROFILER_PREFIX):] for e in mirrored)
+        # the profiler stopped: spans record without a mirror again
+        with tracing.span("after") as sp:
+            assert sp._rf is None
+
+
 # -- the Chrome-trace export -------------------------------------------------
 
 class TestChromeExport:
@@ -273,11 +386,24 @@ class TestOverheadGuard:
     def test_disabled_tracing_under_1pct_of_stage_loop(self):
         """The disabled path, costed against the port's cheapest real
         stage (one 128-node/256-pod encode): one wave's worth of disabled
-        call sites must cost <1% of it. Both sides are timed min-of-N so
+        call sites, the stage spans of that wave's encode and solve
+        among them, must cost <1% of it. Both sides are timed min-of-N so
         a loaded machine cannot fail the comparison on noise alone."""
+        N, P, E = 128, 256, 0
+        nodes = [mk_node(f"ov-n{i}") for i in range(N)]
+        pending = [mk_pod(f"ov-p{j}") for j in range(P)]
+        # the stage spans costed below are the ones this wave opens
+        fresh()
+        _wave(nodes, [], pending)
+        opened = sorted((s["name"], tuple(s["attrs"].items()))
+                        for s in tracing.drain()["spans"])
+        assert opened == sorted(
+            [("encode.nodes", (("nodes", N),))] * 4
+            + [("encode.pending", (("pods", P),))] * 2
+            + [("encode.residents", (("pods", E),))] * 2
+            + [(n, ()) for n in ("solve.host_inputs", "solve.ship",
+                                 "solve.prolog", "solve.readback")])
         tracing.disable()
-        nodes = [mk_node(f"ov-n{i}") for i in range(128)]
-        pending = [mk_pod(f"ov-p{j}") for j in range(256)]
         encode_snapshot(nodes, [], pending, [])  # warm the path
 
         def one_encode():
@@ -297,6 +423,32 @@ class TestOverheadGuard:
                 with tracing.span("wave.commit"):
                     pass
                 with tracing.child_span("store.create"):
+                    pass
+                # the stage spans this wave's encode_snapshot and solve
+                # open (checked against the program below)
+                with tracing.span("encode.nodes", nodes=N):
+                    pass
+                with tracing.span("encode.pending", pods=P):
+                    pass
+                with tracing.span("encode.residents", pods=E):
+                    pass
+                with tracing.span("encode.nodes", nodes=N):
+                    pass
+                with tracing.span("encode.pending", pods=P):
+                    pass
+                with tracing.span("encode.nodes", nodes=N):
+                    pass
+                with tracing.span("encode.residents", pods=E):
+                    pass
+                with tracing.span("encode.nodes", nodes=N):
+                    pass
+                with tracing.span("solve.host_inputs"):
+                    pass
+                with tracing.span("solve.ship"):
+                    pass
+                with tracing.span("solve.prolog"):
+                    pass
+                with tracing.span("solve.readback"):
                     pass
                 tracing.new_ctx()
                 tracing.record("wave.drain", 0, 1)
