@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from itertools import chain
+from operator import itemgetter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -193,43 +195,45 @@ def encode_snapshot(nodes: Sequence[api.Node],
     request_only: List[str] = []
     CPU = api.ResourceCPU
 
+    # one traversal a pod LIFETIME extracts its (resource, value) rows and
+    # host ports, cached on the spec object: a stored PodSpec's containers
+    # are never mutated in place (a change goes through
+    # runtime.clone.deep_clone, which drops undeclared attributes), and a
+    # live scheduler re-encodes the same reflector-store objects every
+    # wave. The request-only dims are wave-local and collected over the
+    # cached rows.
+    def derive(spec):
+        lr, pr = [], []
+        for c in spec.containers:
+            for name, q in c.resources.limits.items():
+                lr.append((name, q.milli_value() if name == CPU
+                           else q.int_value()))
+            for cp in c.ports:
+                if cp.host_port:
+                    pr.append(cp.host_port)
+        return (lr, pr)
+
+    def rows_of(p):
+        spec = p.spec
+        cached = spec.__dict__.get("_ktpu_rows")
+        if cached is None:
+            cached = derive(spec)
+            spec.__dict__["_ktpu_rows"] = cached
+        elif _DEBUG_VERIFY_ROWS:
+            fresh = derive(spec)
+            assert fresh == cached, (
+                f"_ktpu_rows cache stale for pod "
+                f"{p.metadata.namespace}/{p.metadata.name}: cached "
+                f"{cached!r} != recomputed {fresh!r} — a PodSpec was "
+                f"mutated in place after encoding (mutations must go "
+                f"through runtime.clone.deep_clone, which drops the "
+                f"cache)")
+        return cached
+
     def container_rows(pods):
-        # one traversal a pod LIFETIME extracts its (resource, value) rows
-        # and host ports, cached on the spec object: a stored PodSpec's
-        # containers are never mutated in place (a change goes through
-        # runtime.clone.deep_clone, which drops undeclared attributes), and
-        # a live scheduler re-encodes the same reflector-store objects
-        # every wave. The request-only dims are wave-local and collected
-        # over the cached rows.
         limits, ports = [], []
-
-        def derive(spec):
-            lr, pr = [], []
-            for c in spec.containers:
-                for name, q in c.resources.limits.items():
-                    lr.append((name, q.milli_value() if name == CPU
-                               else q.int_value()))
-                for cp in c.ports:
-                    if cp.host_port:
-                        pr.append(cp.host_port)
-            return (lr, pr)
-
         for p in pods:
-            spec = p.spec
-            cached = spec.__dict__.get("_ktpu_rows")
-            if cached is None:
-                cached = derive(spec)
-                spec.__dict__["_ktpu_rows"] = cached
-            elif _DEBUG_VERIFY_ROWS:
-                fresh = derive(spec)
-                assert fresh == cached, (
-                    f"_ktpu_rows cache stale for pod "
-                    f"{p.metadata.namespace}/{p.metadata.name}: cached "
-                    f"{cached!r} != recomputed {fresh!r} — a PodSpec was "
-                    f"mutated in place after encoding (mutations must go "
-                    f"through runtime.clone.deep_clone, which drops the "
-                    f"cache)")
-            lr, pr = cached
+            lr, pr = rows_of(p)
             for name, _v in lr:
                 if name not in seen:
                     seen.add(name)
@@ -240,20 +244,6 @@ def encode_snapshot(nodes: Sequence[api.Node],
 
     with tracing.span("encode.pending", pods=P):
         pend_limits, pend_ports = container_rows(pending_pods)
-    with tracing.span("encode.residents", pods=E):
-        exist_limits, exist_ports = container_rows(existing_pods)
-    resource_names = scored + sorted(request_only)
-    R = len(resource_names)
-    rindex = {name: r for r, name in enumerate(resource_names)}
-    with tracing.span("encode.nodes", nodes=N):
-        cap = np.zeros((N, R), np.int64)
-        advertised = np.zeros((N, R), bool)
-        for i, n in enumerate(nodes):
-            for name, q in (n.spec.capacity or {}).items():
-                r = rindex.get(name)
-                if r is not None:
-                    cap[i, r] = _preds.resource_value(name, q)
-                    advertised[i, r] = True
 
     # -- service selector vocabulary ----------------------------------------
     services = list(services)
@@ -270,6 +260,55 @@ def encode_snapshot(nodes: Sequence[api.Node],
     for si, s in enumerate(services):
         for kv in (s.spec.selector or {}).items():
             sv_ij.append((si, intern(svc_vocab, kv)))
+
+    # -- existing pods: one gathering pass into flat lists; the arrays are
+    # built in bulk once the pending pass has closed the vocabularies. A
+    # sub-walk whose vocabulary is empty can match nothing and is skipped;
+    # namespaces matter only to service membership, so they go with labels
+    walk_labels = bool(svc_vocab)
+    with tracing.span("encode.residents", pods=E):
+        e_rows: List[tuple] = []              # each resident's cached rows
+        e_hosts: List[int] = []               # node index, -1 off the list
+        e_prios: List[int] = []
+        e_nsl: List[int] = []                 # codes into ns_seen
+        ns_seen: Dict[str, int] = {}
+        ef_ij: List[Tuple[int, int]] = []     # (pod, service-selector-vocab)
+        add_rows, add_host = e_rows.append, e_hosts.append
+        add_prio, add_ns = e_prios.append, e_nsl.append
+        host_of, pod_priority = node_index.get, api.pod_priority
+        for e, p in enumerate(existing_pods):
+            rows = p.spec.__dict__.get("_ktpu_rows")
+            if rows is None or _DEBUG_VERIFY_ROWS:
+                rows = rows_of(p)
+            add_rows(rows)
+            add_host(host_of(p.status.host, -1))
+            add_prio(pod_priority(p))
+            if walk_labels:
+                meta = p.metadata
+                add_ns(ns_seen.setdefault(meta.namespace, len(ns_seen)))
+                for kv in (meta.labels or {}).items():
+                    t = svc_vocab.get(kv)
+                    if t is not None:
+                        ef_ij.append((e, t))
+        # name, value, name, value, ... over every resident's rows
+        e_flat = list(chain.from_iterable(chain.from_iterable(
+            map(itemgetter(0), e_rows))))
+        e_names = e_flat[0::2]
+        for name in set(e_names) - seen:
+            seen.add(name)
+            request_only.append(name)
+    resource_names = scored + sorted(request_only)
+    R = len(resource_names)
+    rindex = {name: r for r, name in enumerate(resource_names)}
+    with tracing.span("encode.nodes", nodes=N):
+        cap = np.zeros((N, R), np.int64)
+        advertised = np.zeros((N, R), bool)
+        for i, n in enumerate(nodes):
+            for name, q in (n.spec.capacity or {}).items():
+                r = rindex.get(name)
+                if r is not None:
+                    cap[i, r] = _preds.resource_value(name, q)
+                    advertised[i, r] = True
 
     # -- pending pods: one Python pass pulls every field --------------------
     with tracing.span("encode.pending", pods=P):
@@ -338,40 +377,43 @@ def encode_snapshot(nodes: Sequence[api.Node],
                 if k is not None:
                     node_sel[i, k] = True
 
-    # -- existing pods: one Python pass, then bulk accumulation -------------
-    with tracing.span("encode.residents", pods=E):
-        e_host = np.full(E, N, np.int64)      # N = unknown/unassigned slot
+    with tracing.span("encode.residents", pods=E) as sp:
+        e_host = np.array(e_hosts, np.int64)
+        e_host[e_host < 0] = N                # N = unknown/unassigned slot
+        e_prio = np.array(e_prios, np.int32)
+        # unseen namespaces can't match
+        e_ns = (np.array([ns_codes.get(ns, -9) for ns in ns_seen],
+                         np.int32)[np.array(e_nsl, np.intp)]
+                if walk_labels else None)
+        # one scatter of every row; duplicate names in one pod add up, as
+        # a scalar += would
+        owners = np.repeat(np.arange(E, dtype=np.int64), np.fromiter(
+            map(len, map(itemgetter(0), e_rows)), np.int64, E))
+        cols = np.fromiter(map(rindex.__getitem__, e_names), np.int64,
+                           len(e_names))
         e_req = np.zeros((E, R), np.int64)
-        e_prio = np.zeros(E, np.int32)
+        np.add.at(e_req.reshape(-1), owners * R + cols,
+                  np.array(e_flat[1::2], np.int64))
         np_ij: List[Tuple[int, int]] = []     # (node, port-vocab)
         nd_ij: List[Tuple[int, int]] = []     # (node, pd-vocab)
-        ef_ij: List[Tuple[int, int]] = []     # (pod, service-selector-vocab)
-        e_ns = np.full(E, -9, np.int32)       # unseen namespaces can't match
-        for e, p in enumerate(existing_pods):
-            meta = p.metadata
-            code = ns_codes.get(meta.namespace)
-            if code is not None:
-                e_ns[e] = code
-            for kv in (meta.labels or {}).items():
-                t = svc_vocab.get(kv)
-                if t is not None:
-                    ef_ij.append((e, t))
-            i = node_index.get(p.status.host, -1)
-            e_prio[e] = api.pod_priority(p)
-            for name, val in exist_limits[e]:
-                e_req[e, rindex[name]] += val
-            if i < 0:
-                continue
-            for hp in exist_ports[e]:
-                k = port_vocab.get(hp)
-                if k is not None:
-                    np_ij.append((i, k))
-            e_host[e] = i
-            for v in p.spec.volumes:
-                if v.source.gce_persistent_disk is not None:
-                    k = pd_vocab.get(v.source.gce_persistent_disk.pd_name)
-                    if k is not None:
-                        nd_ij.append((i, k))
+        if port_vocab:
+            for i, (_lr, pr) in zip(e_hosts, e_rows):
+                if i >= 0:
+                    for hp in pr:
+                        k = port_vocab.get(hp)
+                        if k is not None:
+                            np_ij.append((i, k))
+        if pd_vocab:
+            for i, p in zip(e_hosts, existing_pods):
+                if i >= 0:
+                    for v in p.spec.volumes:
+                        if v.source.gce_persistent_disk is not None:
+                            k = pd_vocab.get(
+                                v.source.gce_persistent_disk.pd_name)
+                            if k is not None:
+                                nd_ij.append((i, k))
+        sp.set(labels=int(walk_labels), ports=int(bool(port_vocab)),
+               volumes=int(bool(pd_vocab)), rows=len(e_names))
 
         node_ports = scatter_true(np_ij, N, K)
         node_pds = scatter_true(nd_ij, N, K3)
@@ -385,8 +427,8 @@ def encode_snapshot(nodes: Sequence[api.Node],
 
         # -- preemption emit gate: bands ship only when some pending pod sits
         # strictly above some resident priority
-        band_vals = sorted({int(v) for v, on in zip(e_prio, on_node) if on})
-        if band_vals and P and \
+        band_vals = np.unique(e_prio[on_node])
+        if band_vals.size and P and \
                 int(pod_prio.max(initial=-(2**31))) > band_vals[0]:
             B = _pow2_pad(len(band_vals), minimum=2)
             band_prio = np.full(B, _preempt.BAND_EMPTY, np.int32)

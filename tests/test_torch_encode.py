@@ -162,3 +162,134 @@ def test_row_cache_encodes_equal_reference(monkeypatch):
     changed = encode_snapshot(*port)
     _assert_same(changed, ref_encode(*ref), _snapshot_fields(), "changed")
     assert not np.array_equal(changed.req, first.req)
+
+
+# -- the residents' gathering pass -------------------------------------------
+
+def _second_container(k, pod, limits):
+    pod.spec.containers.append(k.api.Container(
+        name="c2", image="i", resources=k.api.ResourceRequirements(
+            limits={n: k.Q(v) for n, v in limits.items()})))
+    return pod
+
+
+def _wave_residents(k, services="", ports=False, pds=False):
+    """Residents built to reach every branch of the residents' pass: on an
+    unknown and on an unset host, asking a resource no node advertises,
+    listing cpu in two containers, in a namespace no pending pod has, at
+    mixed priorities, two of them overcommitting n0; each carries the
+    service label, a host port and a PD. The pending pods open the
+    service, port and PD vocabularies only as asked, so each of the three
+    sub-walks meets its vocabulary empty in one case and not in another."""
+    nodes = [k.node("n0", cpu_m=1000, mem=1 << 30),
+             k.node("n1", cpu_m=4000, extra={"gpu": "2"}),
+             k.node("n2")]
+    web = {"app": "web"}
+
+    def resident(name, host, ns="default", port=9000, pd="disk-a", **kw):
+        return k.pod(name, ns=ns, host=host, labels=web, host_ports=(port,),
+                     pds=(pd,), **kw)
+    existing = [
+        resident("r-on", "n0", cpu_m=600, mem=64 << 20, priority=5),
+        resident("r-over", "n0", cpu_m=600, priority=1),
+        _second_container(k, resident("r-dup", "n1", cpu_m=300),
+                          {"cpu": "250m", "gpu": "1"}),
+        resident("r-req-only", "n1", cpu_m=100, extra={"fpga": "2"}),
+        # off the list: their port and PD, which a pending pod asks for
+        # too, are on no node
+        resident("r-unknown", "gone", port=9001, pd="disk-b", cpu_m=200,
+                 priority=7),
+        resident("r-unset", "", port=9001, pd="disk-b", cpu_m=200),
+        resident("r-unseen-ns", "n2", ns="other", cpu_m=100, priority=3),
+    ]
+    pending = [
+        k.pod("p-high", cpu_m=300, priority=10,
+              labels=web if services == "match" else None,
+              host_ports=(9000, 9001) if ports else (),
+              pds=("disk-a", "disk-b") if pds else ()),
+        k.pod("p-plain", cpu_m=100, mem=32 << 20),
+    ]
+    svcs = {"": [], "match": [k.svc("web", web)],
+            "miss": [k.svc("db", {"app": "db"})]}[services]
+    return nodes, existing, pending, svcs
+
+
+# case -> (wave options, the walks that run: labels, ports, volumes)
+RESIDENT_CASES = {
+    "no_vocabularies": ({}, (0, 0, 0)),
+    "services_matching": ({"services": "match"}, (1, 0, 0)),
+    "services_unmatched": ({"services": "miss"}, (1, 0, 0)),
+    "host_ports": ({"ports": True}, (0, 1, 0)),
+    "pds": ({"pds": True}, (0, 0, 1)),
+    "all_vocabularies": ({"services": "match", "ports": True, "pds": True},
+                         (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(RESIDENT_CASES))
+def test_residents_pass_matches_reference(case):
+    opts, _walks = RESIDENT_CASES[case]
+    port = encode_snapshot(*_wave_residents(PORT, **opts))
+    ref = ref_encode(*_wave_residents(REF, **opts))
+    _assert_same(port, ref, _snapshot_fields(), "snapshot")
+    _assert_same(bs.snapshot_to_host_inputs(port),
+                 ref_bs.snapshot_to_host_inputs(ref),
+                 bs.SolverInputs._fields, "host inputs")
+    # the fixture reaches what it was built for
+    assert "fpga" in port.resource_names and port.band_prio.size
+    assert port.fit_exceeded[0]
+
+
+@pytest.mark.parametrize("case", list(RESIDENT_CASES))
+def test_residents_span_counts_the_walks(case):
+    from kubernetes_tpu_torch.util import tracing
+    opts, (labels, ports, volumes) = RESIDENT_CASES[case]
+    wave = _wave_residents(PORT, **opts)
+    rows = sum(len(c.resources.limits)
+               for p in wave[1] for c in p.spec.containers)
+    tracing.enable("test")
+    try:
+        tracing.drain()
+        encode_snapshot(*wave)
+        spans = tracing.drain()["spans"]
+    finally:
+        tracing.disable()
+    (scatter,) = [s for s in spans if "rows" in s["attrs"]]
+    assert scatter["name"] == "encode.residents"
+    assert scatter["attrs"] == {"pods": len(wave[1]), "labels": labels,
+                                "ports": ports, "volumes": volumes,
+                                "rows": rows}
+
+
+def test_residents_row_cache_is_made_once_and_reused():
+    """The first encode stores every resident's rows on its spec, those
+    on no listed node included; the second reads the same entries, so a
+    row planted in the cache is what it encodes."""
+    wave = _wave_residents(PORT, services="match", ports=True, pds=True)
+    residents = wave[1]
+    assert not any("_ktpu_rows" in p.spec.__dict__ for p in residents)
+    first = encode_snapshot(*wave)
+    entries = [p.spec.__dict__["_ktpu_rows"] for p in residents]
+    second = encode_snapshot(*wave)
+    assert all(p.spec.__dict__["_ktpu_rows"] is c
+               for p, c in zip(residents, entries))
+    _assert_same(second, first, _snapshot_fields(), "second")
+    lr, pr = entries[0]
+    residents[0].spec.__dict__["_ktpu_rows"] = (
+        [(name, v + 7) for name, v in lr], pr)
+    planted = encode_snapshot(*wave)
+    cpu = planted.resource_names.index("cpu")
+    assert planted.score_used[0, cpu] == first.score_used[0, cpu] + 7
+
+
+@pytest.mark.parametrize("who", ["resident", "pending"])
+def test_debug_rows_catch_an_in_place_mutation(monkeypatch, who):
+    from kubernetes_tpu_torch.models import snapshot
+    monkeypatch.setattr(snapshot, "_DEBUG_VERIFY_ROWS", True)
+    wave = _wave_residents(PORT, ports=True)
+    encode_snapshot(*wave)                  # stores every pod's rows
+    encode_snapshot(*wave)                  # verified hits: fine
+    pod = wave[1][0] if who == "resident" else wave[2][0]
+    pod.spec.containers[0].resources.limits["cpu"] = PORT.Q("2")
+    with pytest.raises(AssertionError, match="_ktpu_rows cache stale"):
+        encode_snapshot(*wave)

@@ -277,9 +277,17 @@ class TestWavePathSpans:
         counts = {"nodes": len(objs[0])}
         pods = {"encode.residents": len(objs[1]),
                 "encode.pending": len(objs[2])}
+        # the residents' scatter also says which optional walks ran (no
+        # services, host ports or PDs here) and how many rows it scattered
+        walks = {"labels": 0, "ports": 0, "volumes": 0,
+                 "rows": 2 * len(objs[1])}
+        scatters = [s for s in spans if "rows" in s["attrs"]]
+        assert [s["name"] for s in scatters] == ["encode.residents"]
         for s in spans:
             if s["name"] == "encode.nodes":
                 assert s["attrs"] == counts
+            elif s in scatters:
+                assert s["attrs"] == {"pods": pods[s["name"]], **walks}
             elif s["name"] in pods:
                 assert s["attrs"] == {"pods": pods[s["name"]]}
             elif s["name"] != "wave":
@@ -400,7 +408,9 @@ class TestOverheadGuard:
         assert opened == sorted(
             [("encode.nodes", (("nodes", N),))] * 4
             + [("encode.pending", (("pods", P),))] * 2
-            + [("encode.residents", (("pods", E),))] * 2
+            + [("encode.residents", (("pods", E),)),
+               ("encode.residents", (("pods", E), ("labels", 0), ("ports", 0),
+                                     ("volumes", 0), ("rows", 0)))]
             + [(n, ()) for n in ("solve.host_inputs", "solve.ship",
                                  "solve.prolog", "solve.readback")])
         tracing.disable()
@@ -438,8 +448,8 @@ class TestOverheadGuard:
                     pass
                 with tracing.span("encode.nodes", nodes=N):
                     pass
-                with tracing.span("encode.residents", pods=E):
-                    pass
+                with tracing.span("encode.residents", pods=E) as sp:
+                    sp.set(labels=0, ports=0, volumes=0, rows=0)
                 with tracing.span("encode.nodes", nodes=N):
                     pass
                 with tracing.span("solve.host_inputs"):
