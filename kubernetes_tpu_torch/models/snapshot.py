@@ -412,8 +412,9 @@ def encode_snapshot(nodes: Sequence[api.Node],
                                 v.source.gce_persistent_disk.pd_name)
                             if k is not None:
                                 nd_ij.append((i, k))
-        sp.set(labels=int(walk_labels), ports=int(bool(port_vocab)),
-               volumes=int(bool(pd_vocab)), rows=len(e_names))
+        sp.set(labels=int(walk_labels), services=S,
+               ports=int(bool(port_vocab)), volumes=int(bool(pd_vocab)),
+               rows=len(e_names))
 
         node_ports = scatter_true(np_ij, N, K)
         node_pds = scatter_true(nd_ij, N, K3)

@@ -32,7 +32,10 @@ batch_solver.py:398, :676-790), run here too, with the same decisions.
   runs ``solve_commit_reference``, the plain version, a per-pod loop of
   torch ops built on ``ops/kernels``.
   ``solve_commit.launches`` counts kernel launches and
-  ``solve_commit_reference.calls`` calls of the plain version.
+  ``solve_commit_reference.calls`` calls of the plain version. Each
+  launch, and each run of the plain version, is a ``solve.commit`` span
+  whose ``instance`` names what ran: the kernel instance
+  (``instance_of``), or ``plain``.
 - ``solve_commit_batch`` solves several waves of one shape in one launch,
   one block (one SM) per wave (a large wave launches alone on its
   cluster): the counterpart of the batch axis the
@@ -581,13 +584,15 @@ def solve_commit_reference(ci: CommitInputs, stats: Optional[dict] = None):
     eagerly, each op an asynchronous launch."""
     solve_commit_reference.calls += 1
     loop = _scripted_loop() if ci.cap.device.type == "cpu" else _plain_loop
-    chosen, win, feasible, pairs, fit, score_used = loop(
-        ci.smask, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc, ci.ports0,
-        ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv, ci.anchor0,
-        ci.has0, ci.zone, ci.ecap0, ci.ecnt0, ci.band, ci.req, ci.pod_ports,
-        ci.pod_pds, ci.pins, ci.tie_hi, ci.tie_lo, ci.gid, ci.member,
-        ci.zreq, ci.start, ci.prio, ci.canp, ci.flags, ci.w_lr, ci.w_spread,
-        ci.w_equal, list(ci.w_anti), ci.V, stats is not None)
+    with tracing.span("solve.commit", instance="plain"):
+        chosen, win, feasible, pairs, fit, score_used = loop(
+            ci.smask, ci.cap, ci.fit0, ci.score0, ci.advx, ci.fitexc,
+            ci.ports0, ci.pds0, ci.counts0, ci.offl, ci.sstat, ci.affv,
+            ci.anchor0, ci.has0, ci.zone, ci.ecap0, ci.ecnt0, ci.band,
+            ci.req, ci.pod_ports, ci.pod_pds, ci.pins, ci.tie_hi, ci.tie_lo,
+            ci.gid, ci.member, ci.zreq, ci.start, ci.prio, ci.canp, ci.flags,
+            ci.w_lr, ci.w_spread, ci.w_equal, list(ci.w_anti), ci.V,
+            stats is not None)
     if stats is not None:
         stats.update(feasible=feasible, preempt_pairs=pairs, fit=fit,
                      score_used=score_used)
@@ -981,14 +986,17 @@ def launch_cluster(ci: CommitInputs, cluster: Optional[int] = None):
             for t in ([getattr(ci, n) for n in _KERNEL_PLANES]
                       + [gstate, ckpt, chosen, win])]
     w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
-    rc = lib.kgpu_commit_solve_cluster(
-        *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B, res_bytes,
-        cnt_bytes, _row_words(ci), ci.flags, ci.w_lr, ci.w_spread,
-        ci.w_equal, *w_anti, C, int(on_chip), dyn_bytes, stream)
-    _check_launch(lib, rc, f"commit_solve on a cluster of {C} blocks "
-                  f"({dyn_bytes} B of dynamic shared memory a block)")
+    instance = instance_of(ci, cluster=C)
+    with tracing.span("solve.commit", instance=instance):
+        rc = lib.kgpu_commit_solve_cluster(
+            *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B,
+            res_bytes, cnt_bytes, _row_words(ci), ci.flags, ci.w_lr,
+            ci.w_spread, ci.w_equal, *w_anti, C, int(on_chip), dyn_bytes,
+            stream)
+        _check_launch(lib, rc, f"commit_solve on a cluster of {C} blocks "
+                      f"({dyn_bytes} B of dynamic shared memory a block)")
     solve_commit.launches += 1
-    solve_commit.instances.add(instance_of(ci, cluster=C))
+    solve_commit.instances.add(instance)
     return chosen, win
 
 
@@ -1023,13 +1031,16 @@ def launch_stacked(ci: CommitInputs, planes, batch: int):
     ptrs = [t.data_ptr() if t is not None else None
             for t in (*planes, gstate, ckpt, chosen, win)]
     w_anti = list(ci.w_anti) + [0] * (MAX_A - A)
-    rc = lib.kgpu_commit_solve_batch(
-        *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B, res_bytes,
-        cnt_bytes, _row_words(ci), ci.flags, ci.w_lr, ci.w_spread,
-        ci.w_equal, *w_anti, int(on_chip), dyn_bytes, batch, stream)
-    _check_launch(lib, rc, "commit_solve")
+    instance = instance_of(ci, batch)
+    with tracing.span("solve.commit", instance=instance):
+        rc = lib.kgpu_commit_solve_batch(
+            *ptrs, P, N, mask_pitch(N), R, Wp, Wd, G, L, A, ci.V, B,
+            res_bytes, cnt_bytes, _row_words(ci), ci.flags, ci.w_lr,
+            ci.w_spread, ci.w_equal, *w_anti, int(on_chip), dyn_bytes,
+            batch, stream)
+        _check_launch(lib, rc, "commit_solve")
     solve_commit.launches += 1
-    solve_commit.instances.add(instance_of(ci, batch))
+    solve_commit.instances.add(instance)
     if batch > 1:
         solve_commit_batch.launches += 1
     return chosen, win

@@ -257,8 +257,8 @@ def test_residents_span_counts_the_walks(case):
     (scatter,) = [s for s in spans if "rows" in s["attrs"]]
     assert scatter["name"] == "encode.residents"
     assert scatter["attrs"] == {"pods": len(wave[1]), "labels": labels,
-                                "ports": ports, "volumes": volumes,
-                                "rows": rows}
+                                "services": len(wave[3]), "ports": ports,
+                                "volumes": volumes, "rows": rows}
 
 
 def test_residents_row_cache_is_made_once_and_reused():

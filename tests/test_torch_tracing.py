@@ -248,7 +248,7 @@ class TestWireForm:
 
 STAGES = {"encode.nodes", "encode.pending", "encode.residents",
           "solve.host_inputs", "solve.ship", "solve.prolog",
-          "solve.readback"}
+          "solve.commit", "solve.readback"}
 
 
 def _wave_objects(n_nodes=6, per_node=2, n_pending=9):
@@ -279,8 +279,10 @@ class TestWavePathSpans:
                 "encode.pending": len(objs[2])}
         # the residents' scatter also says which optional walks ran (no
         # services, host ports or PDs here) and how many rows it scattered
-        walks = {"labels": 0, "ports": 0, "volumes": 0,
+        walks = {"labels": 0, "services": 0, "ports": 0, "volumes": 0,
                  "rows": 2 * len(objs[1])}
+        # the commit names what ran: on the CPU, the plain version
+        commit = {"instance": "plain"}
         scatters = [s for s in spans if "rows" in s["attrs"]]
         assert [s["name"] for s in scatters] == ["encode.residents"]
         for s in spans:
@@ -290,6 +292,8 @@ class TestWavePathSpans:
                 assert s["attrs"] == {"pods": pods[s["name"]], **walks}
             elif s["name"] in pods:
                 assert s["attrs"] == {"pods": pods[s["name"]]}
+            elif s["name"] == "solve.commit":
+                assert s["attrs"] == commit
             elif s["name"] != "wave":
                 assert s["attrs"] == {}
             if s["name"] != "wave":
@@ -409,10 +413,12 @@ class TestOverheadGuard:
             [("encode.nodes", (("nodes", N),))] * 4
             + [("encode.pending", (("pods", P),))] * 2
             + [("encode.residents", (("pods", E),)),
-               ("encode.residents", (("pods", E), ("labels", 0), ("ports", 0),
+               ("encode.residents", (("pods", E), ("labels", 0),
+                                     ("services", 0), ("ports", 0),
                                      ("volumes", 0), ("rows", 0)))]
             + [(n, ()) for n in ("solve.host_inputs", "solve.ship",
-                                 "solve.prolog", "solve.readback")])
+                                 "solve.prolog", "solve.readback")]
+            + [("solve.commit", (("instance", "plain"),))])
         tracing.disable()
         encode_snapshot(nodes, [], pending, [])  # warm the path
 
@@ -449,7 +455,7 @@ class TestOverheadGuard:
                 with tracing.span("encode.nodes", nodes=N):
                     pass
                 with tracing.span("encode.residents", pods=E) as sp:
-                    sp.set(labels=0, ports=0, volumes=0, rows=0)
+                    sp.set(labels=0, services=0, ports=0, volumes=0, rows=0)
                 with tracing.span("encode.nodes", nodes=N):
                     pass
                 with tracing.span("solve.host_inputs"):
@@ -457,6 +463,8 @@ class TestOverheadGuard:
                 with tracing.span("solve.ship"):
                     pass
                 with tracing.span("solve.prolog"):
+                    pass
+                with tracing.span("solve.commit", instance="plain"):
                     pass
                 with tracing.span("solve.readback"):
                     pass
